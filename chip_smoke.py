@@ -8,15 +8,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 version on the card, drives the fused keyed-state plane through NEXMark
 q5/q7 and YSB on the card and on the CPU (the plain versions) and
 requires equal results, then times the plane over a deployment-size
-working set.  Each phase prints one JSON line; any failure raises and
-ends the run with a non-zero exit.  The last three lines are the kernels
-summary, the card's name and power limit as ``nvidia-smi`` reports them,
-and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1
-and prints no result.
+working set.  Then it serves paged session state (arena, tiered store,
+continuous-batching scheduler, paged decode attention at qwen2.5-32b's
+attention width) in ``sync`` and ``prefetch`` mode on the card and on the
+CPU and requires identical serving stats, and classifies the q5 bid
+stream's keys through the device count-min sketch on both.  Each phase
+prints one JSON line; any failure raises and ends the run with a
+non-zero exit.  The last three lines are the kernels summary, the card's
+name and power limit as ``nvidia-smi`` reports them, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+prints no result.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -29,23 +35,51 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import tac_torch  # noqa: E402
+from repro_torch.core.hint_filter import HintFilter  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
+from repro_torch.kernels.cms_sketch import cms_sketch as cms  # noqa: E402
+from repro_torch.kernels.cms_sketch import ops as cms_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    decode_attention as da  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import \
+    paged_decode_attention  # noqa: E402
 from repro_torch.kernels.page_gather import page_gather as pg  # noqa: E402
 from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
+from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
+                                 PagedStateArena, Request, ServingMetrics,
+                                 SimClock, TieredStore)
+from repro_torch.streaming.backend import BackendModel  # noqa: E402
 from repro_torch.streaming.fused import FusedPlane, FusedSpec, Lane  # noqa: E402
-from repro_torch.streaming.nexmark import NexmarkConfig, build_query  # noqa: E402
+from repro_torch.streaming.nexmark import (BID, NexmarkConfig,  # noqa: E402
+                                          NexmarkGen, build_query)
 from repro_torch.streaming.ysb import YSBConfig, build_ysb  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12       # fp32 outside the tensor cores; the probe's
 #                                int32 compares are counted at this rate
+BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores (dense)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # the full-run configuration of BENCH_engine.json / benchmarks/engine.py
 E2E = dict(rate=5000.0, duration=6.0, warmup=2.0, cache_entries=2048,
            batch=256, parallelism=2)
 DEPLOY_SLOTS = 262_144
+# the serving path: launch/serve.py's ServeConfig (sessions, arena size,
+# load, batch, pages of 8192 fp32 elements, store model) at qwen2.5-32b's
+# attention width (configs/qwen2_5_32b.py: 40 query heads, 8 KV heads,
+# head dim 128), one layer, a 4096-token context per session.  The arena
+# has 8 ways a bucket, not run_serving's 4: a session's 520 page keys put up
+# to 4 keys in one of 1040 buckets, so with 4 ways the pages of a batch of
+# four sessions evict each other during sync staging
+SERVE = dict(sessions=24, cache_sessions=8, requests=48, rate=400.0, ways=8,
+             max_batch=4, decode_tokens=4, page=64, head_dim=128, kv_heads=8,
+             q_heads=40, context=4096, store_latency=0.012,
+             store_bandwidth=1.2e9, decode_s=0.8e-3, seed=0)
+PAGE_KEY_STRIDE = 4096         # page key = sid * stride + page_idx + 1
+# decode_32k (configs/base.py) at qwen2.5-32b's attention width
+DECODE_32K = dict(seqs=128, kv_heads=8, q_heads=40, head_dim=128,
+                  seq_len=32768, page=64, plain_seqs=16)
 
 
 def emit(phase: str, **kw) -> None:
@@ -72,9 +106,9 @@ def device_ms(fn, reps: int = 20, rounds: int = 7) -> float:
     return statistics.median(out)
 
 
-def bound(nbytes: float, ops: float = 0.0):
+def bound(nbytes: float, ops: float = 0.0, peak: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -202,6 +236,178 @@ def check_scatter(n_slots, page, d, N, dtype, timed=False):
     return row
 
 
+def allclose(a, b, tol: float) -> bool:
+    return bool(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol))
+
+
+def decode_agrees(out, plain, tol: float) -> bool:
+    """Attention output ``out`` agrees with the plain version's: finite,
+    within ``tol`` elementwise, and its largest error at most ``tol`` times
+    the plain output's largest magnitude.  The scaled test is the one that
+    bites at long contexts: over 32,768 random tokens the softmax spreads
+    so wide that outputs sit near 0.01, where an absolute 2e-2 would pass
+    an all-zero output or one that skipped half the pages."""
+    scale = float(plain.float().abs().max()) if plain.numel() else 0.0
+    return (bool(torch.isfinite(out).all()) and allclose(out, plain, tol)
+            and max_err(out, plain) <= tol * scale)
+
+
+def decode_bound(q, seq_lens, P: int, page: int):
+    """Least time for paged decode attention: K and V at every position
+    below seq_len, q, out, the table and the lengths each moved once, and
+    4 * H * d flops a position (QK and PV) at the bf16 tensor-core peak for
+    bf16 and the fp32 peak otherwise."""
+    B, H, d = q.shape
+    it = q.element_size()
+    tokens = int(seq_lens.clamp(max=P * page).sum())
+    nbytes = tokens * 2 * d * it + 2 * B * H * d * it + B * P * 4 + B * 4
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    return bound(nbytes, ops=4.0 * tokens * H * d, peak=peak)
+
+
+def decode_case(B, H, d, page, P, dtype, seed=0, n_slots=None, length=None):
+    """tests/test_kernels.py's construction: each sequence's pages are
+    distinct random slots of a pool of B * P + 3 (or ``n_slots``) pages,
+    lengths random in [1, P * page] (or all ``length``)."""
+    rng = np.random.default_rng(seed)
+    n_slots = n_slots or B * P + 3
+    rnd = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape, dtype=np.float32)).to(dtype).cuda()
+    q, kp, vp = rnd(B, H, d), rnd(n_slots, page, d), rnd(n_slots, page, d)
+    pt = rng.permutation(n_slots)[:B * P].reshape(B, P).astype(np.int32)
+    lens = np.full(B, length, np.int32) if length else \
+        rng.integers(1, P * page + 1, B).astype(np.int32)
+    return q, kp, vp, torch.from_numpy(pt).cuda(), torch.from_numpy(lens).cuda()
+
+
+def decode_32k_case(c):
+    """decode_32k at full width: every sequence's KV heads folded into rows
+    (rows = seqs x KV heads, H = query heads per KV head), every row
+    seq_len tokens long in pages of ``page``, the pages at random distinct
+    slots of a bf16 pool that holds exactly them."""
+    rows = c["seqs"] * c["kv_heads"]
+    P = c["seq_len"] // c["page"]
+    g = torch.Generator(device="cuda").manual_seed(32)
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    kp = torch.empty((rows * P, c["page"], c["head_dim"]), **bf).normal_(
+        generator=g)
+    vp = torch.empty_like(kp).normal_(generator=g)
+    q = torch.empty((rows, c["q_heads"] // c["kv_heads"], c["head_dim"]),
+                    **bf).normal_(generator=g)
+    pt = torch.randperm(rows * P, device="cuda", generator=g).reshape(
+        rows, P).int()
+    lens = torch.full((rows,), c["seq_len"], dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, lens
+
+
+def sdpa_yardstick(args, kv_heads: int, out):
+    """A yardstick for a DIFFERENT function, which the port never calls:
+    ``scaled_dot_product_attention`` over the same K/V laid out
+    contiguously ([seqs, KV heads, seq_len, d]; every row of the batch has
+    the same length), the query heads of a KV head taken as its query
+    positions.  Returns (ms, max abs difference from ``out``)."""
+    q, kp, vp, pt, lens = args
+    rows, G, d = q.shape
+    T = int(lens[0])
+    shape = (rows // kv_heads, kv_heads, -1, d)
+    k = kp[pt.long()].reshape(shape)[:, :, :T]
+    v = vp[pt.long()].reshape(shape)[:, :, :T]
+    qs = q.reshape(rows // kv_heads, kv_heads, G, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    err = max_err(sdpa(qs, k, v).reshape(rows, G, d), out)
+    ms = device_ms(lambda: sdpa(qs, k, v), reps=3, rounds=5)
+    del k, v
+    torch.cuda.empty_cache()
+    return ms, err
+
+
+def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
+    q, kp, vp, pt, lens = args
+    k = da.paged_decode_attention_kernel(*args)
+    n = q.shape[0] if plain_rows is None else plain_rows
+    pargs = (q[:n], kp, vp, pt[:n], lens[:n])
+    p = da.paged_decode_plain(*pargs)
+    torch.cuda.synchronize()
+    tol = TOL[q.dtype]
+    if decode_agrees(torch.zeros_like(p), p, tol):
+        raise AssertionError(f"decode_attention at {label}: the check "
+                             f"would pass an all-zero output")
+    if not (bool(torch.isfinite(k).all()) and decode_agrees(k[:n], p, tol)):
+        raise AssertionError(f"decode_attention differs at {label}: "
+                             f"{max_err(k[:n], p)}")
+    B, H, d = q.shape
+    row = dict(kernel="decode_attention", shape=label, B=B, H=H, d=d,
+               page=kp.shape[1], P=pt.shape[1], n_slots=kp.shape[0],
+               dtype=str(q.dtype).split(".")[-1], checked_rows=n,
+               max_abs_err=max_err(k[:n], p),
+               plain_max_abs=float(p.float().abs().max()))
+    if timed:
+        b_ms, b_by = decode_bound(q, lens, pt.shape[1], kp.shape[1])
+        big = kp.numel() * kp.element_size() > (1 << 30)
+        reps, rounds = (3, 5) if big else (20, 7)
+        row.update(ms=device_ms(lambda: da.attention_in_range(*args), reps,
+                                rounds),
+                   plain_ms=device_ms(lambda: da.paged_decode_plain(*pargs),
+                                      reps, rounds),
+                   plain_ms_rows=n, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)
+        if kv_heads:
+            row["sdpa_contiguous_ms"], row["sdpa_max_abs_diff"] = \
+                sdpa_yardstick(args, kv_heads, k)
+    emit("kernel_check", **row)
+    return row
+
+
+def cms_case(d, w, B, seed=1, heavy=20, key_range=1000, counters=None,
+             ab=None):
+    """tests/test_kernels.py's construction: ``heavy`` copies of one key
+    among random keys, hashed to columns on the card."""
+    rng = np.random.RandomState(seed)
+    a, b = ab or (rng.randint(1, 2 ** 31, d).astype(np.uint32),
+                  rng.randint(0, 2 ** 31, d).astype(np.uint32))
+    keys = np.concatenate([np.full(heavy, 42),
+                           rng.randint(0, key_range, B - heavy)])
+    rng.shuffle(keys)
+    cols = cms_ops.columns_for(torch.from_numpy(keys.astype(np.int32)).cuda(),
+                               a, b, w)
+    if counters is None:
+        counters = np.zeros((d, w), np.int32)
+    return cols, torch.from_numpy(counters).cuda()
+
+
+def check_cms(cols, counters, label, timed=False):
+    kc, ke = cms.cms_update_kernel(cols, counters)
+    pc, pe = cms.cms_update_plain(cols, counters)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, pc) and torch.equal(ke, pe)):
+        raise AssertionError(f"cms_sketch differs at {label}")
+    d, B = cols.shape
+    w = counters.shape[1]
+    row = dict(kernel="cms_sketch", shape=label, d=d, w=w, B=B,
+               max_abs_err=max(max_err(kc, pc), max_err(ke, pe)),
+               saturated=int((ke == 255).sum()))
+    if timed:
+        b_ms, b_by = bound(2 * d * w * 4 + 2 * d * B * 4, ops=d * B)
+        row.update(ms=device_ms(lambda: cms.update_in_range(cols, counters)),
+                   plain_ms=device_ms(
+                       lambda: cms.cms_update_plain(cols, counters)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit("kernel_check", **row)
+    return row
+
+
+def serve_shape_case():
+    """The serve phase's attention launch: one request's 8 KV-head rows of
+    5 query heads over a 4097-token history in the arena's pool."""
+    c = SERVE
+    P = c["context"] // c["page"] + 1
+    n_slots = c["ways"] * math.ceil(c["cache_sessions"] * c["kv_heads"] * P
+                                    / c["ways"])
+    return decode_case(c["kv_heads"], c["q_heads"] // c["kv_heads"],
+                       c["head_dim"], c["page"], P, torch.float32,
+                       n_slots=n_slots, length=c["context"] + 1)
+
+
 def kernel_phase():
     main = {}
     errs = {"tac_probe": 0.0, "page_gather": 0.0, "page_scatter": 0.0}
@@ -226,6 +432,44 @@ def kernel_phase():
     # one bandwidth-sized gather/scatter (serving-like 8 KB pages)
     check_gather(4096, 16, 128, 256, torch.float32, timed=True)
     check_scatter(4096, 16, 128, 256, torch.float32, timed=True)
+    # paged decode attention: tests/test_kernels.py's shapes, the serve
+    # phase's launch, and decode_32k at qwen2.5-32b's width (the plain
+    # version checks its first plain_seqs sequences: all 128 would not fit
+    # beside the pool)
+    errs["decode_attention"] = errs["cms_sketch"] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, d, page, P in ((3, 8, 32, 16, 4), (2, 4, 64, 32, 2),
+                                 (4, 16, 16, 8, 8)):
+            r = check_decode(decode_case(B, H, d, page, P, dtype),
+                             f"test_kernels {B, H, d, page, P}")
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           r["max_abs_err"])
+    main["decode_attention"] = check_decode(
+        serve_shape_case(), "serve", timed=True, kv_heads=SERVE["kv_heads"])
+    c = DECODE_32K
+    r = check_decode(decode_32k_case(c), "decode_32k", timed=True,
+                     plain_rows=c["plain_seqs"] * c["kv_heads"],
+                     kv_heads=c["kv_heads"])
+    torch.cuda.empty_cache()
+    errs["decode_attention"] = max(errs["decode_attention"], r["max_abs_err"])
+    # count-min sketch: tests/test_kernels.py's sweep and saturation case,
+    # then the hint filter's default sketch (d 4, w 10,000) on a batch of
+    # 256 with repeated keys and warm counters
+    for d, w, B in ((4, 256, 64), (2, 512, 128), (4, 128, 32)):
+        check_cms(*cms_case(d, w, B), f"test_kernels {d, w, B}")
+    check_cms(*cms_case(2, 64, 32, heavy=32,
+                        counters=np.full((2, 64), 250, np.int32),
+                        ab=(np.asarray([3, 7], np.uint32),
+                            np.asarray([1, 5], np.uint32))), "saturation")
+    rs = np.random.RandomState(1)                 # classify_batch's draws
+    ab = ((rs.randint(1, 2 ** 31 - 1, size=4).astype(np.uint32) | 1),
+          rs.randint(0, 2 ** 31 - 1, size=4).astype(np.uint32))
+    warm = np.random.RandomState(5).randint(0, 40, (4, 10_000)) \
+        .astype(np.int32)
+    main["cms_sketch"] = check_cms(*cms_case(4, 10_000, 256, heavy=64,
+                                             key_range=5000, counters=warm,
+                                             ab=ab),
+                                   "hint_filter", timed=True)
     for k in main:
         errs[k] = max(errs[k], main[k]["max_abs_err"])
     return main, errs
@@ -234,11 +478,17 @@ def kernel_phase():
 # ------------------------------------------------------------- end to end
 def reset_launches():
     tp.LAUNCHES = pg.GATHER_LAUNCHES = pg.SCATTER_LAUNCHES = 0
+    da.LAUNCHES = cms.LAUNCHES = 0
 
 
 def launches():
     return {"tac_probe": tp.LAUNCHES, "page_gather": pg.GATHER_LAUNCHES,
-            "page_scatter": pg.SCATTER_LAUNCHES}
+            "page_scatter": pg.SCATTER_LAUNCHES,
+            "decode_attention": da.LAUNCHES, "cms_sketch": cms.LAUNCHES}
+
+
+FUSED_KERNELS = ("tac_probe", "page_gather", "page_scatter")
+SERVE_KERNELS = FUSED_KERNELS + ("decode_attention",)
 
 
 def run_query(query: str, device: str):
@@ -280,7 +530,7 @@ def e2e_phase():
         torch.set_num_threads(threads)
         if gpu != cpu:
             raise AssertionError(f"{query}: cuda run {gpu} != cpu run {cpu}")
-        if not gpu["n_outputs"] or min(counts.values()) == 0:
+        if not gpu["n_outputs"] or min(counts[k] for k in FUSED_KERNELS) == 0:
             raise AssertionError(f"{query}: no outputs or a kernel never "
                                  f"launched: {counts}")
         for k in total:
@@ -391,6 +641,241 @@ def profile_phase(slots: int, n_batches: int = 50, top: int = 12):
          self_ms_per_batch=[list(r) for r in rows[:top]])
 
 
+# ------------------------------------------------------------------ serving
+def serve_page_keys(sid: int, n: int) -> np.ndarray:
+    return np.asarray([sid * PAGE_KEY_STRIDE + p + 1 for p in range(n)],
+                      np.int32)
+
+
+def serve_seeds(c):
+    """Every session's K and V pages ([sessions, KV heads * pages, page,
+    d] each), made once from the seed; both runs of a mode seed their
+    stores with the same read-only arrays."""
+    n_keys = c["kv_heads"] * (c["context"] // c["page"] + 1)
+    shape = (c["sessions"], n_keys, c["page"], c["head_dim"])
+    rng = np.random.default_rng(c["seed"])
+    return (rng.standard_normal(shape, dtype=np.float32),
+            rng.standard_normal(shape, dtype=np.float32))
+
+
+def serve_run(c, mode: str, device: str, seeds):
+    """The loop of examples/serve_stream.py with a real decode step: per
+    scheduled request, one page-table probe over its KV-head rows, the new
+    token's K/V row appended to the last page (gather -> write -> stage),
+    one paged attention launch over the pools, and ``complete_token`` with
+    the appended pages dirty.  The SimClock advances a fixed ``decode_s``
+    per token, so the stats depend on the data and not on the device.
+    Returns (stats, attention outputs, store, wall s, attention ms per
+    step on the card)."""
+    KV, d, page = c["kv_heads"], c["head_dim"], c["page"]
+    G = c["q_heads"] // KV
+    P = c["context"] // page + 1
+    n_keys = KV * P
+    ways = c["ways"]
+    arena = PagedStateArena(math.ceil(c["cache_sessions"] * n_keys / ways),
+                            ways, {"k": ((page, d), torch.float32),
+                                   "v": ((page, d), torch.float32)},
+                            device=device)
+    store = TieredStore(backing_model=BackendModel(
+        "session-store", c["store_latency"], c["store_bandwidth"],
+        parallelism=32), page_bytes=page * d * 4, workers=8)
+    ks, vs = seeds
+    for sid in range(c["sessions"]):
+        for i, key in enumerate(serve_page_keys(sid, n_keys)):
+            store.seed(int(key), {"k": ks[sid, i], "v": vs[sid, i]})
+    clock = SimClock()
+    sched = ContinuousBatchingScheduler(arena, store, mode=mode,
+                                        max_batch=c["max_batch"], clock=clock,
+                                        metrics=ServingMetrics())
+    rng = np.random.RandomState(c["seed"])
+    arrivals = np.cumsum(rng.exponential(1.0 / c["rate"], c["requests"]))
+    sessions = rng.randint(0, c["sessions"], c["requests"])
+    reqs = [Request(rid=i, session=int(sessions[i]),
+                    page_keys=serve_page_keys(int(sessions[i]), n_keys),
+                    n_tokens=c["decode_tokens"])
+            for i in range(c["requests"])]
+    length = dict.fromkeys(range(c["sessions"]), c["context"])
+    draw = np.random.RandomState(c["seed"] + 1)   # q and new K/V rows
+    on_card = torch.device(device).type == "cuda"
+    outs, events = [], []
+    t0 = time.perf_counter()
+    i = rounds = 0
+    while i < len(reqs) or sched.pending:
+        rounds += 1
+        if rounds > 100 * len(reqs):
+            raise AssertionError(f"serve {mode}: no progress after {rounds} "
+                                 f"scheduling rounds")
+        while i < len(reqs) and arrivals[i] <= clock.now():
+            sched.submit(reqs[i])
+            i += 1
+        batch = sched.schedule()
+        if not batch:
+            if sched.wait_for_progress():
+                continue
+            if i < len(reqs):
+                clock.sleep(max(1e-6, arrivals[i] - clock.now()))
+                continue
+            break
+        for req in batch:
+            keys = req.page_keys.reshape(KV, P)
+            hit, table = arena.page_table(keys)
+            if not hit.all():
+                # evicted between scheduling and execution (sync staging
+                # for a later batch member); retried next round
+                req.state = "queued"
+                continue
+            pos = length[req.session]
+            if pos >= P * page:
+                raise AssertionError("a session outgrew its pages")
+            last_page, off = divmod(pos, page)
+            q, k_new, v_new = (torch.from_numpy(
+                draw.standard_normal(shape).astype(np.float32)).to(device)
+                for shape in ((KV, G, d), (KV, d), (KV, d)))
+            last = table[:, last_page]
+            blocks = arena.gather(last)
+            blocks["k"][:, off] = k_new
+            blocks["v"][:, off] = v_new
+            arena.stage(last, blocks)
+            lens = torch.full((KV,), pos + 1, dtype=torch.int32,
+                              device=device)
+            if on_card:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = paged_decode_attention(q, arena.pools["k"],
+                                         arena.pools["v"], table, lens)
+            if on_card:
+                ev[1].record()
+                events.append(ev)
+            outs.append(out.cpu())
+            length[req.session] = pos + 1
+            clock.advance(c["decode_s"])
+            sched.complete_token(req, dirty_keys=keys[:, last_page])
+    sched.drain_dirty()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (sched.stats(), outs, store, wall,
+            [a.elapsed_time(b) for a, b in events])
+
+
+def same_store(a: TieredStore, b: TieredStore, tol: float) -> bool:
+    """Both stores' host and backing tiers hold the same keys and, page by
+    page, the same contents within ``tol``."""
+    for tier in ("host", "backing"):
+        da_, db_ = getattr(a, tier).data, getattr(b, tier).data
+        if set(da_) != set(db_):
+            return False
+        for key, blocks in da_.items():
+            for pool, x in blocks.items():
+                y = db_[key][pool]
+                if x is not y and not np.allclose(np.asarray(x),
+                                                  np.asarray(y), atol=tol,
+                                                  rtol=tol):
+                    return False
+    return True
+
+
+def serve_phase():
+    c = SERVE
+    seeds = serve_seeds(c)
+    total = {k: 0 for k in launches()}
+    for mode in ("sync", "prefetch"):
+        reset_launches()
+        gpu = serve_run(c, mode, "cuda", seeds)
+        counts = launches()
+        cpu = serve_run(c, mode, "cpu", seeds)
+        stats, outs = gpu[0], gpu[1]
+        if stats != cpu[0]:
+            raise AssertionError(f"serve {mode}: card stats {stats} != "
+                                 f"cpu stats {cpu[0]}")
+        if len(outs) != len(cpu[1]) or not all(
+                allclose(a, b, 2e-5) for a, b in zip(outs, cpu[1])):
+            raise AssertionError(f"serve {mode}: attention outputs differ")
+        if not same_store(gpu[2], cpu[2], 2e-5):
+            raise AssertionError(f"serve {mode}: store contents differ")
+        if not stats["n_tokens"] or min(counts[k] for k in SERVE_KERNELS) == 0:
+            raise AssertionError(f"serve {mode}: no tokens or a kernel never "
+                                 f"launched: {counts}")
+        for k in total:
+            total[k] += counts[k]
+        emit("serve", mode=mode, equal_stats=True, steps=len(outs),
+             cuda_wall_s=gpu[3], cpu_wall_s=cpu[3],
+             attn_ms_mean=statistics.fmean(gpu[4]),
+             attn_ms_median=statistics.median(gpu[4]),
+             max_abs_err=max(max_err(a, b) for a, b in zip(outs, cpu[1])),
+             launches=counts,
+             **{k: stats[k] for k in (
+                 "n_tokens", "ttft_p50", "ttft_p99", "tpot_p50",
+                 "arena_hit_rate", "arena_admits", "arena_evictions",
+                 "arena_dirty_evictions", "store_writebacks",
+                 "staging_overlap")})
+    return total
+
+
+def hints_phase(n_batches: int = 200, batch: int = 256):
+    """The q5 bid stream's auction keys (the e2e phase's generator
+    settings), in batches, through the port's ``HintFilter.classify_batch``
+    on two filters: one as it stands, whose sketch call asks for the CPU
+    (``interpret=True``) and runs the plain version, and one whose sketch
+    call is routed to the kernel on the card.  ``hint_filter.py`` is a
+    verbatim copy of the reference, so its call cannot name the card; the
+    route swaps ``cms_sketch.ops.cms_update_and_classify`` for the length
+    of each call, moving the host arrays ``classify_batch`` passes to the
+    card and the results back.  Hashing and aging stay ``classify_batch``'s
+    own.  Hot masks and counters must be bit-equal after every batch."""
+    cfg = NexmarkConfig(rate=E2E["rate"], active_window=1.0, oo_bound=0.3,
+                        seed=7)
+    gen = NexmarkGen(cfg)
+    keys, n = [], 0
+    while len(keys) < n_batches * batch:
+        rec = gen(n / cfg.rate)
+        n += 1
+        if rec[1]["type"] == BID:
+            keys.append(rec[1]["auction"])
+    stream = np.asarray(keys, np.int32).reshape(n_batches, batch)
+    plain_call = cms_ops.cms_update_and_classify
+
+    def on_card(keys, counters, a, b, *, threshold, max_count, interpret):
+        new, hot = plain_call(
+            torch.from_numpy(keys).cuda(),
+            torch.from_numpy(np.ascontiguousarray(counters)).cuda(), a, b,
+            threshold=threshold, max_count=max_count, interpret=False)
+        return new.cpu(), hot.cpu()
+
+    # the default sketch on both; both draw the same hash multipliers
+    cpu_filt, card_filt = HintFilter(mode="hot"), HintFilter(mode="hot")
+    reset_launches()
+    n_hot = 0
+    cpu_s = cuda_s = 0.0
+    for keys in stream:
+        t0 = time.perf_counter()
+        hot_cpu = cpu_filt.classify_batch(keys)
+        cpu_s += time.perf_counter() - t0
+        cms_ops.cms_update_and_classify = on_card
+        try:
+            t0 = time.perf_counter()
+            hot = card_filt.classify_batch(keys)
+            cuda_s += time.perf_counter() - t0
+        finally:
+            cms_ops.cms_update_and_classify = plain_call
+        if not (np.array_equal(hot, hot_cpu)
+                and np.array_equal(card_filt._dev["counters"],
+                                   cpu_filt._dev["counters"])
+                and card_filt._dev["since_aging"]
+                == cpu_filt._dev["since_aging"]):
+            raise AssertionError("hints: card and cpu sketches differ")
+        n_hot += int(hot.sum())
+    counts = launches()
+    if counts["cms_sketch"] == 0:
+        raise AssertionError("hints: the sketch kernel never launched")
+    emit("hints", batches=n_batches, batch=batch, equal=True,
+         distinct_keys=int(len(np.unique(stream))),
+         hot_share=n_hot / stream.size, cuda_s=cuda_s, cpu_s=cpu_s,
+         launches=counts)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -402,31 +887,43 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    # float32 products in full float32: the tolerances are 2e-5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build_s = cuda_build.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in cuda_build.BUILD_LOG.items()}
     emit("build", seconds=build_s, ptxas=ptxas)
     main_rows, errs = kernel_phase()
-    totals = e2e_phase()
+    paths = {"e2e": e2e_phase()}
     for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
         plane_phase(slots)
     profile_phase(E2E["cache_entries"])
+    paths["serve"] = serve_phase()
+    paths["hints"] = hints_phase()
     names = {"tac_probe": ("tac_probe.cu",
                            "src/repro/kernels/tac_probe/tac_probe.py:36"),
              "page_gather": ("page_gather.cu",
                              "src/repro/kernels/page_gather/page_gather.py:26"),
              "page_scatter": ("page_gather.cu",
-                              "src/repro/kernels/page_gather/page_gather.py:50")}
+                              "src/repro/kernels/page_gather/page_gather.py:50"),
+             "decode_attention": (
+                 "decode_attention.cu",
+                 "src/repro/kernels/decode_attention/decode_attention.py:64"),
+             "cms_sketch": ("cms_sketch.cu",
+                            "src/repro/kernels/cms_sketch/cms_sketch.py:38")}
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/csrc/{names[k][0]}",
-                    replaces=names[k][1], launches=totals[k],
+                    replaces=names[k][1],
+                    launches=sum(p[k] for p in paths.values()),
+                    launches_by_path={n: p[k] for n, p in paths.items()},
                     max_abs_err=errs[k], ms=main_rows[k]["ms"],
                     plain_ms=main_rows[k]["plain_ms"],
                     bound_ms=main_rows[k]["bound_ms"],
                     bound_by=main_rows[k]["bound_by"],
                     library_ms=main_rows[k]["library_ms"])
-               for k in ("tac_probe", "page_gather", "page_scatter")]
+               for k in names]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

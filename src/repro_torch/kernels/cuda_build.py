@@ -23,7 +23,7 @@ from typing import Dict, List
 ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = ROOT / "build" / "repro_torch"
-SOURCES = ("tac_probe", "page_gather")
+SOURCES = ("tac_probe", "page_gather", "decode_attention", "cms_sketch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -23,9 +23,34 @@ VERBATIM = [
     "core/policies.py", "core/hint_filter.py", "core/__init__.py",
     "obs/__init__.py", "obs/registry.py", "obs/quality.py", "obs/trace.py",
     "obs/timeseries.py", "obs/health.py", "obs/export.py",
+    "serving/__init__.py", "serving/store.py", "serving/metrics.py",
 ]
 # copied, then edited only to take a ``device`` for the fused plane
 EDITED = ["streaming/engine.py", "streaming/nexmark.py", "streaming/ysb.py"]
+# copied, then edited only by these replacements (after the two-line header
+# that names the edit): page blocks are torch tensors, not jax/numpy arrays
+REPLACED = {
+    "serving/scheduler.py": [
+        ("import jax.numpy as jnp\nimport numpy as np\n",
+         "import numpy as np\nimport torch\n"),
+        ("jnp.stack([jnp.asarray(d[p])", "torch.stack([torch.as_tensor(d[p])"),
+    ],
+    "serving/router.py": [
+        ("import jax\nimport numpy as np\n", "import numpy as np\nimport torch\n"),
+        ("jax.Array", "torch.Tensor"),
+        ("rows = np.zeros((n, *shape), dtype)",
+         "rows = torch.zeros((n, *shape), dtype=dtype)"),
+        ("rows[idx] = np.asarray(blk[name])",
+         "rows[torch.from_numpy(idx)] = blk[name]"),
+        ("{name: np.asarray(blk)[idx]\n",
+         "{name: torch.as_tensor(blk)[\n"
+         "                                     torch.from_numpy(idx)]\n"),
+        ("Dict[str, np.ndarray]]:", "Dict[str, torch.Tensor]]:"),
+        ("List[np.ndarray]] = {}", "List[torch.Tensor]] = {}"),
+        ("append(np.asarray(blk))", "append(blk)"),
+        ("np.concatenate(parts)", "torch.cat(parts)"),
+    ],
+}
 
 FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|"
                        r"from repro[. ])", re.M)
@@ -98,6 +123,26 @@ def test_edited_copy_differs_only_in_device(rel):
     diff = "".join(difflib.unified_diff(
         ref.splitlines(True), strip_device(port).splitlines(True), n=0))
     assert not diff, f"repro_torch/{rel} drifted beyond `device`:\n{diff}"
+
+
+@pytest.mark.parametrize("rel", sorted(REPLACED))
+def test_replaced_copy_differs_only_in_listed_edits(rel):
+    ref = rewrite((SRC / "repro" / rel).read_text())
+    for old, new in REPLACED[rel]:
+        assert old in ref, f"edit {old!r} no longer applies to repro/{rel}"
+        ref = ref.replace(old, new)
+    first, _, port = (PORT / rel).read_text().split("\n", 2)
+    assert first.startswith(f"# Copy of repro/{rel}; differs only")
+    diff = "".join(difflib.unified_diff(ref.splitlines(True),
+                                        port.splitlines(True), n=0))
+    assert not diff, f"repro_torch/{rel} drifted beyond its edits:\n{diff}"
+
+
+def test_shard_owner_map_copy_has_not_drifted():
+    from repro.launch import sharding as ref
+    from repro_torch.launch import sharding as port
+    assert inspect.getsource(port.shard_owner_map) == \
+        inspect.getsource(ref.shard_owner_map)
 
 
 @pytest.mark.parametrize("name", ["delta_encode_keys", "delta_decode_keys",
