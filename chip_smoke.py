@@ -12,7 +12,14 @@ working set.  Then it serves paged session state (arena, tiered store,
 continuous-batching scheduler, paged decode attention at qwen2.5-32b's
 attention width) in ``sync`` and ``prefetch`` mode on the card and on the
 CPU and requires identical serving stats, and classifies the q5 bid
-stream's keys through the device count-min sketch on both.  Each phase
+stream's keys through the device count-min sketch on both.  Then the LM
+serving path: zamba2-2.7b and rwkv6-3b at their published width and depth
+(bf16, seeded weights) prefill 4 requests of 2048 tokens and decode 16
+tokens through the flash-attention, SSD-scan and RWKV6-scan kernels, with
+the prefill/decode consistency check and the card held against the CPU at
+cut depth; and ``launch/serve.py``'s ``run_serving`` serves gemma-7b,
+zamba2-2.7b and rwkv6-3b (smoke models) in ``sync`` and ``prefetch``
+mode, prefetch beating sync.  Each phase
 prints one JSON line; any failure raises and ends the run with a
 non-zero exit.  The last three lines are the kernels summary, the card's
 name and power limit as ``nvidia-smi`` reports them, and
@@ -34,6 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import tac_torch  # noqa: E402
 from repro_torch.core.hint_filter import HintFilter  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
@@ -43,9 +51,16 @@ from repro_torch.kernels.decode_attention import \
     decode_attention as da  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import \
     paged_decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as fa  # noqa: E402
+from repro_torch.kernels.mamba2_scan import mamba2_scan as ms  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rs  # noqa: E402
 from repro_torch.kernels.page_gather import page_gather as pg  # noqa: E402
 from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
+from repro_torch.launch.serve import (ServeConfig, _grow_kv,  # noqa: E402
+                                      run_serving, tree_flatten)
+from repro_torch.models.lm import build_model  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingScheduler,  # noqa: E402
                                  PagedStateArena, Request, ServingMetrics,
                                  SimClock, TieredStore)
@@ -396,6 +411,207 @@ def check_cms(cols, counters, label, timed=False):
     return row
 
 
+def randn(shape, dtype, g, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def scan_agrees(out, plain, tol: float) -> bool:
+    """A scan's output agrees with the plain version's: finite, and its
+    largest error at most ``tol`` times the plain output's largest
+    magnitude (at least 1).  Both sum the same fp32 terms in other orders,
+    so an element near zero inside a sum of large terms may differ by more
+    than ``tol`` elementwise; the scaled bound is the one that holds."""
+    scale = max(1.0, float(plain.float().abs().max()))
+    return bool(torch.isfinite(out).all()) and \
+        max_err(out, plain) <= tol * scale
+
+
+def agrees_or_raise(name, label, out, plain, tol, agrees=decode_agrees):
+    if agrees(torch.zeros_like(plain), plain, tol):
+        raise AssertionError(f"{name} at {label}: the check would pass an "
+                             f"all-zero output")
+    if not agrees(out, plain, tol):
+        raise AssertionError(f"{name} differs at {label}: "
+                             f"{max_err(out, plain)}")
+
+
+def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0):
+    """K6 on q [B, S, H, d] and k/v [B, S, KV, d] drawn from a seeded
+    normal, against its plain version; timed rows add the plain version's
+    time, the bound (causal flops 2 * 2 * S * T * d * B * H / 2 at the fp32
+    peak: the kernel does not use the tensor cores) and
+    ``scaled_dot_product_attention`` on the same tensors."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn((B, S, H, d), dtype, g)
+    k = randn((B, S, KV, d), dtype, g)
+    v = randn((B, S, KV, d), dtype, g)
+    out = fa.flash_attention_kernel(q, k, v, causal)
+    plain = fa.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    agrees_or_raise("flash_attention", label, out, plain, TOL[dtype])
+    row = dict(kernel="flash_attention", shape=label, B=B, S=S, H=H, KV=KV,
+               d=d, causal=causal, dtype=dtype_name(dtype),
+               max_abs_err=max_err(out, plain),
+               plain_max_abs=float(plain.float().abs().max()))
+    del plain
+    if timed:
+        it = q.element_size()
+        flops = 2 * 2 * S * S * d * B * H / (2 if causal else 1)
+        b_ms, b_by = bound(2 * B * S * H * d * it + 2 * B * S * KV * d * it,
+                           ops=flops)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
+        row.update(ms=device_ms(lambda: fa.flash_attention_kernel(
+                       q, k, v, causal), reps=5, rounds=5),
+                   plain_ms=device_ms(lambda: fa.flash_attention_plain(
+                       q, k, v, causal), reps=3, rounds=3),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=device_ms(lambda: sdpa(
+                       qt, kt, vt, is_causal=causal, enable_gqa=KV != H),
+                       reps=5, rounds=5),
+                   library="scaled_dot_product_attention(is_causal=True)",
+                   library_max_abs_diff=max_err(lib.transpose(1, 2), out))
+        del lib
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
+    """K7 on the model layout from a seeded normal (dt softplus, A = -exp,
+    as tests/test_kernels.py draws them); y and the final state against
+    the plain version.  The bound counts 2 Q^2 (N + P) + 4 Q N P flops a
+    (b h, chunk) at the fp32 peak."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = randn((B, S, H, P), dtype, g)
+    dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, g))
+    A = -torch.exp(randn((B * H,), torch.float32, g, 0.5))
+    Bm = randn((B, S, G, N), dtype, g)
+    Cm = randn((B, S, G, N), dtype, g)
+    args = (x, dt, A, Bm, Cm, Q)
+    y, st = ms.mamba2_scan_kernel(*args)
+    py, pst = ms.mamba2_scan_plain(*args)
+    torch.cuda.synchronize()
+    agrees_or_raise("mamba2_scan", label, y, py, TOL[dtype], scan_agrees)
+    agrees_or_raise("mamba2_scan state", label, st, pst, TOL[dtype],
+                    scan_agrees)
+    row = dict(kernel="mamba2_scan", shape=label, B=B, S=S, H=H, G=G, N=N,
+               P=P, Q=Q, dtype=dtype_name(dtype),
+               max_abs_err=max(max_err(y, py), max_err(st, pst)),
+               plain_max_abs=float(py.float().abs().max()))
+    del py, pst
+    if timed:
+        it = x.element_size()
+        n_chunks = -(-S // Q)
+        flops = (2 * Q * Q * (N + P) + 4 * Q * N * P) * B * H * n_chunks
+        nbytes = (2 * B * S * H * P * it + B * S * H * 4 + B * H * 4
+                  + 2 * B * S * G * N * it + B * H * N * P * 4)
+        b_ms, b_by = bound(nbytes, ops=flops)
+        row.update(ms=device_ms(lambda: ms.mamba2_scan_kernel(*args),
+                                reps=5, rounds=5),
+                   plain_ms=device_ms(lambda: ms.mamba2_scan_plain(*args),
+                                      reps=3, rounds=3),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library="none: no single PyTorch call computes a chunked "
+                           "SSD scan")
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
+               seed=0):
+    """K8 on the model layout from a seeded draw (k * 0.3, w = sigmoid,
+    u * 0.1, as tests/test_kernels.py draws them), from a nonzero state; y
+    and the final state against the plain version, which steps through S
+    one token at a time and so runs on the first ``plain_rows`` batch rows
+    only at the long shapes.  The bound counts 4 N^2 flops a (b h, t) at
+    the fp32 peak and each input and output once."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = randn((B, S, H, N), dtype, g)
+    k = randn((B, S, H, N), dtype, g, 0.3)
+    v = randn((B, S, H, N), dtype, g)
+    w = torch.sigmoid(randn((B, S, H, N), torch.float32, g)).to(dtype)
+    u = randn((B * H, N), torch.float32, g, 0.1)
+    s0 = randn((B, H, N, N), torch.float32, g, 0.1)
+    y, st = rs.rwkv6_scan_kernel(r, k, v, w, u, s0)
+    n = B if plain_rows is None else plain_rows
+    pargs = (r[:n], k[:n], v[:n], w[:n], u[:n * H], s0[:n])
+    py, pst = rs.rwkv6_scan_plain(*pargs)
+    torch.cuda.synchronize()
+    agrees_or_raise("rwkv6_scan", label, y[:n], py, TOL[dtype], scan_agrees)
+    agrees_or_raise("rwkv6_scan state", label, st[:n], pst, TOL[dtype],
+                    scan_agrees)
+    row = dict(kernel="rwkv6_scan", shape=label, B=B, S=S, H=H, N=N,
+               dtype=dtype_name(dtype), checked_rows=n,
+               max_abs_err=max(max_err(y[:n], py), max_err(st[:n], pst)),
+               plain_max_abs=float(py.float().abs().max()))
+    if timed:
+        it = r.element_size()
+        b_ms, b_by = bound(5 * B * S * H * N * it + B * H * N * 4
+                           + 2 * B * H * N * N * 4,
+                           ops=4.0 * N * N * B * H * S)
+        row.update(ms=device_ms(lambda: rs.rwkv6_scan_kernel(
+                       r, k, v, w, u, s0), reps=5, rounds=5),
+                   plain_ms=device_ms(lambda: rs.rwkv6_scan_plain(*pargs),
+                                      reps=1, rounds=3),
+                   plain_ms_rows=n, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None,
+                   library="none: no single PyTorch call computes the "
+                           "RWKV6 recurrence")
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_kernel_phase():
+    """K6-K8: tests/test_kernels.py's sweeps (and the head dims, chunk and
+    state sizes the port's models reach), then each kernel at the models
+    phase's full-width prefill shape: K6 at zamba2-2.7b (4 x 32 heads,
+    S = T = 2048, d 80, bf16) and at gemma-7b's d 256, K7 at zamba2-2.7b
+    (4 x 80 heads, S 2048, Q 128, N = P = 64, bf16), K8 at rwkv6-3b (4 x 40
+    heads, S 2048, N 64, fp32 as the model feeds it)."""
+    main, errs = {}, {"flash_attention": 0.0, "mamba2_scan": 0.0,
+                      "rwkv6_scan": 0.0}
+
+    def note(r):
+        errs[r["kernel"]] = max(errs[r["kernel"]], r["max_abs_err"])
+        return r
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for S, H, KV, d in ((128, 4, 2, 32), (256, 2, 2, 64),
+                                (128, 4, 1, 16), (128, 4, 2, 80),
+                                (128, 4, 4, 128), (128, 2, 2, 256),
+                                (45, 4, 2, 16)):
+                note(check_flash(2, S, H, KV, d, dtype, causal,
+                                 f"sweep {S, H, KV, d}"))
+        for S, P, N, Q in ((128, 16, 8, 32), (64, 32, 16, 64),
+                           (256, 8, 4, 16), (62, 16, 8, 31),
+                           (60, 16, 16, 24)):
+            note(check_mamba(1, S, 3, 1, N, P, Q, dtype, f"sweep {S, P, N, Q}"))
+        note(check_mamba(2, 64, 4, 2, 16, 16, 32, dtype, "groups"))
+        for S, N in ((128, 8), (64, 16), (96, 32), (64, 64)):
+            note(check_rwkv(1, S, 3, N, dtype, f"sweep {S, N}"))
+    main["flash_attention"] = note(check_flash(
+        4, 2048, 32, 32, 80, torch.bfloat16, True, "zamba2-2.7b prefill",
+        timed=True))
+    note(check_flash(4, 2048, 16, 16, 256, torch.bfloat16, True,
+                     "gemma-7b prefill", timed=True))
+    main["mamba2_scan"] = note(check_mamba(
+        4, 2048, 80, 1, 64, 64, 128, torch.bfloat16, "zamba2-2.7b prefill",
+        timed=True))
+    main["rwkv6_scan"] = note(check_rwkv(
+        4, 2048, 40, 64, torch.float32, "rwkv6-3b prefill", timed=True,
+        plain_rows=1))
+    return main, errs
+
+
 def serve_shape_case():
     """The serve phase's attention launch: one request's 8 KV-head rows of
     5 query heads over a 4097-token history in the arena's pool."""
@@ -479,12 +695,15 @@ def kernel_phase():
 def reset_launches():
     tp.LAUNCHES = pg.GATHER_LAUNCHES = pg.SCATTER_LAUNCHES = 0
     da.LAUNCHES = cms.LAUNCHES = 0
+    fa.LAUNCHES = ms.LAUNCHES = rs.LAUNCHES = 0
 
 
 def launches():
     return {"tac_probe": tp.LAUNCHES, "page_gather": pg.GATHER_LAUNCHES,
             "page_scatter": pg.SCATTER_LAUNCHES,
-            "decode_attention": da.LAUNCHES, "cms_sketch": cms.LAUNCHES}
+            "decode_attention": da.LAUNCHES, "cms_sketch": cms.LAUNCHES,
+            "flash_attention": fa.LAUNCHES, "mamba2_scan": ms.LAUNCHES,
+            "rwkv6_scan": rs.LAUNCHES}
 
 
 FUSED_KERNELS = ("tac_probe", "page_gather", "page_scatter")
@@ -590,6 +809,35 @@ def plane_phase(slots: int, n_batches: int = 200):
          mem_peak_bytes=torch.cuda.max_memory_allocated())
 
 
+def device_activity(prof):
+    """The device side of a ``torch.profiler`` trace: busy ms as the union
+    of the device events' intervals (summing ``self_device_time_total``
+    over ``key_averages()`` counts each kernel twice, under its own name
+    and under the aten op that launched it), its events by name
+    ([name, count, ms], heaviest first), and how many times CUPTI found
+    the launch queue full (its "Command Buffer Full" marker, not device
+    work)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    full = sum(e.name == "Command Buffer Full" for e in events)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name != "Command Buffer Full")
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        if e.name != "Command Buffer Full":
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.end
+                               - e.time_range.start)
+    ops = sorted(([k, n, us / 1e3] for k, (n, us) in by_name.items()),
+                 key=lambda r: -r[2])
+    return busy_us / 1e3, ops, full
+
+
 def profile_phase(slots: int, n_batches: int = 50, top: int = 12):
     """Where a ``batch_step`` spends its time: the device's busy share
     and the heaviest ops from ``torch.profiler``, and the heaviest Python
@@ -612,18 +860,16 @@ def profile_phase(slots: int, n_batches: int = 50, top: int = 12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
-    device_ms = sum(a.self_device_time_total for a in avgs) / 1e3
+    device_ms, dev, _ = device_activity(prof)
     per = lambda us: us / 1e3 / n_batches
     host = sorted(avgs, key=lambda a: a.self_cpu_time_total, reverse=True)
-    dev = sorted(avgs, key=lambda a: a.self_device_time_total, reverse=True)
     emit("profile_torch", slots=slots, batches=n_batches,
          batch_ms=wall_ms / n_batches, device_ms_per_batch=device_ms
          / n_batches, device_busy_share=device_ms / wall_ms,
          host_ops=[[a.key[:60], a.count / n_batches,
                     per(a.self_cpu_time_total)] for a in host[:top]],
-         device_ops=[[a.key[:60], a.count / n_batches,
-                      per(a.self_device_time_total)] for a in dev[:top]
-                     if a.self_device_time_total > 0])
+         device_ops=[[name[:60], n / n_batches, ms / n_batches]
+                     for name, n, ms in dev[:top]])
     pr = cProfile.Profile()
     t0 = time.perf_counter()
     pr.enable()
@@ -876,6 +1122,231 @@ def hints_phase(n_batches: int = 200, batch: int = 256):
     return counts
 
 
+# ------------------------------------------------------------ LM models
+# the models phase: each model at its published width and depth
+# (configs/zamba2_2_7b.py, configs/rwkv6_3b.py), bf16 weights drawn from a
+# seeded generator on the card; 4 requests of 2048 prompt tokens, one
+# prefill and 16 greedy decode steps; the prefill/decode consistency of
+# tests/test_models.py at 128 tokens (prefill of 127, decode of the 128th:
+# a length both chunkings take); the card against the port's CPU run at
+# full width and cut depth (zamba2: one shared block and six Mamba2
+# layers; rwkv6: two layers) on 256 tokens of one request.  Both checks
+# are required in fp32, as tests/test_models.py runs its consistency
+# check: in bf16 these random-weight models amplify rounding (zamba2-2.7b
+# read 0.045 in bf16 at full depth), so the bf16 values are printed
+LM = dict(archs=("zamba2-2.7b", "rwkv6-3b"), requests=4, prompt=2048,
+          decode=16, consistency=128, cut={"zamba2-2.7b": 6, "rwkv6-3b": 2},
+          cut_tokens=256, seed=0, rel_limit=2e-2)
+LM_KERNELS = {"gemma-7b": ("flash_attention",),
+              "zamba2-2.7b": ("flash_attention", "mamba2_scan"),
+              "rwkv6-3b": ("rwkv6_scan",)}
+# the serve_lm phase: tests/test_system.py's serving config through the
+# port's run_serving (smoke models, as the reference runs them); zamba2
+# and rwkv6 take 32-token prompts, since at 16 the reference's _grow_kv
+# pads their 16-wide state axes as if they were time (ROADMAP.md §3)
+SERVE_LM = dict(n_sessions=12, n_requests=24, decode_tokens=2,
+                store_latency=0.03, cache_sessions=6, arrival_rate=500.0,
+                prompts={"gemma-7b": 16, "zamba2-2.7b": 32, "rwkv6-3b": 32})
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|: tests/test_models.py's metric."""
+    return max_err(a, b) / (float(b.float().abs().max()) + 1e-9)
+
+
+def lm_model(arch: str, layers=None, dtype="bfloat16"):
+    cfg = get_config(arch).replace(dtype=dtype)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(LM["seed"])
+    return cfg, build_model(cfg, "cuda").init_params(gen)
+
+
+def tokens(cfg, B: int, S: int, seed: int) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         dtype=torch.int32)
+
+
+def params_on_cpu(module):
+    """The model's parameter tree (names, lists) as CPU tensors."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [params_on_cpu(m) for m in module]
+    tree = {k: v.detach().cpu() for k, v in module._parameters.items()}
+    tree.update({k: params_on_cpu(m) for k, m in module._modules.items()})
+    return tree
+
+
+def profile_step(fn, top: int = 10):
+    """Device time of one call by kernel, from ``torch.profiler``: the
+    call's wall ms, the device's busy ms and the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, ops, full = device_activity(prof)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_busy_share=busy / wall_ms, launch_queue_full=full,
+                device_ops=[[name[:70], n, ms] for name, n, ms in ops[:top]])
+
+
+def consistency(model, cfg, S: int):
+    """decode(prefill(x[:-1]), x[-1]) against prefill(x), rel."""
+    toks = tokens(cfg, LM["requests"], S, seed=2)
+    lg_full, _ = model.prefill({"tokens": toks})
+    _, cache = model.prefill({"tokens": toks[:, :S - 1]})
+    cache = _grow_kv(cache, S - 1, S)
+    lg_dec, _ = model.decode(cache, {"tokens": toks[:, S - 1:],
+                                     "pos": S - 1})
+    if not bool(torch.isfinite(lg_dec).all()):
+        raise AssertionError(f"{cfg.name}: decode logits not finite")
+    return rel_err(lg_dec, lg_full)
+
+
+def serve_full(model, cfg):
+    """4 requests of 2048 tokens: one prefill, then 16 greedy decode steps.
+    Returns the metrics and every step's logits finiteness."""
+    c = LM
+    toks = tokens(cfg, c["requests"], c["prompt"], seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    cache = _grow_kv(cache, c["prompt"], c["prompt"] + c["decode"])
+    tok = logits.argmax(-1, keepdim=True).int()
+    t0 = time.perf_counter()
+    for i in range(c["decode"]):
+        logits, cache = model.decode(cache, {"tokens": tok,
+                                             "pos": c["prompt"] + i})
+        finite = finite and bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1, keepdim=True).int()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not finite:
+        raise AssertionError(f"{cfg.name}: logits not finite")
+    n_prompt = c["requests"] * c["prompt"]
+    return dict(prefill_ms=prefill_s * 1e3,
+                prefill_tokens_per_s=n_prompt / prefill_s,
+                decode_ms_per_token=decode_s / c["decode"] * 1e3,
+                decode_tokens_per_s=c["requests"] * c["decode"] / decode_s,
+                mem_peak_bytes=torch.cuda.max_memory_allocated()), \
+        cache, tok
+
+
+def card_vs_cpu(arch: str, dtype: str):
+    """Full width, cut depth: the card's prefill (kernels) against the
+    port's CPU prefill (plain versions) on the same weights: rel of the
+    logits and of the worst cache leaf (in ``dtype``)."""
+    cfg, model = lm_model(arch, LM["cut"][arch], dtype)
+    toks = tokens(cfg, 1, LM["cut_tokens"], seed=3)
+    lg, cache = model.prefill({"tokens": toks})
+    cpu_model = build_model(cfg, "cpu").load_params(params_on_cpu(model))
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c_lg, c_cache = cpu_model.prefill({"tokens": toks})
+    cpu_s = time.perf_counter() - t0
+    rels = {"logits": rel_err(lg.cpu(), c_lg)}
+    leaves, _ = tree_flatten(cache)
+    c_leaves, _ = tree_flatten(c_cache)
+    for i, (a, b) in enumerate(zip(leaves, c_leaves)):
+        if a.is_floating_point():
+            rels[f"cache_leaf_{i}"] = rel_err(a.cpu(), b)
+        elif int(a) != int(b):
+            raise AssertionError(f"{arch}: cache leaf {i} differs")
+    return dict(cpu_prefill_s=cpu_s, rel_logits=rels["logits"],
+                rel_worst_leaf=max(rels.values()))
+
+
+def models_phase():
+    total = {k: 0 for k in launches()}
+    for arch in LM["archs"]:
+        cfg, model = lm_model(arch)
+        n_params = sum(p.numel() for p in model.parameters())
+        reset_launches()
+        stats, cache, tok = serve_full(model, cfg)
+        counts = launches()
+        need = LM_KERNELS[arch]
+        if min(counts[k] for k in need) == 0:
+            raise AssertionError(f"{arch}: a kernel never launched: {counts}")
+        for k in total:
+            total[k] += counts[k]
+        rel_bf16 = consistency(model, cfg, LM["consistency"])
+        toks = tokens(cfg, LM["requests"], LM["prompt"], seed=1)
+        prof_prefill = profile_step(lambda: model.prefill({"tokens": toks}))
+        prof_decode = profile_step(lambda: model.decode(
+            cache, {"tokens": tok, "pos": LM["prompt"] + LM["decode"] - 1}))
+        del model, cache
+        torch.cuda.empty_cache()
+        _, model = lm_model(arch, dtype="float32")
+        rel = consistency(model, model.cfg, LM["consistency"])
+        del model
+        torch.cuda.empty_cache()
+        cut = {dt: card_vs_cpu(arch, dt) for dt in ("float32", "bfloat16")}
+        if not (rel < LM["rel_limit"]
+                and cut["float32"]["rel_worst_leaf"] < LM["rel_limit"]):
+            raise AssertionError(f"{arch}: fp32 prefill/decode rel {rel}, "
+                                 f"card vs cpu {cut}")
+        emit("models", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+             params=n_params, requests=LM["requests"], prompt=LM["prompt"],
+             decode_steps=LM["decode"], launches=counts,
+             consistency_tokens=LM["consistency"],
+             consistency_rel_fp32=rel, consistency_rel_bf16=rel_bf16,
+             cut_layers=LM["cut"][arch], cut_tokens=LM["cut_tokens"],
+             card_vs_cpu_fp32=cut["float32"],
+             card_vs_cpu_bf16=cut["bfloat16"], **stats)
+        emit("models_profile", arch=arch, prefill=prof_prefill,
+             decode_step=prof_decode)
+        torch.cuda.empty_cache()
+    return total
+
+
+def serve_lm_phase():
+    total = {k: 0 for k in launches()}
+    c = SERVE_LM
+    for arch, prompt in c["prompts"].items():
+        cfg = ServeConfig(arch=arch, n_sessions=c["n_sessions"],
+                          n_requests=c["n_requests"], prompt_len=prompt,
+                          decode_tokens=c["decode_tokens"],
+                          store_latency=c["store_latency"],
+                          cache_sessions=c["cache_sessions"],
+                          arrival_rate=c["arrival_rate"])
+        res = {}
+        for mode in ("sync", "prefetch"):
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run_serving(cfg, mode, device="cuda")
+            wall = time.perf_counter() - t0
+            counts = launches()
+            need = LM_KERNELS[arch] + FUSED_KERNELS
+            if out["n_tokens"] != c["n_requests"] * c["decode_tokens"] \
+                    or min(counts[k] for k in need) == 0:
+                raise AssertionError(f"serve_lm {arch} {mode}: tokens "
+                                     f"{out['n_tokens']}, launches {counts}")
+            for k in total:
+                total[k] += counts[k]
+            res[mode] = out
+            emit("serve_lm", arch=arch, mode=mode, prompt_len=prompt,
+                 wall_s=wall, launches=counts,
+                 **{k: out[k] for k in (
+                     "n_tokens", "ttft_p50", "ttft_p99", "tpot_p50",
+                     "arena_hit_rate", "staging_overlap",
+                     "store_writebacks", "n_pages_per_session")})
+        if not (res["prefetch"]["staging_overlap"]
+                > res["sync"]["staging_overlap"]
+                and res["prefetch"]["ttft_p99"] < res["sync"]["ttft_p99"]):
+            raise AssertionError(f"serve_lm {arch}: prefetch does not beat "
+                                 f"sync: {res}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -896,12 +1367,17 @@ def main() -> int:
              for k, v in cuda_build.BUILD_LOG.items()}
     emit("build", seconds=build_s, ptxas=ptxas)
     main_rows, errs = kernel_phase()
+    lm_rows, lm_errs = lm_kernel_phase()
+    main_rows.update(lm_rows)
+    errs.update(lm_errs)
     paths = {"e2e": e2e_phase()}
     for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
         plane_phase(slots)
     profile_phase(E2E["cache_entries"])
     paths["serve"] = serve_phase()
     paths["hints"] = hints_phase()
+    paths["models"] = models_phase()
+    paths["serve_lm"] = serve_lm_phase()
     names = {"tac_probe": ("tac_probe.cu",
                            "src/repro/kernels/tac_probe/tac_probe.py:36"),
              "page_gather": ("page_gather.cu",
@@ -912,7 +1388,14 @@ def main() -> int:
                  "decode_attention.cu",
                  "src/repro/kernels/decode_attention/decode_attention.py:64"),
              "cms_sketch": ("cms_sketch.cu",
-                            "src/repro/kernels/cms_sketch/cms_sketch.py:38")}
+                            "src/repro/kernels/cms_sketch/cms_sketch.py:38"),
+             "flash_attention": (
+                 "flash_attention.cu",
+                 "src/repro/kernels/flash_attention/flash_attention.py:70"),
+             "mamba2_scan": ("mamba2_scan.cu",
+                             "src/repro/kernels/mamba2_scan/mamba2_scan.py:66"),
+             "rwkv6_scan": ("rwkv6_scan.cu",
+                            "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:52")}
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/csrc/{names[k][0]}",
                     replaces=names[k][1],

@@ -1,0 +1,138 @@
+"""Chunked Mamba2 SSD scan: the CUDA kernel ``csrc/mamba2_scan.cu`` and its
+plain PyTorch version.
+
+Per batch row and head, over chunks of Q positions in order, with the
+[N, P] state carried from chunk to chunk (from ``init`` or zeros):
+dA = dt * A, cum its cumulative sum within the chunk, dtx = dt * x;
+y = (C B^T * exp(segsum)) @ dtx + (C @ state) * exp(cum); then the state
+update.  Besides y the kernel returns the final state, which the prefill
+cache needs.  Layout: x [B, S, H, P], dt [B, S, H], A [B * H] (one decay
+per batch row and head, negative), Bm/Cm [B, S, G, N] with head h in group
+h // (H / G); y [B, S, H, P] in x's type, state [B, H, N, P] fp32.  The
+Pallas layout ([BH, S, P], dt [BH, S], A [BH], Bm/Cm [BH, S, N]) is the
+case H = G = 1.  A last chunk shorter than Q is padded with zeros, which
+adds nothing.
+
+``mamba2_scan_kernel`` launches the kernel for CUDA tensors and runs
+``mamba2_scan_plain`` for CPU tensors; it never falls back from one to the
+other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import cuda_build
+
+# launches of the CUDA kernel (not of the plain version) since the last reset
+LAUNCHES = 0
+
+MAX_CHUNK = 128
+MAX_NP = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
+    """The chunked SSD scan in plain PyTorch (fp32), the chunks vectorised
+    and the state carried over them in a loop.  Returns (y in x's type,
+    final state [B, H, N, P] fp32)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    pad = (-S) % Q
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    if pad:
+        xf, Bf, Cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, Bf, Cf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    nc = (S + pad) // Q
+    x_ = xf.reshape(B_, nc, Q, G, rep, P)
+    dt_ = dtf.reshape(B_, nc, Q, G, rep)
+    B_m = Bf.reshape(B_, nc, Q, G, N)
+    C_m = Cf.reshape(B_, nc, Q, G, N)
+    A_ = A.float().reshape(B_, 1, 1, G, rep)
+
+    cum = torch.cumsum(dt_ * A_, dim=2)                     # [B,nc,Q,G,rep]
+    dtx = dt_[..., None] * x_                               # [B,nc,Q,G,rep,P]
+    CB = torch.einsum("bcign,bcjgn->bcgij", C_m, B_m)       # [B,nc,G,Q,Q]
+    diff = cum[:, :, :, None] - cum[:, :, None, :]          # [B,nc,Q,Q,G,rep]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decay = torch.exp(torch.where(tri[:, :, None, None], diff,
+                                  float("-inf")))
+    M = CB.permute(0, 1, 3, 4, 2)[..., None] * decay        # [B,nc,Q,Q,G,rep]
+    y_intra = torch.einsum("bcijgr,bcjgrp->bcigrp", M, dtx)
+
+    dec_end = torch.exp(cum[:, :, -1:] - cum)               # [B,nc,Q,G,rep]
+    S_loc = torch.einsum("bcjgrp,bcjgn->bcgrnp", dec_end[..., None] * dtx,
+                         B_m)                               # [B,nc,G,rep,N,P]
+    chunk_dec = torch.exp(cum[:, :, -1])                    # [B,nc,G,rep]
+    s = torch.zeros((B_, G, rep, N, P), dtype=torch.float32,
+                    device=x.device) if init is None \
+        else init.float().reshape(B_, G, rep, N, P)
+    prevs = []
+    for c in range(nc):
+        prevs.append(s)
+        s = s * chunk_dec[:, c, ..., None, None] + S_loc[:, c]
+    s_prev = torch.stack(prevs, dim=1)                      # [B,nc,G,rep,N,P]
+    y_inter = torch.einsum("bcign,bcgrnp->bcigrp", C_m, s_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(B_, S + pad, H, P)[:, :S]
+    return y.to(x.dtype), s.reshape(B_, H, N, P)
+
+
+def _check(x, dt, A, Bm, Cm, Q: int, init) -> None:
+    tensors = [x, dt, A, Bm, Cm] + ([] if init is None else [init])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("mamba2_scan: all tensors must be on one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mamba2_scan: no kernel for device {x.device}")
+    B_, S, H, P = x.shape if x.dim() == 4 else (0, 0, 0, 0)
+    if x.dim() != 4 or dt.shape != (B_, S, H) or A.shape != (B_ * H,) \
+            or Bm.dim() != 4 or Bm.shape[:2] != (B_, S) \
+            or Cm.shape != Bm.shape or Bm.shape[2] == 0 or H % Bm.shape[2] \
+            or (init is not None
+                and init.shape != (B_, H, Bm.shape[3], P)) or Q < 1:
+        raise ValueError("mamba2_scan: shapes x [B, S, H, P], dt [B, S, H], "
+                         "A [B * H], Bm/Cm [B, S, G, N] (H a multiple of G), "
+                         "init [B, H, N, P] and a chunk >= 1 expected")
+
+
+def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
+    """Returns (y [B, S, H, P] in x's type, final state [B, H, N, P]
+    fp32)."""
+    global LAUNCHES
+    _check(x, dt, A, Bm, Cm, Q, init)
+    if x.device.type == "cpu":
+        return mamba2_scan_plain(x, dt, A, Bm, Cm, Q, init)
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"mamba2_scan: no kernel for x {x.dtype}, Bm/Cm "
+                        f"{Bm.dtype}/{Cm.dtype}")
+    if Q > MAX_CHUNK or N > MAX_NP or P > MAX_NP:
+        raise ValueError(f"mamba2_scan: the kernel takes chunk <= "
+                         f"{MAX_CHUNK} and N, P <= {MAX_NP}, not {Q}, {N}, "
+                         f"{P}")
+    dt = dt.float().contiguous()
+    A = A.float().contiguous()
+    if init is not None:
+        init = init.float().contiguous()
+    if not (x.is_contiguous() and Bm.is_contiguous() and Cm.is_contiguous()):
+        raise ValueError("mamba2_scan: tensors must be contiguous")
+    y = torch.empty_like(x)
+    state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
+    if B_ * H == 0:
+        return y, state
+    fn = cuda_build.load("mamba2_scan").mamba2_scan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+             Cm.data_ptr(), 0 if init is None else init.data_ptr(),
+             y.data_ptr(), state.data_ptr(), B_, S, H, G, N, P, Q,
+             _DTYPES[x.dtype], cuda_build.stream_ptr(x.device))
+    cuda_build.check(err, "mamba2_scan")
+    LAUNCHES += 1
+    return y, state

@@ -24,6 +24,12 @@ VERBATIM = [
     "obs/__init__.py", "obs/registry.py", "obs/quality.py", "obs/trace.py",
     "obs/timeseries.py", "obs/health.py", "obs/export.py",
     "serving/__init__.py", "serving/store.py", "serving/metrics.py",
+    "configs/__init__.py", "configs/base.py", "configs/registry.py",
+    "configs/codeqwen1_5_7b.py", "configs/command_r_35b.py",
+    "configs/deepseek_v2_236b.py", "configs/gemma_7b.py",
+    "configs/llava_next_mistral_7b.py", "configs/qwen2_5_32b.py",
+    "configs/qwen3_moe_30b_a3b.py", "configs/rwkv6_3b.py",
+    "configs/seamless_m4t_large_v2.py", "configs/zamba2_2_7b.py",
 ]
 # copied, then edited only to take a ``device`` for the fused plane
 EDITED = ["streaming/engine.py", "streaming/nexmark.py", "streaming/ysb.py"]

@@ -466,3 +466,205 @@ def test_hint_filter_classify_batch_matches_reference():
                                       np.asarray(jf._dev["counters"]))
         assert tf._dev["since_aging"] == jf._dev["since_aging"]
     assert tm.any() and not tm.all()
+
+
+# ------------------------------------------------------------ flash attention
+from repro.kernels.flash_attention.ops import \
+    flash_attention as j_flash  # noqa: E402
+from repro.kernels.mamba2_scan.ops import mamba2_scan as j_mamba  # noqa: E402
+from repro.kernels.rwkv6_scan.ops import rwkv6_scan as j_rwkv  # noqa: E402
+from repro.models.ssm import _rwkv6_chunked, ssd_chunked  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as tfa_mod  # noqa: E402
+from repro_torch.kernels.mamba2_scan import \
+    mamba2_scan as tms_mod  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as trs_mod  # noqa: E402
+
+
+def t_mamba(x, dt, A, Bm, Cm, *, chunk):
+    """The port's SSD scan in the Pallas kernel's layout (x [BH, S, P],
+    dt [BH, S], Bm/Cm [BH, S, N]): one head per batch row."""
+    y, state = tms_mod.mamba2_scan_kernel(
+        x[:, :, None].contiguous(), dt[:, :, None].contiguous(), A,
+        Bm[:, :, None].contiguous(), Cm[:, :, None].contiguous(),
+        min(chunk, x.shape[1]))
+    return y[:, :, 0], state[:, 0]
+
+
+def t_rwkv(r, k, v, w, u):
+    """The port's RWKV6 scan in the Pallas kernel's layout ([BH, S, N],
+    u [BH, N])."""
+    y, state = trs_mod.rwkv6_scan_kernel(
+        *(t[:, :, None].contiguous() for t in (r, k, v, w)), u)
+    return y[:, :, 0], state[:, 0]
+
+
+def _both_dtypes(arrays, dtype):
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+@pytest.mark.parametrize("S,H,KV,d,bq,bk", [
+    (128, 4, 2, 32, 64, 64),
+    (256, 2, 2, 64, 64, 128),
+    (128, 4, 1, 16, 128, 32),      # MQA, uneven blocks
+    (128, 4, 2, 80, 64, 32),       # zamba2-2.7b's head dim
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference_kernel(S, H, KV, d, bq, bk, dtype,
+                                                  causal):
+    """tests/test_kernels.py's sweep (B = 2, GQA through the wrappers) and
+    d 80: the port's kernel (KV head h // G) on the CPU against the Pallas
+    kernel behind the reference's GQA wrapper."""
+    rng = np.random.RandomState(0)
+    B = 2
+    arrays = [rng.randn(B, S, H, d).astype(np.float32),
+              rng.randn(B, S, KV, d).astype(np.float32),
+              rng.randn(B, S, KV, d).astype(np.float32)]
+    (jq, jk, jv), (tq, tk, tv) = _both_dtypes(arrays, dtype)
+    ref = j_flash(jq, jk, jv, causal=causal, bq=bq, bk=bk)
+    out = tfa_mod.flash_attention_kernel(tq, tk, tv, causal)
+    assert out.dtype == tq.dtype and out.shape == (B, S, H, d)
+    assert_close(to_np(out), ref, dtype)
+
+
+def test_flash_attention_ragged_lengths_match_padded_reference():
+    """S and T that are not multiples of any block: the kernel takes them
+    as they are; the reference kernel needs them padded, with padded keys
+    masked, which the causal mask does when they come last."""
+    rng = np.random.RandomState(1)
+    q = rng.randn(2, 45, 4, 16).astype(np.float32)
+    k = rng.randn(2, 45, 2, 16).astype(np.float32)
+    v = rng.randn(2, 45, 2, 16).astype(np.float32)
+    pad = ((0, 0), (0, 3), (0, 0), (0, 0))
+    ref = j_flash(*(jnp.asarray(np.pad(a, pad)) for a in (q, k, v)),
+                  causal=True, bq=16, bk=16)[:, :45]
+    out = tfa_mod.flash_attention_kernel(
+        *(torch.from_numpy(a) for a in (q, k, v)), True)
+    assert_close(out.numpy(), ref)
+
+
+# ------------------------------------------------------------------ ssm scans
+def _mamba_inputs(BH, S, P, N, seed=0):
+    """tests/test_kernels.py's construction from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(BH, S, P).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(BH, S))).astype(np.float32)
+    A = (-np.exp(rng.randn(BH) * 0.5)).astype(np.float32)
+    Bm = rng.randn(BH, S, N).astype(np.float32)
+    Cm = rng.randn(BH, S, N).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("S,P,N,chunk", [(128, 16, 8, 32), (64, 32, 16, 64),
+                                         (256, 8, 4, 16), (62, 16, 8, 31)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_scan_matches_reference_kernel(S, P, N, chunk, dtype):
+    """The sweep, plus Q = 31 (the S - 1 prefill of tests/test_models.py)."""
+    x, dt, A, Bm, Cm = _mamba_inputs(3, S, P, N)
+    (jx, jdt, jB, jC), (tx, tdt, tB, tC) = _both_dtypes([x, dt, Bm, Cm],
+                                                        dtype)
+    ref = j_mamba(jx, jdt, jnp.asarray(A), jB, jC, chunk=chunk)
+    y, state = t_mamba(tx, tdt, torch.from_numpy(A), tB, tC, chunk=chunk)
+    assert y.dtype == tx.dtype and state.shape == (3, N, P)
+    assert_close(to_np(y), ref, dtype)
+
+
+@pytest.mark.parametrize("G,chunk,init", [(1, 16, False), (2, 16, True),
+                                          (2, 64, True)])
+def test_mamba2_scan_final_state_matches_ssd_chunked(G, chunk, init):
+    """The model layout (groups, a decay per head) and the final state the
+    Pallas kernel drops, against the reference model's ``ssd_chunked``."""
+    rng = np.random.RandomState(2)
+    B, S, H, P, N = 2, 64, 4, 16, 8
+    x = rng.randn(B, S, H, P).astype(np.float32)
+    dt = np.abs(rng.randn(B, S, H)).astype(np.float32)
+    A = (-np.exp(rng.randn(H) * 0.5)).astype(np.float32)
+    Bm = rng.randn(B, S, G, N).astype(np.float32)
+    Cm = rng.randn(B, S, G, N).astype(np.float32)
+    s0 = rng.randn(B, H, N, P).astype(np.float32) if init else None
+    jy, js = ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk,
+                         init_state=None if s0 is None else jnp.asarray(s0))
+    ty, ts = tms_mod.mamba2_scan_kernel(
+        *map(torch.from_numpy, (x, dt, np.tile(A, B), Bm, Cm)), chunk,
+        None if s0 is None else torch.from_numpy(s0))
+    assert_close(ty.numpy(), jy)
+    assert_close(ts.numpy(), js)
+
+
+def test_mamba2_scan_plain_pads_a_short_last_chunk():
+    """A last chunk shorter than Q (the kernel's ragged edge): zero padding
+    adds nothing, so y and the state equal the divisible chunking's."""
+    x, dt, A, Bm, Cm = (torch.from_numpy(a)[:, :, None] if a.ndim > 1
+                        else torch.from_numpy(a)
+                        for a in _mamba_inputs(2, 60, 8, 4, seed=3))
+    y16, s16 = tms_mod.mamba2_scan_plain(x, dt, A, Bm, Cm, 15)
+    y24, s24 = tms_mod.mamba2_scan_plain(x, dt, A, Bm, Cm, 24)
+    assert_close(y24.numpy(), y16.numpy())
+    assert_close(s24.numpy(), s16.numpy())
+
+
+def _rwkv_inputs(BH, S, N, seed=0):
+    rng = np.random.RandomState(seed)
+    r = rng.randn(BH, S, N).astype(np.float32)
+    k = (rng.randn(BH, S, N) * 0.3).astype(np.float32)
+    v = rng.randn(BH, S, N).astype(np.float32)
+    w = (1 / (1 + np.exp(-rng.randn(BH, S, N)))).astype(np.float32)
+    u = (rng.randn(BH, N) * 0.1).astype(np.float32)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("S,N,chunk", [(128, 8, 32), (64, 16, 64),
+                                       (96, 32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_matches_reference_kernel(S, N, chunk, dtype):
+    arrays = _rwkv_inputs(3, S, N)
+    jargs, targs = _both_dtypes(arrays, dtype)
+    ref = j_rwkv(*jargs, chunk=chunk)
+    y, state = t_rwkv(*targs)
+    assert y.dtype == targs[0].dtype and state.shape == (3, N, N)
+    assert_close(to_np(y), ref, dtype)
+
+
+@pytest.mark.parametrize("S,Q", [(64, 16), (62, 31)])
+def test_rwkv6_scan_final_state_matches_chunked_form(S, Q):
+    """The sequential recurrence from a nonzero state against the reference
+    model's chunked closed form (``_rwkv6_chunked``): y and final state."""
+    rng = np.random.RandomState(4)
+    B, H, N = 2, 2, 8
+    r, k, v, w = (a.reshape(B, H, S, N).transpose(0, 2, 1, 3).copy()
+                  for a in _rwkv_inputs(B * H, S, N, seed=4)[:4])
+    u = (rng.randn(H, N) * 0.1).astype(np.float32)
+    s0 = (rng.randn(B, H, N, N) * 0.5).astype(np.float32)
+    jy, js = _rwkv6_chunked(*map(jnp.asarray, (r, k, v, w, u, s0)), Q)
+    ty, ts = trs_mod.rwkv6_scan_kernel(
+        *map(torch.from_numpy, (r, k, v, w, np.tile(u, (B, 1)), s0)))
+    assert_close(ty.numpy(), jy)
+    assert_close(ts.numpy(), js)
+
+
+def test_scan_and_attention_wrappers_check_inputs_and_count_no_plain_runs():
+    counts = (tfa_mod.LAUNCHES, tms_mod.LAUNCHES, trs_mod.LAUNCHES)
+    q = torch.zeros((1, 4, 3, 16))
+    with pytest.raises(ValueError):                 # H not a multiple of KV
+        tfa_mod.flash_attention_kernel(q, torch.zeros((1, 4, 2, 16)),
+                                       torch.zeros((1, 4, 2, 16)))
+    with pytest.raises(ValueError):                 # A not [B * H]
+        tms_mod.mamba2_scan_kernel(torch.zeros((1, 8, 2, 4)),
+                                   torch.zeros((1, 8, 2)), torch.zeros(1),
+                                   torch.zeros((1, 8, 1, 4)),
+                                   torch.zeros((1, 8, 1, 4)), 4)
+    with pytest.raises(ValueError):                 # u not [B * H, N]
+        trs_mod.rwkv6_scan_kernel(*[torch.zeros((1, 8, 2, 4))] * 4,
+                                  torch.zeros((2, 3)))
+    tfa_mod.flash_attention_kernel(q, q, q)
+    tms_mod.mamba2_scan_kernel(torch.zeros((1, 8, 2, 4)),
+                               torch.zeros((1, 8, 2)), torch.zeros(2),
+                               torch.zeros((1, 8, 1, 4)),
+                               torch.zeros((1, 8, 1, 4)), 4)
+    trs_mod.rwkv6_scan_kernel(*[torch.zeros((1, 8, 2, 4))] * 4,
+                              torch.zeros((2, 4)))
+    # the counters count CUDA launches only: the plain versions ran here
+    assert (tfa_mod.LAUNCHES, tms_mod.LAUNCHES, trs_mod.LAUNCHES) == counts
