@@ -1,16 +1,11 @@
-"""Placement for the sharded keyed-state plane (DESIGN.md §9) and the
-models' logical-axis annotations.
+"""Placement for the sharded keyed-state plane (DESIGN.md §9).
 
-``shard_owner_map`` is ported as it stands: the serving router builds its
-default bin table from it, and its source equals the reference's
-(tests/test_torch_isolation.py).  ``constraint`` is the reference's
-annotation without a mesh, where it returns its input: the port runs on
-one card.  The logical-axis sharding rules come with the launch slice of
-the port.
+Only ``shard_owner_map`` is ported so far: the serving router builds its
+default bin table from it.  Its source equals the reference's
+(tests/test_torch_isolation.py).  The logical-axis sharding rules of the
+reference module come with the launch slice of the port.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 
 def shard_owner_map(n_shards: int, n_owners: int) -> list:
@@ -20,9 +15,3 @@ def shard_owner_map(n_shards: int, n_owners: int) -> list:
     if n_shards < n_owners:
         raise ValueError(f"n_shards={n_shards} < n_owners={n_owners}")
     return [s % n_owners for s in range(n_shards)]
-
-
-def constraint(x, *logical: Optional[str]):
-    """Sharding annotation by logical axis names; without a mesh (the only
-    case the port has) it returns ``x``, as the reference does."""
-    return x

@@ -12,8 +12,10 @@ Conventions, as in the reference
 * ``blocked_attention`` is the hand-written flash-attention kernel
   (``kernels/flash_attention``, K6) on the card and its plain version on
   the CPU; the reference's blocks and ``attn_impl`` only tile the same
-  function, so the port takes them and lets the kernel choose its tiles.
-* ``constraint`` is a no-op without a mesh, as in the reference.
+  function, so the port has neither and the kernel chooses its tiles.
+* The reference's sharding annotations (``constraint``) and its bf16
+  gradient casts return their input on one device in the forward pass;
+  the port leaves them out until a mesh or a training slice needs them.
 
 MLA and MoE layers come with a later slice of the port (ROADMAP.md §1,
 "Model zoo: MLA and MoE"); ``models/lm.py`` raises for their configs.
@@ -29,16 +31,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_kernel
-from repro_torch.launch.sharding import constraint
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
-
-
-def bf16_grad(x: torch.Tensor) -> torch.Tensor:
-    """Identity in the forward pass (the reference casts the gradient to
-    bf16 in its backward; the port has no training yet)."""
-    return x
 
 
 # --------------------------------------------------------------------- basics
@@ -100,19 +95,11 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 # ------------------------------------------------------------------ attention
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, q_block: int, kv_block: int,
-                      impl: str = "masked", q_offset: int = 0
-                      ) -> torch.Tensor:
+                      causal: bool) -> torch.Tensor:
     """Flash-style attention.  q [B,S,H,dk]; k [B,T,KV,dk]; v [B,T,KV,dv];
-    H = KV*G.  Returns [B,S,H,dv] in q's type.  ``q_block``, ``kv_block``
-    and ``impl`` tile the reference's loop and do not change the function;
-    the kernel tiles by itself and bounds-checks ragged S and T.  Only
-    ``q_offset=0`` (every caller of the reference) is supported."""
-    if q_offset:
-        raise NotImplementedError("blocked_attention: the kernel masks "
-                                  "causally from position 0 only")
-    if impl not in ("masked", "balanced"):
-        raise ValueError(f"unknown attn_impl {impl!r}")
+    H = KV*G.  Returns [B,S,H,dv] in q's type.  The kernel tiles by itself
+    and bounds-checks ragged S and T; the causal mask starts at position 0
+    (the reference's ``q_offset=0``, which every caller passes)."""
     return flash_attention_kernel(q, k, v, causal)
 
 
@@ -209,11 +196,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         sin_k, cos_k = rope_angles(torch.arange(T, device=x.device), hd,
                                    cfg.rope_theta)
         k = apply_rope(k, sin_k, cos_k)
-    q = constraint(q, "batch", "seq", "heads", None)
-    k = constraint(k, "batch", "seq", "kv_heads", None)
-    v = constraint(v, "batch", "seq", "kv_heads", None)
-    o = blocked_attention(q, k, v, causal=causal, q_block=cfg.attn_q_block,
-                          kv_block=cfg.attn_kv_block, impl=cfg.attn_impl)
+    o = blocked_attention(q, k, v, causal=causal)
     o = o.to(x.dtype).reshape(B, S, H * hd)
     return dense(o, p["wo"])
 
@@ -257,5 +240,4 @@ def ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     g = dense(x, p["w_gate"])
     u = dense(x, p["w_up"])
     h = act_fn(act)(g.float()).to(x.dtype) * u
-    h = constraint(h, "batch", "seq", "mlp")
     return dense(h, p["w_down"])

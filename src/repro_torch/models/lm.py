@@ -31,7 +31,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.sharding import constraint
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_rope, attention,
                                        attention_decode, dense, ffn, full,
@@ -69,8 +68,7 @@ def _embed(p, tokens: torch.Tensor) -> torch.Tensor:
 
 def logits_last(h_last: torch.Tensor, w_head: torch.Tensor) -> torch.Tensor:
     """h_last [B,D] -> [B,V] fp32."""
-    return constraint(matmul_f32(h_last, w_head, "bd,dv->bv"),
-                      "batch", "vocab")
+    return matmul_f32(h_last, w_head, "bd,dv->bv")
 
 
 class ParamTree(nn.Module):
@@ -218,7 +216,7 @@ def _block_prefill(p, h: torch.Tensor, cfg: ModelConfig):
     h = h + a
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     f = ffn(p["ffn"], hn2, cfg.hidden_act)
-    return constraint(h + f, "batch", "seq", "embed"), kv
+    return h + f, kv
 
 
 def _block_decode(p, h: torch.Tensor, cache, pos, cfg: ModelConfig):
@@ -267,8 +265,7 @@ class DecoderLM(Model):
 
     def prefill(self, batch: Batch):
         cfg = self.cfg
-        h = constraint(_embed(self, self._tokens(batch)),
-                       "batch", "seq", "embed")
+        h = _embed(self, self._tokens(batch))
         ks, vs = [], []
         for lp in self["layers"]:
             h, (k, v) = _block_prefill(lp, h, cfg)
@@ -281,8 +278,7 @@ class DecoderLM(Model):
 
     def decode(self, cache, batch: Batch):
         cfg = self.cfg
-        h = constraint(_embed(self, self._tokens(batch)),
-                       "batch", "seq", "embed")
+        h = _embed(self, self._tokens(batch))
         pos = int(batch["pos"])
         c0, c1 = cache["kv"]
         nks, nvs = [], []
@@ -445,7 +441,7 @@ class RWKV6LM(Model):
             h = h + a
             c, sc2 = ssm_mod.rwkv6_channel_mix(
                 lp["mix"], rms_norm(h, lp["ln2"], cfg.norm_eps), s_chan[i])
-            h = constraint(h + c, "batch", "seq", "embed")
+            h = h + c
             sa.append(sa2)
             sw.append(sw2)
             sc.append(sc2)

@@ -1,14 +1,15 @@
 """Mamba2 (SSD, chunked) and RWKV6 (Finch, data-dependent decay) blocks, in
 PyTorch: the port of ``repro/models/ssm.py``.
 
-Prefill runs the chunk-parallel forms: ``ssd_chunked`` is the hand-written
-SSD scan (``kernels/mamba2_scan``, K7) and ``rwkv6_time_mix``'s chunked
-branch the hand-written RWKV6 scan (``kernels/rwkv6_scan``, K8), each on
-the card, with its plain version on the CPU.  K8 computes the sequential
-recurrence where the reference takes its chunked closed form
-(``_rwkv6_chunked``); the two are the same function up to rounding.
-Decode is the O(1)-per-token state update in plain PyTorch, as in the
-reference.
+Prefill runs ``ssd_chunked``, the hand-written SSD scan
+(``kernels/mamba2_scan``, K7), on the card, with its plain version on the
+CPU; Mamba2 decode is the O(1)-per-token state update in plain PyTorch, as
+in the reference.  ``rwkv6_time_mix`` runs the hand-written RWKV6 scan
+(``kernels/rwkv6_scan``, K8) at every length, decode's single step
+included: K8 computes the sequential recurrence where the reference takes
+its chunked closed form (``_rwkv6_chunked``) for lengths that divide into
+chunks and steps one token at a time for the others; all three are the
+same function up to rounding.
 """
 from __future__ import annotations
 
@@ -20,9 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels.mamba2_scan.mamba2_scan import mamba2_scan_kernel
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_kernel
-from repro_torch.launch.sharding import constraint
-from repro_torch.models.layers import (bf16_grad, dense, full, normal,
-                                       rms_norm)
+from repro_torch.models.layers import dense, full, normal, rms_norm
 
 Params = Dict[str, Any]
 
@@ -100,19 +99,18 @@ def mamba2_block_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig
     s: SSMConfig = cfg.ssm
     B, S, D = x.shape
     d_in, H, P, N, conv_dim = mamba2_dims(cfg)
-    z = bf16_grad(dense(x, p["w_z"]))
-    x_pre = bf16_grad(dense(x, p["w_x"]))
-    B_pre = bf16_grad(dense(x, p["w_Bm"]))
-    C_pre = bf16_grad(dense(x, p["w_Cm"]))
-    dt = bf16_grad(dense(x, p["w_dt"]))
+    z = dense(x, p["w_z"])
+    x_pre = dense(x, p["w_x"])
+    B_pre = dense(x, p["w_Bm"])
+    C_pre = dense(x, p["w_Cm"])
+    dt = dense(x, p["w_dt"])
     conv_tail = torch.cat([x_pre, B_pre, C_pre],
                           dim=-1)[:, -(s.conv_kernel - 1):, :]
 
     def conv(v, w, b):
         return F.silu(_causal_conv(v, w, b).float()).to(x.dtype)
 
-    xs = conv(x_pre, p["conv_x"], p["conv_bx"])
-    xs = constraint(xs, "batch", "seq", "ssm_inner").reshape(B, S, H, P)
+    xs = conv(x_pre, p["conv_x"], p["conv_bx"]).reshape(B, S, H, P)
     Bm = conv(B_pre, p["conv_B"], p["conv_bB"]).reshape(B, S, s.n_groups, N)
     Cm = conv(C_pre, p["conv_C"], p["conv_bC"]).reshape(B, S, s.n_groups, N)
     dt = F.softplus(dt.float() + p["dt_bias"])
@@ -238,24 +236,9 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, shift_state: torch.Tensor,
     ww = p["w0"] + dense(torch.tanh(dense(xw, p["decay_A"])),
                          p["decay_B"]).float()
     w = torch.exp(-torch.exp(ww)).reshape(B, S, H, N)      # decay in (0,1)
-    u = p["u"]
-
-    chunk = cfg.ssm.chunk if cfg.ssm else 0
-    if S > 1 and chunk and S % min(chunk, S) == 0:
-        u_bh = u.float().reshape(1, H, N).expand(B, H, N).reshape(B * H, N)
-        y, new_state = rwkv6_scan_kernel(r, kk, v, w.contiguous(), u_bh,
-                                         wkv_state.float())
-    else:
-        state = wkv_state.float()
-        ys = []
-        for t in range(S):
-            rt, kt, vt, wt = r[:, t], kk[:, t], v[:, t], w[:, t]  # [B,H,N]
-            kv = kt[..., :, None] * vt[..., None, :]       # [B,H,N,N]
-            ys.append(torch.einsum("bhi,bhij->bhj", rt,
-                                   state + u[..., :, None] * kv))
-            state = wt[..., :, None] * state + kv
-        new_state = state
-        y = torch.stack(ys, dim=1)
+    u_bh = p["u"].float().reshape(1, H, N).expand(B, H, N).reshape(B * H, N)
+    y, new_state = rwkv6_scan_kernel(r, kk, v, w.contiguous(), u_bh,
+                                     wkv_state.float())
     y = y.reshape(B, S, D)                                 # fp32
     y = _group_norm_heads(y, p["ln_scale"], p["ln_bias"], H)
     y = (y * g).to(x.dtype)
@@ -269,8 +252,7 @@ def rwkv6_channel_mix(p: Params, x: torch.Tensor, shift_state: torch.Tensor
     dx = x_prev - x
     xk = x + dx * p["cm_mu_k"]
     xr = x + dx * p["cm_mu_r"]
-    k = torch.square(F.relu(dense(xk, p["cm_wk"]).float()))
-    k = constraint(k.to(x.dtype), "batch", "seq", "mlp")
+    k = torch.square(F.relu(dense(xk, p["cm_wk"]).float())).to(x.dtype)
     out = torch.sigmoid(dense(xr, p["cm_wr"]).float()).to(x.dtype) \
         * dense(k, p["cm_wv"])
     return out, x[:, -1, :]

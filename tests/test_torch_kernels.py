@@ -606,6 +606,68 @@ def test_mamba2_scan_plain_pads_a_short_last_chunk():
     assert_close(s24.numpy(), s16.numpy())
 
 
+@pytest.mark.parametrize("S,P,N,chunk", [(128, 16, 8, 32), (62, 16, 8, 31)])
+def test_mamba2_scan_with_state_dropped_fails_reference_check(S, P, N,
+                                                              chunk):
+    """A planted fault, the scan with the state dropped at every chunk
+    boundary (``chip_smoke.mamba_state_dropped``), fails the comparison
+    with the Pallas kernel that the port's scan passes."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import mamba_state_dropped
+    x, dt, A, Bm, Cm = _mamba_inputs(3, S, P, N)
+    ref = j_mamba(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=chunk)
+    tx, tdt, tB, tC = (torch.from_numpy(a)[:, :, None] for a in (x, dt, Bm,
+                                                                 Cm))
+    assert_close(t_mamba(*(a[:, :, 0] for a in (tx, tdt)),
+                         torch.from_numpy(A), tB[:, :, 0], tC[:, :, 0],
+                         chunk=chunk)[0].numpy(), ref)
+    fault = mamba_state_dropped(tx, tdt, torch.from_numpy(A), tB, tC, chunk)
+    with pytest.raises(AssertionError):
+        assert_close(fault[:, :, 0].numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_scan_gate_rejects_planted_faults(dtype):
+    """``chip_smoke.scan_agrees``, the gate between K7/K8 and their plain
+    versions on the card: it passes the plain output itself and one
+    rounding away, and fails the SSD scan with the state dropped at chunk
+    boundaries, the RWKV6 scan with its initial state dropped, errors of a
+    typical element's size, an all-zero output and NaNs."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import TOL, mamba_state_dropped, scan_agrees
+    tdt = DTYPES[dtype][1]
+    tol = TOL[tdt]
+    rng = np.random.RandomState(7)
+    B, S, H, P, N, Q = 2, 256, 4, 16, 16, 32
+    x, Bm, Cm = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to(tdt) for shape in ((B, S, H, P), (B, S, 1, N),
+                                        (B, S, 1, N)))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.randn(B, S, H)))
+                          .astype(np.float32))
+    A = torch.from_numpy((-np.exp(rng.randn(B * H) * 0.5)).astype(np.float32))
+    y, _ = tms_mod.mamba2_scan_plain(x, dt, A, Bm, Cm, Q)
+    r, k, v, w = (torch.from_numpy(a.reshape(B, H, S, N).transpose(0, 2, 1, 3)
+                                   .copy()).to(tdt)
+                  for a in _rwkv_inputs(B * H, S, N, seed=7)[:4])
+    u = torch.from_numpy((rng.randn(B * H, N) * 0.1).astype(np.float32))
+    s0 = torch.from_numpy((rng.randn(B, H, N, N) * 0.5).astype(np.float32))
+    ry, rst = trs_mod.rwkv6_scan_plain(r, k, v, w, u, s0)
+    for plain in (y, ry, rst):
+        assert scan_agrees(plain, plain, tol)
+        assert scan_agrees((plain.double() * (1 + tol / 4)).to(plain.dtype),
+                           plain, tol)
+        rms = float(plain.float().square().mean().sqrt())
+        noise = torch.from_numpy(rng.randn(*plain.shape).astype(np.float32))
+        assert not scan_agrees((plain.float() + 0.5 * rms * noise)
+                               .to(plain.dtype), plain, tol)
+        assert not scan_agrees(torch.zeros_like(plain), plain, tol)
+        assert not scan_agrees(torch.full_like(plain, float("nan")), plain,
+                               tol)
+    assert not scan_agrees(mamba_state_dropped(x, dt, A, Bm, Cm, Q), y, tol)
+    assert not scan_agrees(trs_mod.rwkv6_scan_plain(r, k, v, w, u)[0], ry,
+                           tol)
+
+
 def _rwkv_inputs(BH, S, N, seed=0):
     rng = np.random.RandomState(seed)
     r = rng.randn(BH, S, N).astype(np.float32)

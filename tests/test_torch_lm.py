@@ -199,3 +199,28 @@ def test_run_serving_prefetch_beats_sync(arch, prompt_len):
     assert base["n_tokens"] == kp["n_tokens"] == 24 * 2
     assert kp["staging_overlap"] > base["staging_overlap"]
     assert kp["ttft_p99"] < base["ttft_p99"]
+
+
+@pytest.mark.parametrize("arch,n_calls", [("zamba2-2.7b", 6),
+                                          ("rwkv6-3b", 2)])
+def test_smoke_layer_witness_records_each_kernel_layer(arch, n_calls):
+    """``chip_smoke.recorded_prefill``, the models phase's bf16 witness:
+    it records every call of the layers that run K6-K8 in one prefill
+    (zamba2's smoke model: two shared-attention calls and four Mamba2
+    blocks; rwkv6's: two time mixes), leaves the model's logits as they
+    were, puts the functions back, and ``layer_rels`` reruns each call on
+    the CPU from its recorded inputs: equal here, where both runs are the
+    same."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import WITNESS, layer_rels, recorded_prefill
+    cfg = t_smoke(arch).replace(dtype="bfloat16")
+    model = build_model(cfg, "cpu").init_params(
+        torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, 64)).astype(np.int32))
+    before = [getattr(mod, name) for mod, name in WITNESS[arch]]
+    logits, _, calls = recorded_prefill(model, toks, WITNESS[arch])
+    assert [getattr(mod, name) for mod, name in WITNESS[arch]] == before
+    assert len(calls) == n_calls
+    assert torch.equal(logits, model.prefill({"tokens": toks})[0])
+    assert layer_rels(calls) == [0.0] * n_calls

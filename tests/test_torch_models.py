@@ -92,15 +92,15 @@ def test_rope_matches_reference():
                                            (45, False, "masked")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_blocked_attention_matches_reference(S, causal, impl, dtype):
-    """Masked and balanced, and S = 45, which the reference pads to its
+    """Masked and balanced (the reference's two tilings of the one function
+    the port computes), and S = 45, which the reference pads to its
     16-blocks and the port's kernel takes as it is."""
     jq, tq = _x((2, S, 4, 16), dtype)
     jk, tk = _x((2, S, 2, 16), dtype, seed=1)
     jv, tv = _x((2, S, 2, 16), dtype, seed=2)
     ref = jl.blocked_attention(jq, jk, jv, causal=causal, q_block=16,
                                kv_block=16, impl=impl)
-    out = tl.blocked_attention(tq, tk, tv, causal=causal, q_block=16,
-                               kv_block=16, impl=impl)
+    out = tl.blocked_attention(tq, tk, tv, causal=causal)
     assert out.shape == ref.shape
     assert_close(to_np(out), ref, dtype)
 
@@ -161,11 +161,13 @@ def test_mamba2_block_and_decode_match_reference(dtype):
         assert_close(to_np(o), r, dtype)
 
 
-@pytest.mark.parametrize("S", [64, 45, 1])
+@pytest.mark.parametrize("S", [64, 45, 200, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rwkv6_time_and_channel_mix_match_reference(S, dtype):
-    """S = 64 takes the chunked branch (the port's scan kernel), S = 45 and
-    S = 1 (decode) the step branch; from nonzero shift and wkv states."""
+    """From nonzero shift and wkv states.  The reference takes its chunked
+    closed form at S = 64 and steps one token at a time at S = 45, 200 (no
+    multiple of its chunk) and 1 (decode); the port runs its scan kernel at
+    every length."""
     jcfg, tcfg = _smoke("rwkv6-3b", dtype)
     jp = jssm.init_rwkv6(jax.random.PRNGKey(3), jcfg, DTYPES[dtype][0])
     jp["u"] = jp["u"] + 0.2
