@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -97,6 +98,13 @@ PAGE_KEY_STRIDE = 4096         # page key = sid * stride + page_idx + 1
 # decode_32k (configs/base.py) at qwen2.5-32b's attention width
 DECODE_32K = dict(seqs=128, kv_heads=8, q_heads=40, head_dim=128,
                   seq_len=32768, page=64, plain_seqs=16)
+# the earlier designs' times at the timed attention shapes (K6 on the CUDA
+# cores in fp32, K5 one block per row), NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md's kernel table), printed beside the new ones
+EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
+              ("flash_attention", "gemma-7b prefill"): 17.322079467773438,
+              ("decode_attention", "serve"): 0.8877887725830078,
+              ("decode_attention", "decode_32k"): 11.61456044514974}
 
 
 def emit(phase: str, **kw) -> None:
@@ -138,6 +146,20 @@ def bound(nbytes: float, ops: float = 0.0, peak: float = SCALAR_OPS_PER_S):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def build_facts(source: str, *needles: str):
+    """ptxas's registers, static shared memory, stack and spill bytes for
+    each kernel of ``csrc/<source>.cu`` whose mangled name holds one of
+    ``needles`` (a template instance), from this run's build."""
+    return {fn: facts for fn, facts in cuda_build.ptxas_report(source).items()
+            if any(n in fn for n in needles)}
+
+
+def timed_extras(kernel: str, label: str, ms: float, b_ms: float) -> dict:
+    """The share of the bound a timed row reached and its earlier time."""
+    return dict(bound_share=b_ms / ms if ms else None,
+                earlier_ms=EARLIER_MS.get((kernel, label)))
 
 
 # ------------------------------------------------------------ kernel checks
@@ -287,19 +309,57 @@ def decode_bound(q, seq_lens, P: int, page: int):
     return bound(nbytes, ops=4.0 * tokens * H * d, peak=peak_for(q.dtype))
 
 
-def decode_case(B, H, d, page, P, dtype, seed=0, n_slots=None, length=None):
+def decode_case(B, H, d, page, P, dtype, seed=0, n_slots=None, length=None,
+                lens=None):
     """tests/test_kernels.py's construction: each sequence's pages are
     distinct random slots of a pool of B * P + 3 (or ``n_slots``) pages,
-    lengths random in [1, P * page] (or all ``length``)."""
+    lengths random in [1, P * page] (or all ``length``).  Given ``lens``
+    (one a row), the table entries of pages at or past each length are -1,
+    as a probe miss leaves them."""
     rng = np.random.default_rng(seed)
     n_slots = n_slots or B * P + 3
     rnd = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape, dtype=np.float32)).to(dtype).cuda()
     q, kp, vp = rnd(B, H, d), rnd(n_slots, page, d), rnd(n_slots, page, d)
     pt = rng.permutation(n_slots)[:B * P].reshape(B, P).astype(np.int32)
-    lens = np.full(B, length, np.int32) if length else \
-        rng.integers(1, P * page + 1, B).astype(np.int32)
+    if lens is not None:
+        lens = np.asarray(lens, np.int32)
+        pt[np.arange(P)[None, :] * page >= lens[:, None]] = -1
+    elif length:
+        lens = np.full(B, length, np.int32)
+    else:
+        lens = rng.integers(1, P * page + 1, B).astype(np.int32)
     return q, kp, vp, torch.from_numpy(pt).cuda(), torch.from_numpy(lens).cuda()
+
+
+def decode_split_dropped(q, k_pages, v_pages, page_table, seq_lens):
+    """A planted fault: the plain output with the positions of one split,
+    the last quarter of each row, masked (a merge that lost a split)."""
+    return da.paged_decode_plain(q, k_pages, v_pages, page_table,
+                                 seq_lens - seq_lens // 4)
+
+
+def flash_rescale_dropped(q, k, v, causal: bool = True, tile: int = 64):
+    """A planted fault: the plain attention with the running-max rescale
+    (alpha) dropped between key tiles of ``tile``: each tile's
+    probabilities are taken against the running max up to that tile, and
+    the sums of earlier tiles are never rescaled when it rises."""
+    B, S, H, d = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    s = torch.einsum("bskgd,btkd->bkgst", q.float().reshape(B, S, KV, G, d),
+                     k.float()) * (1.0 / math.sqrt(d))
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] \
+            >= torch.arange(T, device=q.device)[None, :]
+        s = torch.where(mask, s, fa.NEG_INF)
+    n = -(-T // tile)
+    tiles = torch.nn.functional.pad(s, (0, n * tile - T), value=fa.NEG_INF)
+    run = tiles.reshape(*s.shape[:-1], n, tile).amax(-1).cummax(-1).values
+    p = torch.exp(s - run.repeat_interleave(tile, -1)[..., :T])
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float()) \
+        / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def decode_32k_case(c):
@@ -344,6 +404,9 @@ def sdpa_yardstick(args, kv_heads: int, out):
 
 
 def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
+    """K5 against its plain version; timed rows also require the gate to
+    reject a planted fault (``decode_split_dropped``) and add the times,
+    the bound, the split count and the build facts."""
     q, kp, vp, pt, lens = args
     k = da.paged_decode_attention_kernel(*args)
     n = q.shape[0] if plain_rows is None else plain_rows
@@ -358,21 +421,36 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
         raise AssertionError(f"decode_attention differs at {label}: "
                              f"{max_err(k[:n], p)}")
     B, H, d = q.shape
+    P = pt.shape[1]
     row = dict(kernel="decode_attention", shape=label, B=B, H=H, d=d,
-               page=kp.shape[1], P=pt.shape[1], n_slots=kp.shape[0],
-               dtype=str(q.dtype).split(".")[-1], checked_rows=n,
-               max_abs_err=max_err(k[:n], p),
+               page=kp.shape[1], P=P, n_slots=kp.shape[0],
+               dtype=str(q.dtype).split(".")[-1], splits=da.splits_for(q, P),
+               checked_rows=n, max_abs_err=max_err(k[:n], p),
                plain_max_abs=float(p.float().abs().max()))
     if timed:
-        b_ms, b_by = decode_bound(q, lens, pt.shape[1], kp.shape[1])
+        fault = decode_split_dropped(*pargs)
+        row["planted_fault_max_abs_err"] = max_err(fault, p)
+        if decode_agrees(fault, p, tol):
+            raise AssertionError(f"decode_attention at {label}: the check "
+                                 f"would pass an output that lost a split")
+        del fault
+        b_ms, b_by = decode_bound(q, lens, P, kp.shape[1])
         big = kp.numel() * kp.element_size() > (1 << 30)
         reps, rounds = (3, 5) if big else (20, 7)
-        row.update(ms=device_ms(lambda: da.attention_in_range(*args), reps,
-                                rounds),
+        ms = device_ms(lambda: da.attention_in_range(*args), reps, rounds)
+        heads, per_sm = da.launch_plan(d, H, q.dtype)
+        pass1 = (f"decode_bf16_kernelILi{d}E" if q.dtype == torch.bfloat16
+                 else f"decode_kernelIfLi{d}ELi{heads}E")
+        tc = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
+        row.update(ms=ms,
                    plain_ms=device_ms(lambda: da.paged_decode_plain(*pargs),
                                       reps, rounds),
                    plain_ms_rows=n, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None)
+                   library_ms=None,
+                   **timed_extras("decode_attention", label, ms, b_ms),
+                   heads_per_block=heads, blocks_per_sm=per_sm,
+                   build=build_facts("decode_attention", pass1,
+                                     f"merge_kernelI{tc}E"))
         if kv_heads:
             row["sdpa_contiguous_ms"], row["sdpa_max_abs_diff"] = \
                 sdpa_yardstick(args, kv_heads, k)
@@ -471,12 +549,14 @@ def agrees_or_raise(name, label, out, plain, tol, agrees=decode_agrees):
                              f"{max_err(out, plain)}")
 
 
-def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0):
+def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
+                fault=False):
     """K6 on q [B, S, H, d] and k/v [B, S, KV, d] drawn from a seeded
-    normal, against its plain version; timed rows add the plain version's
-    time, the bound (causal flops 2 * 2 * S * T * d * B * H / 2 at the peak
-    for the operands' type) and ``scaled_dot_product_attention`` on the
-    same tensors."""
+    normal, against its plain version; with ``fault`` the gate must also
+    reject a planted fault (``flash_rescale_dropped``).  Timed rows add the
+    plain version's time, the bound (causal flops 2 * 2 * S * T * d * B * H
+    / 2 at the peak for the operands' type), ``scaled_dot_product_attention``
+    on the same tensors and the build facts."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = randn((B, S, H, d), dtype, g)
     k = randn((B, S, KV, d), dtype, g)
@@ -489,6 +569,14 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0):
                d=d, causal=causal, dtype=dtype_name(dtype),
                max_abs_err=max_err(out, plain),
                plain_max_abs=float(plain.float().abs().max()))
+    if fault:
+        bad = flash_rescale_dropped(q, k, v, causal)
+        row["planted_fault_max_abs_err"] = max_err(bad, plain)
+        if decode_agrees(bad, plain, TOL[dtype]):
+            raise AssertionError(f"flash_attention at {label}: the check "
+                                 f"would pass attention without the "
+                                 f"running-max rescale")
+        del bad
     del plain
     if timed:
         it = q.element_size()
@@ -498,8 +586,11 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
-        row.update(ms=device_ms(lambda: fa.flash_attention_kernel(
-                       q, k, v, causal), reps=5, rounds=5),
+        ms = device_ms(lambda: fa.flash_attention_kernel(q, k, v, causal),
+                       reps=5, rounds=5)
+        needle = (f"flash_bf16_kernelILi{d}E" if dtype == torch.bfloat16
+                  else f"flash_kernelIfLi{d}E")
+        row.update(ms=ms,
                    plain_ms=device_ms(lambda: fa.flash_attention_plain(
                        q, k, v, causal), reps=3, rounds=3),
                    bound_ms=b_ms, bound_by=b_by,
@@ -507,7 +598,10 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0):
                        qt, kt, vt, is_causal=causal, enable_gqa=KV != H),
                        reps=5, rounds=5),
                    library="scaled_dot_product_attention(is_causal=True)",
-                   library_max_abs_diff=max_err(lib.transpose(1, 2), out))
+                   library_max_abs_diff=max_err(lib.transpose(1, 2), out),
+                   **timed_extras("flash_attention", label, ms, b_ms),
+                   dynamic_smem_bytes=fa.smem_bytes(d, dtype),
+                   build=build_facts("flash_attention", needle))
         del lib
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
@@ -645,7 +739,7 @@ def lm_kernel_phase():
             note(check_rwkv(1, S, 3, N, dtype, f"sweep {S, N}"))
     main["flash_attention"] = note(check_flash(
         4, 2048, 32, 32, 80, torch.bfloat16, True, "zamba2-2.7b prefill",
-        timed=True))
+        timed=True, fault=True))
     note(check_flash(4, 2048, 16, 16, 256, torch.bfloat16, True,
                      "gemma-7b prefill", timed=True))
     main["mamba2_scan"] = note(check_mamba(
@@ -703,6 +797,18 @@ def kernel_phase():
                                  (4, 16, 16, 8, 8)):
             r = check_decode(decode_case(B, H, d, page, P, dtype),
                              f"test_kernels {B, H, d, page, P}")
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           r["max_abs_err"])
+        # rows of length 0 and 1, rows whose trailing splits hold no page
+        # (table entries past seq_len -1), a one-page table, and enough
+        # rows that a split holds several pages
+        for B, H, d, page, P, lens in (
+                (4, 5, 128, 16, 32, (0, 1, 40, 512)),
+                (3, 8, 32, 16, 1, (0, 1, 16)),
+                (160, 5, 64, 8, 40, (0, 1, *np.random.default_rng(9)
+                                     .integers(0, 321, 158)))):
+            r = check_decode(decode_case(B, H, d, page, P, dtype, lens=lens),
+                             f"edge {B, H, d, page, P}")
             errs["decode_attention"] = max(errs["decode_attention"],
                                            r["max_abs_err"])
     main["decode_attention"] = check_decode(
@@ -1234,9 +1340,19 @@ def params_on_cpu(module):
     return tree
 
 
+def port_kernel_names() -> set:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"(\w+)\s*\(")
+    return {name for src in cuda_build.CSRC.glob("*.cu")
+            for name in pat.findall(src.read_text())}
+
+
 def profile_step(fn, top: int = 10):
     """Device time of one call by kernel, from ``torch.profiler``: the
-    call's wall ms, the device's busy ms and the heaviest kernels."""
+    call's wall ms, the device's busy ms, the heaviest kernels, and the
+    port's own kernels (``csrc/``) with their share of the busy time,
+    heavy or not."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1246,9 +1362,14 @@ def profile_step(fn, top: int = 10):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy, ops, full = device_activity(prof)
+    ours = tuple(f"(anonymous namespace)::{k}{c}" for k in port_kernel_names()
+                 for c in "<(")
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 device_busy_share=busy / wall_ms, launch_queue_full=full,
-                device_ops=[[name[:70], n, ms] for name, n, ms in ops[:top]])
+                device_ops=[[name[:70], n, ms] for name, n, ms in ops[:top]],
+                port_kernels=[[name[:70], n, ms, ms / busy]
+                              for name, n, ms in ops
+                              if any(k in name for k in ours)])
 
 
 def consistency(model, cfg, S: int):

@@ -20,24 +20,40 @@
 // flops per byte of bf16 K/V, far below the ~295 the card needs before its
 // arithmetic binds.
 //
-// Design: one block of 128 threads per (row, chunk of up to G query heads),
-// looping over the row's pages in order.  A "worker" is a group of
-// D / (16 / sizeof(T)) lanes that owns one token at a time: each lane loads
-// one 16-byte vector of the token's K row and one of its V row (4 fp32 or 8
-// bf16 values, converted to fp32 on load), the group sums its partial dots
-// with shuffles, and every worker keeps its own running max, sum and
-// [G, D] accumulator in fp32 registers over the tokens it owns, two tokens a
-// step so that four loads are in flight per lane.  At the end the workers'
-// states are merged through shared memory.  Split-K over pages, TMA and
-// wgmma are not used.
+// Design: split-K over pages, two passes.  Pass 1: one block of 128
+// threads per (row, chunk of query heads, split), where a split is a
+// contiguous range of the row's page table; the wrapper picks the number of
+// splits so that few rows still fill the card's SMs and many rows fill
+// whole waves of resident blocks.  Each block keeps a running max, sum and
+// [heads, D] accumulator in fp32.  With one split it writes
+// out = acc / max(l, 1e-30); otherwise its (max, sum, accumulator) go to
+// fp32 scratch and pass 2, one block per (row, head), combines the splits
+// in order with log-sum-exp weights.  A split whose pages all lie at or
+// past seq_len reads nothing and writes m = -1e30, l = 0, so a row of
+// length 0 still gives zeros.  No atomics: the result is the same from run
+// to run.
+//
+// bfloat16 runs pass 1 on the tensor cores (decode_bf16_kernel: 16 heads a
+// block as the rows of mma.sync, K/V tiles staged by cp.async).  float32
+// stays on the CUDA cores, since its 2e-5 tolerance rules out TF32
+// (decode_kernel: up to 8 heads a block; a "worker" of D / 4 lanes owns one
+// token at a time, each lane loading one 16-byte vector of the token's K
+// row and one of its V row, the group summing its partial dots with
+// shuffles; every worker keeps its own softmax state in registers over
+// the tokens it owns, four tokens a step so that eight 16-byte loads are
+// in flight per lane, and the workers' states are merged through shared
+// memory).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kUnroll = 2;           // tokens per worker per step
+constexpr int kUnroll = 4;           // tokens per worker per step
 constexpr float kNegInf = -1e30f;    // the Pallas kernel's NEG_INF
 
 template <typename T>
@@ -46,47 +62,34 @@ struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* x) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
+  __device__ __forceinline__ static uint4 load(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
   }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* x) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
+  __device__ __forceinline__ static void cvt(const uint4& v, float* x) {
+    x[0] = __uint_as_float(v.x);
+    x[1] = __uint_as_float(v.y);
+    x[2] = __uint_as_float(v.z);
+    x[3] = __uint_as_float(v.w);
   }
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// Pass 1.  With out != nullptr (one split) writes the normalised output;
+// otherwise part_m/part_l [B, H, n_splits] and part_acc [B, H, n_splits, D].
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
               const T* __restrict__ v_pages,
               const int32_t* __restrict__ table,
               const int32_t* __restrict__ seq_lens, T* __restrict__ out,
-              int H, int P, int page, int n_slots) {
+              float* __restrict__ part_m, float* __restrict__ part_l,
+              float* __restrict__ part_acc, int H, int P, int page,
+              int n_slots, int split_pages) {
   constexpr int E = Vec16<T>::N;        // elements per lane
   constexpr int LPT = D / E;            // lanes per worker
   static_assert(LPT >= 1 && LPT <= 32 && 32 % LPT == 0, "head dim");
@@ -99,6 +102,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   const int row = blockIdx.x;
   const int h0 = blockIdx.y * G;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
   const int gn = min(G, H - h0);        // heads of this chunk
   const int worker = threadIdx.x / LPT;
   const int sub = threadIdx.x % LPT;    // which 16-byte vector of the row
@@ -121,8 +126,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int len = seq_lens[row];
   const int32_t* trow = table + (int64_t)row * P;
   const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int p_end = min(n_pages, (split + 1) * split_pages);
   const int64_t page_elems = (int64_t)page * D;
-  for (int pi = 0; pi < n_pages; ++pi) {
+  for (int pi = split * split_pages; pi < p_end; ++pi) {
     const int slot = trow[pi];
     if (slot < 0 || slot >= n_slots) continue;   // the wrapper raises first
     const int n_valid = min(page, len - pi * page);
@@ -130,36 +136,38 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* vb = v_pages + slot * page_elems + sub * E;
     // block-uniform trip count: every lane reaches every shuffle
     for (int base = 0; base < n_valid; base += STEP) {
-      float kx[kUnroll][E], vx[kUnroll][E];
+      uint4 kr[kUnroll], vr[kUnroll];
       bool ok[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int t = base + worker * kUnroll + u;
         ok[u] = t < n_valid;
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
         if (ok[u]) {
-          Vec16<T>::load(kb + (int64_t)t * D, kx[u]);
-          Vec16<T>::load(vb + (int64_t)t * D, vx[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < E; ++e) kx[u][e] = vx[u][e] = 0.f;
+          kr[u] = Vec16<T>::load(kb + (int64_t)t * D);
+          vr[u] = Vec16<T>::load(vb + (int64_t)t * D);
         }
       }
       float s[kUnroll][G];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g >= gn) break;                       // uniform in the block
+      for (int u = 0; u < kUnroll; ++u) {
+        float kx[E];
+        Vec16<T>::cvt(kr[u], kx);
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
+        for (int g = 0; g < G; ++g) {
+          if (g >= gn) break;                     // uniform in the block
           float part = 0.f;
 #pragma unroll
           for (int e = 0; e < E; ++e)
-            part = fmaf(q_s[g * D + sub * E + e], kx[u][e], part);
+            part = fmaf(q_s[g * D + sub * E + e], kx[e], part);
 #pragma unroll
           for (int off = LPT / 2; off > 0; off >>= 1)
             part += __shfl_xor_sync(0xffffffffu, part, off);
           s[u][g] = part * inv_scale;
         }
       }
+      // s becomes p = exp(s - m_new) in place; the accumulator is
+      // rescaled once a step, then each token's V row is widened once
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         if (g >= gn) break;
@@ -168,22 +176,28 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         for (int u = 0; u < kUnroll; ++u)
           if (ok[u]) mn = fmaxf(mn, s[u][g]);
         const float alpha = expf(m[g] - mn);
-        float p[kUnroll];
         float ps = 0.f;
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          p[u] = ok[u] ? expf(s[u][g] - mn) : 0.f;
-          ps += p[u];
+          s[u][g] = ok[u] ? expf(s[u][g] - mn) : 0.f;
+          ps += s[u][g];
         }
         l[g] = l[g] * alpha + ps;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          float a = acc[g][e] * alpha;
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vx[u][e], a);
-          acc[g][e] = a;
-        }
         m[g] = mn;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float vx[E];
+        Vec16<T>::cvt(vr[u], vx);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g >= gn) break;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[g][e] = fmaf(s[u][g], vx[e], acc[g][e]);
+        }
       }
     }
   }
@@ -211,45 +225,393 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       L = fmaf(l_s[w * G + g], sc, L);
       A = fmaf(acc_s[(w * G + g) * D + c], sc, A);
     }
-    store(out + ((int64_t)row * H + h0 + g) * D + c, A / fmaxf(L, 1e-30f));
+    const int64_t rh = (int64_t)row * H + h0 + g;
+    if (out != nullptr) {
+      store(out + rh * D + c, A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(rh * n_splits + split) * D + c] = A;
+      if (c == 0) {
+        part_m[rh * n_splits + split] = M;
+        part_l[rh * n_splits + split] = L;
+      }
+    }
   }
 }
 
-template <typename T, int D, int G>
-int launch(const void* q, const void* k, const void* v, const void* table,
-           const void* lens, void* out, int B, int H, int P, int page,
-           int n_slots, cudaStream_t stream) {
-  const dim3 grid(B, (H + G - 1) / G);
-  decode_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)table,
-      (const int32_t*)lens, (T*)out, H, P, page, n_slots);
+// Pass 1 for bfloat16, on the tensor cores: one block of 4 warps per (row,
+// chunk of up to 16 query heads, split).  The split's tokens go through
+// shared memory in tiles of kTile, double-buffered with cp.async: a tile's
+// row offsets (page table, page, position) are computed one tile ahead,
+// one thread a token, and every 16-byte chunk of K and V is copied by
+// address, zero-filled past the split's end or for a slot outside the
+// pool (whose positions then score 0: the wrapper rejects such tables, the
+// kernel only stays inside the pool).  Warp w takes tokens 16 w .. 16 w +
+// 15 of each tile: S = Q K^T on mma.sync.m16n8k16 with the heads as the 16
+// rows (Q's fragments held in registers), the online softmax on the
+// fragments, P in bf16 as the A operand of P V, V through ldmatrix.trans;
+// the four warps' states are merged through shared memory at the end.
+constexpr int kTile = 64;            // tokens a tile, 16 a warp
+constexpr int kHeads = 16;           // query heads a block (mma rows)
+
+template <int D>
+constexpr int bf16_smem_bytes() {
+  // two stages of K and V tiles, then the row offsets of two tiles; the
+  // warps' merge reuses the tiles' space (4 x 16 x D floats + m and l)
+  return 2 * 2 * kTile * (D + 8) * 2 + 2 * kTile * 8;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_pages,
+                   const __nv_bfloat16* __restrict__ v_pages,
+                   const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ seq_lens,
+                   __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int H, int P, int page,
+                   int n_slots, int split_pages) {
+  static_assert(D % 16 == 0 && 4 * kHeads * D * 4 + 8 * kHeads * 4
+                <= 2 * 2 * kTile * (D + 8) * 2, "merge space");
+  constexpr int DP = D + 8;            // padded row (16 bytes)
+  constexpr int NO = D / 8;            // output n-tiles
+  constexpr int CPR = D / 8;           // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + 2 * kTile * DP;
+  int64_t* off_s = reinterpret_cast<int64_t*>(v_s + 2 * kTile * DP);
+
+  const int row = blockIdx.x;
+  const int h0 = blockIdx.y * kHeads;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int gn = min(kHeads, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const float sl2 = 1.4426950408889634f / sqrtf((float)D);
+
+  // Q's A fragments: heads g and g + 8 (zero past the chunk's heads)
+  uint32_t qa[D / 16][4];
+  const __nv_bfloat16* qrow = q + ((int64_t)row * H + h0) * D;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int hh = g + 8 * (i & 1);
+      const int c = kk * 16 + tig * 2 + 8 * (i >> 1);
+      qa[kk][i] = hh < gn
+          ? *reinterpret_cast<const uint32_t*>(qrow + hh * D + c) : 0u;
+    }
+
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int t_begin = split * split_pages * page;
+  const int t_end = min(min(n_pages, (split + 1) * split_pages) * page, len);
+  const int n_tiles = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile
+                                      : 0;
+
+  auto offsets = [&](int tile) {       // a thread a token
+    if (threadIdx.x < kTile) {
+      const int t = t_begin + tile * kTile + threadIdx.x;
+      int64_t off = -1;
+      if (t < t_end) {
+        const int pi = t / page;
+        const int slot = trow[pi];
+        if (slot >= 0 && slot < n_slots)
+          off = ((int64_t)slot * page + (t - pi * page)) * D;
+      }
+      off_s[(tile & 1) * kTile + threadIdx.x] = off;
+    }
+  };
+  auto issue = [&](int tile) {
+    const int st = tile & 1;
+    for (int c = threadIdx.x; c < kTile * CPR; c += kThreads) {
+      const int r = c / CPR, col = (c % CPR) * 8;
+      const int64_t off = off_s[st * kTile + r];
+      const int64_t src = (off >= 0 ? off : 0) + col;
+      cp_async16(smem_addr(k_s + (st * kTile + r) * DP + col),
+                 k_pages + src, off >= 0);
+      cp_async16(smem_addr(v_s + (st * kTile + r) * DP + col),
+                 v_pages + src, off >= 0);
+    }
+    cp_async_commit();
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // heads g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the sums
+  // ldmatrix lane offsets: K rows (tokens) lane % 8 + 8 * (lane / 16),
+  // column half (lane / 8) % 2; V^T tokens lane % 8 + 8 * ((lane / 8) % 2),
+  // column half lane / 16
+  const int k_off = (warp * 16 + lane % 8 + 8 * (lane / 16)) * DP
+                    + ((lane / 8) % 2) * 8;
+  const int v_off = (warp * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * DP
+                    + (lane / 16) * 8;
+
+  if (n_tiles > 0) {
+    offsets(0);
+    __syncthreads();
+    issue(0);
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) offsets(tile + 1);
+    cp_async_wait<0>();
+    __syncthreads();                   // tile landed, next offsets visible
+    if (tile + 1 < n_tiles) issue(tile + 1);
+    const int st = tile & 1;
+    const __nv_bfloat16* kt = k_s + st * kTile * DP;
+    const __nv_bfloat16* vt = v_s + st * kTile * DP;
+    const int t0 = t_begin + tile * kTile + warp * 16;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bk[4];
+      ldsm_x4(bk, smem_addr(kt + k_off + kk * 16));
+      mma_bf16(s[0], qa[kk], bk[0], bk[1]);
+      mma_bf16(s[1], qa[kk], bk[2], bk[3]);
+    }
+    if (t0 + 16 > t_end) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t0 + j * 8 + tig * 2 + (e & 1) >= t_end) s[j][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                       fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * sl2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], sl2, -m_use));
+        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], sl2, -m_use));
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+    uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                      pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int j = 0; j < NO; j += 2) {
+      uint32_t bv[4];
+      ldsm_x4_t(bv, smem_addr(vt + v_off + j * 8));
+      mma_bf16(o[j], pa, bv[0], bv[1]);
+      mma_bf16(o[j + 1], pa, bv[2], bv[3]);
+    }
+  }
+
+  // merge the warps' states: [warp][head] max and sum, [warp][head][D] O
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();                     // the tiles' space is free
+  float* o_s = reinterpret_cast<float*>(smem_raw);       // [4][16][D]
+  float* m_s = o_s + 4 * kHeads * D;                     // [4][16]
+  float* l_s = m_s + 4 * kHeads;                         // [4][16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hh = g + 8 * r;
+    if (tig == 0) {
+      m_s[warp * kHeads + hh] = m[r];
+      l_s[warp * kHeads + hh] = l[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o_s[(warp * kHeads + hh) * D + j * 8 + tig * 2] = o[j][2 * r];
+      o_s[(warp * kHeads + hh) * D + j * 8 + tig * 2 + 1] = o[j][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < gn * D; i += kThreads) {
+    const int hh = i / D, c = i % D;
+    float M = -INFINITY;
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, m_s[w * kHeads + hh]);
+    float L = 0.f, A = 0.f;
+    if (M != -INFINITY) {
+      for (int w = 0; w < 4; ++w) {
+        const float sc = exp2f(m_s[w * kHeads + hh] - M);
+        L = fmaf(l_s[w * kHeads + hh], sc, L);
+        A = fmaf(o_s[(w * kHeads + hh) * D + c], sc, A);
+      }
+    }
+    const int64_t rh = (int64_t)row * H + h0 + hh;
+    if (out != nullptr) {
+      out[rh * D + c] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(rh * n_splits + split) * D + c] = A;
+      if (c == 0) {                    // the max in natural-log units
+        part_m[rh * n_splits + split] =
+            M == -INFINITY ? kNegInf : M * 0.6931471805599453f;
+        part_l[rh * n_splits + split] = L;
+      }
+    }
+  }
+}
+
+// Pass 2: one block per (row, head), a thread per column; the splits are
+// combined in order, so the sum is the same from run to run
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+merge_kernel(const float* __restrict__ part_m,
+             const float* __restrict__ part_l,
+             const float* __restrict__ part_acc, T* __restrict__ out, int D,
+             int n_splits) {
+  const int64_t rh = blockIdx.x;
+  const float* pm = part_m + rh * n_splits;
+  const float* pl = part_l + rh * n_splits;
+  float M = kNegInf;
+  for (int i = 0; i < n_splits; ++i) M = fmaxf(M, pm[i]);
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    float L = 0.f, A = 0.f;
+    for (int i = 0; i < n_splits; ++i) {
+      const float sc = expf(pm[i] - M);
+      L = fmaf(pl[i], sc, L);
+      A = fmaf(part_acc[(rh * n_splits + i) * D + c], sc, A);
+    }
+    store(out + rh * D + c, A / fmaxf(L, 1e-30f));
+  }
+}
+
+// scratch [B, H, n_splits] max, then sum, then [B, H, n_splits, D] sums
+struct Parts {
+  float *m, *l, *acc;
+  Parts(float* scratch, int B, int H, int n_splits) {
+    const int64_t n = (int64_t)B * H * n_splits;
+    m = n_splits > 1 ? scratch : nullptr;
+    l = n_splits > 1 ? scratch + n : nullptr;
+    acc = n_splits > 1 ? scratch + 2 * n : nullptr;
+  }
+};
+
+// the arguments of one launch; n_splits as the wrapper asked, then as the
+// ranges of ceil(P / n_splits) pages make it (none empty)
+struct Args {
+  const void *q, *k, *v, *table, *lens;
+  void* out;
+  float* scratch;
+  int B, H, P, page, n_slots, n_splits;
+  cudaStream_t stream;
+  int split_pages() const { return (P + n_splits - 1) / n_splits; }
+  int splits() const {
+    return n_splits > 1 ? (P + split_pages() - 1) / split_pages() : 1;
+  }
+};
+
+// pass 2 after pass 1 when there is more than one split
+template <typename T>
+int merge(const Args& a, const Parts& parts, int D) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits() == 1) return (int)err;
+  merge_kernel<T><<<a.B * a.H, kThreads, 0, a.stream>>>(
+      parts.m, parts.l, parts.acc, (T*)a.out, D, a.splits());
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_heads(const void* q, const void* k, const void* v,
-                 const void* table, const void* lens, void* out, int B,
-                 int H, int P, int page, int n_slots, cudaStream_t stream) {
-  // up to 8 query heads per block; 4 when there are few
-  if (H > 4)
-    return launch<T, D, 8>(q, k, v, table, lens, out, B, H, P, page, n_slots,
-                           stream);
-  return launch<T, D, 4>(q, k, v, table, lens, out, B, H, P, page, n_slots,
-                         stream);
+// the two entry points' bodies for one (type, head dim): heads a block,
+// resident blocks per SM, and the launch
+template <typename T, int D, int G>
+struct Workers {                       // float32 on the CUDA cores
+  static int heads() { return G; }
+  static int blocks_per_sm(int* n) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_kernel<T, D, G>, kThreads, 0);
+  }
+  static int launch(const Args& a) {
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    decode_kernel<T, D, G><<<dim3(a.B, (a.H + G - 1) / G, n), kThreads, 0,
+                             a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int32_t*)a.table,
+        (const int32_t*)a.lens, n > 1 ? nullptr : (T*)a.out, parts.m,
+        parts.l, parts.acc, a.H, a.P, a.page, a.n_slots, a.split_pages());
+    return merge<T>(a, parts, D);
+  }
+};
+
+template <int D>
+struct TensorCores {                   // bfloat16 on the tensor cores
+  static constexpr int kBytes = bf16_smem_bytes<D>();
+  static int heads() { return kHeads; }
+  static int configure() {
+    static const int err = (int)cudaFuncSetAttribute(
+        decode_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBytes);
+    return err;
+  }
+  static int blocks_per_sm(int* n) {
+    const int err = configure();
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_bf16_kernel<D>, kThreads, kBytes);
+  }
+  static int launch(const Args& a) {
+    const int err = configure();
+    if (err != 0) return err;
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    decode_bf16_kernel<D><<<dim3(a.B, (a.H + kHeads - 1) / kHeads, n),
+                            kThreads, kBytes, a.stream>>>(
+        (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+        (const __nv_bfloat16*)a.v, (const int32_t*)a.table,
+        (const int32_t*)a.lens, n > 1 ? nullptr : (__nv_bfloat16*)a.out,
+        parts.m, parts.l, parts.acc, a.H, a.P, a.page, a.n_slots,
+        a.split_pages());
+    return merge<__nv_bfloat16>(a, parts, D);
+  }
+};
+
+// float32: up to 8 query heads a block, 4 when there are few
+template <int D, typename F>
+int dispatch_dim(int bf16, int H, const F& f) {
+  if (bf16) return f.template run<TensorCores<D>>();
+  if (H > 4) return f.template run<Workers<float, D, 8>>();
+  return f.template run<Workers<float, D, 4>>();
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, const void* table,
-               const void* lens, void* out, int B, int H, int D, int P,
-               int page, int n_slots, cudaStream_t stream) {
+template <typename F>
+int dispatch(int bf16, int D, int H, const F& f) {
   switch (D) {
-    case 16: return launch_heads<T, 16>(q, k, v, table, lens, out, B, H, P, page, n_slots, stream);
-    case 32: return launch_heads<T, 32>(q, k, v, table, lens, out, B, H, P, page, n_slots, stream);
-    case 64: return launch_heads<T, 64>(q, k, v, table, lens, out, B, H, P, page, n_slots, stream);
-    case 128: return launch_heads<T, 128>(q, k, v, table, lens, out, B, H, P, page, n_slots, stream);
+    case 16: return dispatch_dim<16>(bf16, H, f);
+    case 32: return dispatch_dim<32>(bf16, H, f);
+    case 64: return dispatch_dim<64>(bf16, H, f);
+    case 128: return dispatch_dim<128>(bf16, H, f);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+struct Launch {
+  Args a;
+  template <typename K>
+  int run() const { return K::launch(a); }
+};
+
+struct Plan {
+  int* heads;
+  int* blocks_per_sm;
+  template <typename K>
+  int run() const {
+    *heads = K::heads();
+    return K::blocks_per_sm(blocks_per_sm);
+  }
+};
 
 }  // namespace
 
@@ -257,19 +619,27 @@ extern "C" {
 
 // q [B, H, D], k/v pages [n_slots, page, D] and out [B, H, D] of one type
 // (bf16 != 0: bfloat16, else float32), page_table [B, P] and seq_lens [B]
-// int32, all contiguous.  Returns a CUDA error code; cudaErrorInvalidValue
-// for a head dim outside {16, 32, 64, 128}.
+// int32, all contiguous; scratch fp32 of (D + 2) * B * H * n_splits floats
+// when n_splits > 1 (unused otherwise).  Returns a CUDA error code;
+// cudaErrorInvalidValue for a head dim outside {16, 32, 64, 128}.
 int decode_attention(const void* q, const void* k_pages, const void* v_pages,
                      const void* page_table, const void* seq_lens, void* out,
-                     int B, int H, int D, int P, int page, int n_slots,
-                     int bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch_dim<__nv_bfloat16>(q, k_pages, v_pages, page_table,
-                                     seq_lens, out, B, H, D, P, page, n_slots,
-                                     st);
-  return launch_dim<float>(q, k_pages, v_pages, page_table, seq_lens, out, B,
-                           H, D, P, page, n_slots, st);
+                     void* scratch, int B, int H, int D, int P, int page,
+                     int n_slots, int n_splits, int bf16, void* stream) {
+  if (n_splits < 1 || (n_splits > 1 && n_splits > P))
+    return (int)cudaErrorInvalidValue;
+  const Launch f{{q, k_pages, v_pages, page_table, seq_lens, out,
+                  (float*)scratch, B, H, P, page, n_slots, n_splits,
+                  (cudaStream_t)stream}};
+  return dispatch(bf16, D, H, f);
+}
+
+// What the wrapper's split planner reads: the query heads a pass-1 block
+// takes and how many such blocks an SM holds at once.  Returns a CUDA
+// error code.
+int decode_attention_plan(int D, int H, int bf16, int* heads,
+                          int* blocks_per_sm) {
+  return dispatch(bf16, D, H, Plan{heads, blocks_per_sm});
 }
 
 }  // extern "C"

@@ -9,9 +9,9 @@
 // Computes, for every batch row b, query head h and query position s:
 // softmax(q[b, s, h] . k[b, t, h / G] / sqrt(D)) over the keys t (all T of
 // them, or t <= s when causal) applied to v[b, t, h / G], with G = H / KV
-// query heads per KV head.  Scores, softmax and the value sum are fp32 on
-// the CUDA cores (an fp32 input never goes through TF32); the output is
-// written in the input type.  Masked keys are skipped, which equals the
+// query heads per KV head.  Scores, softmax and the value sum accumulate
+// in fp32 (bf16 probabilities enter the value sum, as in SDPA's flash
+// backend); the output is written in the input type.  Masked keys are skipped, which equals the
 // Pallas kernel's exp(-1e30 - m) = 0: every causal row sees key 0 in its
 // first key tile, so its running max is finite from then on.  S and T need
 // not be multiples of the tiles: rows and keys past them are bounds-checked.
@@ -24,17 +24,36 @@
 // head against (S + 2 T) * D elements moved, hundreds of flops a byte at
 // the prefill shapes.
 //
-// Design: one block of 128 threads per (query tile of BQ rows, batch row x
-// head); it loops over the key tiles in order, up to the diagonal when
-// causal.  Q, the K and V tiles, the probabilities and the output
-// accumulator sit in shared memory as fp32 (padded rows against bank
-// conflicts); each thread owns a BQ/16 x BK/8 block of scores with rows and
-// columns interleaved (row rg + 16 i, column cg + 8 j) and the eight
-// threads of a row reduce its max and sum with shuffles.  Tensor cores,
-// cp.async/TMA and warp specialisation are not used yet.
+// Design, bfloat16 (the models' prefill type): FlashAttention-2 on the
+// tensor cores.  One block of 4 warps per (query tile of 64 rows, batch row
+// x head); each warp owns 16 query rows.  Q and double-buffered K/V tiles
+// sit in shared memory as bf16, rows padded by 16 bytes so that ldmatrix
+// meets no bank conflict; K/V tiles are copied with 16-byte cp.async while
+// the previous tile is computed, rows past S or T zero-filled.  S = Q K^T
+// runs on mma.sync.m16n8k16 (bf16 in, fp32 accumulate) and stays in
+// registers, where the online softmax works on the accumulator fragments
+// (row max and sum across the quad of a row by shuffles); P is rounded to
+// bf16 in registers and fed as the A operand of P V, with V read by
+// ldmatrix.trans; O is an fp32 register accumulator rescaled per tile.
+// Causal blocks stop at the diagonal and mask only the tiles that cross
+// it.  d 256 takes key tiles of 32 to keep O (128 fp32 registers a
+// thread) and S in registers.
+//
+// Design, float32 (the models' agreement checks): one block of 128 threads
+// per (query tile of BQ rows, batch row x head) on the CUDA cores; it loops
+// over the key tiles in order, up to the diagonal when causal.  Q, the K
+// and V tiles, the probabilities and the output accumulator sit in shared
+// memory as fp32 (padded rows against bank conflicts); each thread owns a
+// BQ/16 x BK/8 block of scores with rows and columns interleaved (row
+// rg + 16 i, column cg + 8 j) and the eight threads of a row reduce its
+// max and sum with shuffles.  An fp32 input never goes through TF32: the
+// reference's tolerance of 2e-5 rules it out.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -42,14 +61,9 @@ constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
+// ----------------------------------------------------- fp32 on the CUDA cores
 template <int D, int BQ, int BK>
 constexpr int smem_floats() {
   return BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + BQ * D + 3 * BQ;
@@ -210,37 +224,236 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Tk, int H, int KV, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(float) * smem_floats<D, BQ, BK>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D, BQ, BK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_kernel<T, D, BQ, BK><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, Tk, H, KV, causal);
-  return (int)cudaGetLastError();
+// ------------------------------------------------- bf16 on the tensor cores
+constexpr int kRows = 64;              // query rows a block, 16 a warp
+
+template <int D, int BK>
+constexpr int bf16_smem_bytes() {
+  return 2 * (kRows + 4 * BK) * (D + 8);   // Q, two K and two V tiles
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int Tk, int H, int KV, int D, int causal,
-               cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<T, 16, 64, 64>(q, k, v, out, B, S, Tk, H, KV, causal, st);
-    case 32: return launch<T, 32, 64, 64>(q, k, v, out, B, S, Tk, H, KV, causal, st);
-    case 64: return launch<T, 64, 64, 64>(q, k, v, out, B, S, Tk, H, KV, causal, st);
-    case 80: return launch<T, 80, 64, 64>(q, k, v, out, B, S, Tk, H, KV, causal, st);
-    case 128: return launch<T, 128, 32, 32>(q, k, v, out, B, S, Tk, H, KV, causal, st);
-    case 256: return launch<T, 256, 32, 32>(q, k, v, out, B, S, Tk, H, KV, causal, st);
-    default: return (int)cudaErrorInvalidValue;
+// rows x D bf16 from global rows of `stride` elements into shared rows of
+// D + 8, by 16-byte cp.async; rows at or past `n` zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t stride, int n) {
+  constexpr int CPR = D / 8;           // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += kThreads) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool ok = r < n;
+    cp_async16(smem_addr(dst + r * (D + 8) + col),
+               src + (ok ? r * stride : 0) + col, ok);
   }
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(kThreads)
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ out, int S, int Tk, int H,
+                  int KV, int causal) {
+  static_assert(D % 16 == 0 && BK % 16 == 0, "tile shape");
+  constexpr int DP = D + 8;            // padded row (16 bytes)
+  constexpr int NS = BK / 8;           // score n-tiles a warp
+  constexpr int NO = D / 8;            // output n-tiles a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kRows * DP;        // [2][BK][DP]
+  __nv_bfloat16* v_s = k_s + 2 * BK * DP;       // [2][BK][DP]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  // the longest causal tiles first, so that short ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;       // mma row group, column pair
+  const int64_t q_stride = (int64_t)H * D;
+  const int64_t kv_stride = (int64_t)KV * D;
+  const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * D;
+  const __nv_bfloat16* kb = k + ((int64_t)b * Tk * KV + kvh) * D;
+  const __nv_bfloat16* vb = v + ((int64_t)b * Tk * KV + kvh) * D;
+  // scores in log2 units: exp(x / sqrt(D)) = exp2(x * sl2)
+  const float sl2 = 1.4426950408889634f / sqrtf((float)D);
+
+  const int kv_end = causal ? min(Tk, q0 + kRows) : Tk;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  load_tile<D, kRows>(q_s, qb + q0 * q_stride, q_stride, S - q0);
+  load_tile<D, BK>(k_s, kb, kv_stride, Tk);
+  load_tile<D, BK>(v_s, vb, kv_stride, Tk);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sum
+  const int row0 = q0 + warp * 16 + g;  // query position of row g
+
+  // ldmatrix lane addresses: A (Q) rows lane % 16, column half lane / 16;
+  // B (K) key lane % 8 + 8 * (lane / 16), column half (lane / 8) % 2; B^T
+  // (V) key lane % 8 + 8 * ((lane / 8) % 2), column half lane / 16
+  const uint32_t q_lane = smem_addr(q_s + (warp * 16 + lane % 16) * DP
+                                    + (lane / 16) * 8);
+  const int k_off = (lane % 8 + 8 * (lane / 16)) * DP + ((lane / 8) % 2) * 8;
+  const int v_off = (lane % 8 + 8 * ((lane / 8) % 2)) * DP + (lane / 16) * 8;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = tile & 1;
+    if (tile + 1 < n_tiles) {
+      const int k0n = (tile + 1) * BK;
+      load_tile<D, BK>(k_s + (st ^ 1) * BK * DP, kb + k0n * kv_stride,
+                       kv_stride, Tk - k0n);
+      load_tile<D, BK>(v_s + (st ^ 1) * BK * DP, vb + k0n * kv_stride,
+                       kv_stride, Tk - k0n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = k_s + st * BK * DP;
+    const __nv_bfloat16* vt = v_s + st * BK * DP;
+    const int k0 = tile * BK;
+
+    // S = Q K^T for this warp's 16 rows and the tile's BK keys
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, q_lane + kk * 32);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t bk[4];
+        ldsm_x4(bk, smem_addr(kt + j * 8 * DP + k_off + kk * 16));
+        mma_bf16(s[j], a, bk[0], bk[1]);
+        mma_bf16(s[j + 1], a, bk[2], bk[3]);
+      }
+    }
+    // mask the keys past T, and above the diagonal when causal
+    if (k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + warp * 16)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + j * 8 + tig * 2 + (e & 1);
+          const int qpos = row0 + (e >> 1) * 8;
+          if (kpos >= Tk || (causal && kpos > qpos)) s[j][e] = -INFINITY;
+        }
+    }
+    // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * sl2);
+      // a row whose keys are all masked so far keeps m = -inf: no NaN
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], sl2, -m_use));
+        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], sl2, -m_use));
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+    // O += P V: the score fragments of key tiles 2kk, 2kk + 1 are the A
+    // fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, smem_addr(vt + kk * 16 * DP + v_off + j * 8));
+        mma_bf16(o[j], a, bv[0], bv[1]);
+        mma_bf16(o[j + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                   // this stage is refilled next
+  }
+
+  // row sums across the quad, then out = O / l in bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* ob = out + ((int64_t)b * S * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + r * 8;
+    if (qpos >= S) continue;
+    __nv_bfloat16* orow = ob + qpos * q_stride + tig * 2;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(o[j][2 * r] * l[r], o[j][2 * r + 1] * l[r]);
+  }
+}
+
+// ------------------------------------------------------------------ launch
+// tiles: bf16 keys a tile (query tiles are kRows); fp32 query and key tiles
+constexpr int bf16_bk(int D) { return D == 256 ? 32 : 64; }
+constexpr int f32_tile(int D) { return D >= 128 ? 32 : 64; }
+
+template <int D>
+int smem_bytes(int bf16) {
+  return bf16 ? bf16_smem_bytes<D, bf16_bk(D)>()
+              : (int)sizeof(float) * smem_floats<D, f32_tile(D), f32_tile(D)>();
+}
+
+template <typename K>
+int configure(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int Tk, int H, int KV, int causal, int bf16,
+           cudaStream_t stream) {
+  const int bytes = smem_bytes<D>(bf16);
+  if (bf16) {
+    constexpr int BK = bf16_bk(D);
+    static const int configured = configure(flash_bf16_kernel<D, BK>, bytes);
+    if (configured != 0) return configured;
+    const dim3 grid((S + kRows - 1) / kRows, B * H);
+    flash_bf16_kernel<D, BK><<<grid, kThreads, bytes, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, KV, causal);
+  } else {
+    constexpr int BT = f32_tile(D);
+    static const int configured = configure(flash_kernel<float, D, BT, BT>,
+                                            bytes);
+    if (configured != 0) return configured;
+    const dim3 grid((S + BT - 1) / BT, B * H);
+    flash_kernel<float, D, BT, BT><<<grid, kThreads, bytes, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, S, Tk,
+        H, KV, causal);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -248,17 +461,36 @@ int launch_dim(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // q and out [B, S, H, D], k and v [B, T, KV, D], one type (bf16 != 0:
-// bfloat16, else float32), contiguous; H a multiple of KV.  Returns a CUDA
-// error code; cudaErrorInvalidValue for a head dim outside
-// {16, 32, 64, 80, 128, 256}.
+// bfloat16, else float32), contiguous and 16-byte aligned; H a multiple of
+// KV.  Returns a CUDA error code; cudaErrorInvalidValue for a head dim
+// outside {16, 32, 64, 80, 128, 256}.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int S, int T, int H, int KV, int D, int causal,
                     int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch_dim<__nv_bfloat16>(q, k, v, out, B, S, T, H, KV, D, causal,
-                                     st);
-  return launch_dim<float>(q, k, v, out, B, S, T, H, KV, D, causal, st);
+  switch (D) {
+    case 16: return launch<16>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+    case 32: return launch<32>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+    case 64: return launch<64>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+    case 80: return launch<80>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+    case 128: return launch<128>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+    case 256: return launch<256>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory a block takes at head dim D (0 for a head dim
+// outside the list).
+int flash_attention_smem_bytes(int D, int bf16) {
+  switch (D) {
+    case 16: return smem_bytes<16>(bf16);
+    case 32: return smem_bytes<32>(bf16);
+    case 64: return smem_bytes<64>(bf16);
+    case 80: return smem_bytes<80>(bf16);
+    case 128: return smem_bytes<128>(bf16);
+    case 256: return smem_bytes<256>(bf16);
+    default: return 0;
+  }
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@ them with ``ctypes``.
 
 Each ``src/repro_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
-the checkout, at first use; the hash is of the source, so an edited
-source never loads a stale library.  ``build_all`` starts one ``nvcc``
+the checkout, at first use; the hash is of the source and the shared
+headers (``csrc/*.cuh``), so an edited source never loads a stale
+library.  ``build_all`` starts one ``nvcc``
 per source at once and waits for all of them.  Nothing here runs when a
 module is imported: the CPU tests import every module and have no
 ``nvcc``.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,7 +46,8 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 
@@ -76,6 +79,33 @@ def build_all(names=SOURCES) -> float:
     if failed:
         raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of ``csrc/<name>.cu``, from the ptxas
+    report of this process's build of it: registers, static shared memory
+    bytes, stack frame bytes and spill stores and loads.  Empty when this
+    process did not build the source."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$.]+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                out[fn][key] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

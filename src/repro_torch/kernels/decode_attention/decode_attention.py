@@ -12,7 +12,9 @@ grouped-query attention fold the KV heads into the batch
 
 ``paged_decode_attention_kernel`` launches the kernel for CUDA tensors and
 runs ``paged_decode_plain`` for CPU tensors; it never falls back from one to
-the other.
+the other.  On the card a launch cuts each row's page table into
+``plan_splits`` contiguous ranges, one block each, and a second kernel
+merges the ranges' partial softmax states.
 """
 from __future__ import annotations
 
@@ -29,6 +31,35 @@ LAUNCHES = 0
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's head dims (one build each)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_WAVE_SHARE = 0.9            # least share of the last wave kept busy
+_PLANS = {}                       # (d, H > 4, dtype) -> launch_plan
+
+
+def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
+    """How many contiguous page ranges (splits) each of ``units`` (row,
+    head chunk) blocks is cut into, for ``pages`` table columns on a card
+    of ``sms`` SMs that holds ``per_sm`` blocks of pass 1 each.  When every
+    page as its own block is still less than one wave, every page gets one
+    (the card fills as far as the work allows); otherwise the fewest splits
+    that give every SM a block and leave the last wave at least
+    ``SPLIT_WAVE_SHARE`` full, or failing that the best-filled count.
+    Always in [1, pages]; 1 for a single page."""
+    if units <= 0 or pages <= 1:
+        return 1
+    slots = sms * max(per_sm, 1)
+    if units * pages <= slots:
+        return pages
+    best, best_share = 1, 0.0
+    for n in range(1, pages + 1):
+        if -(-pages // -(-pages // n)) != n:
+            continue            # ranges of ceil(pages / n) leave one empty
+        blocks = units * n
+        share = blocks / (-(-blocks // slots) * slots)
+        if share >= SPLIT_WAVE_SHARE and blocks >= sms:
+            return n
+        if share > best_share:
+            best, best_share = n, share
+    return best
 
 
 def _needed(page_table, seq_lens, page: int) -> torch.Tensor:
@@ -90,6 +121,31 @@ def _check_range(page_table, seq_lens, n_slots: int, page: int) -> None:
                          f"slot outside [0, {n_slots})")
 
 
+def launch_plan(d: int, H: int, dtype):
+    """(query heads a pass-1 block takes, such blocks an SM holds at once)
+    for this head dim, head count and type, as the library reports them
+    (asked once each)."""
+    key = (d, H > 4, dtype)
+    if key not in _PLANS:
+        fn = cuda_build.load("decode_attention").decode_attention_plan
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        heads, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        cuda_build.check(fn(d, H, _DTYPES[dtype], ctypes.byref(heads),
+                            ctypes.byref(per_sm)), "decode_attention plan")
+        _PLANS[key] = (heads.value, per_sm.value)
+    return _PLANS[key]
+
+
+def splits_for(q, P: int) -> int:
+    """The split count a launch on ``q`` [B, H, d] over a table of ``P``
+    pages uses (``plan_splits`` on this card)."""
+    B, H, d = q.shape
+    heads, per_sm = launch_plan(d, H, q.dtype)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return plan_splits(B * -(-H // heads), P, sms, per_sm)
+
+
 def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
     """``paged_decode_attention_kernel`` without the host-side range check
     (which synchronises), for callers whose table holds only slots the
@@ -111,21 +167,26 @@ def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
     tensors = (q, k_pages, v_pages, page_table, seq_lens)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: tensors must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("decode_attention: pages must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("decode_attention: q and pages must be 16-byte "
+                         "aligned")
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
     if B == 0 or H == 0:
         return out
     lib = cuda_build.load("decode_attention")
     fn = lib.decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    P = page_table.shape[1]
+    n_splits = splits_for(q, P)
+    scratch = torch.empty(((d + 2) * B * H * n_splits,) if n_splits > 1
+                          else (0,), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             B, H, d, page_table.shape[1], page, n_slots, _DTYPES[q.dtype],
-             cuda_build.stream_ptr(q.device))
+             scratch.data_ptr(), B, H, d, P, page, n_slots, n_splits,
+             _DTYPES[q.dtype], cuda_build.stream_ptr(q.device))
     cuda_build.check(err, "decode_attention")
     LAUNCHES += 1
     return out

@@ -9,7 +9,9 @@ has q's type.  The Pallas layout ``[BH, S, d]`` is the case H = KV = 1.
 
 ``flash_attention_kernel`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; it never falls back from one to
-the other.
+the other.  On the card bfloat16 runs on the tensor cores (probabilities
+rounded to bf16 before the value product, as SDPA's flash backend does) and
+float32 on the CUDA cores in full fp32.
 """
 from __future__ import annotations
 
@@ -48,6 +50,14 @@ def flash_attention_plain(q, k, v, causal: bool = True):
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
+def smem_bytes(d: int, dtype) -> int:
+    """The kernel's dynamic shared memory a block at head dim ``d``."""
+    fn = cuda_build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, _DTYPES[dtype])
+
+
 def _check(q, k, v) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: all tensors must be on one device")
@@ -80,6 +90,8 @@ def flash_attention_kernel(q, k, v, causal: bool = True):
         raise ValueError("flash_attention: tensors must be contiguous")
     if T == 0:
         raise ValueError("flash_attention: no keys")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

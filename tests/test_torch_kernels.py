@@ -311,6 +311,44 @@ def test_smoke_decode_gate_rejects_zero_and_half_context_outputs(dtype):
     assert not decode_agrees(torch.full_like(plain, float("nan")), plain, tol)
 
 
+@pytest.mark.parametrize("units,pages,sms,per_sm", [
+    (8, 65, 132, 8),         # chip_smoke's serve launch: 8 rows, 5 heads
+    (8, 65, 132, 1),
+    (1024, 512, 132, 6),     # decode_32k: 1024 rows of 512 pages
+    (1024, 512, 132, 7),
+    (160, 40, 132, 8),
+    (3, 1, 132, 8),          # a single page
+    (4, 0, 132, 8),          # an empty table
+    (1, 2, 132, 16),
+    (5000, 3, 132, 4),
+])
+def test_decode_split_planner_contract(units, pages, sms, per_sm):
+    """``plan_splits``: at least 1, at most the table's pages, 1 for a
+    single page; every page its own block while that is under one wave;
+    otherwise the fewest splits that give every SM a block and fill the
+    last wave to ``SPLIT_WAVE_SHARE``, or the best-filled count.  The serve
+    launch covers the card's SMs."""
+    n = tda_mod.plan_splits(units, pages, sms, per_sm)
+    assert 1 <= n <= max(pages, 1)
+    # ranges of ceil(pages / n) pages each: none of the n is empty
+    assert pages <= 1 or -(-pages // -(-pages // n)) == n
+    slots = sms * per_sm
+    share = lambda m: units * m / (-(-units * m // slots) * slots)  # noqa
+    exact = [m for m in range(1, pages + 1)
+             if -(-pages // -(-pages // m)) == m]
+    good = lambda m: share(m) >= tda_mod.SPLIT_WAVE_SHARE \
+        and units * m >= sms  # noqa
+    if pages <= 1:
+        assert n == 1
+    elif units * pages <= slots:
+        assert n == pages
+    else:
+        assert good(n) or share(n) == max(share(m) for m in exact)
+        assert not any(good(m) for m in exact if m < n)
+    if (units, pages, sms) == (8, 65, 132):
+        assert units * n >= sms
+
+
 @pytest.mark.parametrize("bad", [-1, 35])
 def test_paged_decode_rejects_out_of_range_slot_below_seq_len(bad):
     q, kp, vp, pt, _ = _decode_inputs(3, 4, 32, 8, 4, seed=3)   # 15 slots
@@ -668,6 +706,44 @@ def test_smoke_scan_gate_rejects_planted_faults(dtype):
                            tol)
 
 
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_attention_gate_rejects_planted_faults(kernel, dtype):
+    """``chip_smoke.decode_agrees``, the gate between K5/K6 and their plain
+    versions on the card: it passes the plain output itself and one
+    rounding away, and fails flash attention with the running-max rescale
+    dropped between key tiles of 64 (``flash_rescale_dropped``) and decode
+    attention that lost the split of each row's last quarter
+    (``decode_split_dropped``)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import (TOL, decode_agrees, decode_split_dropped,
+                            flash_rescale_dropped)
+    tdt = DTYPES[dtype][1]
+    tol = TOL[tdt]
+    if kernel == "flash_attention":
+        rng = np.random.RandomState(5)
+        q, k, v = (torch.from_numpy(rng.randn(2, 256, 4, kv, 32)
+                                    .astype(np.float32)).to(tdt)
+                   .reshape(2, 256, -1, 32) for kv in (2, 1, 1))
+        plain = tfa_mod.flash_attention_plain(q, k, v, True)
+        fault = flash_rescale_dropped(q, k, v, True)
+        # one tile of keys has nothing to rescale
+        one_tile = [t[:, :64] for t in (q, k, v)]
+        assert torch.equal(flash_rescale_dropped(*one_tile, True),
+                           tfa_mod.flash_attention_plain(*one_tile, True))
+    else:
+        q, kp, vp, pt, _ = _decode_inputs(3, 5, 64, 16, 32, seed=6)
+        lens = np.asarray([512, 300, 77], np.int32)
+        args = [torch.from_numpy(a).to(tdt) for a in (q, kp, vp)] \
+            + [torch.from_numpy(pt), torch.from_numpy(lens)]
+        plain = tda_mod.paged_decode_plain(*args)
+        fault = decode_split_dropped(*args)
+    assert decode_agrees(plain, plain, tol)
+    assert decode_agrees((plain.double() * (1 + tol / 4)).to(tdt), plain,
+                         tol)
+    assert not decode_agrees(fault, plain, tol)
+
+
 def _rwkv_inputs(BH, S, N, seed=0):
     rng = np.random.RandomState(seed)
     r = rng.randn(BH, S, N).astype(np.float32)
@@ -730,3 +806,32 @@ def test_scan_and_attention_wrappers_check_inputs_and_count_no_plain_runs():
                               torch.zeros((2, 4)))
     # the counters count CUDA launches only: the plain versions ran here
     assert (tfa_mod.LAUNCHES, tms_mod.LAUNCHES, trs_mod.LAUNCHES) == counts
+
+
+def test_ptxas_report_reads_each_kernel_of_a_build_log(monkeypatch):
+    """``cuda_build.ptxas_report``, which the timed attention rows read
+    their build facts from: registers, static shared memory, stack and
+    spill bytes per kernel of nvcc's ``-Xptxas -v`` report."""
+    from repro_torch.kernels import cuda_build
+    fa_name = ("_ZN12_GLOBAL__N_117flash_bf16_kernelILi80ELi64EEEvPK13"
+               "__nv_bfloat16S3_S3_PS1_iiiii")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{fa_name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fa_name}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 130 registers, used 1 barriers, 400 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function 'merge' for 'sm_90a'",
+        "ptxas info    : Function properties for merge",
+        "    24 bytes stack frame, 24 bytes spill stores, 16 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, 37376 bytes smem, 400 bytes "
+        "cmem[0]"])
+    monkeypatch.setitem(cuda_build.BUILD_LOG, "attn", log)
+    assert cuda_build.ptxas_report("attn") == {
+        fa_name: dict(stack_bytes=0, spill_stores=0, spill_loads=0,
+                      registers=130),
+        "merge": dict(stack_bytes=24, spill_stores=24, spill_loads=16,
+                      registers=168, smem_bytes=37376)}
+    assert cuda_build.ptxas_report("never_built") == {}
