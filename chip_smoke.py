@@ -98,13 +98,16 @@ PAGE_KEY_STRIDE = 4096         # page key = sid * stride + page_idx + 1
 # decode_32k (configs/base.py) at qwen2.5-32b's attention width
 DECODE_32K = dict(seqs=128, kv_heads=8, q_heads=40, head_dim=128,
                   seq_len=32768, page=64, plain_seqs=16)
-# the earlier designs' times at the timed attention shapes (K6 on the CUDA
-# cores in fp32, K5 one block per row), NVIDIA H100 80GB HBM3 at 700 W
+# the earlier designs' times at the timed shapes (K6 on the CUDA cores in
+# fp32, K5 one block per row, K7 one block per (b, h) walking the chunks,
+# K8 one thread per state column), NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md's kernel table), printed beside the new ones
 EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
               ("flash_attention", "gemma-7b prefill"): 17.322079467773438,
               ("decode_attention", "serve"): 0.8877887725830078,
-              ("decode_attention", "decode_32k"): 11.61456044514974}
+              ("decode_attention", "decode_32k"): 11.61456044514974,
+              ("mamba2_scan", "zamba2-2.7b prefill"): 4.04290542602539,
+              ("rwkv6_scan", "rwkv6-3b prefill"): 1.0247103691101074}
 
 
 def emit(phase: str, **kw) -> None:
@@ -540,6 +543,15 @@ def mamba_state_dropped(x, dt, A, Bm, Cm, Q: int):
     return y.reshape(B, S, H, P)
 
 
+def rwkv_slice_dropped(r, k, v, w, u, init=None):
+    """A planted fault: the RWKV6 scan that lost one row slice's part of y
+    (the last quarter of the state rows never reaches y_t = r_t S), from
+    the plain version with those rows of r zeroed.  Returns y."""
+    r = r.clone()
+    r[..., 3 * r.shape[-1] // 4:] = 0
+    return rs.rwkv6_scan_plain(r, k, v, w, u, init)[0]
+
+
 def agrees_or_raise(name, label, out, plain, tol, agrees=decode_agrees):
     if agrees(torch.zeros_like(plain), plain, tol):
         raise AssertionError(f"{name} at {label}: the check would pass an "
@@ -611,10 +623,12 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
 def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
     """K7 on the model layout from a seeded normal (dt softplus, A = -exp,
     as tests/test_kernels.py draws them); y and the final state against
-    the plain version.  Timed rows also require the gate to reject a
-    planted fault (``mamba_state_dropped``); the bound counts
-    2 Q^2 (N + P) + 4 Q N P flops a (b h, chunk) at the peak for the
-    operands' type."""
+    the plain version.  Timed rows with S a multiple of Q also require the
+    gate to reject a planted fault (``mamba_state_dropped``); the bound
+    counts C B^T once per (b, chunk, group), 2 Q^2 N flops, and 2 Q^2 P +
+    4 Q N P a (b h, chunk), at the peak for the operands' type.  bf16
+    timed rows also give the launch plan, whose shared memory must equal
+    the CUDA source's."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = randn((B, S, H, P), dtype, g)
     dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, g))
@@ -633,7 +647,7 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
                max_abs_err=max(max_err(y, py), max_err(st, pst)),
                plain_max_abs=float(py.float().abs().max()),
                y_errors=scan_errors(y, py), state_errors=scan_errors(st, pst))
-    if timed:
+    if timed and S % Q == 0:
         fault = mamba_state_dropped(*args)
         row["planted_fault_errors"] = scan_errors(fault, py)
         if scan_agrees(fault, py, TOL[dtype]):
@@ -645,17 +659,30 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
     if timed:
         it = x.element_size()
         n_chunks = -(-S // Q)
-        flops = (2 * Q * Q * (N + P) + 4 * Q * N * P) * B * H * n_chunks
+        flops = (2 * Q * Q * N * G
+                 + (2 * Q * Q * P + 4 * Q * N * P) * H) * B * n_chunks
         nbytes = (2 * B * S * H * P * it + B * S * H * 4 + B * H * 4
                   + 2 * B * S * G * N * it + B * H * N * P * 4)
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
-        row.update(ms=device_ms(lambda: ms.mamba2_scan_kernel(*args),
-                                reps=5, rounds=5),
+        t_ms = device_ms(lambda: ms.mamba2_scan_kernel(*args), reps=5,
+                         rounds=5)
+        row.update(ms=t_ms,
                    plain_ms=device_ms(lambda: ms.mamba2_scan_plain(*args),
                                       reps=3, rounds=3),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    library="none: no single PyTorch call computes a chunked "
-                           "SSD scan")
+                           "SSD scan",
+                   **timed_extras("mamba2_scan", label, t_ms, b_ms),
+                   build=build_facts("mamba2_scan", "ssd_"))
+        if dtype == torch.bfloat16:
+            pl = ms.plan(B, S, H, G, N, P, Q,
+                         *ms.card_slots(Q, N, P, x.device))
+            src_smem = ms.kernel_smem_bytes(Q, N, P, pl["heads"])
+            if tuple(src_smem) != tuple(pl["smem"]):
+                raise AssertionError(f"mamba2_scan at {label}: the plan's "
+                                     f"shared memory {pl['smem']} is not "
+                                     f"the source's {src_smem}")
+            row["plan"] = pl
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
     return row
@@ -667,8 +694,11 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
     u * 0.1, as tests/test_kernels.py draws them), from a nonzero state; y
     and the final state against the plain version, which steps through S
     one token at a time and so runs on the first ``plain_rows`` batch rows
-    only at the long shapes.  The bound counts 4 N^2 flops a (b h, t) at
-    the peak for the operands' type and each input and output once."""
+    only at the long shapes.  Timed rows also require the gate to reject a
+    planted fault (``rwkv_slice_dropped``) and give the column tile, whose
+    shared memory must equal the CUDA source's.  The bound counts 4 N^2
+    flops a (b h, t) at the peak for the operands' type and each input and
+    output once."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = randn((B, S, H, N), dtype, g)
     k = randn((B, S, H, N), dtype, g, 0.3)
@@ -691,18 +721,40 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
                y_errors=scan_errors(y[:n], py),
                state_errors=scan_errors(st[:n], pst))
     if timed:
+        fault = rwkv_slice_dropped(*pargs)
+        row["planted_fault_errors"] = scan_errors(fault, py)
+        if scan_agrees(fault, py, TOL[dtype]):
+            raise AssertionError(f"rwkv6_scan at {label}: the check would "
+                                 f"pass the scan that lost a row slice's "
+                                 f"part of y")
+        del fault
         it = r.element_size()
         b_ms, b_by = bound(5 * B * S * H * N * it + B * H * N * 4
                            + 2 * B * H * N * N * 4,
                            ops=4.0 * N * N * B * H * S, peak=peak_for(dtype))
-        row.update(ms=device_ms(lambda: rs.rwkv6_scan_kernel(
-                       r, k, v, w, u, s0), reps=5, rounds=5),
+        t_ms = device_ms(lambda: rs.rwkv6_scan_kernel(r, k, v, w, u, s0),
+                         reps=5, rounds=5)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        cols = rs.plan_columns(B * H, N, sms)
+        smem = rs.smem_bytes(N, cols, dtype)
+        if rs.kernel_smem_bytes(N, cols, dtype) != smem:
+            raise AssertionError(f"rwkv6_scan at {label}: the plan's shared "
+                                 f"memory {smem} is not the source's")
+        row.update(ms=t_ms,
                    plain_ms=device_ms(lambda: rs.rwkv6_scan_plain(*pargs),
                                       reps=1, rounds=3),
                    plain_ms_rows=n, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None,
                    library="none: no single PyTorch call computes the "
-                           "RWKV6 recurrence")
+                           "RWKV6 recurrence",
+                   **timed_extras("rwkv6_scan", label, t_ms, b_ms),
+                   cols=cols, blocks=B * H * (N // cols),
+                   threads=rs.threads(N, cols),
+                   dynamic_smem_bytes=smem,
+                   build=build_facts("rwkv6_scan",
+                                     "wkv_kernelIfLi64E"
+                                     if dtype == torch.float32
+                                     else "wkv_kernelI13__nv_bfloat16Li64E"))
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
     return row
@@ -714,7 +766,9 @@ def lm_kernel_phase():
     phase's full-width prefill shape: K6 at zamba2-2.7b (4 x 32 heads,
     S = T = 2048, d 80, bf16) and at gemma-7b's d 256, K7 at zamba2-2.7b
     (4 x 80 heads, S 2048, Q 128, N = P = 64, bf16), K8 at rwkv6-3b (4 x 40
-    heads, S 2048, N 64, fp32 as the model feeds it)."""
+    heads, S 2048, N 64, fp32 as the model feeds it).  K7 and K8 are also
+    timed at S = 2000 (a last chunk of 80 at full width) and K8 at the
+    decode shape (one token from a nonzero state)."""
     main, errs = {}, {"flash_attention": 0.0, "mamba2_scan": 0.0,
                       "rwkv6_scan": 0.0}
 
@@ -748,6 +802,12 @@ def lm_kernel_phase():
     main["rwkv6_scan"] = note(check_rwkv(
         4, 2048, 40, 64, torch.float32, "rwkv6-3b prefill", timed=True,
         plain_rows=1))
+    note(check_mamba(4, 2000, 80, 1, 64, 64, 128, torch.bfloat16,
+                     "zamba2-2.7b S 2000", timed=True))
+    note(check_rwkv(4, 2000, 40, 64, torch.float32, "rwkv6-3b S 2000",
+                    timed=True, plain_rows=1))
+    note(check_rwkv(4, 1, 40, 64, torch.float32, "rwkv6-3b decode",
+                    timed=True))
     return main, errs
 
 

@@ -15,7 +15,9 @@ adds nothing.
 
 ``mamba2_scan_kernel`` launches the kernel for CUDA tensors and runs
 ``mamba2_scan_plain`` for CPU tensors; it never falls back from one to the
-other.
+other.  In bf16 the kernel is three passes (chunk states, state passing,
+chunk outputs; see the source's note), counted as one launch; ``plan``
+sets their blocks and scratch.  fp32 runs one pass on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -31,7 +33,74 @@ LAUNCHES = 0
 
 MAX_CHUNK = 128
 MAX_NP = 64
+MAX_HEADS = 16                   # heads a block of passes (a) and (c)
+WAVE_SHARE = 0.9                 # how full pass (c)'s last wave must be
+SMEM_LIMIT = 232_448             # dynamic shared memory a block may take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PER_SM = {}                     # (Q, N, P) -> blocks of pass (c) an SM
+
+
+def pad16(n: int) -> int:
+    """``n`` rounded up to the mma tile (16): the bf16 kernel pads Q, N and
+    P so in shared memory, with zeros."""
+    return -(-n // 16) * 16
+
+
+def plan_heads(units: int, rep: int, sms: int, per_sm: int) -> int:
+    """Heads a block of the bf16 passes (a) and (c) takes, of the ``rep``
+    heads of a group, for ``units`` (batch row, chunk, group) triples on a
+    card of ``sms`` SMs that holds ``per_sm`` blocks of pass (c) each: the
+    most, up to ``MAX_HEADS``, that cut the group into equal tiles, give
+    every block slot of the card a block and fill the last wave to
+    ``WAVE_SHARE``; 1 (the most blocks) if none does.  Pass (c) computes
+    C B^T once a block, so more heads a block share it."""
+    slots = sms * max(per_sm, 1)
+    for heads in range(min(rep, MAX_HEADS), 0, -1):
+        tiles = -(-rep // heads)
+        if -(-rep // tiles) != heads:
+            continue                # a last tile short of the others
+        blocks = units * tiles
+        share = blocks / (-(-blocks // slots) * slots)
+        if blocks >= slots and share >= WAVE_SHARE:
+            return heads
+    return 1
+
+
+def smem_bytes(Q: int, N: int, P: int, heads: int):
+    """(pass (a), pass (c)) dynamic shared memory of a bf16 block, as
+    ``csrc/mamba2_scan.cu`` lays it out, bf16 rows padded by 8 elements.
+    (a): B, two buffers of x, dt, cum and weights a head; (c): C, two
+    buffers of x and s_prev's hi and lo (B over the second until C B^T is
+    in registers), dt and cum a head."""
+    Qp, Np, Pp = pad16(Q), pad16(N), pad16(P)
+    a = 2 * (Qp * (Np + 8) + 2 * Qp * (Pp + 8)) + 4 * 3 * heads * Qp
+    buf = Qp * (Pp + 8) + 2 * Np * (Pp + 8)
+    c = 2 * (Qp * (Np + 8) + buf + max(buf, Qp * (Np + 8))) \
+        + 4 * 2 * heads * Qp
+    return a, c
+
+
+def scratch_bytes(B: int, S: int, H: int, N: int, P: int, Q: int) -> dict:
+    """The bf16 kernel's scratch, allocated by the wrapper: each chunk's own
+    state S_loc [B, chunks, H, N, P] fp32, the state entering it s_prev as
+    two bf16 halves (hi and the remainder lo) [B, chunks, H, 2, N, P], and
+    each chunk's decay [B, chunks, H] fp32."""
+    nc = -(-S // Q)
+    return dict(s_loc=4 * B * nc * H * N * P, s_prev=4 * B * nc * H * N * P,
+                dec=4 * B * nc * H)
+
+
+def plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
+         sms: int, per_sm: int) -> dict:
+    """The bf16 launch at these shapes: chunks, heads a block, blocks of
+    passes (a) and (c), the padded mma sizes, shared memory and scratch."""
+    nc = -(-S // Q)
+    heads = plan_heads(B * nc * G, H // G, sms, per_sm)
+    return dict(chunks=nc, heads=heads,
+                blocks=B * nc * G * -(-(H // G) // heads),
+                padded=(pad16(Q), pad16(N), pad16(P)),
+                smem=smem_bytes(Q, N, P, heads),
+                scratch=scratch_bytes(B, S, H, N, P, Q))
 
 
 def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
@@ -98,6 +167,36 @@ def _check(x, dt, A, Bm, Cm, Q: int, init) -> None:
                          "init [B, H, N, P] and a chunk >= 1 expected")
 
 
+def card_slots(Q: int, N: int, P: int, device):
+    """(SMs of the card, blocks of pass (c) an SM holds at these sizes), as
+    the library reports them (the latter asked once a size)."""
+    key = (Q, N, P)
+    if key not in _PER_SM:
+        fn = cuda_build.load("mamba2_scan").mamba2_scan_blocks_per_sm
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        cuda_build.check(fn(Q, N, P, ctypes.byref(n)),
+                         "mamba2_scan blocks per SM")
+        _PER_SM[key] = n.value
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, _PER_SM[key]
+
+
+def kernel_limits(x, Bm, Cm, Q: int) -> None:
+    """Raise on what the CUDA kernel does not take: a type other than fp32
+    or bf16 (x, Bm and Cm alike), a chunk above ``MAX_CHUNK`` or N, P above
+    ``MAX_NP``."""
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"mamba2_scan: no kernel for x {x.dtype}, Bm/Cm "
+                        f"{Bm.dtype}/{Cm.dtype}")
+    N, P = Bm.shape[3], x.shape[3]
+    if Q > MAX_CHUNK or N > MAX_NP or P > MAX_NP:
+        raise ValueError(f"mamba2_scan: the kernel takes chunk <= "
+                         f"{MAX_CHUNK} and N, P <= {MAX_NP}, not {Q}, {N}, "
+                         f"{P}")
+
+
 def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     """Returns (y [B, S, H, P] in x's type, final state [B, H, N, P]
     fp32)."""
@@ -107,13 +206,7 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
         return mamba2_scan_plain(x, dt, A, Bm, Cm, Q, init)
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise TypeError(f"mamba2_scan: no kernel for x {x.dtype}, Bm/Cm "
-                        f"{Bm.dtype}/{Cm.dtype}")
-    if Q > MAX_CHUNK or N > MAX_NP or P > MAX_NP:
-        raise ValueError(f"mamba2_scan: the kernel takes chunk <= "
-                         f"{MAX_CHUNK} and N, P <= {MAX_NP}, not {Q}, {N}, "
-                         f"{P}")
+    kernel_limits(x, Bm, Cm, Q)
     dt = dt.float().contiguous()
     A = A.float().contiguous()
     if init is not None:
@@ -124,15 +217,35 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
     if B_ * H == 0:
         return y, state
+    bf16 = x.dtype == torch.bfloat16
+    heads, scratch = 0, (None, None, None)
+    if bf16:
+        pl = plan(B_, S, H, G, N, P, Q, *card_slots(Q, N, P, x.device))
+        nc, heads = pl["chunks"], pl["heads"]
+        scratch = (torch.empty((B_, nc, H, N, P), dtype=torch.float32,
+                               device=x.device),
+                   torch.empty((B_, nc, H, 2, N, P), dtype=torch.bfloat16,
+                               device=x.device),
+                   torch.empty((B_, nc, H), dtype=torch.float32,
+                               device=x.device))
     fn = cuda_build.load("mamba2_scan").mamba2_scan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), 0 if init is None else init.data_ptr(),
-             y.data_ptr(), state.data_ptr(), B_, S, H, G, N, P, Q,
-             _DTYPES[x.dtype], cuda_build.stream_ptr(x.device))
+             y.data_ptr(), state.data_ptr(),
+             *(0 if t is None else t.data_ptr() for t in scratch),
+             B_, S, H, G, N, P, Q, heads, int(bf16),
+             cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan")
     LAUNCHES += 1
     return y, state
+
+
+def kernel_smem_bytes(Q: int, N: int, P: int, heads: int):
+    """(pass (a), pass (c)) shared memory of a bf16 block as the CUDA
+    source computes it (for the card's checks against ``smem_bytes``)."""
+    fn = cuda_build.load("mamba2_scan").mamba2_scan_smem_bytes
+    return fn(Q, N, P, heads, 0), fn(Q, N, P, heads, 1)

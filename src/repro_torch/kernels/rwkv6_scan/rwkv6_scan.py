@@ -13,7 +13,9 @@ is the case H = 1.
 
 ``rwkv6_scan_kernel`` launches the kernel for CUDA tensors and runs
 ``rwkv6_scan_plain`` for CPU tensors; it never falls back from one to the
-other.
+other.  The kernel cuts each head's state columns over blocks
+(``plan_columns``) and its rows over the lanes of a block
+(``rows_per_lane``); see the source's note.
 """
 from __future__ import annotations
 
@@ -27,7 +29,46 @@ from repro_torch.kernels import cuda_build
 LAUNCHES = 0
 
 HEAD_DIMS = (8, 16, 32, 64)          # the kernel's state sizes N
+MIN_COLS = 8                         # state columns a block, at least
+COLS_PER_THREAD = 4
+STEPS = 32                           # time steps a staging buffer holds
+SMEM_LIMIT = 232_448                 # dynamic shared memory a block may take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rows_per_lane(N: int) -> int:
+    """State rows of one column a thread keeps: N / rows_per_lane(N) lanes
+    share a column."""
+    return min(N, 16)
+
+
+def plan_columns(units: int, N: int, sms: int) -> int:
+    """State columns a block takes, for ``units`` (batch row, head) pairs
+    on a card of ``sms`` SMs: the widest power-of-two tile of N, down to
+    ``MIN_COLS``, that still gives every SM a block.  A wider tile reads
+    each step's r, k and w once for more columns, and fewer blocks leave
+    each warp a scheduler of its own."""
+    cols = N
+    while cols > MIN_COLS and units * (N // cols) < sms:
+        cols //= 2
+    return cols
+
+
+def threads(N: int, cols: int) -> int:
+    """Threads a block: ``COLS_PER_THREAD`` columns of one row slice
+    each."""
+    return cols // COLS_PER_THREAD * (N // rows_per_lane(N))
+
+
+def smem_bytes(N: int, cols: int, dtype) -> int:
+    """A block's dynamic shared memory, as ``csrc/rwkv6_scan.cu`` lays it
+    out: two buffers of r, k and w (16 bytes of padding after each row
+    slice) and of the tile's v for ``STEPS`` steps in the inputs' type;
+    the slices' parts of y and bonus sums, and u, in fp32."""
+    it = 2 if dtype == torch.bfloat16 else 4
+    L = N // rows_per_lane(N)
+    row = N + L * (16 // it)
+    return it * 2 * STEPS * (3 * row + cols) + 4 * (L * STEPS * (cols + 1) + N)
 
 
 def rwkv6_scan_plain(r, k, v, w, u, init=None):
@@ -62,6 +103,18 @@ def _check(r, k, v, w, u, init) -> None:
                          "u [B * H, N], init [B, H, N, N] expected")
 
 
+def kernel_limits(r, k, v, w) -> None:
+    """Raise on what the CUDA kernel does not take: a type other than fp32
+    or bf16 (r, k, v and w alike), or N outside ``HEAD_DIMS``."""
+    if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
+        raise TypeError(f"rwkv6_scan: no kernel for r/k/v/w "
+                        f"{[t.dtype for t in (r, k, v, w)]}")
+    N = r.shape[3]
+    if N not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: the kernel takes N in {HEAD_DIMS}, "
+                         f"not {N}")
+
+
 def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     """Returns (y [B, S, H, N] in r's type, final state [B, H, N, N]
     fp32)."""
@@ -70,12 +123,7 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, init)
     B, S, H, N = r.shape
-    if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
-        raise TypeError(f"rwkv6_scan: no kernel for r/k/v/w "
-                        f"{[t.dtype for t in (r, k, v, w)]}")
-    if N not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan: the kernel takes N in {HEAD_DIMS}, "
-                         f"not {N}")
+    kernel_limits(r, k, v, w)
     if not all(t.is_contiguous() for t in (r, k, v, w)):
         raise ValueError("rwkv6_scan: tensors must be contiguous")
     u = u.float().contiguous()
@@ -85,15 +133,24 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     state = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     if B * H == 0:
         return y, state
+    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
     fn = cuda_build.load("rwkv6_scan").rwkv6_scan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), 0 if init is None else init.data_ptr(),
-             y.data_ptr(), state.data_ptr(), B, S, H, N, _DTYPES[r.dtype],
+             y.data_ptr(), state.data_ptr(), B, S, H, N,
+             plan_columns(B * H, N, sms), _DTYPES[r.dtype],
              cuda_build.stream_ptr(r.device))
     cuda_build.check(err, "rwkv6_scan")
     LAUNCHES += 1
     return y, state
+
+
+def kernel_smem_bytes(N: int, cols: int, dtype) -> int:
+    """A block's shared memory as the CUDA source computes it (for the
+    card's checks against ``smem_bytes``)."""
+    fn = cuda_build.load("rwkv6_scan").rwkv6_scan_smem_bytes
+    return fn(N, cols, int(dtype == torch.bfloat16))

@@ -783,6 +783,115 @@ def test_rwkv6_scan_final_state_matches_chunked_form(S, Q):
     assert_close(ts.numpy(), js)
 
 
+# the bf16 SSD launch plan: tests/test_kernels.py's sweeps, the groups
+# case, zamba2-2.7b's prefill at full width (and at S 2000, a short last
+# chunk), its S - 1 consistency prefill, and the largest sizes
+SSD_SHAPES = [(1, 128, 3, 1, 8, 16, 32), (1, 64, 3, 1, 16, 32, 64),
+              (1, 256, 3, 1, 4, 8, 16), (1, 62, 3, 1, 8, 16, 31),
+              (1, 60, 3, 1, 16, 16, 24), (2, 64, 4, 2, 16, 16, 32),
+              (4, 2048, 80, 1, 64, 64, 128), (4, 2000, 80, 1, 64, 64, 128),
+              (4, 127, 80, 1, 64, 64, 127), (1, 4096, 64, 4, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("B,S,H,G,N,P,Q", SSD_SHAPES)
+def test_mamba2_launch_plan_contract(B, S, H, G, N, P, Q, per_sm):
+    """``mamba2_scan.plan`` on an H100 (132 SMs): equal head tiles of at
+    most MAX_HEADS within a group, the blocks they give, Q, N and P padded
+    to the mma tile, shared memory within a block's limit and the scratch
+    the wrapper allocates."""
+    pl = tms_mod.plan(B, S, H, G, N, P, Q, 132, per_sm)
+    rep, nc, heads = H // G, -(-S // Q), pl["heads"]
+    assert 1 <= heads <= min(rep, tms_mod.MAX_HEADS)
+    assert -(-rep // -(-rep // heads)) == heads          # equal tiles
+    assert pl["chunks"] == nc
+    assert pl["blocks"] == B * nc * G * -(-rep // heads)
+    for size, padded in zip((Q, N, P), pl["padded"]):
+        assert padded % 16 == 0 and size <= padded < size + 16
+    assert max(pl["smem"]) <= tms_mod.SMEM_LIMIT
+    # the most any plan takes: MAX_HEADS heads at the largest sizes
+    assert max(tms_mod.smem_bytes(128, 64, 64, tms_mod.MAX_HEADS)) \
+        <= tms_mod.SMEM_LIMIT
+    assert pl["scratch"] == dict(s_loc=4 * B * nc * H * N * P,
+                                 s_prev=4 * B * nc * H * N * P,
+                                 dec=4 * B * nc * H)
+    if heads > 1:               # a wave's worth of blocks, the last full
+        slots = 132 * per_sm
+        assert pl["blocks"] >= slots
+        assert pl["blocks"] / (-(-pl["blocks"] // slots) * slots) \
+            >= tms_mod.WAVE_SHARE
+
+
+def test_mamba2_launch_plan_at_zamba2_prefill():
+    """zamba2-2.7b's prefill (4 x 80 heads, S 2048, Q 128, N = P = 64) on
+    an H100 holding two blocks of pass (c) an SM: 10 heads a block, 512
+    blocks (the last wave 97% full), 84 MB of scratch each for S_loc and
+    s_prev."""
+    pl = tms_mod.plan(4, 2048, 80, 1, 64, 64, 128, 132, 2)
+    assert (pl["heads"], pl["blocks"], pl["padded"]) == (10, 512,
+                                                        (128, 64, 64))
+    assert pl["smem"] == (70656, 102400)
+    assert pl["scratch"] == dict(s_loc=83_886_080, s_prev=83_886_080,
+                                 dec=20_480)
+    assert [tms_mod.pad16(n) for n in (1, 16, 17, 24, 31, 127, 128)] == \
+        [16, 16, 32, 32, 32, 128, 128]
+
+
+@pytest.mark.parametrize("units,N", [(3, 8), (3, 16), (3, 32), (3, 64),
+                                     (160, 64), (40, 64), (4, 64),
+                                     (1024, 64), (160, 32)])
+def test_rwkv6_column_plan_contract(units, N):
+    """``rwkv6_scan.plan_columns`` on an H100 (132 SMs): a power-of-two
+    tile of N columns, at least MIN_COLS, the widest that gives every SM a
+    block; threads of whole column groups and row slices; shared memory
+    within a block's limit in both types."""
+    cols = trs_mod.plan_columns(units, N, 132)
+    R = trs_mod.rows_per_lane(N)
+    assert N % cols == 0 and cols & (cols - 1) == 0
+    assert min(N, trs_mod.MIN_COLS) <= cols <= N
+    assert units * (N // cols) >= 132 or cols == trs_mod.MIN_COLS
+    assert cols == N or units * (N // (2 * cols)) < 132
+    assert N % R == 0 and R % 4 == 0
+    assert trs_mod.threads(N, cols) == \
+        cols // trs_mod.COLS_PER_THREAD * (N // R)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert trs_mod.smem_bytes(N, cols, dtype) <= trs_mod.SMEM_LIMIT
+
+
+def test_rwkv6_column_plan_at_rwkv6_shapes():
+    """rwkv6-3b at full width on an H100: the prefill's and decode's 4 x
+    40 heads take the whole head a block (160 blocks of 64 threads); one
+    request's 40 heads take 16 columns (160 blocks)."""
+    assert trs_mod.plan_columns(160, 64, 132) == 64
+    assert trs_mod.threads(64, 64) == 64
+    assert trs_mod.smem_bytes(64, 64, torch.float32) == 111_360
+    assert trs_mod.plan_columns(40, 64, 132) == 16
+    assert [trs_mod.rows_per_lane(n) for n in trs_mod.HEAD_DIMS] == \
+        [8, 16, 16, 16]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_scan_gate_rejects_lost_row_slice(dtype):
+    """``chip_smoke.rwkv_slice_dropped``, the planted fault of K8's row
+    split (one slice's part of y lost), fails ``scan_agrees`` against the
+    plain version, which passes itself, on rwkv6-3b's head size from a
+    nonzero state; the final state it leaves alone."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import TOL, rwkv_slice_dropped, scan_agrees
+    tdt = DTYPES[dtype][1]
+    B, S, H, N = 2, 96, 4, 64
+    rng = np.random.RandomState(8)
+    r, k, v, w = (torch.from_numpy(a.reshape(B, H, S, N).transpose(0, 2, 1, 3)
+                                   .copy()).to(tdt)
+                  for a in _rwkv_inputs(B * H, S, N, seed=8)[:4])
+    u = torch.from_numpy((rng.randn(B * H, N) * 0.1).astype(np.float32))
+    s0 = torch.from_numpy((rng.randn(B, H, N, N) * 0.5).astype(np.float32))
+    y, _ = trs_mod.rwkv6_scan_plain(r, k, v, w, u, s0)
+    assert scan_agrees(y, y, TOL[tdt])
+    assert not scan_agrees(rwkv_slice_dropped(r, k, v, w, u, s0), y,
+                           TOL[tdt])
+
+
 def test_scan_and_attention_wrappers_check_inputs_and_count_no_plain_runs():
     counts = (tfa_mod.LAUNCHES, tms_mod.LAUNCHES, trs_mod.LAUNCHES)
     q = torch.zeros((1, 4, 3, 16))
@@ -804,6 +913,26 @@ def test_scan_and_attention_wrappers_check_inputs_and_count_no_plain_runs():
                                torch.zeros((1, 8, 1, 4)), 4)
     trs_mod.rwkv6_scan_kernel(*[torch.zeros((1, 8, 2, 4))] * 4,
                               torch.zeros((2, 4)))
+    # what the CUDA kernels take, checked before a launch
+    x, bc = torch.zeros((1, 8, 2, 64)), torch.zeros((1, 8, 1, 64))
+    tms_mod.kernel_limits(x, bc, bc, 128)
+    tms_mod.kernel_limits(x.bfloat16(), bc.bfloat16(), bc.bfloat16(), 31)
+    with pytest.raises(TypeError):                  # fp16
+        tms_mod.kernel_limits(x.half(), bc.half(), bc.half(), 64)
+    with pytest.raises(TypeError):                  # Bm in another type
+        tms_mod.kernel_limits(x.bfloat16(), bc, bc.bfloat16(), 64)
+    for bad in ((x, bc, bc, 129), (torch.zeros((1, 8, 2, 65)), bc, bc, 64),
+                (x, torch.zeros((1, 8, 1, 65)), torch.zeros((1, 8, 1, 65)),
+                 64)):
+        with pytest.raises(ValueError):             # chunk, P or N too big
+            tms_mod.kernel_limits(*bad)
+    for n in trs_mod.HEAD_DIMS:
+        trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, n))] * 4)
+    with pytest.raises(ValueError):                 # N outside HEAD_DIMS
+        trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, 48))] * 4)
+    with pytest.raises(TypeError):                  # w in another type
+        trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, 64))] * 3,
+                              torch.zeros((1, 4, 2, 64)).bfloat16())
     # the counters count CUDA launches only: the plain versions ran here
     assert (tfa_mod.LAUNCHES, tms_mod.LAUNCHES, trs_mod.LAUNCHES) == counts
 
