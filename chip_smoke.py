@@ -5,10 +5,10 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch``), holds each kernel against its plain PyTorch
-version on the card, drives the fused keyed-state plane through NEXMark
-q5/q7 and YSB on the card and on the CPU (the plain versions) and
-requires equal results, then times the plane over a deployment-size
-working set.  Then it serves paged session state (arena, tiered store,
+version on the card, drives the fused keyed-state plane (one kernel
+launch a batch, one an admission chunk) through NEXMark q5/q7 and YSB on
+the card and on the CPU (the plain versions) and requires equal results,
+then times the plane over a deployment-size working set.  Then it serves paged session state (arena, tiered store,
 continuous-batching scheduler, paged decode attention at qwen2.5-32b's
 attention width) in ``sync`` and ``prefetch`` mode on the card and on the
 CPU and requires identical serving stats, and classifies the q5 bid
@@ -28,6 +28,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -57,6 +58,7 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.mamba2_scan import mamba2_scan as ms  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rs  # noqa: E402
 from repro_torch.kernels.page_gather import page_gather as pg  # noqa: E402
+from repro_torch.kernels.tac_fused import tac_fused as tfk  # noqa: E402
 from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, _grow_kv,  # noqa: E402
@@ -83,6 +85,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 E2E = dict(rate=5000.0, duration=6.0, warmup=2.0, cache_entries=2048,
            batch=256, parallelism=2)
 DEPLOY_SLOTS = 262_144
+# timing of a kernel of a few microseconds behind a Python wrapper that
+# takes ~0.05-0.1 ms of host time a call: 100 calls behind a ~28 ms spin
+LAUNCH_BOUND = dict(reps=100, rounds=5, spin=50_000_000)
 # the serving path: launch/serve.py's ServeConfig (sessions, arena size,
 # load, batch, pages of 8192 fp32 elements, store model) at qwen2.5-32b's
 # attention width (configs/qwen2_5_32b.py: 40 query heads, 8 KV heads,
@@ -114,15 +119,17 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def device_ms(fn, reps: int = 20, rounds: int = 7) -> float:
+def device_ms(fn, reps: int = 20, rounds: int = 7,
+              spin: int = 2_000_000) -> float:
     """Median device time of one call, from CUDA events around ``reps``
-    back-to-back calls queued behind a spin kernel (so host-side launch
-    cost is hidden wherever the call does not synchronise)."""
+    back-to-back calls queued behind a spin kernel of ``spin`` cycles (so
+    host-side launch cost is hidden wherever the call does not synchronise
+    and the host queues the calls within the spin)."""
     fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(rounds):
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -283,6 +290,260 @@ def check_scatter(n_slots, page, d, N, dtype, timed=False):
                        lambda: pages.index_copy_(0, lslots, blocks)))
     emit("kernel_check", **row)
     return row
+
+
+# ------------------------------------------------------- fused plane kernels
+def fused_case(W, B, V, batch, int_weights=True, seed=0):
+    """A fused plane's directory (one bucket of W ways, about 3/4 resident,
+    with timestamps, dirty bits, payloads and presence flags) and pool on
+    the card, and a batch of B lanes, as tests/test_torch_tac.py builds
+    them.  ``mixed``: resident keys with a key four times, misses, fire
+    lanes, an invalid lane and three PAD_KEY padding lanes; ``hot``: every
+    lane one resident key, fire lanes among them; ``empty``: mixed, with
+    query keys of -1 against a directory with empty ways.  Returns (state,
+    pages, lanes on the card, lanes as numpy arrays)."""
+    rng = np.random.default_rng(seed)
+    keys = np.full(W, -1, np.int32)
+    live = rng.random(W) < 0.75
+    keys[live] = rng.permutation(4 * W)[:int(live.sum())]
+    ts = np.where(live, rng.random(W) * 10, -np.inf).astype(np.float32)
+    dirty = live & (rng.random(W) < 0.3)
+    pages = np.zeros((W + 1, 1, V + 1), np.float32)
+    pages[:W, 0, 0] = live & (rng.random(W) < 0.8)
+    pages[:W, 0, 1:] = rng.integers(0, 50, (W, V)) * pages[:W, 0, :1]
+    resident = keys[live]
+    if batch == "hot":
+        q = np.full(B, resident[0], np.int32)
+        valid = np.ones(B, bool)
+    else:
+        n = B - 3
+        q = np.where(rng.random(n) < 0.7, rng.choice(resident, n),
+                     rng.integers(4 * W, 5 * W, n))
+        q[1] = q[n // 2] = q[n - 1] = q[0]
+        if batch == "empty":
+            q[2::7] = -1
+        q = np.concatenate([q, [FusedPlane.PAD_KEY] * 3]).astype(np.int32)
+        valid = np.arange(B) < n
+        valid[5] = False
+    lts = (rng.random(B) * 20).astype(np.float32)
+    w = (rng.integers(1, 9, (B, V)) if int_weights
+         else rng.standard_normal((B, V))).astype(np.float32)
+    fire = rng.random(B) < 0.2
+    lanes_np = (q, lts, w, fire, valid)
+    state, pg_ = tac_torch.from_numpy(keys[None], ts[None],
+                                      np.zeros((1, W, 1), np.float32),
+                                      dirty[None], pages, "cuda")
+    return state, pg_, tuple(torch.from_numpy(a).cuda() for a in lanes_np), \
+        lanes_np
+
+
+def clone_plane(state, pages):
+    return tac_torch.TACState(*(t.clone() for t in state)), pages.clone()
+
+
+def fused_step_no_compose(state, pages, keys, ts, weights, fire, valid,
+                          kind):
+    """A planted fault: the batch step without the duplicate-key
+    composition (each lane folds in its own update only) and with a key's
+    FIRST update lane writing back instead of its last; from plain PyTorch,
+    IN PLACE.  Returns what ``fused_step_plain`` returns."""
+    W = state.keys.shape[1]
+    _, hit, way = tp.tac_probe_plain(keys, bucket_of(keys, 1), state.keys,
+                                     state.vals)
+    hit = hit.bool()
+    rows = pages[torch.where(hit, way, W).long(), 0]
+    hit = hit & valid
+    slots = torch.where(hit, way, W).int()
+    upd = torch.zeros_like(hit) if kind == "read" else hit & ~fire
+    f, g = rows[:, 0] > 0.5, rows[:, 1:]
+    if kind == "max":
+        new_v = torch.maximum(torch.where(f[:, None], g, -float("inf")),
+                              torch.where(upd[:, None], weights,
+                                          -float("inf")))
+    else:
+        new_v = torch.where(f[:, None], g, 0.0) + upd[:, None] * weights
+    present = f | upd
+    new_v = torch.where(present[:, None], new_v, 0.0)
+    at = torch.where(hit, slots, 0).long()
+    state.ts.view(-1).scatter_reduce_(
+        0, at, torch.where(hit, ts, -float("inf")), "amax")
+    if kind != "read":
+        first = upd.nonzero().flatten().flip(0)   # last write wins: reversed
+        blocks = torch.cat([present[:, None].float(), new_v], 1)[:, None]
+        pg.page_scatter_plain(slots[first], blocks[first], pages)
+        state.dirty.view(-1).view(torch.uint8).scatter_reduce_(
+            0, at, upd.to(torch.uint8), "amax")
+    tallies = torch.stack([hit.sum(), (valid & ~hit).sum()]).int()
+    return hit, slots, new_v, present, tallies
+
+
+def fused_step_agrees(out, plane, ref, ref_plane, exact: bool):
+    """Every output and the directory and pool of a batch step equal the
+    plain version's: bit for bit, or (``exact`` False: float weights, whose
+    sums the plain version takes in another order) new values and pool
+    within tests/test_torch_tac.py's 2e-5.  Returns (agrees, max_abs_err)."""
+    ok = all(torch.equal(a, b) for a, b in zip(out[:2] + out[3:],
+                                               ref[:2] + ref[3:]))
+    ok &= all(torch.equal(a, b) for a, b in zip(plane[0], ref_plane[0]))
+    err = max(max_err(out[2], ref[2]), max_err(plane[1], ref_plane[1]))
+    if exact:
+        ok &= torch.equal(out[2], ref[2]) and torch.equal(plane[1],
+                                                          ref_plane[1])
+    else:
+        ok &= allclose(out[2], ref[2], TOL[torch.float32]) and allclose(
+            plane[1], ref_plane[1], TOL[torch.float32])
+    return ok, err
+
+
+def check_fused_step(W, B, V, kind, batch, int_weights=True, timed=False,
+                     fault=False):
+    """``tac_fused_step`` against ``fused_step_plain`` on the same directory,
+    pool and lanes (each on its own copy); with ``fault`` the gate must
+    also reject ``fused_step_no_compose``.  Timed rows time the packed
+    entry point the plane calls (one launch), the plain version, and the
+    bound: bytes (the W directory keys, the lanes, the rows, timestamps
+    and dirty bits the batch reads and writes, the outputs) or operations
+    (W table lookups, B inserts, and V compose steps for each pair of
+    lanes of one key, j <= i), at the fp32 scalar peak."""
+    state, pages, lanes, lanes_np = fused_case(W, B, V, batch, int_weights)
+    kplane = clone_plane(state, pages)
+    out = tfk.fused_step(*kplane, *lanes, kind)
+    rplane = clone_plane(state, pages)
+    ref = tfk.fused_step_plain(*rplane, *lanes, kind)
+    torch.cuda.synchronize()
+    ok, err = fused_step_agrees(out, kplane, ref, rplane, int_weights)
+    if not ok:
+        raise AssertionError(f"tac_fused_step differs at W {W}, B {B}, V "
+                             f"{V}, {kind}, {batch}: {err}")
+    row = dict(kernel="tac_fused_step", W=W, B=B, V=V, kind=kind,
+               batch=batch, weights="int" if int_weights else "float",
+               hits=int(ref[4][0]), misses=int(ref[4][1]),
+               max_abs_err=err)
+    if fault:
+        fplane = clone_plane(state, pages)
+        bad = fused_step_no_compose(*fplane, *lanes, kind)
+        passes, row["planted_fault_max_abs_err"] = fused_step_agrees(
+            bad, fplane, ref, rplane, int_weights)
+        if passes:
+            raise AssertionError(f"tac_fused_step at W {W}, {kind}, {batch}:"
+                                 f" the check would pass the step without "
+                                 f"the duplicate-key composition")
+    if timed:
+        q, _, _, fire, _ = lanes_np
+        hit = ref[0].cpu().numpy()
+        slots = ref[1].cpu().numpy()
+        upd = hit & ~fire if kind != "read" else np.zeros_like(hit)
+        n_rows = len(np.unique(slots))
+        n_hit, n_upd = len(np.unique(slots[hit])), len(np.unique(slots[upd]))
+        R = 4 * (V + 1)
+        nbytes = (4 * W + B * (10 + 4 * V) + n_rows * R + 8 * n_hit
+                  + n_upd * (R + 1) + (R if kind != "read" else 0)
+                  + 4 * tfk.step_out_words(B, V))
+        _, counts = np.unique(q, return_counts=True)
+        ops = W + B + V * int((counts * (counts + 1) // 2).sum())
+        b_ms, b_by = bound(nbytes, ops=ops)
+        fields = tfk.step_in_fields(B, V)
+        packed = torch.from_numpy(tfk.fill(
+            np.zeros(tfk.nbytes(fields), np.uint8), fields,
+            *lanes_np)).cuda()
+        row.update(ms=device_ms(lambda: tfk.fused_step_packed(
+                       *kplane, packed, B, kind), **LAUNCH_BOUND),
+                   plain_ms=device_ms(lambda: tfk.fused_step_plain(
+                       *rplane, *lanes, kind)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library="none: no single PyTorch call probes, composes "
+                           "and writes back a batch",
+                   blocks=tfk._lib().tac_fused_step_blocks(W),
+                   build=build_facts("tac_fused", "fused_step"))
+    emit("kernel_check", **row)
+    return row
+
+
+def check_fused_admit(W, N, V, n_distinct, timed=False, seed=1):
+    """``tac_fused_admit`` against ``fused_admit_plain``: ``n_distinct``
+    records at distinct slots, padded to N by repeating the first record
+    (as ``FusedPlane._flush_admits`` pads a chunk); victim rows, pool and
+    directory bit for bit.  Timed rows time the packed entry point, the
+    plain version, and the bytes bound (the records, the victim rows read
+    and written out, the rows and directory entries written, the scratch
+    row)."""
+    state, pages, _, _ = fused_case(W, 8, V, "mixed", seed=seed)
+    rng = np.random.default_rng(seed)
+    recs = [rng.choice(W, n_distinct, replace=False).astype(np.int32),
+            rng.integers(0, 8 * W, n_distinct).astype(np.int32),
+            (rng.random(n_distinct) * 9).astype(np.float32),
+            rng.standard_normal((n_distinct, V)).astype(np.float32),
+            rng.random(n_distinct) < 0.7, rng.random(n_distinct) < 0.5]
+    recs = [np.concatenate([a, np.repeat(a[:1], N - n_distinct, 0)])
+            for a in recs]
+    args = tuple(torch.from_numpy(a).cuda() for a in recs)
+    kplane = clone_plane(state, pages)
+    kv = tfk.fused_admit(*kplane, *args)
+    rplane = clone_plane(state, pages)
+    rv = tfk.fused_admit_plain(*rplane, *args)
+    torch.cuda.synchronize()
+    if not (torch.equal(kv, rv) and torch.equal(kplane[1], rplane[1])
+            and all(torch.equal(a, b) for a, b in zip(kplane[0],
+                                                      rplane[0]))):
+        raise AssertionError(f"tac_fused_admit differs at W {W}, N {N}, "
+                             f"V {V}")
+    row = dict(kernel="tac_fused_admit", W=W, N=N, V=V, distinct=n_distinct,
+               max_abs_err=max(max_err(kv, rv),
+                               max_err(kplane[1], rplane[1])))
+    if timed:
+        R = 4 * (V + 1)
+        b_ms, b_by = bound(N * (14 + 4 * V) + 2 * N * R
+                           + n_distinct * (R + 9) + R, ops=N * N / 2)
+        fields = tfk.admit_in_fields(N, V)
+        packed = torch.from_numpy(tfk.fill(
+            np.zeros(tfk.nbytes(fields), np.uint8), fields, *recs)).cuda()
+        row.update(ms=device_ms(lambda: tfk.fused_admit_packed(
+                       *kplane, packed, N), **LAUNCH_BOUND),
+                   plain_ms=device_ms(lambda: tfk.fused_admit_plain(
+                       *rplane, *args)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library="none: no single PyTorch call gathers the "
+                           "victims, scatters rows and writes a directory",
+                   build=build_facts("tac_fused", "fused_admit"))
+    emit("kernel_check", **row)
+    return row
+
+
+def fused_kernel_phase():
+    """K1 and K3 redesigned for the fused plane: ``tac_fused_step`` at the
+    plane's widths (B 256, V 1) against directories of 2048 and 262,144
+    ways, every kind and edge batch, float weights; smaller batches at
+    V 3; the planted fault at 2048 ways.  ``tac_fused_admit`` at the
+    chunk widths of ``_flush_admits``."""
+    main, err = {}, {"tac_fused_step": 0.0, "tac_fused_admit": 0.0}
+
+    def note(r):
+        err[r["kernel"]] = max(err[r["kernel"]], r["max_abs_err"])
+        return r
+
+    W = E2E["cache_entries"]
+    for ways in (W, DEPLOY_SLOTS):
+        for kind in tfk.KINDS:
+            for batch in ("mixed", "hot", "empty"):
+                r = note(check_fused_step(
+                    ways, E2E["batch"], 1, kind, batch,
+                    timed=batch == "mixed",
+                    fault=ways == W and kind != "read" and batch != "empty"))
+                if (ways, kind, batch) == (W, "sum", "mixed"):
+                    main["tac_fused_step"] = r
+            note(check_fused_step(ways, E2E["batch"], 1, kind, "mixed",
+                                  int_weights=False))
+    for kind in tfk.KINDS:
+        note(check_fused_step(300, 64, 3, kind, "mixed"))
+        note(check_fused_step(5000, 100, 3, kind, "hot", int_weights=False))
+        note(check_fused_step(5000, 256, 3, kind, "empty"))
+    for N, n, V in ((1, 1, 1), (8, 5, 1), (16, 13, 3), (64, 64, 3),
+                    (64, 40, 1)):
+        note(check_fused_admit(W, N, V, n))
+    main["tac_fused_admit"] = note(check_fused_admit(W, 64, 1, 64,
+                                                     timed=True))
+    note(check_fused_admit(DEPLOY_SLOTS, 64, 1, 64, timed=True))
+    return main, err
 
 
 def allclose(a, b, tol: float) -> bool:
@@ -905,6 +1166,7 @@ def kernel_phase():
 # ------------------------------------------------------------- end to end
 def reset_launches():
     tp.LAUNCHES = pg.GATHER_LAUNCHES = pg.SCATTER_LAUNCHES = 0
+    tfk.STEP_LAUNCHES = tfk.ADMIT_LAUNCHES = 0
     da.LAUNCHES = cms.LAUNCHES = 0
     fa.LAUNCHES = ms.LAUNCHES = rs.LAUNCHES = 0
 
@@ -912,13 +1174,16 @@ def reset_launches():
 def launches():
     return {"tac_probe": tp.LAUNCHES, "page_gather": pg.GATHER_LAUNCHES,
             "page_scatter": pg.SCATTER_LAUNCHES,
+            "tac_fused_step": tfk.STEP_LAUNCHES,
+            "tac_fused_admit": tfk.ADMIT_LAUNCHES,
             "decode_attention": da.LAUNCHES, "cms_sketch": cms.LAUNCHES,
             "flash_attention": fa.LAUNCHES, "mamba2_scan": ms.LAUNCHES,
             "rwkv6_scan": rs.LAUNCHES}
 
 
-FUSED_KERNELS = ("tac_probe", "page_gather", "page_scatter")
-SERVE_KERNELS = FUSED_KERNELS + ("decode_attention",)
+FUSED_KERNELS = ("tac_fused_step", "tac_fused_admit")
+ARENA_KERNELS = ("tac_probe", "page_gather", "page_scatter")
+SERVE_KERNELS = ARENA_KERNELS + ("decode_attention",)
 
 
 def run_query(query: str, device: str):
@@ -945,6 +1210,8 @@ def run_query(query: str, device: str):
     wall = time.perf_counter() - t0
     res = {k: m.get(k) for k in ("n_outputs", "p50", "p99",
                                  "stateful_hit_rate", "stateful_fused")}
+    res["fused_batches"] = sum(v["batches"] for k, v in m.items()
+                               if k.endswith("_fused"))
     return res, wall
 
 
@@ -963,10 +1230,17 @@ def e2e_phase():
         if not gpu["n_outputs"] or min(counts[k] for k in FUSED_KERNELS) == 0:
             raise AssertionError(f"{query}: no outputs or a kernel never "
                                  f"launched: {counts}")
+        # one launch a batch: the whole fused_step is tac_fused_step
+        if counts["tac_fused_step"] != gpu["fused_batches"]:
+            raise AssertionError(f"{query}: {counts['tac_fused_step']} "
+                                 f"tac_fused_step launches for "
+                                 f"{gpu['fused_batches']} batches")
         for k in total:
             total[k] += counts[k]
         emit("e2e", query=query, equal=True, cuda_wall_s=gpu_wall,
-             cpu_wall_s=cpu_wall, launches=counts, **gpu)
+             cpu_wall_s=cpu_wall, launches=counts,
+             step_launches_per_batch=counts["tac_fused_step"]
+             / gpu["fused_batches"], **gpu)
     return total
 
 
@@ -1001,10 +1275,23 @@ def plane_phase(slots: int, n_batches: int = 200):
     batches = lanes_for(spec, picks)
     plane.batch_step(batches[0])
     torch.cuda.synchronize()
+    # the host's garbage collections inside the timed loop (through
+    # gc.callbacks), so a collection is not taken for the plane's own cost
+    in_gc = {"s": 0.0, "n": 0, "t0": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            in_gc["t0"] = time.perf_counter()
+        else:
+            in_gc["s"] += time.perf_counter() - in_gc["t0"]
+            in_gc["n"] += 1
+
+    gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
     for lanes in batches[1:]:
         res = plane.batch_step(lanes)
     wall = time.perf_counter() - t0
+    gc.callbacks.remove(on_gc)
     if not res.hit.all():
         raise AssertionError("resident keys missed")
     # every key was counted once at fill, once per pick afterwards
@@ -1016,6 +1303,8 @@ def plane_phase(slots: int, n_batches: int = 200):
         raise AssertionError("plane counts differ from the host tally")
     emit("plane", slots=slots, batch=B, batches=n_batches,
          tuples_per_s=n_batches * B / wall, batch_ms=wall / n_batches * 1e3,
+         gc_ms_per_batch=in_gc["s"] / n_batches * 1e3,
+         gc_collections=in_gc["n"], host_objects=len(gc.get_objects()),
          fill_s=fill_s, mem_allocated_bytes=torch.cuda.memory_allocated(),
          mem_peak_bytes=torch.cuda.max_memory_allocated())
 
@@ -1063,6 +1352,7 @@ def profile_phase(slots: int, n_batches: int = 50, top: int = 12):
     batches = lanes_for(spec, picks)
     plane.batch_step(batches[0])
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1074,9 +1364,16 @@ def profile_phase(slots: int, n_batches: int = 50, top: int = 12):
     device_ms, dev, _ = device_activity(prof)
     per = lambda us: us / 1e3 / n_batches
     host = sorted(avgs, key=lambda a: a.self_cpu_time_total, reverse=True)
+    # the CUDA runtime calls a batch makes (cudaLaunchKernel,
+    # cudaMemcpyAsync, ...), and the port's kernels among the launches
+    runtime = {a.key: a.count / n_batches for a in avgs
+               if a.key.startswith("cuda")}
     emit("profile_torch", slots=slots, batches=n_batches,
          batch_ms=wall_ms / n_batches, device_ms_per_batch=device_ms
          / n_batches, device_busy_share=device_ms / wall_ms,
+         runtime_calls_per_batch=runtime,
+         kernel_launches_per_batch={k: n / n_batches
+                                    for k, n in launches().items() if n},
          host_ops=[[a.key[:60], a.count / n_batches,
                     per(a.self_cpu_time_total)] for a in host[:top]],
          device_ops=[[name[:60], n / n_batches, ms / n_batches]
@@ -1632,7 +1929,7 @@ def serve_lm_phase():
             out = run_serving(cfg, mode, device="cuda")
             wall = time.perf_counter() - t0
             counts = launches()
-            need = LM_KERNELS[arch] + FUSED_KERNELS
+            need = LM_KERNELS[arch] + ARENA_KERNELS
             if out["n_tokens"] != c["n_requests"] * c["decode_tokens"] \
                     or min(counts[k] for k in need) == 0:
                 raise AssertionError(f"serve_lm {arch} {mode}: tokens "
@@ -1674,13 +1971,14 @@ def main() -> int:
              for k, v in cuda_build.BUILD_LOG.items()}
     emit("build", seconds=build_s, ptxas=ptxas)
     main_rows, errs = kernel_phase()
-    lm_rows, lm_errs = lm_kernel_phase()
-    main_rows.update(lm_rows)
-    errs.update(lm_errs)
+    for rows, e in (fused_kernel_phase(), lm_kernel_phase()):
+        main_rows.update(rows)
+        errs.update(e)
     paths = {"e2e": e2e_phase()}
     for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
         plane_phase(slots)
-    profile_phase(E2E["cache_entries"])
+    for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
+        profile_phase(slots)
     paths["serve"] = serve_phase()
     paths["hints"] = hints_phase()
     paths["models"] = models_phase()
@@ -1691,6 +1989,11 @@ def main() -> int:
                              "src/repro/kernels/page_gather/page_gather.py:26"),
              "page_scatter": ("page_gather.cu",
                               "src/repro/kernels/page_gather/page_gather.py:50"),
+             "tac_fused_step": ("tac_fused.cu",
+                                "src/repro/kernels/tac_probe/tac_probe.py:36"),
+             "tac_fused_admit": (
+                 "tac_fused.cu",
+                 "src/repro/kernels/page_gather/page_gather.py:50"),
              "decode_attention": (
                  "decode_attention.cu",
                  "src/repro/kernels/decode_attention/decode_attention.py:64"),

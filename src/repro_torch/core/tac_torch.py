@@ -21,7 +21,9 @@ Unlike the reference, whose arrays are immutable, these functions update
 hundred rows of a pool that can hold hundreds of thousands.  Callers that
 need the old state clone it first.  Probe, gather and scatter go through
 the kernels of ``repro_torch.kernels`` (CUDA on a CUDA tensor, the plain
-PyTorch versions on a CPU tensor); the rest is plain tensor code.  Where a
+PyTorch versions on a CPU tensor): the fused plane's batch step and
+admission are one kernel each (``kernels/tac_fused``); the serving arena's
+calls use the probe and page kernels around plain tensor code.  Where a
 probe's miss lanes alias way 0 of their bucket, the updates are
 ``scatter_reduce_`` with a neutral value for those lanes, never a plain
 ``scatter_``, whose order on duplicate indices is unspecified.
@@ -33,11 +35,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.page_gather.page_gather import (page_gather_kernel,
-                                                         page_scatter_kernel,
-                                                         scatter_in_range)
-from repro_torch.kernels.tac_probe.ops import (bucket_of, tac_probe,
-                                               tac_probe_gather)
+from repro_torch.kernels.page_gather.page_gather import page_gather_kernel
+from repro_torch.kernels.tac_fused import tac_fused
+from repro_torch.kernels.tac_probe.ops import bucket_of, tac_probe
 
 
 class TACState(NamedTuple):
@@ -264,51 +264,16 @@ def fused_step(state: TACState, pages: torch.Tensor, keys: torch.Tensor,
 
     Duplicate keys in one batch compose EXACTLY as the interpreted
     sequential loop: lane i's ``new_vals`` folds in every earlier
-    same-key update lane (lower-triangular mask), and the scatter's
-    last-write-wins order leaves the final composed value in the pool.
+    same-key update lane (lower-triangular mask), and only a key's last
+    update lane writes the final composed value to the pool.
     Miss lanes are NOT admitted here — admissions arrive later through
-    ``fused_admit`` — so a miss lane's only trace is its tally.
+    ``fused_admit`` — so a miss lane's only trace is its tally.  On CUDA
+    tensors the whole batch is one launch of ``tac_fused_step``, which
+    takes a directory of one bucket (every ``FusedPlane``'s) and raises
+    for any other.
     """
-    B = keys.shape[0]
-    trash = pages.shape[0] - 1
-    rows, hit, slots = tac_probe_gather(keys, state.keys, state.vals, pages)
-    hit = hit & valid
-    slots = torch.where(hit, slots, trash).int()
-    # flat directory index of a hit (bucket * ways + way); misses alias 0
-    # with a neutral value, so the max-scatters below ignore them
-    at = torch.where(hit, slots, 0).long()
-    # timestamp refresh on hits (advisory fp32 copy; the fp64 eviction
-    # order lives in the host shadow, §14)
-    _flat(state.ts).scatter_reduce_(
-        0, at, torch.where(hit, ts, -float("inf")), "amax")
-    g = rows[:, 0, 1:]                          # [B, V] current value
-    f = rows[:, 0, 0] > 0.5                     # [B] presence
-    upd = torch.zeros_like(hit) if kind == "read" else hit & ~fire
-    same = keys[:, None] == keys[None, :]
-    M = same & upd[None, :] & torch.ones(
-        (B, B), dtype=torch.bool, device=keys.device).tril()
-    hasupd = M.any(dim=1)
-    if kind == "max":
-        m = torch.where(M[:, :, None], weights[None, :, :],
-                        -float("inf")).amax(dim=1)
-        new_v = torch.maximum(torch.where(f[:, None], g, -float("inf")), m)
-    else:                                       # sum (count = sum of ones)
-        # the composed sums must be exact fp32 (integer counts and prices)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        new_v = torch.where(f[:, None], g, 0.0) + M.to(weights.dtype) @ weights
-    present = f | hasupd
-    new_v = torch.where(present[:, None], new_v, 0.0)
-    if kind != "read":
-        blocks = torch.cat([present[:, None].to(pages.dtype),
-                            new_v.to(pages.dtype)], dim=1)[:, None, :]
-        wslots = torch.where(upd, slots, trash).int()
-        # write slots come from the probe, inside the pool by construction
-        scatter_in_range(wslots, blocks.contiguous(), pages)
-        # the scratch row must stay "absent" for future miss gathers
-        pages[trash].zero_()
-        _flat(state.dirty).scatter_reduce_(0, at, upd.to(torch.uint8),
-                                           "amax")
-    tallies = torch.stack([hit.sum(), (valid & ~hit).sum()]).int()
+    hit, slots, new_v, present, tallies = tac_fused.fused_step(
+        state, pages, keys, ts, weights, fire, valid, kind)
     return FusedStep(state, pages, hit, slots, new_v, present, tallies)
 
 
@@ -320,18 +285,11 @@ def fused_admit(state: TACState, pages: torch.Tensor, slots: torch.Tensor,
     duplicate of an earlier lane — chunked flushes pad to fixed widths
     that way).  Gathers the pre-overwrite victim rows first — a dirty
     victim's value feeds the eviction buffer for asynchronous write-back
-    — then scatters the new rows and updates the device directory.
+    — then scatters the new rows and updates the device directory, in one
+    launch of ``tac_fused_admit`` on CUDA tensors.
     Returns ``(state, pages, victim_rows [B, 1, V+1])``."""
-    victim_rows = page_gather_kernel(slots, pages)
-    blocks = torch.cat([present[:, None].to(pages.dtype),
-                        rows.to(pages.dtype)], dim=1)[:, None, :]
-    page_scatter_kernel(slots, blocks.contiguous(), pages)
-    pages[-1].zero_()
-    # duplicate slots carry identical records, so any write order is exact
-    at = slots.long()
-    _flat(state.keys).scatter_(0, at, keys.int())
-    _flat(state.ts).scatter_(0, at, ts.float())
-    _flat(state.dirty).scatter_(0, at, dirty.to(torch.uint8))
+    victim_rows = tac_fused.fused_admit(state, pages, slots, keys, ts, rows,
+                                        present, dirty)
     return state, pages, victim_rows
 
 

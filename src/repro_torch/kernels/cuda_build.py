@@ -25,8 +25,8 @@ from typing import Dict, List
 ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = ROOT / "build" / "repro_torch"
-SOURCES = ("tac_probe", "page_gather", "decode_attention", "cms_sketch",
-           "flash_attention", "mamba2_scan", "rwkv6_scan")
+SOURCES = ("tac_probe", "page_gather", "tac_fused", "decode_attention",
+           "cms_sketch", "flash_attention", "mamba2_scan", "rwkv6_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -34,8 +34,10 @@ is the hot path the fused operator drives.
 The plane lives on ``device`` (default ``"cuda"``; the tests pass
 ``"cpu"``, where the kernels' plain PyTorch versions run).  Nothing falls
 back to the CPU: a CUDA plane without a CUDA device raises.  Each
-``batch_step`` uploads its lane arrays and brings the per-lane results
-back in ONE packed device-to-host copy.
+``batch_step`` packs its lanes into one page-locked host buffer, uploads
+it in ONE copy, runs the batch as one kernel launch and brings the
+per-lane results back in ONE copy; each admission flush packs every chunk
+into one upload, then launches one kernel a chunk (``kernels/tac_fused``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ import torch
 
 from repro_torch.core import tac_torch
 from repro_torch.core.tac import Entry
+from repro_torch.kernels.tac_fused import tac_fused
 
 
 @dataclass
@@ -168,6 +171,22 @@ class FusedPlane:
         self.tac = tac_torch.init(1, W, 1, device=self.device)
         self.pages = torch.zeros((W + 1, 1, V + 1), dtype=torch.float32,
                                  device=self.device)
+        # packed staging (kernels/tac_fused layouts), page-locked on a
+        # CUDA plane so the copies run asynchronously.  The step buffer is
+        # refilled only after the previous batch's results came back (a
+        # synchronising copy); the admit buffer after the event recorded
+        # behind its last upload.
+        self._on_card = self.device.type == "cuda"
+        fields = tac_fused.step_in_fields(self.batch, V)
+        self._step_host = self._host_bytes(tac_fused.nbytes(fields))
+        self._step_views = tac_fused.split(self._step_host.numpy(), fields)
+        self._step_dev = self._step_host.to(self.device)
+        self._out_host = torch.empty(
+            tac_fused.step_out_words(self.batch, V), dtype=torch.int32,
+            pin_memory=self._on_card)
+        self._admit_host = self._host_bytes(tac_fused.nbytes(
+            tac_fused.admit_in_fields(64, V)))
+        self._admit_landed = None
         # host shadow directory (fp64 eviction order, §14)
         self._sid = np.full(W, -1, np.int64)        # interned key id
         self._sts = np.full(W, -np.inf, np.float64)
@@ -255,32 +274,56 @@ class FusedPlane:
         """Land the queued admissions.  Chunks pad to a few fixed widths
         (the reference's stable jit shapes) by REPEATING the first
         record — an idempotent duplicate write under the scatter's
-        last-write-wins order.  Must run after ``_flush_drops``: a queued drop and a
+        last-write-wins order.  Every chunk goes into one packed upload
+        (a 16-byte aligned region each), then one admit launch a chunk.
+        Must run after ``_flush_drops``: a queued drop and a
         queued admit can target the same slot, and the admit wins."""
         if not self._pending_admits:
             return
         recs = list(self._pending_admits.items())
         self._pending_admits.clear()
         self._pending_state.clear()
-        i = 0
-        while i < len(recs):
+        chunks = []
+        for i in range(0, len(recs), 64):
             chunk = recs[i:i + 64]
-            i += 64
-            n = len(chunk)
-            W = next(w for w in (1, 8, 16, 32, 64) if n <= w)
-            if n < W:
-                chunk = chunk + [chunk[0]] * (W - n)
+            W = next(w for w in (1, 8, 16, 32, 64) if len(chunk) <= w)
+            chunks.append(chunk + [chunk[0]] * (W - len(chunk)))
+        fields = [tac_fused.admit_in_fields(len(c), self.spec.width)
+                  for c in chunks]
+        sizes = [-(-tac_fused.nbytes(f) // 16) * 16 for f in fields]
+        host = self._admit_staging(sum(sizes))
+        buf = host.numpy()
+        at = 0
+        for chunk, f, size in zip(chunks, fields, sizes):
             slots = np.asarray([c[0] for c in chunk], np.int32)
+            tac_fused.check_slots(slots, self.n_slots)
             rs = [c[1] for c in chunk]
-            kids = np.asarray([r[0] for r in rs], np.int32)
-            ts = np.asarray([r[1] for r in rs], np.float32)
-            rows = np.asarray([r[2] for r in rs], np.float32)
-            pres = np.asarray([r[3] for r in rs], bool)
-            dirty = np.asarray([r[4] for r in rs], bool)
-            self.tac, self.pages, _ = self._tj.fused_admit(
-                self.tac, self.pages, self._put(slots), self._put(kids),
-                self._put(ts), self._put(rows), self._put(pres),
-                self._put(dirty))
+            tac_fused.fill(buf[at:at + tac_fused.nbytes(f)], f, slots,
+                           *([r[k] for r in rs] for k in range(5)))
+            at += size
+        dev = host[:at].to(self.device, non_blocking=True)
+        if self._on_card:
+            self._admit_landed = torch.cuda.Event()
+            self._admit_landed.record()
+        at = 0
+        for chunk, f, size in zip(chunks, fields, sizes):
+            tac_fused.fused_admit_packed(
+                self.tac, self.pages, dev[at:at + tac_fused.nbytes(f)],
+                len(chunk))
+            at += size
+
+    def _host_bytes(self, n: int) -> torch.Tensor:
+        return torch.empty(n, dtype=torch.uint8, pin_memory=self._on_card)
+
+    def _admit_staging(self, n: int) -> torch.Tensor:
+        """The admit upload's host buffer, at least ``n`` bytes, once the
+        last upload from it has landed."""
+        if self._admit_landed is not None:
+            self._admit_landed.synchronize()
+        if self._admit_host.numel() < n:
+            self._admit_host = self._host_bytes(
+                max(n, 2 * self._admit_host.numel()))
+        return self._admit_host
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -607,37 +650,37 @@ class FusedPlane:
         if n > B:
             raise ValueError(f"batch of {n} lanes exceeds width {B}")
         V = self.spec.width
-        # bulk staging: one fromiter/asarray per field beats per-lane
-        # numpy scalar writes by ~50x at B=64
-        keys = np.full(B, self.PAD_KEY, np.int32)
+        # bulk staging into the packed step buffer: one fromiter/asarray
+        # per field beats per-lane numpy scalar writes by ~50x at B=64
+        keys, ts32, weights, fire, valid = self._step_views
         keys[:n] = np.fromiter((self._intern(ln.key) for ln in lanes),
                                np.int64, n)
+        keys[n:] = self.PAD_KEY
         ts64 = np.fromiter((ln.ts for ln in lanes), np.float64, n)
-        ts32 = np.zeros(B, np.float32)
         ts32[:n] = ts64
-        weights = np.zeros((B, V), np.float32)
-        weights[:n] = np.asarray([ln.weight for ln in lanes],
-                                 np.float32).reshape(n, V)
-        fire = np.zeros(B, bool)
+        ts32[n:] = 0.0
+        weights[:n * V] = np.asarray([ln.weight for ln in lanes],
+                                     np.float32).reshape(-1)
+        weights[n * V:] = 0.0
         fire[:n] = np.fromiter((ln.fire for ln in lanes), bool, n)
-        valid = np.zeros(B, bool)
+        fire[n:] = False
         valid[:n] = True
-        out = self._tj.fused_step(
-            self.tac, self.pages, self._put(keys), self._put(ts32),
-            self._put(weights), self._put(fire), self._put(valid),
-            kind=self.spec.kind)
-        self.tac, self.pages = out.state, out.pages
+        valid[n:] = False
+        fire = fire[:n].copy()
+        if self._on_card:
+            self._step_dev.copy_(self._step_host, non_blocking=True)
+        out = tac_fused.fused_step_packed(self.tac, self.pages,
+                                          self._step_dev, B, self.spec.kind)
         # ONE device-to-host copy for every per-lane output: int32 words
         # [hit | slots | present | tallies | new_vals bits]
-        host = torch.cat([
-            out.hit.int(), out.slots, out.present.int(), out.tallies,
-            out.new_vals.float().contiguous().view(torch.int32).view(-1),
-        ]).cpu().numpy()
-        hit = host[:n] != 0
-        slots = host[B:B + n]
-        present = host[2 * B:2 * B + n] != 0
-        tallies = host[3 * B:3 * B + 2]
-        new_vals = host[3 * B + 2:].view(np.float32).reshape(B, V)[:n]
+        if self._on_card:
+            self._out_host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            out = self._out_host
+        hit, slots, present, tallies, new_vals = tac_fused.unpack_step_out(
+            out.numpy().copy(), B, V)
+        hit, slots, present, new_vals = hit[:n], slots[:n], present[:n], \
+            new_vals[:n]
         self.batches += 1
         self.lanes += n
         misses = int(tallies[1])
@@ -666,7 +709,7 @@ class FusedPlane:
                 self._gen += len(adv)
                 self._touched.update(adv.tolist())
             if self.spec.kind != "read":
-                upd = hit & ~fire[:n]
+                upd = hit & ~fire
                 self._sdirty[slots[upd]] = True
             # first read of staged entries: signed lead time (§12)
             first = hs[self._spf_unused[hs]]
@@ -674,7 +717,7 @@ class FusedPlane:
                 for s in np.unique(first):
                     self.recorder.on_used(float(self._sstage_t[s]))
             self._spf_unused[hs] = False
-        return BatchResult(hit, present, new_vals, fire[:n])
+        return BatchResult(hit, present, new_vals, fire)
 
     def decode_lane(self, res: BatchResult, i: int):
         return self.spec.dec(res.new_vals[i], bool(res.present[i]))
