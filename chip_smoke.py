@@ -8,11 +8,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 version on the card, drives the fused keyed-state plane (one kernel
 launch a batch, one an admission chunk) through NEXMark q5/q7 and YSB on
 the card and on the CPU (the plain versions) and requires equal results,
-then times the plane over a deployment-size working set.  Then it serves paged session state (arena, tiered store,
-continuous-batching scheduler, paged decode attention at qwen2.5-32b's
-attention width) in ``sync`` and ``prefetch`` mode on the card and on the
-CPU and requires identical serving stats, and classifies the q5 bid
-stream's keys through the device count-min sketch on both.  Then the LM
+then times the plane over a deployment-size working set.  K2 (page
+gather) is held bit for bit at the shapes it launches at, in fp32 and
+bf16, with duplicate and out-of-range slots, and timed back to back over
+disjoint slot sets of its pool beside ``index_select``; K4 (count-min
+sketch) at the hint
+filter's sketch, at B 16,384 and saturating; each timed row's gate must
+reject a planted fault.  Then it serves paged session state (arena,
+tiered store, continuous-batching scheduler, paged decode attention at
+qwen2.5-32b's attention width) in ``sync`` and ``prefetch`` mode on the
+card and on the CPU and requires identical serving stats, and classifies
+the q5 bid stream's keys through the device count-min sketch on both.  Then the LM
 serving path: zamba2-2.7b and rwkv6-3b at their published width and depth
 (bf16, seeded weights) prefill 4 requests of 2048 tokens and decode 16
 tokens through the flash-attention, SSD-scan and RWKV6-scan kernels, with
@@ -29,6 +35,7 @@ prints no result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import re
@@ -99,6 +106,9 @@ SERVE = dict(sessions=24, cache_sessions=8, requests=48, rate=400.0, ways=8,
              max_batch=4, decode_tokens=4, page=64, head_dim=128, kv_heads=8,
              q_heads=40, context=4096, store_latency=0.012,
              store_bandwidth=1.2e9, decode_s=0.8e-3, seed=0)
+SERVE_POOL = SERVE["ways"] * math.ceil(          # the arena's slots: 4160
+    SERVE["cache_sessions"] * SERVE["kv_heads"]
+    * (SERVE["context"] // SERVE["page"] + 1) / SERVE["ways"])
 PAGE_KEY_STRIDE = 4096         # page key = sid * stride + page_idx + 1
 # decode_32k (configs/base.py) at qwen2.5-32b's attention width
 DECODE_32K = dict(seqs=128, kv_heads=8, q_heads=40, head_dim=128,
@@ -112,7 +122,21 @@ EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
               ("decode_attention", "serve"): 0.8877887725830078,
               ("decode_attention", "decode_32k"): 11.61456044514974,
               ("mamba2_scan", "zamba2-2.7b prefill"): 4.04290542602539,
-              ("rwkv6_scan", "rwkv6-3b prefill"): 1.0247103691101074}
+              ("rwkv6_scan", "rwkv6-3b prefill"): 1.0247103691101074,
+              # K4 four blocks ranking lanes by B^2 compares (warm, as
+              # device_ms times it)
+              ("cms_sketch", "hint_filter"): 0.009600000083446502,
+              # K2 one 128-thread block a row, timed like its rows below
+              # (rotating_ms over slot_sets) by tools/gather_variants.py
+              # on an H100 80GB HBM3 at 700 W
+              ("page_gather", "serve append"): 0.004440769237967638,
+              ("page_gather", "batch 256"): 0.007637120187282562,
+              ("page_gather", "fused N 1"): 0.0021135227027698706,
+              ("page_gather", "fused N 256"): 0.002297279983758926,
+              ("page_gather", "serve_lm zamba2-2.7b"): 0.0030500799417495727,
+              ("page_gather", "8 KB rows"): 0.0029710400104522704}
+ROTATE_LEAST = 100             # rotating_ms's fewest calls a round
+ROTATE_BATCH = 128             # its calls a spin, within the launch queue
 
 
 def emit(phase: str, **kw) -> None:
@@ -138,6 +162,44 @@ def device_ms(fn, reps: int = 20, rounds: int = 7,
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def slot_sets(n_slots: int, N: int, seed: int = 1):
+    """Disjoint duplicate-free sets of ``N`` slots that together cover all
+    but ``n_slots % N`` slots of the pool, in a random order."""
+    perm = torch.randperm(n_slots, generator=torch.Generator()
+                          .manual_seed(seed)).int().cuda()
+    return list(perm[:n_slots // N * N].reshape(-1, N))
+
+
+def rotating_ms(call, sets, rounds: int = 5) -> float:
+    """Median device time of one ``call(x)``, back to back over the
+    ``sets`` in turn (at least ``ROTATE_LEAST`` calls a round).  Over
+    ``slot_sets`` of a pool larger than the L2 each call finds its rows
+    cold, as the serving arena's launches do; a pool within the L2 is
+    warm, as the fused plane's is.  The calls go in batches of
+    ``ROTATE_BATCH``, each between one pair of CUDA events and queued
+    behind its own spin: a longer batch would fill the card's launch
+    queue and wait on the host."""
+    it = itertools.cycle(sets)
+    n = max(len(sets), ROTATE_LEAST)
+    call(next(it))
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        total = 0.0
+        for lo in range(0, n, ROTATE_BATCH):
+            torch.cuda._sleep(LAUNCH_BOUND["spin"])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(min(ROTATE_BATCH, n - lo)):
+                call(next(it))
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        out.append(total / n)
     return statistics.median(out)
 
 
@@ -234,25 +296,106 @@ def page_case(n_slots, page, d, N, dtype, dups=True, seed=0):
     return slots.int().cuda(), pages, blocks
 
 
-def check_gather(n_slots, page, d, N, dtype, timed=False):
+def gather_shapes():
+    """K2's shapes, label -> (n_slots, page, d, N): (a) the serve phase's
+    append, one request's 8 KV-head rows of its last page ([64, 128] fp32,
+    32 KB) from the arena's 4160-slot pool (136 MB, past the L2); (b) a
+    batch of 256 such rows (the arena's dirty-victim gather, router
+    migration); (c) the fused plane's single-key reads (``gather_rows``:
+    rows [1, 2] fp32 of a 2049-slot pool), N 1 and 256; (d) ``serve_lm``'s
+    zamba2-2.7b state pages ([8192, 1] fp32), one session's 3 pages from
+    run_serving's arena of 4-way buckets for 6 sessions; and the 8 KB rows
+    the earlier design was timed at."""
+    zamba2_pages = ZAMBA2_STATE_PAGES
+    return {"serve append": (SERVE_POOL, SERVE["page"], SERVE["head_dim"],
+                             SERVE["kv_heads"]),
+            "batch 256": (SERVE_POOL, SERVE["page"], SERVE["head_dim"], 256),
+            "fused N 1": (E2E["cache_entries"] + 1, 1, 2, 1),
+            "fused N 256": (E2E["cache_entries"] + 1, 1, 2, 256),
+            "serve_lm zamba2-2.7b": (
+                4 * math.ceil(SERVE_LM["cache_sessions"] * zamba2_pages / 4),
+                8192, 1, zamba2_pages),
+            "8 KB rows": (4096, 16, 128, 256)}
+
+
+def gather_expected(slots, pages):
+    """The plain version under the kernel's rule for a slot outside
+    [0, n_slots): a row of zeros."""
+    ok = (slots >= 0) & (slots < pages.shape[0])
+    rows = pg.page_gather_plain(torch.where(ok, slots, 0), pages)
+    return torch.where(ok[:, None, None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+def gather_chunk_dropped(slots, pages, sms=None):
+    """A planted fault: the gather with the last chunk of row 0 of the
+    kernel's plan left at zero, as a launch that lost a block."""
+    out = gather_expected(slots, pages)
+    n = out.shape[0]
+    row_bytes = out[0].numel() * out.element_size()
+    unit = pg.copy_unit(row_bytes, pages, out)
+    plan = pg.plan_gather(n, row_bytes, unit,
+                          sms or cuda_build.sm_count(pages.device))
+    row0 = out.reshape(n, -1)[0].view(torch.uint8)
+    row0[(plan.blocks // n - 1) * plan.chunk_units * unit:] = 0
+    return out
+
+
+def check_gather(n_slots, page, d, N, dtype, label=None, timed=False):
+    """K2 against its plain version, bit for bit: on slots with duplicates
+    through ``page_gather_kernel``, and with every fourth slot out of range
+    (-1 or n_slots) through ``gather_in_range``, where the kernel writes
+    zeros.  Timed rows take the disjoint ``slot_sets`` of the pool,
+    require the gate to reject a planted fault (``gather_chunk_dropped``)
+    on the first, and time the kernel, the plain version,
+    ``index_select`` and an empty launch each by ``rotating_ms`` over all
+    of them; they add the bound and its share, the earlier design's time
+    and the plan."""
     slots, pages, _ = page_case(n_slots, page, d, N, dtype)
+    odd = slots.clone()
+    idx = torch.arange(0, N, 4, device=odd.device)
+    odd[::4] = torch.where(idx % 8 == 0, -1, n_slots).int()
     k = pg.page_gather_kernel(slots, pages)
     p = pg.page_gather_plain(slots, pages)
+    ko = pg.gather_in_range(odd, pages)
+    po = gather_expected(odd, pages)
     torch.cuda.synchronize()
-    if not torch.equal(k, p):
+    if not (torch.equal(k, p) and torch.equal(ko, po)):
         raise AssertionError(f"page_gather differs at {n_slots, page, d, N}")
-    row = dict(kernel="page_gather", n_slots=n_slots, page=page, d=d, N=N,
-               dtype=str(dtype).split(".")[-1], max_abs_err=max_err(k, p))
+    row = dict(kernel="page_gather", shape=label, n_slots=n_slots, page=page,
+               d=d, N=N, dtype=dtype_name(dtype),
+               out_of_range=len(idx),
+               max_abs_err=max(max_err(k, p), max_err(ko, po)))
     if timed:
+        sets = slot_sets(n_slots, N)
+        lsets = [x.long() for x in sets]
+        free = sets[0]
+        good = pg.gather_in_range(free, pages)
+        fault = gather_chunk_dropped(free, pages)
+        if not torch.equal(good, pg.page_gather_plain(free, pages)):
+            raise AssertionError(f"page_gather differs at {label}")
+        if torch.equal(fault, good):
+            raise AssertionError(f"page_gather at {label}: the check would "
+                                 f"pass a gather that lost a chunk")
         row_bytes = page * d * pages.element_size()
+        unit = pg.copy_unit(row_bytes, pages, good)
         b_ms, b_by = bound(N * 4 + 2 * N * row_bytes)
-        lslots = slots.long()
-        row.update(ms=device_ms(lambda: pg.gather_in_range(slots, pages)),
-                   plain_ms=device_ms(
-                       lambda: pg.page_gather_plain(slots, pages)),
+        t_ms = rotating_ms(lambda x: pg.gather_in_range(x, pages), sets)
+        row.update(ms=t_ms,
+                   plain_ms=rotating_ms(
+                       lambda x: pg.page_gather_plain(x, pages), sets),
                    bound_ms=b_ms, bound_by=b_by,
-                   library_ms=device_ms(
-                       lambda: torch.index_select(pages, 0, lslots)))
+                   library_ms=rotating_ms(
+                       lambda x: torch.index_select(pages, 0, x), lsets),
+                   library="torch.index_select(pages, 0, slots)",
+                   empty_launch_ms=rotating_ms(
+                       lambda x: torch.cuda._sleep(0), sets),
+                   **timed_extras("page_gather", label, t_ms, b_ms),
+                   planted_fault_max_abs_err=max_err(fault, good),
+                   slot_sets=len(sets), unit=unit,
+                   plan=pg.plan_gather(N, row_bytes, unit,
+                                       cuda_build.sm_count(pages.device))
+                   ._asdict())
     emit("kernel_check", **row)
     return row
 
@@ -739,7 +882,19 @@ def cms_case(d, w, B, seed=1, heavy=20, key_range=1000, counters=None,
     return cols, torch.from_numpy(counters).cuda()
 
 
+def cms_ranked_backwards(cols, counters, max_count: int = 255):
+    """A planted fault: the update with each lane ranked among the LATER
+    lanes of its column (the batch walked backwards): the same final
+    counters, a column's estimates in reverse order."""
+    new, est = cms.cms_update_plain(cols.flip(1), counters, max_count)
+    return new, est.flip(1)
+
+
 def check_cms(cols, counters, label, timed=False):
+    """K4 against its plain version, bit for bit.  Timed rows (warm, as
+    the hint filter finds its counters every batch) also require the gate
+    to reject a planted fault (``cms_ranked_backwards``), and add the
+    bound, its share, the earlier time and the tiles."""
     kc, ke = cms.cms_update_kernel(cols, counters)
     pc, pe = cms.cms_update_plain(cols, counters)
     torch.cuda.synchronize()
@@ -751,11 +906,53 @@ def check_cms(cols, counters, label, timed=False):
                max_abs_err=max(max_err(kc, pc), max_err(ke, pe)),
                saturated=int((ke == 255).sum()))
     if timed:
+        fc, fe = cms_ranked_backwards(cols, counters)
+        if torch.equal(fc, pc) and torch.equal(fe, pe):
+            raise AssertionError(f"cms_sketch at {label}: the check would "
+                                 f"pass lanes ranked out of batch order")
+        tile, n_tiles = cms.plan_tiles(d, w,
+                                       cuda_build.sm_count(cols.device))
         b_ms, b_by = bound(2 * d * w * 4 + 2 * d * B * 4, ops=d * B)
-        row.update(ms=device_ms(lambda: cms.update_in_range(cols, counters)),
+        t_ms = device_ms(lambda: cms.update_in_range(cols, counters),
+                         **LAUNCH_BOUND)
+        row.update(ms=t_ms,
                    plain_ms=device_ms(
                        lambda: cms.cms_update_plain(cols, counters)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   **timed_extras("cms_sketch", label, t_ms, b_ms),
+                   planted_fault_est_differ=int((fe != pe).sum()),
+                   tile=tile, n_tiles=n_tiles)
+    emit("kernel_check", **row)
+    return row
+
+
+def check_cms_out_of_row(d, w, B, seed=0, max_count=255):
+    """K4 through ``update_in_range`` with columns outside [0, w) (they
+    read and write nothing, and their est is 0), a width that is no
+    multiple of 4 or a batch of several chunks, bit for bit against the
+    sequential walk of the reference's oracle (kernels/cms_sketch/ref.py)
+    with those lanes skipped."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(-3, w + 3, (d, B)).astype(np.int32)
+    cols[:, ::5] = 0                                  # a hot column
+    counters = rng.integers(0, 300, (d, w)).astype(np.int32)
+    kc, ke = cms.update_in_range(torch.from_numpy(cols).cuda(),
+                                 torch.from_numpy(counters).cuda())
+    want, est = counters.copy(), np.zeros((d, B), np.int32)
+    for r in range(d):
+        ctr, rc = want[r], cols[r]
+        for i in range(B):
+            c = rc[i]
+            if 0 <= c < w:
+                ctr[c] = min(ctr[c] + 1, max_count)
+                est[r, i] = ctr[c]
+    if not (np.array_equal(kc.cpu().numpy(), want)
+            and np.array_equal(ke.cpu().numpy(), est)):
+        raise AssertionError(f"cms_sketch differs at {d, w, B} with "
+                             f"out-of-row columns")
+    row = dict(kernel="cms_sketch", shape=f"out of row {d, w, B}", d=d, w=w,
+               B=B, out_of_row=int(((cols < 0) | (cols >= w)).sum()),
+               max_abs_err=0.0)
     emit("kernel_check", **row)
     return row
 
@@ -1077,11 +1274,9 @@ def serve_shape_case():
     5 query heads over a 4097-token history in the arena's pool."""
     c = SERVE
     P = c["context"] // c["page"] + 1
-    n_slots = c["ways"] * math.ceil(c["cache_sessions"] * c["kv_heads"] * P
-                                    / c["ways"])
     return decode_case(c["kv_heads"], c["q_heads"] // c["kv_heads"],
                        c["head_dim"], c["page"], P, torch.float32,
-                       n_slots=n_slots, length=c["context"] + 1)
+                       n_slots=SERVE_POOL, length=c["context"] + 1)
 
 
 def kernel_phase():
@@ -1101,13 +1296,19 @@ def kernel_phase():
     # the fused path's shapes: one bucket of W ways; pool [W + 1, 1, V + 1]
     main["tac_probe"] = check_probe(1, W, 1, 256, torch.float32, timed=True)
     check_probe(1, DEPLOY_SLOTS, 1, 256, torch.float32, timed=True)
-    main["page_gather"] = check_gather(W + 1, 1, 2, 256, torch.float32,
-                                       timed=True)
     main["page_scatter"] = check_scatter(W + 1, 1, 2, 256, torch.float32,
                                          timed=True)
-    # one bandwidth-sized gather/scatter (serving-like 8 KB pages)
-    check_gather(4096, 16, 128, 256, torch.float32, timed=True)
+    # one bandwidth-sized scatter (serving-like 8 KB pages)
     check_scatter(4096, 16, 128, 256, torch.float32, timed=True)
+    # K2 at the shapes it launches at, timed in fp32; the serve append is
+    # its main-path shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape in gather_shapes().items():
+            r = check_gather(*shape, dtype, label,
+                             timed=dtype == torch.float32)
+            errs["page_gather"] = max(errs["page_gather"], r["max_abs_err"])
+            if label == "serve append" and dtype == torch.float32:
+                main["page_gather"] = r
     # paged decode attention: tests/test_kernels.py's shapes, the serve
     # phase's launch, and decode_32k at qwen2.5-32b's width (the plain
     # version checks its first plain_seqs sequences: all 128 would not fit
@@ -1141,14 +1342,18 @@ def kernel_phase():
     torch.cuda.empty_cache()
     errs["decode_attention"] = max(errs["decode_attention"], r["max_abs_err"])
     # count-min sketch: tests/test_kernels.py's sweep and saturation case,
-    # then the hint filter's default sketch (d 4, w 10,000) on a batch of
-    # 256 with repeated keys and warm counters
+    # the hint filter's default sketch (d 4, w 10,000) on a batch of 256
+    # with repeated keys and warm counters, and B 16,384 (past the earlier
+    # design's cap of 12,288) with a hot key of 2048 copies that
+    # saturates, these three timed; then columns out of the row, an odd
+    # width, B to 40,000
     for d, w, B in ((4, 256, 64), (2, 512, 128), (4, 128, 32)):
         check_cms(*cms_case(d, w, B), f"test_kernels {d, w, B}")
     check_cms(*cms_case(2, 64, 32, heavy=32,
                         counters=np.full((2, 64), 250, np.int32),
                         ab=(np.asarray([3, 7], np.uint32),
-                            np.asarray([1, 5], np.uint32))), "saturation")
+                            np.asarray([1, 5], np.uint32))), "saturation",
+              timed=True)
     rs = np.random.RandomState(1)                 # classify_batch's draws
     ab = ((rs.randint(1, 2 ** 31 - 1, size=4).astype(np.uint32) | 1),
           rs.randint(0, 2 ** 31 - 1, size=4).astype(np.uint32))
@@ -1158,6 +1363,10 @@ def kernel_phase():
                                              key_range=5000, counters=warm,
                                              ab=ab),
                                    "hint_filter", timed=True)
+    check_cms(*cms_case(4, 10_000, 16_384, heavy=2048, key_range=5000,
+                        counters=warm, ab=ab), "B 16384", timed=True)
+    for d, w, B in ((3, 4099, 5000), (1, 7, 3000), (2, 10_000, 40_000)):
+        check_cms_out_of_row(d, w, B)
     for k in main:
         errs[k] = max(errs[k], main[k]["max_abs_err"])
     return main, errs
@@ -1664,6 +1873,7 @@ LM_KERNELS = {"gemma-7b": ("flash_attention",),
 # port's run_serving (smoke models, as the reference runs them); zamba2
 # and rwkv6 take 32-token prompts, since at 16 the reference's _grow_kv
 # pads their 16-wide state axes as if they were time (ROADMAP.md §3)
+ZAMBA2_STATE_PAGES = 3         # serve_lm's zamba2-2.7b pages a session
 SERVE_LM = dict(n_sessions=12, n_requests=24, decode_tokens=2,
                 store_latency=0.03, cache_sessions=6, arrival_rate=500.0,
                 prompts={"gemma-7b": 16, "zamba2-2.7b": 32, "rwkv6-3b": 32})
@@ -1930,6 +2140,12 @@ def serve_lm_phase():
             wall = time.perf_counter() - t0
             counts = launches()
             need = LM_KERNELS[arch] + ARENA_KERNELS
+            if arch == "zamba2-2.7b" \
+                    and out["n_pages_per_session"] != ZAMBA2_STATE_PAGES:
+                raise AssertionError(f"serve_lm {arch}: "
+                                     f"{out['n_pages_per_session']} pages a "
+                                     f"session, K2's timed shape has "
+                                     f"{ZAMBA2_STATE_PAGES}")
             if out["n_tokens"] != c["n_requests"] * c["decode_tokens"] \
                     or min(counts[k] for k in need) == 0:
                 raise AssertionError(f"serve_lm {arch} {mode}: tokens "

@@ -11,11 +11,14 @@ earlier lanes of the row with the same column.
 
 ``cms_update_kernel`` launches the kernel for CUDA tensors and runs
 ``cms_update_plain`` for CPU tensors; it never falls back from one to the
-other.
+other.  The kernel takes a block per (sketch row, column tile), the tiles
+from ``plan_tiles``, and any batch size, as the reference does.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -23,6 +26,21 @@ from repro_torch.kernels import cuda_build
 
 # launches of the CUDA kernel (not of the plain version) since the last reset
 LAUNCHES = 0
+
+MAX_TILE = 4096         # counters a block holds; the kernel rejects more
+MIN_TILE = 256          # below this a block's pass over the batch dominates
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tiles(d: int, w: int, sms: int) -> Tuple[int, int]:
+    """(tile, n_tiles): the columns a block holds, a multiple of 4 within
+    [MIN_TILE, MAX_TILE] (or all of a narrower row), and the tiles a row,
+    about one block an SM over the ``d`` rows."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    want = cdiv(max(w, 1), max(1, cdiv(sms, max(d, 1))))
+    tile = min(MAX_TILE, max(MIN_TILE, cdiv(want, 4) * 4))
+    tile = min(tile, max(4, cdiv(w, 4) * 4))
+    return tile, max(1, cdiv(w, tile))
 
 
 def cms_update_plain(cols, counters, max_count: int = 255):
@@ -72,23 +90,21 @@ def update_in_range(cols, counters, max_count: int = 255):
         raise ValueError("cms_sketch: tensors must be contiguous")
     d, B = cols.shape
     w = counters.shape[1]
-    lib = cuda_build.load("cms_sketch")
-    fn = lib.cms_update
+    fn = cuda_build.load("cms_sketch").cms_update
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.cms_max_batch.restype = ctypes.c_int
-    if B > lib.cms_max_batch():
-        raise ValueError(f"cms_sketch: batch {B} exceeds the kernel's "
-                         f"{lib.cms_max_batch()}")
     new = torch.empty_like(counters)
     est = torch.empty((d, B), dtype=torch.int32, device=cols.device)
     if d == 0:
         return new, est
+    tile, n_tiles = plan_tiles(d, w, cuda_build.sm_count(cols.device))
+    vec = w % 4 == 0 and counters.data_ptr() % 16 == 0 \
+        and new.data_ptr() % 16 == 0
     err = fn(cols.data_ptr(), counters.data_ptr(), new.data_ptr(),
-             est.data_ptr(), d, B, w, int(max_count),
-             cuda_build.stream_ptr(cols.device))
+             est.data_ptr(), d, B, w, tile, n_tiles, int(max_count),
+             int(vec), cuda_build.stream_ptr(cols.device))
     cuda_build.check(err, "cms_sketch")
     LAUNCHES += 1
     return new, est

@@ -13,6 +13,7 @@ module is imported: the CPU tests import every module and have no
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -122,6 +123,13 @@ def check(err: int, what: str) -> None:
     """Raise when a launch returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of a CUDA ``device``, asked once."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -8,10 +8,17 @@ back (``page_scatter_kernel``) is one launch each.  The scatter updates
 wins, as in the reference's grid order.  Each wrapper launches the kernel
 for CUDA tensors and runs the plain version for CPU tensors; it never
 falls back from one to the other.
+
+The gather's work split comes from ``plan_gather``, which the CPU tests
+call: each row is cut into chunks, a block per (row, chunk), so that a
+launch of a few 32 KB serving pages fills the card; a short row is one
+chunk.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +28,44 @@ from repro_torch.kernels import cuda_build
 # reset
 GATHER_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
+
+# the planner's aims for csrc/page_gather.cu's gather: units a thread loads
+# before it stores (the kernel's kVec; with another value the kernel loops
+# or idles threads, but stays right) and the largest block (the kernel
+# rejects a larger one)
+VEC = 4
+MAX_THREADS = 256
+MIN_CHUNK_BYTES = 1024      # the smallest chunk of a long row
+BLOCKS_PER_SM = 2           # the grid the planner aims for
+
+
+class GatherPlan(NamedTuple):
+    """A gather launch: a block of ``threads`` per (row, chunk of
+    ``chunk_units`` units), ``blocks`` in all, ``blocks // N`` a row."""
+    threads: int
+    blocks: int
+    chunk_units: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_gather(n: int, row_bytes: int, unit: int, sms: int) -> GatherPlan:
+    """The work split of a gather of ``n`` rows of ``row_bytes`` bytes in
+    ``unit``-byte units on a card of ``sms`` SMs: about ``BLOCKS_PER_SM``
+    blocks an SM where the rows hold that much work, each thread ``VEC``
+    units, chunks 128-byte aligned within a row where the unit allows."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    row_units = row_bytes // unit
+    if n == 0 or row_units == 0:
+        return GatherPlan(32, 0, 0)
+    cap = MAX_THREADS * VEC
+    least = cdiv(row_units, cap)
+    most = max(least, cdiv(row_units, max(1, MIN_CHUNK_BYTES // unit)))
+    chunk = cdiv(row_units,
+                 min(max(least, cdiv(BLOCKS_PER_SM * sms, n)), most))
+    align = max(1, 128 // unit)
+    chunk = min(cap, row_units, cdiv(chunk, align) * align)
+    return GatherPlan(min(MAX_THREADS, 32 * cdiv(chunk, 32 * VEC)),
+                      n * cdiv(row_units, chunk), chunk)
 
 
 def page_gather_plain(slots, pages):
@@ -37,7 +82,7 @@ def page_scatter_plain(slots, blocks, pages):
     return pages
 
 
-def _unit(row_bytes: int, *tensors) -> int:
+def copy_unit(row_bytes: int, *tensors) -> int:
     """Widest copy unit dividing the row and every base pointer."""
     for u in (16, 8, 4, 2, 1):
         if row_bytes % u == 0 and all(t.data_ptr() % u == 0
@@ -50,8 +95,9 @@ def _fn(name: str):
     lib = cuda_build.load("page_gather")
     fn = getattr(lib, name)
     if fn.argtypes is None:
+        plan = [ctypes.c_int] * 2 if name == "page_gather" else []
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_longlong, ctypes.c_int] + plan + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -88,9 +134,13 @@ def gather_in_range(slots, pages):
     if n == 0:
         return out
     row_bytes = pages[0].numel() * pages.element_size()
+    unit = copy_unit(row_bytes, pages, out)
+    plan = plan_gather(n, row_bytes, unit, cuda_build.sm_count(pages.device))
+    if plan.blocks == 0:
+        return out
     err = _fn("page_gather")(
         slots.data_ptr(), pages.data_ptr(), out.data_ptr(), n,
-        pages.shape[0], row_bytes, _unit(row_bytes, pages, out),
+        pages.shape[0], row_bytes, unit, plan.threads, plan.chunk_units,
         cuda_build.stream_ptr(pages.device))
     cuda_build.check(err, "page_gather")
     GATHER_LAUNCHES += 1
@@ -117,7 +167,7 @@ def scatter_in_range(slots, blocks, pages):
     row_bytes = pages[0].numel() * pages.element_size()
     err = _fn("page_scatter")(
         slots.data_ptr(), blocks.data_ptr(), pages.data_ptr(), n,
-        pages.shape[0], row_bytes, _unit(row_bytes, blocks, pages),
+        pages.shape[0], row_bytes, copy_unit(row_bytes, blocks, pages),
         cuda_build.stream_ptr(pages.device))
     cuda_build.check(err, "page_scatter")
     SCATTER_LAUNCHES += 1

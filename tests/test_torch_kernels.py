@@ -130,8 +130,12 @@ def test_bucket_of_bit_equal(n_buckets):
         np.testing.assert_array_equal(port.numpy(), ref)
 
 
-@pytest.mark.parametrize("n_slots,page,d,N", [(9, 1, 2, 8), (16, 4, 32, 12),
-                                              (64, 16, 8, 40)])
+@pytest.mark.parametrize("n_slots,page,d,N", [
+    (9, 1, 2, 8), (16, 4, 32, 12), (64, 16, 8, 40),
+    # K2's shapes on the card (chip_smoke.gather_shapes), pools cut down:
+    # serve's append, serve_lm's zamba2 state pages, the fused plane's
+    # single-key reads at N 1 and 256
+    (9, 64, 128, 8), (20, 8192, 1, 3), (2049, 1, 2, 1), (2049, 1, 2, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_page_gather_matches_reference(n_slots, page, d, N, dtype):
     jdt, tdt = DTYPES[dtype]
