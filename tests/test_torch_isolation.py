@@ -18,7 +18,8 @@ PORT = SRC / "repro_torch"
 # copied verbatim, with only ``repro.`` rewritten to ``repro_torch.``
 VERBATIM = [
     "streaming/windows.py", "streaming/events.py", "streaming/backend.py",
-    "streaming/shards.py",
+    "streaming/shards.py", "streaming/synthetic.py", "streaming/joins.py",
+    "streaming/sessions.py", "streaming/recovery.py", "streaming/chaos.py",
     "core/tac.py", "core/hints.py", "core/cms.py", "core/prefetch.py",
     "core/policies.py", "core/hint_filter.py", "core/__init__.py",
     "obs/__init__.py", "obs/registry.py", "obs/quality.py", "obs/trace.py",
@@ -58,6 +59,10 @@ REPLACED = {
     ],
 }
 
+# the port's twins of the reference's tests: the same file after the
+# rewrite, under a one-line header
+TWINS = ["joins", "sessions", "recovery", "chaos"]
+
 FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|"
                        r"from repro[. ])", re.M)
 
@@ -95,6 +100,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "imported" in out.stdout
 
 
+def test_the_import_scan_covers_every_port_package():
+    packages = {m.split(".")[1] for m in port_modules() if "." in m}
+    assert {"checkpoint", "core", "kernels", "launch", "models", "obs",
+            "runtime", "serving", "streaming"} <= packages
+    assert "repro_torch.checkpoint.manager" in port_modules()
+
+
 def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
@@ -108,6 +120,16 @@ def test_verbatim_copy_has_not_drifted(rel):
     ref = (SRC / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == rewrite(ref), \
         f"repro_torch/{rel} drifted from repro/{rel}; copy it again"
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_twin_tests_have_not_drifted(name):
+    ref = (ROOT / "tests" / f"test_{name}.py").read_text()
+    first, twin = (ROOT / "tests" / f"test_torch_{name}.py").read_text() \
+        .split("\n", 1)
+    assert first.startswith(f"# The port's twin of tests/test_{name}.py")
+    assert twin == rewrite(ref), \
+        f"tests/test_torch_{name}.py drifted from tests/test_{name}.py"
 
 
 def strip_device(text: str) -> str:
