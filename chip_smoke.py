@@ -27,14 +27,16 @@ tiered store, continuous-batching scheduler, paged decode attention at
 qwen2.5-32b's attention width) in ``sync`` and ``prefetch`` mode on the
 card and on the CPU and requires identical serving stats, and classifies
 the q5 bid stream's keys through the device count-min sketch on both.  Then the LM
-serving path: zamba2-2.7b and rwkv6-3b at their published width and depth
-(bf16, seeded weights) prefill 4 requests of 2048 tokens and decode 16
-tokens through the flash-attention, SSD-scan and RWKV6-scan kernels, with
-the prefill/decode consistency check and the card held against the CPU at
-cut depth; and ``launch/serve.py``'s ``run_serving`` serves gemma-7b,
-zamba2-2.7b and rwkv6-3b (smoke models) in ``sync`` and ``prefetch``
-mode, prefetch beating sync.  Each phase
-prints one JSON line; any failure raises and ends the run with a
+serving path: zamba2-2.7b, rwkv6-3b, qwen3-moe-30b-a3b,
+llava-next-mistral-7b and seamless-m4t-large-v2 at their published width
+and depth, and deepseek-v2-236b at its width cut to seven layers (bf16,
+seeded weights), prefill 4 requests of 2048 tokens and decode 16 tokens
+through the flash-attention (every prefill, encoder and cross-attention),
+SSD-scan and RWKV6-scan kernels, with the prefill/decode consistency check
+and the card held against the CPU at cut depth; and ``launch/serve.py``'s
+``run_serving`` serves gemma-7b, zamba2-2.7b, rwkv6-3b and
+deepseek-v2-236b (smoke models) in ``sync`` and ``prefetch`` mode,
+prefetch beating sync.  Each phase prints one JSON line; any failure raises and ends the run with a
 non-zero exit.  The last three lines are the kernels summary, the card's
 name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -42,10 +44,13 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -58,7 +63,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import count_params, get_config  # noqa: E402
 from repro_torch.core import tac_torch  # noqa: E402
 from repro_torch.core.hint_filter import HintFilter  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
@@ -78,6 +83,7 @@ from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, _grow_kv,  # noqa: E402
                                       run_serving, tree_flatten)
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.lm import build_model  # noqa: E402
@@ -1047,23 +1053,27 @@ def agrees_or_raise(name, label, out, plain, tol, agrees=decode_agrees):
 
 
 def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
-                fault=False):
-    """K6 on q [B, S, H, d] and k/v [B, S, KV, d] drawn from a seeded
-    normal, against its plain version; with ``fault`` the gate must also
-    reject a planted fault (``flash_rescale_dropped``).  Timed rows add the
-    plain version's time, the bound (causal flops 2 * 2 * S * T * d * B * H
-    / 2 at the peak for the operands' type), ``scaled_dot_product_attention``
-    on the same tensors and the build facts."""
+                fault=False, dv=None, T=None):
+    """K6 on q [B, S, H, d], k [B, T, KV, d] and v [B, T, KV, dv] (dv = d
+    and T = S unless given) drawn from a seeded normal, against its plain
+    version; with ``fault`` the gate must also reject a planted fault
+    (``flash_rescale_dropped``).  Timed rows add the plain version's time,
+    the bound (flops 2 * S * T * (d + dv) * B * H, halved when causal, at
+    the peak for the operands' type), ``scaled_dot_product_attention`` on
+    the same tensors (null, with the reason, if it refuses them) and the
+    build facts."""
+    dv = dv or d
+    T = T or S
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = randn((B, S, H, d), dtype, g)
-    k = randn((B, S, KV, d), dtype, g)
-    v = randn((B, S, KV, d), dtype, g)
+    k = randn((B, T, KV, d), dtype, g)
+    v = randn((B, T, KV, dv), dtype, g)
     out = fa.flash_attention_kernel(q, k, v, causal)
     plain = fa.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     agrees_or_raise("flash_attention", label, out, plain, TOL[dtype])
-    row = dict(kernel="flash_attention", shape=label, B=B, S=S, H=H, KV=KV,
-               d=d, causal=causal, dtype=dtype_name(dtype),
+    row = dict(kernel="flash_attention", shape=label, B=B, S=S, T=T, H=H,
+               KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
                max_abs_err=max_err(out, plain),
                plain_max_abs=float(plain.float().abs().max()))
     if fault:
@@ -1077,29 +1087,35 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
     del plain
     if timed:
         it = q.element_size()
-        flops = 2 * 2 * S * S * d * B * H / (2 if causal else 1)
-        b_ms, b_by = bound(2 * B * S * H * d * it + 2 * B * S * KV * d * it,
+        flops = 2 * S * T * (d + dv) * B * H / (2 if causal else 1)
+        b_ms, b_by = bound((B * S * H + B * T * KV) * (d + dv) * it,
                            ops=flops, peak=peak_for(dtype))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
         ms = device_ms(lambda: fa.flash_attention_kernel(q, k, v, causal),
                        reps=5, rounds=5)
-        needle = (f"flash_bf16_kernelILi{d}E" if dtype == torch.bfloat16
-                  else f"flash_kernelIfLi{d}E")
+        needle = (f"flash_bf16_kernelILi{d}ELi{dv}E"
+                  if dtype == torch.bfloat16
+                  else f"flash_kernelIfLi{d}ELi{dv}E")
         row.update(ms=ms,
                    plain_ms=device_ms(lambda: fa.flash_attention_plain(
                        q, k, v, causal), reps=3, rounds=3),
                    bound_ms=b_ms, bound_by=b_by,
-                   library_ms=device_ms(lambda: sdpa(
-                       qt, kt, vt, is_causal=causal, enable_gqa=KV != H),
-                       reps=5, rounds=5),
-                   library="scaled_dot_product_attention(is_causal=True)",
-                   library_max_abs_diff=max_err(lib.transpose(1, 2), out),
+                   library=f"scaled_dot_product_attention(is_causal="
+                           f"{causal})",
                    **timed_extras("flash_attention", label, ms, b_ms),
-                   dynamic_smem_bytes=fa.smem_bytes(d, dtype),
+                   dynamic_smem_bytes=fa.smem_bytes(d, dv, dtype),
                    build=build_facts("flash_attention", needle))
-        del lib
+        try:
+            lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
+        except RuntimeError as e:
+            row.update(library_ms=None, library_refused=str(e)[:200])
+        else:
+            row.update(library_ms=device_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=causal, enable_gqa=KV != H),
+                reps=5, rounds=5),
+                library_max_abs_diff=max_err(lib.transpose(1, 2), out))
+            del lib
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
     return row
@@ -1246,10 +1262,12 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
 
 
 def lm_kernel_phase():
-    """K6-K8: tests/test_kernels.py's sweeps (and the head dims, chunk and
+    """K6-K8: tests/test_kernels.py's sweeps (and every (d, dv) pair K6 is
+    built for, and non-causal S != T as cross-attention runs it, chunk and
     state sizes the port's models reach), then each kernel at the models
     phase's full-width prefill shape: K6 at zamba2-2.7b (4 x 32 heads,
-    S = T = 2048, d 80, bf16) and at gemma-7b's d 256, K7 at zamba2-2.7b
+    S = T = 2048, d 80, bf16), at gemma-7b's d 256 and at deepseek-v2's
+    MLA prefill (4 x 128 heads, d 192, dv 128), K7 at zamba2-2.7b
     (4 x 80 heads, S 2048, Q 128, N = P = 64, bf16), K8 at rwkv6-3b (4 x 40
     heads, S 2048, N 64, fp32 as the model feeds it).  K7 and K8 are also
     timed at S = 2000 (a last chunk of 80 at full width) and K8 at the
@@ -1269,6 +1287,12 @@ def lm_kernel_phase():
                                 (45, 4, 2, 16)):
                 note(check_flash(2, S, H, KV, d, dtype, causal,
                                  f"sweep {S, H, KV, d}"))
+            for d, dv in fa.PAIRS:              # every instantiated pair
+                note(check_flash(2, 96, 4, 2, d, dtype, causal,
+                                 f"pair {d, dv}", dv=dv))
+        for d, dv in ((16, 16), (24, 16), (64, 64)):   # cross-attention
+            note(check_flash(2, 96, 4, 4, d, dtype, False,
+                             f"cross {d, dv} S 96 T 160", dv=dv, T=160))
         for S, P, N, Q in ((128, 16, 8, 32), (64, 32, 16, 64),
                            (256, 8, 4, 16), (62, 16, 8, 31),
                            (60, 16, 16, 24)):
@@ -1276,11 +1300,21 @@ def lm_kernel_phase():
         note(check_mamba(2, 64, 4, 2, 16, 16, 32, dtype, "groups"))
         for S, N in ((128, 8), (64, 16), (96, 32), (64, 64)):
             note(check_rwkv(1, S, 3, N, dtype, f"sweep {S, N}"))
+    q = torch.zeros((1, 8, 2, 48), device="cuda")
+    try:                               # a pair the kernel is not built for
+        fa.flash_attention_kernel(q, q, torch.zeros((1, 8, 2, 40),
+                                                    device="cuda"))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention took (d, dv) = (48, 40)")
     main["flash_attention"] = note(check_flash(
         4, 2048, 32, 32, 80, torch.bfloat16, True, "zamba2-2.7b prefill",
         timed=True, fault=True))
     note(check_flash(4, 2048, 16, 16, 256, torch.bfloat16, True,
                      "gemma-7b prefill", timed=True))
+    note(check_flash(4, 2048, 128, 128, 192, torch.bfloat16, True,
+                     "deepseek-v2-236b MLA prefill", timed=True, dv=128))
     main["mamba2_scan"] = note(check_mamba(
         4, 2048, 80, 1, 64, 64, 128, torch.bfloat16, "zamba2-2.7b prefill",
         timed=True))
@@ -2191,42 +2225,75 @@ def hints_phase(n_batches: int = 200, batch: int = 256):
 
 # ------------------------------------------------------------ LM models
 # the models phase: each model at its published width and depth
-# (configs/zamba2_2_7b.py, configs/rwkv6_3b.py), bf16 weights drawn from a
-# seeded generator on the card; 4 requests of 2048 prompt tokens, one
-# prefill and 16 greedy decode steps; the prefill/decode consistency of
+# (configs/zamba2_2_7b.py, rwkv6_3b.py, qwen3_moe_30b_a3b.py,
+# llava_next_mistral_7b.py, seamless_m4t_large_v2.py; deepseek_v2_236b.py
+# cut to its dense prefix and six MoE layers, 50.4 GB of its 471 in bf16),
+# bf16 weights drawn from a seeded generator on the card; 4 requests of
+# 2048 prompt tokens (llava: after 2880 stub image tokens of width 1024;
+# seamless: from an encoder bank of 1536 frames), one prefill and 16
+# greedy decode steps; the prefill/decode consistency of
 # tests/test_models.py at 128 tokens (prefill of 127, decode of the 128th:
-# a length both chunkings take); the card against the port's CPU run at
-# full width and cut depth (zamba2: one shared block and six Mamba2
-# layers; rwkv6: two layers) on one request of 256 tokens (zamba2, a
-# multiple of its chunk, as ssd_chunked requires) or 200 (rwkv6, which the
-# reference steps one token at a time and the port runs through K8).  Both
+# a length both chunkings take; the MoE models without capacity drops, as
+# tests/test_models.py's _no_drop_cfg (no_drop), their fp32 runs with the
+# expert products in fp32 (fp32_experts) and at fp32_layers, since
+# qwen3-moe in fp32 is 122 GB); the card against the
+# port's CPU run at full width and cut depth (zamba2: one shared block and
+# six Mamba2 layers; rwkv6, qwen3-moe, llava, seamless: two layers, two
+# encoder layers too; deepseek-v2: its dense prefix and one MoE layer) on
+# one request of 256 tokens (zamba2, a multiple of its chunk, as
+# ssd_chunked requires), 200 (rwkv6, which the reference steps one token
+# at a time and the port runs through K8) or 128 (the new models; llava
+# after 256 image tokens, seamless from 96 frames).  Both
 # checks are required within fp32_limit in fp32, as tests/test_models.py
 # runs its consistency check (the readings are 1e-5 or less).  In bf16
 # these random-weight models amplify rounding from layer to layer (the
 # CPU's own bf16 logits sit 0.017-0.068 from its fp32 ones), so bf16 is
-# held layer by layer: each layer that runs a kernel (WITNESS), run again
-# on the CPU from the card's own inputs to it, agrees within the bf16
-# tolerance; and the card's bf16 logits are no farther from the CPU's fp32
+# held layer by layer: each layer that runs a kernel, and each MoE layer
+# (WITNESS), run again on the CPU from the card's own inputs to it, agrees
+# within the bf16 tolerance; and the card's bf16 logits are no farther from the CPU's fp32
 # ones than bf16_vs_fp32 times the CPU's own bf16 logits are
-LM = dict(archs=("zamba2-2.7b", "rwkv6-3b"), requests=4, prompt=2048,
-          decode=16, consistency=128, cut={"zamba2-2.7b": 6, "rwkv6-3b": 2},
-          cut_tokens={"zamba2-2.7b": 256, "rwkv6-3b": 200}, seed=0,
-          fp32_limit=1e-3, bf16_vs_fp32=1.25)
+LM = dict(archs=("zamba2-2.7b", "rwkv6-3b", "qwen3-moe-30b-a3b",
+                 "deepseek-v2-236b", "llava-next-mistral-7b",
+                 "seamless-m4t-large-v2"),
+          requests=4, prompt=2048, decode=16, consistency=128,
+          layers={"deepseek-v2-236b": 7},
+          fp32_layers={"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 2},
+          cut={"zamba2-2.7b": 6, "rwkv6-3b": 2, "qwen3-moe-30b-a3b": 2,
+               "deepseek-v2-236b": 2, "llava-next-mistral-7b": 2,
+               "seamless-m4t-large-v2": 2},
+          cut_tokens={"zamba2-2.7b": 256, "rwkv6-3b": 200,
+                      "qwen3-moe-30b-a3b": 128, "deepseek-v2-236b": 128,
+                      "llava-next-mistral-7b": 128,
+                      "seamless-m4t-large-v2": 128},
+          frames=1536, consistency_frames=96, cut_frames=96,
+          cut_image_tokens=256, seed=0, fp32_limit=1e-3, bf16_vs_fp32=1.25)
 # the layers that run K6-K8, as the model modules look them up
 WITNESS = {"zamba2-2.7b": ((lm_mod, "attention"),
                            (ssm_mod, "mamba2_block_with_state")),
-           "rwkv6-3b": ((ssm_mod, "rwkv6_time_mix"),)}
+           "rwkv6-3b": ((ssm_mod, "rwkv6_time_mix"),),
+           "qwen3-moe-30b-a3b": ((lm_mod, "attention"),
+                                 (lm_mod, "moe_ffn")),
+           "deepseek-v2-236b": ((lm_mod, "mla_attention"),
+                                (lm_mod, "moe_ffn")),
+           "llava-next-mistral-7b": ((lm_mod, "attention"),),
+           "seamless-m4t-large-v2": ((lm_mod, "attention"),)}
 LM_KERNELS = {"gemma-7b": ("flash_attention",),
               "zamba2-2.7b": ("flash_attention", "mamba2_scan"),
-              "rwkv6-3b": ("rwkv6_scan",)}
+              "rwkv6-3b": ("rwkv6_scan",),
+              "qwen3-moe-30b-a3b": ("flash_attention",),
+              "deepseek-v2-236b": ("flash_attention",),
+              "llava-next-mistral-7b": ("flash_attention",),
+              "seamless-m4t-large-v2": ("flash_attention",)}
 # the serve_lm phase: tests/test_system.py's serving config through the
 # port's run_serving (smoke models, as the reference runs them); zamba2
 # and rwkv6 take 32-token prompts, since at 16 the reference's _grow_kv
-# pads their 16-wide state axes as if they were time (ROADMAP.md §3)
+# pads their 16-wide state axes as if they were time (ROADMAP.md §3);
+# deepseek-v2's pages hold MLA's latent cache and its dense prefix's
 ZAMBA2_STATE_PAGES = 3         # serve_lm's zamba2-2.7b pages a session
 SERVE_LM = dict(n_sessions=12, n_requests=24, decode_tokens=2,
                 store_latency=0.03, cache_sessions=6, arrival_rate=500.0,
-                prompts={"gemma-7b": 16, "zamba2-2.7b": 32, "rwkv6-3b": 32})
+                prompts={"gemma-7b": 16, "zamba2-2.7b": 32, "rwkv6-3b": 32,
+                         "deepseek-v2-236b": 32})
 
 
 def rel_err(a, b) -> float:
@@ -2234,18 +2301,89 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / (float(b.float().abs().max()) + 1e-9)
 
 
+def cut_cfg(arch: str, layers: int, dtype: str):
+    """``lm_model``'s config for ``arch`` at ``layers``, without weights."""
+    cfg = get_config(arch).replace(dtype=dtype, num_layers=layers)
+    if cfg.encoder_decoder:
+        cfg = cfg.replace(num_encoder_layers=layers)
+    return cfg
+
+
 def lm_model(arch: str, layers=None, dtype="bfloat16"):
-    cfg = get_config(arch).replace(dtype=dtype)
-    if layers:
-        cfg = cfg.replace(num_layers=layers)
+    """The arch's model on the card at full width, ``layers`` deep (an
+    encoder-decoder's encoder cut alike) or at its LM["layers"] depth."""
+    layers = layers or LM["layers"].get(arch)
+    cfg = cut_cfg(arch, layers, dtype) if layers \
+        else get_config(arch).replace(dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(LM["seed"])
     return cfg, build_model(cfg, "cuda").init_params(gen)
+
+
+def no_drop(cfg):
+    """tests/test_models.py's _no_drop_cfg: no MoE capacity drops, so a
+    prefill of S - 1 tokens and one of S route alike.  Its factor of 16
+    drops nothing only where E / K <= 16; deepseek-v2 (160 experts, 6 a
+    token) takes E / K, so an expert can hold every token of a row."""
+    if not cfg.moe:
+        return cfg
+    mo = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(mo, capacity_factor=max(
+        16.0, mo.num_experts / mo.num_experts_per_tok)))
+
+
+def fp32_expert_product(a, w):
+    """``layers._expert_product`` without its rounding to bf16."""
+    B, E, C, X = a.shape
+    y = torch.bmm(a.transpose(0, 1).reshape(E, B * C, X).float(), w.float())
+    return y.reshape(E, B, C, -1).transpose(0, 1).to(a.dtype)
+
+
+@contextlib.contextmanager
+def fp32_experts(cfg):
+    """An fp32 MoE model's expert products kept in fp32.  The reference
+    rounds each expert product to bf16 whatever the model's type
+    (``preferred_element_type=bfloat16``), so the same token in two
+    batches of other shapes (a prefill, a decode; the card, the CPU) can
+    land one bf16 step apart, which random-weight layers amplify to
+    ~1e-3 of the logits on the CPU alone: the fp32 checks, which hold the
+    cache paths and the kernels, take the products in fp32 on both sides,
+    and so do not hold ``_expert_product`` itself; the bf16 checks run the
+    function as it is, and WITNESS holds each MoE layer's card output
+    (its bf16 products on the card) against a CPU rerun."""
+    if not (cfg.moe and cfg.dtype == "float32"):
+        yield
+        return
+    saved = layers_mod._expert_product
+    layers_mod._expert_product = fp32_expert_product
+    try:
+        yield
+    finally:
+        layers_mod._expert_product = saved
 
 
 def tokens(cfg, B: int, S: int, seed: int) -> torch.Tensor:
     g = torch.Generator().manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                          dtype=torch.int32)
+
+
+def lm_batch(cfg, B: int, S: int, seed: int, n_img=None, frames=None):
+    """A prefill batch of B requests of S tokens: with n_img stub image
+    tokens for a vision model (its configured count by default), with an
+    encoder bank of ``frames`` frames for an encoder-decoder; and the
+    number of image tokens before the text, which decode positions
+    count."""
+    batch = {"tokens": tokens(cfg, B, S, seed)}
+    g = torch.Generator().manual_seed(seed + 100)
+    fe = cfg.frontend
+    n = 0
+    if fe and fe.kind == "vision":
+        n = fe.num_tokens if n_img is None else n_img
+        batch["frontend_embeds"] = torch.randn((B, n, fe.embed_dim),
+                                               generator=g)
+    if cfg.encoder_decoder:
+        batch["frames"] = torch.randn((B, frames, fe.embed_dim), generator=g)
+    return batch, n
 
 
 def params_on_cpu(module):
@@ -2290,36 +2428,49 @@ def profile_step(fn, top: int = 10):
 
 
 def consistency(model, cfg, S: int):
-    """decode(prefill(x[:-1]), x[-1]) against prefill(x), rel."""
-    toks = tokens(cfg, LM["requests"], S, seed=2)
-    lg_full, _ = model.prefill({"tokens": toks})
-    _, cache = model.prefill({"tokens": toks[:, :S - 1]})
-    cache = _grow_kv(cache, S - 1, S)
-    lg_dec, _ = model.decode(cache, {"tokens": toks[:, S - 1:],
-                                     "pos": S - 1})
+    """decode(prefill(x[:-1]), x[-1]) against prefill(x), rel, without
+    MoE capacity drops (the same image tokens or frames on both sides)."""
+    batch, n_img = lm_batch(cfg, LM["requests"], S, seed=2,
+                            frames=LM["consistency_frames"])
+    cfg_was = model.cfg
+    model.cfg = no_drop(cfg_was)
+    try:
+        with fp32_experts(cfg_was):
+            lg_full, _ = model.prefill(batch)
+            _, cache = model.prefill(dict(batch,
+                                          tokens=batch["tokens"][:, :-1]))
+            t_old = S - 1 + n_img
+            cache = _grow_kv(cache, t_old, t_old + 1)
+            lg_dec, _ = model.decode(cache, {
+                "tokens": batch["tokens"][:, -1:], "pos": t_old})
+    finally:
+        model.cfg = cfg_was
     if not bool(torch.isfinite(lg_dec).all()):
         raise AssertionError(f"{cfg.name}: decode logits not finite")
     return rel_err(lg_dec, lg_full)
 
 
 def serve_full(model, cfg):
-    """4 requests of 2048 tokens: one prefill, then 16 greedy decode steps.
-    Returns the metrics and every step's logits finiteness."""
+    """4 requests of 2048 tokens (after the image tokens, or from the
+    encoder bank): one prefill, then 16 greedy decode steps.  Returns the
+    metrics, the cache, the last token and its position, and the prefill
+    batch."""
     c = LM
-    toks = tokens(cfg, c["requests"], c["prompt"], seed=1)
+    batch, n_img = lm_batch(cfg, c["requests"], c["prompt"], seed=1,
+                            frames=c["frames"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": toks})
+    logits, cache = model.prefill(batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
-    cache = _grow_kv(cache, c["prompt"], c["prompt"] + c["decode"])
+    t = n_img + c["prompt"]
+    cache = _grow_kv(cache, t, t + c["decode"])
     tok = logits.argmax(-1, keepdim=True).int()
     t0 = time.perf_counter()
     for i in range(c["decode"]):
-        logits, cache = model.decode(cache, {"tokens": tok,
-                                             "pos": c["prompt"] + i})
+        logits, cache = model.decode(cache, {"tokens": tok, "pos": t + i})
         finite = finite and bool(torch.isfinite(logits).all())
         tok = logits.argmax(-1, keepdim=True).int()
     torch.cuda.synchronize()
@@ -2329,10 +2480,11 @@ def serve_full(model, cfg):
     n_prompt = c["requests"] * c["prompt"]
     return dict(prefill_ms=prefill_s * 1e3,
                 prefill_tokens_per_s=n_prompt / prefill_s,
+                image_tokens=n_img,
                 decode_ms_per_token=decode_s / c["decode"] * 1e3,
                 decode_tokens_per_s=c["requests"] * c["decode"] / decode_s,
                 mem_peak_bytes=torch.cuda.max_memory_allocated()), \
-        cache, tok
+        cache, tok, t + c["decode"] - 1, batch
 
 
 def on_cpu(x):
@@ -2348,9 +2500,12 @@ def on_cpu(x):
     return x
 
 
-def recorded_prefill(model, toks, layers):
-    """One prefill with every call of ``layers`` ([(module, function
-    name)]) recorded as (function, arguments, outputs), on the CPU."""
+def recorded_prefill(model, batch, layers):
+    """One prefill of ``batch`` (a dict, or a tensor of tokens) with every
+    call of ``layers`` ([(module, function name)]) recorded as (function,
+    arguments, outputs), on the CPU."""
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
     calls = []
     saved = [(mod, name, getattr(mod, name)) for mod, name in layers]
 
@@ -2364,7 +2519,7 @@ def recorded_prefill(model, toks, layers):
     for mod, name, fn in saved:
         setattr(mod, name, recorder(fn))
     try:
-        logits, cache = model.prefill({"tokens": toks})
+        logits, cache = model.prefill(batch)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -2395,15 +2550,19 @@ def card_vs_cpu(arch: str):
     res, fp32_logits = {}, None
     for dtype in ("float32", "bfloat16"):
         cfg, model = lm_model(arch, LM["cut"][arch], dtype)
-        toks = tokens(cfg, 1, LM["cut_tokens"][arch], seed=3)
+        batch, _ = lm_batch(cfg, 1, LM["cut_tokens"][arch], seed=3,
+                            n_img=LM["cut_image_tokens"],
+                            frames=LM["cut_frames"])
         layers = WITNESS[arch] if dtype == "bfloat16" else ()
-        lg, cache, calls = recorded_prefill(model, toks, layers)
-        cpu_model = build_model(cfg, "cpu").load_params(params_on_cpu(model))
-        del model
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        c_lg, c_cache = cpu_model.prefill({"tokens": toks})
-        cpu_s = time.perf_counter() - t0
+        with fp32_experts(cfg):
+            lg, cache, calls = recorded_prefill(model, batch, layers)
+            cpu_model = build_model(cfg, "cpu").load_params(
+                params_on_cpu(model))
+            del model
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            c_lg, c_cache = cpu_model.prefill(batch)
+            cpu_s = time.perf_counter() - t0
         rels = {"logits": rel_err(lg.cpu(), c_lg)}
         leaves, _ = tree_flatten(cache)
         c_leaves, _ = tree_flatten(c_cache)
@@ -2427,11 +2586,22 @@ def card_vs_cpu(arch: str):
 
 def models_phase():
     total = {k: 0 for k in launches()}
+    mem_kb = int(re.search(r"MemTotal:\s+(\d+)",
+                           Path("/proc/meminfo").read_text()).group(1))
+    # card_vs_cpu holds the fp32 cut model on the host: at most a third
+    # of its memory, so that the CPU run's activations fit beside it
+    cut_bytes = {a: 4 * count_params(cut_cfg(a, LM["cut"][a], "float32"))
+                 for a in LM["archs"]}
+    emit("host", mem_total_kb=mem_kb, cpus=os.cpu_count(),
+         cut_fp32_bytes=cut_bytes)
+    if max(cut_bytes.values()) > mem_kb * 1024 / 3:
+        raise AssertionError(f"models: a cut model does not fit the host's "
+                             f"{mem_kb} kB: {cut_bytes}")
     for arch in LM["archs"]:
         cfg, model = lm_model(arch)
         n_params = sum(p.numel() for p in model.parameters())
         reset_launches()
-        stats, cache, tok = serve_full(model, cfg)
+        stats, cache, tok, last_pos, batch = serve_full(model, cfg)
         counts = launches()
         need = LM_KERNELS[arch]
         if min(counts[k] for k in need) == 0:
@@ -2439,13 +2609,13 @@ def models_phase():
         for k in total:
             total[k] += counts[k]
         rel_bf16 = consistency(model, cfg, LM["consistency"])
-        toks = tokens(cfg, LM["requests"], LM["prompt"], seed=1)
-        prof_prefill = profile_step(lambda: model.prefill({"tokens": toks}))
+        prof_prefill = profile_step(lambda: model.prefill(batch))
         prof_decode = profile_step(lambda: model.decode(
-            cache, {"tokens": tok, "pos": LM["prompt"] + LM["decode"] - 1}))
-        del model, cache
+            cache, {"tokens": tok, "pos": last_pos}))
+        del model, cache, batch
         torch.cuda.empty_cache()
-        _, model = lm_model(arch, dtype="float32")
+        fp32_layers = LM["fp32_layers"].get(arch)
+        _, model = lm_model(arch, fp32_layers, dtype="float32")
         rel = consistency(model, model.cfg, LM["consistency"])
         del model
         torch.cuda.empty_cache()
@@ -2463,6 +2633,7 @@ def models_phase():
              decode_steps=LM["decode"], launches=counts,
              consistency_tokens=LM["consistency"],
              consistency_rel_fp32=rel, consistency_rel_bf16=rel_bf16,
+             consistency_fp32_layers=fp32_layers or cfg.num_layers,
              cut_layers=LM["cut"][arch], cut_tokens=LM["cut_tokens"][arch],
              card_vs_cpu_fp32=cut["float32"],
              card_vs_cpu_bf16=cut["bfloat16"], **stats)

@@ -7,22 +7,26 @@
 // sum and accumulator of one query block in VMEM scratch.
 //
 // Computes, for every batch row b, query head h and query position s:
-// softmax(q[b, s, h] . k[b, t, h / G] / sqrt(D)) over the keys t (all T of
-// them, or t <= s when causal) applied to v[b, t, h / G], with G = H / KV
-// query heads per KV head.  Scores, softmax and the value sum accumulate
-// in fp32 (bf16 probabilities enter the value sum, as in SDPA's flash
-// backend); the output is written in the input type.  Masked keys are skipped, which equals the
+// softmax(q[b, s, h] . k[b, t, h / G] / sqrt(DK)) over the keys t (all T
+// of them, or t <= s when causal) applied to v[b, t, h / G], with G = H / KV
+// query heads per KV head.  Keys are DK wide and values DV wide (MLA's
+// decompressed heads take DK = nope + rope and DV = v_head).  Scores,
+// softmax and the value sum accumulate in fp32 (bf16 probabilities enter
+// the value sum, as in SDPA's flash backend); the output is written in the
+// input type.  Masked keys are skipped, which equals the
 // Pallas kernel's exp(-1e30 - m) = 0: every causal row sees key 0 in its
 // first key tile, so its running max is finite from then on.  S and T need
 // not be multiples of the tiles: rows and keys past them are bounds-checked.
 //
-// Layout: q and out [B, S, H, D], k and v [B, T, KV, D], all contiguous (the
-// models' own layout, so no transposes around the call).  The Pallas
-// layout [BH, S, D] is the case H = KV = 1.
+// Layout: q [B, S, H, DK], k [B, T, KV, DK], v [B, T, KV, DV], out
+// [B, S, H, DV], all contiguous (the models' own layout, so no transposes
+// around the call).  The Pallas layout [BH, S, d] is the case H = KV = 1.
+// The (DK, DV) pairs instantiated are FLASH_PAIRS below: every pair the
+// model zoo's configs reach.
 //
-// Bound: operations.  Causal attention does 2 * 2 * S * T * D / 2 flops a
-// head against (S + 2 T) * D elements moved, hundreds of flops a byte at
-// the prefill shapes.
+// Bound: operations.  Causal attention does 2 * S * T * (DK + DV) / 2
+// flops a head against S * (DK + DV) + T * (DK + DV) elements moved,
+// hundreds of flops a byte at the prefill shapes.
 //
 // Design, bfloat16 (the models' prefill type): FlashAttention-2 on the
 // tensor cores.  One block of 4 warps per (query tile of 64 rows, batch row
@@ -36,8 +40,14 @@
 // bf16 in registers and fed as the A operand of P V, with V read by
 // ldmatrix.trans; O is an fp32 register accumulator rescaled per tile.
 // Causal blocks stop at the diagonal and mask only the tiles that cross
-// it.  d 256 takes key tiles of 32 to keep O (128 fp32 registers a
-// thread) and S in registers.
+// it.  DV 256 takes key tiles of 32 to keep O (128 fp32 registers a
+// thread) and S in registers.  The m16n8k16 products contract 16 key
+// columns a step, so a DK that is no multiple of 16 (8, 24) sits in
+// shared memory zero-filled up to the next one (DKP), which leaves q.k
+// unchanged; the scale stays 1/sqrt(DK).  P V tiles DV in steps of 8,
+// the last one alone (ldmatrix x2) when DV / 8 is odd.  At (192, 128):
+// Q 64 x 200, K 2 x 64 x 200 and V 2 x 64 x 136 bf16 are 111.6 KB of
+// shared memory a block, O 64 and S 32 fp32 registers a thread.
 //
 // Design, float32 (the models' agreement checks): one block of 128 threads
 // per (query tile of BQ rows, batch row x head) on the CUDA cores; it loops
@@ -64,29 +74,31 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 // ----------------------------------------------------- fp32 on the CUDA cores
-template <int D, int BQ, int BK>
+template <int DK, int DV, int BQ, int BK>
 constexpr int smem_floats() {
-  return BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + BQ * D + 3 * BQ;
+  return BQ * (DK + 1) + BK * (DK + 1) + BK * (DV + 1) + BQ * (BK + 1)
+         + BQ * DV + 3 * BQ;
 }
 
-template <typename T, int D, int BQ, int BK>
+template <typename T, int DK, int DV, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
              int H, int KV, int causal) {
   static_assert(BQ % 16 == 0 && BK % 8 == 0, "tile shape");
-  constexpr int DP = D + 1;
+  constexpr int DP = DK + 1;
+  constexpr int VP = DV + 1;
   constexpr int RQ = BQ / 16;          // score rows per thread
   constexpr int CK = BK / 8;           // score columns per thread
   constexpr int MC = 8;                // output columns per pass
-  constexpr int NCOL = (D + 7) / 8;    // output columns per thread
+  constexpr int NCOL = (DV + 7) / 8;   // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                   // [BQ][DP]
   float* k_s = q_s + BQ * DP;          // [BK][DP]
-  float* v_s = k_s + BK * DP;          // [BK][DP]
-  float* p_s = v_s + BK * DP;          // [BQ][BK + 1]
-  float* o_s = p_s + BQ * (BK + 1);    // [BQ][D]
-  float* m_s = o_s + BQ * D;           // [BQ] running max
+  float* v_s = k_s + BK * DP;          // [BK][VP]
+  float* p_s = v_s + BK * VP;          // [BQ][BK + 1]
+  float* o_s = p_s + BQ * (BK + 1);    // [BQ][DV]
+  float* m_s = o_s + BQ * DV;          // [BQ] running max
   float* l_s = m_s + BQ;               // [BQ] running sum
   float* a_s = l_s + BQ;               // [BQ] this tile's rescale
 
@@ -96,19 +108,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
   const int rg = tid / 8, cg = tid % 8;
-  const int64_t q_stride = (int64_t)H * D;      // between query positions
-  const int64_t kv_stride = (int64_t)KV * D;    // between key positions
-  const T* qb = q + ((int64_t)b * S * H + h) * D;
-  const T* kb = k + ((int64_t)b * Tk * KV + kvh) * D;
-  const T* vb = v + ((int64_t)b * Tk * KV + kvh) * D;
-  T* ob = out + ((int64_t)b * S * H + h) * D;
-  const float scale = 1.f / sqrtf((float)D);
+  const int64_t q_stride = (int64_t)H * DK;     // between query positions
+  const int64_t o_stride = (int64_t)H * DV;
+  const int64_t k_stride = (int64_t)KV * DK;    // between key positions
+  const int64_t v_stride = (int64_t)KV * DV;
+  const T* qb = q + ((int64_t)b * S * H + h) * DK;
+  const T* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
+  const T* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
+  T* ob = out + ((int64_t)b * S * H + h) * DV;
+  const float scale = 1.f / sqrtf((float)DK);
 
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < BQ * DK; i += kThreads) {
+    const int r = i / DK, c = i % DK;
     q_s[r * DP + c] = q0 + r < S ? to_f32(qb[(q0 + r) * q_stride + c]) : 0.f;
-    o_s[i] = 0.f;
   }
+  for (int i = tid; i < BQ * DV; i += kThreads) o_s[i] = 0.f;
   for (int r = tid; r < BQ; r += kThreads) {
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
@@ -118,11 +132,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();                   // the last tile's readers are done
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool ok = k0 + r < Tk;
-      k_s[r * DP + c] = ok ? to_f32(kb[(k0 + r) * kv_stride + c]) : 0.f;
-      v_s[r * DP + c] = ok ? to_f32(vb[(k0 + r) * kv_stride + c]) : 0.f;
+    for (int i = tid; i < BK * DK; i += kThreads) {
+      const int r = i / DK, c = i % DK;
+      k_s[r * DP + c] =
+          k0 + r < Tk ? to_f32(kb[(k0 + r) * k_stride + c]) : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += kThreads) {
+      const int r = i / DV, c = i % DV;
+      v_s[r * VP + c] =
+          k0 + r < Tk ? to_f32(vb[(k0 + r) * v_stride + c]) : 0.f;
     }
     __syncthreads();
     float s[RQ][CK];
@@ -131,7 +149,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DK; ++c) {
       float qv[RQ], kv[CK];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) qv[i] = q_s[(rg + 16 * i) * DP + c];
@@ -188,8 +206,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < MC; ++m) {
           const int c = cg + 8 * (c0 + m);
-          acc[i][m] = (c0 + m < NCOL && c < D)
-                          ? o_s[(rg + 16 * i) * D + c] * alpha : 0.f;
+          acc[i][m] = (c0 + m < NCOL && c < DV)
+                          ? o_s[(rg + 16 * i) * DV + c] * alpha : 0.f;
         }
       }
 #pragma unroll 4
@@ -200,7 +218,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < MC; ++m) {
           const int c = cg + 8 * (c0 + m);
-          vv[m] = (c0 + m < NCOL && c < D) ? v_s[j * DP + c] : 0.f;
+          vv[m] = (c0 + m < NCOL && c < DV) ? v_s[j * VP + c] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
@@ -212,56 +230,64 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < MC; ++m) {
           const int c = cg + 8 * (c0 + m);
-          if (c0 + m < NCOL && c < D) o_s[(rg + 16 * i) * D + c] = acc[i][m];
+          if (c0 + m < NCOL && c < DV) o_s[(rg + 16 * i) * DV + c] = acc[i][m];
         }
     }
   }
   __syncthreads();
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < BQ * DV; i += kThreads) {
+    const int r = i / DV, c = i % DV;
     if (q0 + r < S)
-      store(ob + (q0 + r) * q_stride + c, o_s[i] / fmaxf(l_s[r], 1e-30f));
+      store(ob + (q0 + r) * o_stride + c, o_s[i] / fmaxf(l_s[r], 1e-30f));
   }
 }
 
 // ------------------------------------------------- bf16 on the tensor cores
 constexpr int kRows = 64;              // query rows a block, 16 a warp
 
-template <int D, int BK>
+// a key row's width in shared memory: DK rounded up to the k-step of 16
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
+
+template <int DK, int DV, int BK>
 constexpr int bf16_smem_bytes() {
-  return 2 * (kRows + 4 * BK) * (D + 8);   // Q, two K and two V tiles
+  // Q, two K and two V tiles, rows padded by 16 bytes
+  return 2 * ((kRows + 2 * BK) * (pad16(DK) + 8) + 2 * BK * (DV + 8));
 }
 
-// rows x D bf16 from global rows of `stride` elements into shared rows of
-// D + 8, by 16-byte cp.async; rows at or past `n` zero-filled
-template <int D, int ROWS>
+// ROWS x W bf16 from global rows of `stride` elements into shared rows of
+// WP + 8, by 16-byte cp.async; rows at or past `n` and the columns from W
+// to WP zero-filled
+template <int W, int WP, int ROWS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           int64_t stride, int n) {
-  constexpr int CPR = D / 8;           // 16-byte chunks a row
+  static_assert(W % 8 == 0 && WP % 8 == 0 && WP >= W, "row width");
+  constexpr int CPR = WP / 8;          // 16-byte chunks a shared row
   for (int c = threadIdx.x; c < ROWS * CPR; c += kThreads) {
     const int r = c / CPR, col = (c % CPR) * 8;
-    const bool ok = r < n;
-    cp_async16(smem_addr(dst + r * (D + 8) + col),
-               src + (ok ? r * stride : 0) + col, ok);
+    const bool ok = r < n && col < W;
+    cp_async16(smem_addr(dst + r * (WP + 8) + col),
+               src + (ok ? r * stride + col : 0), ok);
   }
 }
 
-template <int D, int BK>
+template <int DK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, int S, int Tk, int H,
                   int KV, int causal) {
-  static_assert(D % 16 == 0 && BK % 16 == 0, "tile shape");
-  constexpr int DP = D + 8;            // padded row (16 bytes)
+  static_assert(DV % 8 == 0 && BK % 16 == 0, "tile shape");
+  constexpr int DKP = pad16(DK);       // key columns, zero-filled past DK
+  constexpr int DP = DKP + 8;          // padded Q/K row (16 bytes)
+  constexpr int VP = DV + 8;           // padded V row
   constexpr int NS = BK / 8;           // score n-tiles a warp
-  constexpr int NO = D / 8;            // output n-tiles a warp
+  constexpr int NO = DV / 8;           // output n-tiles a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* k_s = q_s + kRows * DP;        // [2][BK][DP]
-  __nv_bfloat16* v_s = k_s + 2 * BK * DP;       // [2][BK][DP]
+  __nv_bfloat16* v_s = k_s + 2 * BK * DP;       // [2][BK][VP]
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -270,19 +296,20 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tig = lane % 4;       // mma row group, column pair
-  const int64_t q_stride = (int64_t)H * D;
-  const int64_t kv_stride = (int64_t)KV * D;
-  const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * D;
-  const __nv_bfloat16* kb = k + ((int64_t)b * Tk * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * Tk * KV + kvh) * D;
-  // scores in log2 units: exp(x / sqrt(D)) = exp2(x * sl2)
-  const float sl2 = 1.4426950408889634f / sqrtf((float)D);
+  const int64_t q_stride = (int64_t)H * DK;
+  const int64_t k_stride = (int64_t)KV * DK;
+  const int64_t v_stride = (int64_t)KV * DV;
+  const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * DK;
+  const __nv_bfloat16* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
+  const __nv_bfloat16* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
+  // scores in log2 units: exp(x / sqrt(DK)) = exp2(x * sl2)
+  const float sl2 = 1.4426950408889634f / sqrtf((float)DK);
 
   const int kv_end = causal ? min(Tk, q0 + kRows) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  load_tile<D, kRows>(q_s, qb + q0 * q_stride, q_stride, S - q0);
-  load_tile<D, BK>(k_s, kb, kv_stride, Tk);
-  load_tile<D, BK>(v_s, vb, kv_stride, Tk);
+  load_tile<DK, DKP, kRows>(q_s, qb + q0 * q_stride, q_stride, S - q0);
+  load_tile<DK, DKP, BK>(k_s, kb, k_stride, Tk);
+  load_tile<DV, DV, BK>(v_s, vb, v_stride, Tk);
   cp_async_commit();
 
   float o[NO][4];
@@ -298,16 +325,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t q_lane = smem_addr(q_s + (warp * 16 + lane % 16) * DP
                                     + (lane / 16) * 8);
   const int k_off = (lane % 8 + 8 * (lane / 16)) * DP + ((lane / 8) % 2) * 8;
-  const int v_off = (lane % 8 + 8 * ((lane / 8) % 2)) * DP + (lane / 16) * 8;
+  const int v_off = (lane % 8 + 8 * ((lane / 8) % 2)) * VP + (lane / 16) * 8;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int st = tile & 1;
     if (tile + 1 < n_tiles) {
       const int k0n = (tile + 1) * BK;
-      load_tile<D, BK>(k_s + (st ^ 1) * BK * DP, kb + k0n * kv_stride,
-                       kv_stride, Tk - k0n);
-      load_tile<D, BK>(v_s + (st ^ 1) * BK * DP, vb + k0n * kv_stride,
-                       kv_stride, Tk - k0n);
+      load_tile<DK, DKP, BK>(k_s + (st ^ 1) * BK * DP, kb + k0n * k_stride,
+                             k_stride, Tk - k0n);
+      load_tile<DV, DV, BK>(v_s + (st ^ 1) * BK * VP, vb + k0n * v_stride,
+                            v_stride, Tk - k0n);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -315,7 +342,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
     const __nv_bfloat16* kt = k_s + st * BK * DP;
-    const __nv_bfloat16* vt = v_s + st * BK * DP;
+    const __nv_bfloat16* vt = v_s + st * BK * VP;
     const int k0 = tile * BK;
 
     // S = Q K^T for this warp's 16 rows and the tile's BK keys
@@ -323,7 +350,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DKP / 16; ++kk) {
       uint32_t a[4];
       ldsm_x4(a, q_lane + kk * 32);
 #pragma unroll
@@ -383,11 +410,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int j = 0; j < NO; j += 2) {
+      for (int j = 0; j + 1 < NO; j += 2) {
         uint32_t bv[4];
-        ldsm_x4_t(bv, smem_addr(vt + kk * 16 * DP + v_off + j * 8));
+        ldsm_x4_t(bv, smem_addr(vt + kk * 16 * VP + v_off + j * 8));
         mma_bf16(o[j], a, bv[0], bv[1]);
         mma_bf16(o[j + 1], a, bv[2], bv[3]);
+      }
+      if constexpr (NO % 2) {          // the last n-tile alone
+        uint32_t bv[2];
+        ldsm_x2_t(bv, smem_addr(vt + kk * 16 * VP + v_off + (NO - 1) * 8));
+        mma_bf16(o[NO - 1], a, bv[0], bv[1]);
       }
     }
     __syncthreads();                   // this stage is refilled next
@@ -400,12 +432,12 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  __nv_bfloat16* ob = out + ((int64_t)b * S * H + h) * D;
+  __nv_bfloat16* ob = out + ((int64_t)b * S * H + h) * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = row0 + r * 8;
     if (qpos >= S) continue;
-    __nv_bfloat16* orow = ob + qpos * q_stride + tig * 2;
+    __nv_bfloat16* orow = ob + qpos * (int64_t)H * DV + tig * 2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
@@ -414,14 +446,23 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------------ launch
-// tiles: bf16 keys a tile (query tiles are kRows); fp32 query and key tiles
-constexpr int bf16_bk(int D) { return D == 256 ? 32 : 64; }
-constexpr int f32_tile(int D) { return D >= 128 ? 32 : 64; }
+// every (DK, DV) the model zoo's configs reach (configs/registry.py, full
+// and smoke; MLA's DK is nope + rope), and 32
+#define FLASH_PAIRS(X) \
+  X(8, 8) X(16, 16) X(24, 16) X(32, 32) X(64, 64) X(80, 80) X(128, 128) \
+  X(192, 128) X(256, 256)
 
-template <int D>
+// tiles: bf16 keys a tile (query tiles are kRows); fp32 query and key tiles
+constexpr int bf16_bk(int DV) { return DV == 256 ? 32 : 64; }
+constexpr int f32_tile(int DK, int DV) {
+  return DK >= 128 || DV >= 128 ? 32 : 64;
+}
+
+template <int DK, int DV>
 int smem_bytes(int bf16) {
-  return bf16 ? bf16_smem_bytes<D, bf16_bk(D)>()
-              : (int)sizeof(float) * smem_floats<D, f32_tile(D), f32_tile(D)>();
+  constexpr int BT = f32_tile(DK, DV);
+  return bf16 ? bf16_smem_bytes<DK, DV, bf16_bk(DV)>()
+              : (int)sizeof(float) * smem_floats<DK, DV, BT, BT>();
 }
 
 template <typename K>
@@ -430,26 +471,27 @@ int configure(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int Tk, int H, int KV, int causal, int bf16,
            cudaStream_t stream) {
-  const int bytes = smem_bytes<D>(bf16);
+  const int bytes = smem_bytes<DK, DV>(bf16);
   if (bf16) {
-    constexpr int BK = bf16_bk(D);
-    static const int configured = configure(flash_bf16_kernel<D, BK>, bytes);
+    constexpr int BK = bf16_bk(DV);
+    static const int configured =
+        configure(flash_bf16_kernel<DK, DV, BK>, bytes);
     if (configured != 0) return configured;
     const dim3 grid((S + kRows - 1) / kRows, B * H);
-    flash_bf16_kernel<D, BK><<<grid, kThreads, bytes, stream>>>(
+    flash_bf16_kernel<DK, DV, BK><<<grid, kThreads, bytes, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, KV, causal);
   } else {
-    constexpr int BT = f32_tile(D);
-    static const int configured = configure(flash_kernel<float, D, BT, BT>,
-                                            bytes);
+    constexpr int BT = f32_tile(DK, DV);
+    static const int configured =
+        configure(flash_kernel<float, DK, DV, BT, BT>, bytes);
     if (configured != 0) return configured;
     const dim3 grid((S + BT - 1) / BT, B * H);
-    flash_kernel<float, D, BT, BT><<<grid, kThreads, bytes, stream>>>(
+    flash_kernel<float, DK, DV, BT, BT><<<grid, kThreads, bytes, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, S, Tk,
         H, KV, causal);
   }
@@ -460,37 +502,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// q and out [B, S, H, D], k and v [B, T, KV, D], one type (bf16 != 0:
-// bfloat16, else float32), contiguous and 16-byte aligned; H a multiple of
-// KV.  Returns a CUDA error code; cudaErrorInvalidValue for a head dim
-// outside {16, 32, 64, 80, 128, 256}.
+// q [B, S, H, DK], k [B, T, KV, DK], v [B, T, KV, DV], out [B, S, H, DV],
+// one type (bf16 != 0: bfloat16, else float32), contiguous and 16-byte
+// aligned; H a multiple of KV.  Returns a CUDA error code;
+// cudaErrorInvalidValue for a (DK, DV) outside FLASH_PAIRS.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int B, int S, int T, int H, int KV, int D, int causal,
-                    int bf16, void* stream) {
+                    int B, int S, int T, int H, int KV, int DK, int DV,
+                    int causal, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch<16>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
-    case 32: return launch<32>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
-    case 64: return launch<64>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
-    case 80: return launch<80>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
-    case 128: return launch<128>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
-    case 256: return launch<256>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(dk, dv)                                               \
+  if (DK == dk && DV == dv)                                              \
+    return launch<dk, dv>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+  FLASH_PAIRS(FLASH_CASE)
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-// The dynamic shared memory a block takes at head dim D (0 for a head dim
-// outside the list).
-int flash_attention_smem_bytes(int D, int bf16) {
-  switch (D) {
-    case 16: return smem_bytes<16>(bf16);
-    case 32: return smem_bytes<32>(bf16);
-    case 64: return smem_bytes<64>(bf16);
-    case 80: return smem_bytes<80>(bf16);
-    case 128: return smem_bytes<128>(bf16);
-    case 256: return smem_bytes<256>(bf16);
-    default: return 0;
-  }
+// The dynamic shared memory a block takes at (DK, DV) (0 for a pair
+// outside FLASH_PAIRS).
+int flash_attention_smem_bytes(int DK, int DV, int bf16) {
+#define FLASH_CASE(dk, dv) \
+  if (DK == dk && DV == dv) return smem_bytes<dk, dv>(bf16);
+  FLASH_PAIRS(FLASH_CASE)
+#undef FLASH_CASE
+  return 0;
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
 """Blocked online-softmax attention: the CUDA kernel
 ``csrc/flash_attention.cu`` and its plain PyTorch version.
 
-q ``[B, S, H, d]`` attends over k/v ``[B, T, KV, d]`` with scale 1/sqrt(d),
-causally (key t <= query s) or over every key; query head h reads KV head
-``h // (H / KV)``, which is the reference wrapper's repeat of the KV heads
-without the copy.  Scores, softmax and the value sum are fp32; the output
-has q's type.  The Pallas layout ``[BH, S, d]`` is the case H = KV = 1.
+q ``[B, S, H, d]`` attends over k ``[B, T, KV, d]`` and v ``[B, T, KV,
+dv]`` with scale 1/sqrt(d), causally (key t <= query s) or over every key;
+query head h reads KV head ``h // (H / KV)``, which is the reference
+wrapper's repeat of the KV heads without the copy.  Scores, softmax and the
+value sum are fp32; the output ``[B, S, H, dv]`` has q's type.  The Pallas
+layout ``[BH, S, d]`` is the case H = KV = 1.  The kernel is instantiated
+for the ``(d, dv)`` pairs of ``PAIRS``: every pair the model zoo's configs
+reach.
 
 ``flash_attention_kernel`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; it never falls back from one to
@@ -26,7 +29,9 @@ from repro_torch.kernels import cuda_build
 LAUNCHES = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernel's head dims
+# the kernel's (d, dv) pairs: FLASH_PAIRS in csrc/flash_attention.cu
+PAIRS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (80, 80),
+         (128, 128), (192, 128), (256, 256))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,12 +55,12 @@ def flash_attention_plain(q, k, v, causal: bool = True):
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
-def smem_bytes(d: int, dtype) -> int:
-    """The kernel's dynamic shared memory a block at head dim ``d``."""
+def smem_bytes(d: int, dv: int, dtype) -> int:
+    """The kernel's dynamic shared memory a block at ``(d, dv)``."""
     fn = cuda_build.load("flash_attention").flash_attention_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
-    return fn(d, _DTYPES[dtype])
+    return fn(d, dv, _DTYPES[dtype])
 
 
 def _check(q, k, v) -> None:
@@ -83,25 +88,25 @@ def flash_attention_kernel(q, k, v, causal: bool = True):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: no kernel for q {q.dtype}, k/v "
                         f"{k.dtype}/{v.dtype}")
-    if d not in HEAD_DIMS or dv != d:
-        raise ValueError(f"flash_attention: the kernel takes d = dv in "
-                         f"{HEAD_DIMS}, not d={d}, dv={dv}")
+    if (d, dv) not in PAIRS:
+        raise ValueError(f"flash_attention: the kernel takes (d, dv) in "
+                         f"{PAIRS}, not ({d}, {dv})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: tensors must be contiguous")
     if T == 0:
         raise ValueError("flash_attention: no keys")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: tensors must be 16-byte aligned")
-    out = torch.empty_like(q)
-    if q.numel() == 0:
+    out = q.new_empty((B, S, H, dv))
+    if out.numel() == 0:
         return out
     fn = cuda_build.load("flash_attention").flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-             T, H, KV, d, int(causal), _DTYPES[q.dtype],
+             T, H, KV, d, dv, int(causal), _DTYPES[q.dtype],
              cuda_build.stream_ptr(q.device))
     cuda_build.check(err, "flash_attention")
     LAUNCHES += 1

@@ -1,5 +1,5 @@
-"""Model layers of the dense subset, in PyTorch: the port of
-``repro/models/layers.py``.
+"""Model layers of every assigned architecture, in PyTorch: the port of
+``repro/models/layers.py`` (attention, MLA, FFN, MoE).
 
 Conventions, as in the reference
 ---------------------------------
@@ -13,12 +13,14 @@ Conventions, as in the reference
   (``kernels/flash_attention``, K6) on the card and its plain version on
   the CPU; the reference's blocks and ``attn_impl`` only tile the same
   function, so the port has neither and the kernel chooses its tiles.
-* The reference's sharding annotations (``constraint``) and its bf16
-  gradient casts return their input on one device in the forward pass;
-  the port leaves them out until a mesh or a training slice needs them.
-
-MLA and MoE layers come with a later slice of the port (ROADMAP.md §1,
-"Model zoo: MLA and MoE"); ``models/lm.py`` raises for their configs.
+* The reference's sharding annotations (``constraint``), its MoE
+  ``expert_scheme`` branches (the same function under other shardings)
+  and its bf16 gradient casts return their input on one device in the
+  forward pass; the port leaves them out until a mesh or a training slice
+  needs them.
+* MLA's prefill decompresses K/V and runs the kernel at ``(nope + rope,
+  v_head)``; its absorbed decode and the MoE dispatch and combine are plain
+  torch, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_kernel
 
@@ -229,6 +231,111 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     return dense(o, p["wo"]), k, v
 
 
+# ------------------------------------------------------------------------ MLA
+def init_mla(gen, cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
+    m: MLAConfig = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": normal(gen, (D, m.q_lora_rank), D, dtype),
+        "q_norm": full(gen, (m.q_lora_rank,), 0.0, dtype),
+        "w_uq": normal(gen, (m.q_lora_rank, H * qk), m.q_lora_rank, dtype),
+        "w_dkv": normal(gen, (D, m.kv_lora_rank), D, dtype),
+        "w_kr": normal(gen, (D, m.qk_rope_head_dim), D, dtype),
+        "kv_norm": full(gen, (m.kv_lora_rank,), 0.0, dtype),
+        "w_ukv": normal(gen, (m.kv_lora_rank,
+                              H * (m.qk_nope_head_dim + m.v_head_dim)),
+                        m.kv_lora_rank, dtype),
+        "wo": normal(gen, (H * m.v_head_dim, D), H * m.v_head_dim, dtype),
+    }
+
+
+def mla_latents(p: Params, x: torch.Tensor, cfg: ModelConfig, positions
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache entries of tokens ``x`` [B,S,D] at ``positions`` [S]: the
+    normed KV latent [B,S,kv_lora] and the rotated shared key [B,S,rope]."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    ckv = rms_norm(dense(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    sin, cos = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    kr = dense(x, p["w_kr"]).reshape(B, S, 1, m.qk_rope_head_dim)
+    return ckv, apply_rope(kr, sin, cos).reshape(B, S, m.qk_rope_head_dim)
+
+
+def _mla_queries(p: Params, x: torch.Tensor, cfg: ModelConfig, positions
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope [B,S,H,nope], rotated q_rope [B,S,H,rope])."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
+    cq = rms_norm(dense(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = dense(cq, p["w_uq"]).reshape(B, S, cfg.num_heads, nope + rope_d)
+    sin, cos = rope_angles(positions, rope_d, cfg.rope_theta)
+    return q[..., :nope], apply_rope(q[..., nope:], sin, cos)
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """MLA prefill: K/V decompressed from the latent, every head its own
+    KV head, through the kernel at (nope + rope, v_head).  x [B,S,D]."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_queries(p, x, cfg, positions)
+    ckv, k_rope = mla_latents(p, x, cfg, positions)
+    kv = dense(ckv, p["w_ukv"]).reshape(B, S, H, nope + vd)
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
+        B, S, H, rope_d)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = blocked_attention(q, k, kv[..., nope:].contiguous(), causal=True)
+    o = o.to(x.dtype).reshape(B, S, H * vd)
+    return dense(o, p["wo"])
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_kr: torch.Tensor, pos, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed MLA decode: scores and values in the kv_lora latent space
+    against the read-only caches ([B,T,kv_lora], [B,T,rope]; positions <
+    pos), the new token merged by online softmax.  Returns (out, ckv_new
+    [B,1,kv_lora], kr_new [B,1,rope]) for the caller's cache write."""
+    m: MLAConfig = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    at = torch.tensor([int(pos)], device=x.device)
+    q_nope, q_rope = _mla_queries(p, x, cfg, at)
+    ckv_t, kr_t = mla_latents(p, x, cfg, at)
+    ckv_t = ckv_t.to(cache_ckv.dtype)                       # [B,1,r]
+    kr_t = kr_t.to(cache_kr.dtype)
+    w_ukv = p["w_ukv"].reshape(r, H, nope + vd)
+    w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]       # [r,H,*]
+    q_eff = matmul_f32(q_nope[:, 0], w_uk, "bhn,rhn->bhr")
+    qr = q_rope[:, 0].float()
+    T = cache_ckv.shape[1]
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    ckv_f = cache_ckv.float()
+    s = (torch.einsum("bhr,btr->bht", q_eff, ckv_f)
+         + torch.einsum("bhd,btd->bht", qr, cache_kr.float())) * scale
+    valid = (torch.arange(T, device=x.device) < int(pos))[None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    s_self = (torch.einsum("bhr,bxr->bh", q_eff, ckv_t.float())
+              + torch.einsum("bhd,bxd->bh", qr, kr_t.float())) * scale
+    mx = torch.maximum(s.amax(dim=-1), s_self)
+    pattn = torch.exp(s - mx[..., None])
+    p_self = torch.exp(s_self - mx)
+    l = pattn.sum(dim=-1) + p_self
+    ctx = torch.einsum("bht,btr->bhr", pattn, ckv_f) \
+        + p_self[..., None] * ckv_t.float()
+    ctx = ctx / torch.clamp(l, min=1e-30)[..., None]
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float())
+    o = o.reshape(B, 1, H * vd).to(x.dtype)
+    return dense(o, p["wo"]), ckv_t, kr_t
+
+
 # ------------------------------------------------------------------------ FFN
 def init_ffn(gen, d_model: int, d_ff: int, dtype=torch.bfloat16) -> Params:
     return {"w_gate": normal(gen, (d_model, d_ff), d_model, dtype),
@@ -241,3 +348,96 @@ def ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     u = dense(x, p["w_up"])
     h = act_fn(act)(g.float()).to(x.dtype) * u
     return dense(h, p["w_down"])
+
+
+# ------------------------------------------------------------------------ MoE
+def init_moe(gen, cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
+    mo: MoEConfig = cfg.moe
+    D, E, F_ = cfg.d_model, mo.num_experts, mo.d_ff
+    p: Params = {
+        "router": normal(gen, (D, E), D, dtype).float(),
+        "w_gate": normal(gen, (E, D, F_), D, dtype),
+        "w_up": normal(gen, (E, D, F_), D, dtype),
+        "w_down": normal(gen, (E, F_, D), F_, dtype),
+    }
+    if mo.num_shared_experts:
+        p["shared"] = init_ffn(gen, D, mo.num_shared_experts
+                               * (mo.shared_d_ff or F_), dtype)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots an expert has a batch row: ceil(K S / E x capacity_factor)."""
+    mo: MoEConfig = cfg.moe
+    return max(1, int(math.ceil(mo.num_experts_per_tok * S / mo.num_experts
+                                * mo.capacity_factor)))
+
+
+def moe_route(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The reference's routing of x [B,S,D]: fp32 softmax over the experts,
+    the top K (ties to the lower index, as ``lax.top_k``), gates
+    renormalised; each choice's position in its expert's buffer counts the
+    earlier choices (s-major, k-minor) of the same expert in its batch
+    row, and a choice at or past the capacity is dropped (gate 0).
+    Returns (probs [B,S,E], gates, idx, pos, keep [B,S,K])."""
+    mo: MoEConfig = cfg.moe
+    B, S, _ = x.shape
+    E, K = mo.num_experts, mo.num_experts_per_tok
+    probs = torch.softmax(matmul_f32(x, p["router"], "bsd,de->bse"), dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = order.values[..., :K], order.indices[..., :K]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # the choices to each expert counted along [S*K] (an inner-axis scan)
+    onehot = F.one_hot(idx.reshape(B, S * K), E).to(torch.int32)
+    counts = torch.cumsum(onehot.transpose(1, 2), dim=-1).transpose(1, 2)
+    pos = torch.gather(counts, 2, idx.reshape(B, S * K, 1)).reshape(
+        B, S, K) - 1
+    keep = pos < moe_capacity(cfg, S)
+    return probs, torch.where(keep, gates, 0.0), idx, pos, keep
+
+
+def _expert_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bec*,e**->bec*", ..., preferred_element_type=bfloat16)`` of
+    a [B,E,C,X] and w [E,X,Y]: the product in fp32, rounded to bf16 once,
+    in a's type; one batched product over the experts, each expert's
+    weights read once for all B x C rows."""
+    B, E, C, X = a.shape
+    rows = a.transpose(0, 1).reshape(E, B * C, X)
+    if a.device.type == "cpu":
+        y = torch.bmm(rows.float(), w.float())
+    else:
+        y = torch.bmm(rows, w.to(a.dtype))
+    y = y.reshape(E, B, C, -1).transpose(0, 1)
+    return y.to(torch.bfloat16).to(a.dtype)
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity MoE grouped by batch row (GShard style): x [B,S,D] is
+    dispatched into [B,E,C,D], each expert's gated FFN runs as batched
+    matrix products, and each token's K outputs are gathered back and
+    summed by their gates in fp32; the shared experts' FFN is added.
+    Returns (y, Switch-style load-balance aux loss)."""
+    mo: MoEConfig = cfg.moe
+    B, S, D = x.shape
+    E, K = mo.num_experts, mo.num_experts_per_tok
+    C = moe_capacity(cfg, S)
+    probs, gates, idx, pos, keep = moe_route(p, x, cfg)
+    pos_c = torch.clamp(pos, 0, C - 1)
+    rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
+    # the reference adds each kept token at its slot and zeros for the
+    # dropped ones; here the dropped ones go to a spare slot C, dropped
+    buf = x.new_zeros((B, E, C + 1, D)).index_put_(
+        (rows, idx, torch.where(keep, pos, C)),
+        x[:, :, None, :].expand(B, S, K, D))[:, :, :C]
+    g = _expert_product(buf, p["w_gate"])
+    u = _expert_product(buf, p["w_up"])
+    h = act_fn(cfg.hidden_act)(g.float()).to(x.dtype) * u
+    y_buf = _expert_product(h, p["w_down"])
+    y = y_buf[rows, idx, pos_c]                             # [B,S,K,D]
+    y = (y.float() * gates[..., None]).sum(dim=2).to(x.dtype)
+    if "shared" in p:
+        y = y + ffn(p["shared"], x, cfg.hidden_act)
+    me = probs.mean(dim=(0, 1))
+    ce = (F.one_hot(idx, E).sum(2).reshape(B * S, E) > 0).float().mean(0)
+    return y, (me * ce).sum() * E

@@ -1,11 +1,14 @@
 """Model builders for LM serving, in PyTorch: the port of
-``repro/models/lm.py`` for the families whose prefill reaches the
-hand-written kernels.
+``repro/models/lm.py``.
 
     model = build_model(cfg, device="cuda")
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     logits, cache = model.prefill({"tokens": tokens})
     logits, cache = model.decode(cache, {"tokens": tok, "pos": pos})
+
+A vision model's prefill also takes ``frontend_embeds`` [B, n_img,
+embed_dim] (its image tokens come first, so decode positions count them);
+an encoder-decoder's takes ``frames`` [B, T_enc, embed_dim].
 
 A model is an ``nn.Module`` whose parameters keep the reference's names and
 ``[in, out]`` layouts; the reference's stacked layer axis becomes a
@@ -16,10 +19,10 @@ lists of tensors, stacked over layers where the reference stacks them; the
 position an int32 scalar on the host); decode returns a new cache and
 leaves the one it was given unchanged.
 
-Builders: the dense decoder (gemma-7b, qwen2.5-32b, ... without MoE, MLA,
-frontend or encoder), zamba2 (Mamba2 + shared attention) and rwkv6.  The
-other families and ``train_loss`` come with later slices of the port
-(ROADMAP.md §1).
+Builders: the decoder (dense, MoE with a dense prefix, MLA, a vision
+frontend), zamba2 (Mamba2 + shared attention), rwkv6 and the
+encoder-decoder; together every architecture of the registry.
+``train_loss`` comes with the training slice of the port (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -32,10 +35,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_rope, attention,
-                                       attention_decode, dense, ffn, full,
-                                       init_attention, init_ffn, matmul_f32,
-                                       normal, rms_norm, rope_angles)
+from repro_torch.models.layers import (act_fn, apply_rope, attention,
+                                       attention_decode, decode_attention,
+                                       dense, ffn, full, init_attention,
+                                       init_ffn, init_mla, init_moe,
+                                       matmul_f32, mla_attention, mla_decode,
+                                       mla_latents, moe_ffn, normal,
+                                       rms_norm, rope_angles)
 
 Params = Dict[str, Any]
 Batch = Dict[str, Any]
@@ -153,6 +159,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return RWKV6LM(cfg, device)
     if cfg.ssm and cfg.ssm.kind == "mamba2":
         return ZambaLM(cfg, device)
+    if cfg.encoder_decoder:
+        return EncDecLM(cfg, device)
     return DecoderLM(cfg, device)
 
 
@@ -179,93 +187,147 @@ def _to_torch(x: Any) -> Any:
     return torch.from_numpy(np.array(a))
 
 
+def _stacked(cfg: ModelConfig) -> Dict[str, int]:
+    """The reference's stacked (scanned) layer trees and their lengths."""
+    if cfg.encoder_decoder:
+        return {"enc_layers": cfg.num_encoder_layers,
+                "dec_layers": cfg.num_layers}
+    prefix = cfg.moe.first_k_dense if cfg.moe else 0
+    return {"layers": cfg.num_layers - prefix}
+
+
 def params_from_jax(cfg: ModelConfig, tree: Params) -> Params:
     """The reference's parameter tree for ``cfg`` (its leaves as numpy
     arrays, bf16 as ``ml_dtypes.bfloat16``) as the port's tree of CPU
-    tensors: the stacked ``layers`` axis (``cfg.num_layers`` long)
-    unstacked into a list, for ``Model.load_params``.  A tree without
-    ``layers`` (one layer's parameters) is converted as it is."""
+    tensors: each stacked layer axis (``layers``: the layers after the
+    dense prefix; ``enc_layers``, ``dec_layers``) unstacked into a list,
+    for ``Model.load_params``; ``prefix_layers`` is a list already.  A tree
+    without stacked layers (one layer's parameters) is converted as it
+    is."""
     out = _to_torch(tree)
-    if "layers" in out:
-        out["layers"] = _unstack(out["layers"], cfg.num_layers)
+    for name, n in _stacked(cfg).items():
+        if name in out:
+            out[name] = _unstack(out[name], n)
     return out
 
 
 # ===================================================================== dense
-def _init_block(gen, cfg: ModelConfig, dtype) -> Params:
-    return {"ln1": full(gen, (cfg.d_model,), 0.0, dtype),
-            "ln2": full(gen, (cfg.d_model,), 0.0, dtype),
-            "attn": init_attention(gen, cfg, dtype=dtype),
-            "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)}
+def _init_block(gen, cfg: ModelConfig, dtype, d_ff=None) -> Params:
+    """A block: MLA or standard attention, then the MoE or (with ``d_ff``,
+    or without MoE) a dense FFN."""
+    p = {"ln1": full(gen, (cfg.d_model,), 0.0, dtype),
+         "ln2": full(gen, (cfg.d_model,), 0.0, dtype),
+         "attn": init_mla(gen, cfg, dtype) if cfg.mla
+         else init_attention(gen, cfg, dtype=dtype)}
+    if cfg.moe and d_ff is None:
+        p["moe"] = init_moe(gen, cfg, dtype)
+    else:
+        p["ffn"] = init_ffn(gen, cfg.d_model, d_ff or cfg.d_ff, dtype)
+    return p
+
+
+def _mlp(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "moe" in p:
+        return moe_ffn(p["moe"], h, cfg)[0]
+    return ffn(p["ffn"], h, cfg.hidden_act)
 
 
 def _block_prefill(p, h: torch.Tensor, cfg: ModelConfig):
-    """Pre-norm transformer block that also returns this layer's KV cache
-    entries."""
+    """Pre-norm transformer block that also returns this layer's cache
+    entries: (k, v) [B,S,KV,hd], or MLA's (ckv [B,S,kv_lora], kr
+    [B,S,rope])."""
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     B, S, _ = h.shape
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    k = dense(hn, p["attn"]["wk"], p["attn"].get("bk")).reshape(B, S, KV, hd)
-    v = dense(hn, p["attn"]["wv"], p["attn"].get("bv")).reshape(B, S, KV, hd)
-    if cfg.qk_norm:
-        k = rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps)
-    sin, cos = rope_angles(torch.arange(S, device=h.device), hd,
-                           cfg.rope_theta)
-    kv = (apply_rope(k, sin, cos), v)
-    a = attention(p["attn"], hn, cfg)
+    positions = torch.arange(S, device=h.device)
+    if cfg.mla:
+        kv = mla_latents(p["attn"], hn, cfg, positions)
+        a = mla_attention(p["attn"], hn, cfg)
+    else:
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        k = dense(hn, p["attn"]["wk"], p["attn"].get("bk")).reshape(
+            B, S, KV, hd)
+        v = dense(hn, p["attn"]["wv"], p["attn"].get("bv")).reshape(
+            B, S, KV, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps)
+        sin, cos = rope_angles(positions, hd, cfg.rope_theta)
+        kv = (apply_rope(k, sin, cos), v)
+        a = attention(p["attn"], hn, cfg)
     h = h + a
-    hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-    f = ffn(p["ffn"], hn2, cfg.hidden_act)
-    return h + f, kv
+    return h + _mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg), kv
 
 
 def _block_decode(p, h: torch.Tensor, cache, pos, cfg: ModelConfig):
-    """One decode block.  ``cache`` is read-only; returns the new token's KV
-    entries for the caller to write (append-merge decode)."""
+    """One decode block.  ``cache`` is read-only; returns the new token's
+    cache entries for the caller to write (append-merge decode)."""
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-    a, k_new, v_new = attention_decode(p["attn"], hn, cache[0], cache[1],
-                                       pos, cfg)
+    if cfg.mla:
+        a, n0, n1 = mla_decode(p["attn"], hn, cache[0], cache[1], pos, cfg)
+    else:
+        a, n0, n1 = attention_decode(p["attn"], hn, cache[0], cache[1],
+                                     pos, cfg)
     h = h + a
-    hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-    f = ffn(p["ffn"], hn2, cfg.hidden_act)
-    return h + f, (k_new, v_new)
+    return h + _mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg), (n0, n1)
 
 
 class DecoderLM(Model):
-    """Decoder-only transformer (dense FFN, standard attention)."""
-
-    def __init__(self, cfg: ModelConfig, device="cuda"):
-        for what, on in (("MoE", cfg.moe), ("MLA", cfg.mla),
-                         ("a modality frontend", cfg.frontend),
-                         ("an encoder-decoder", cfg.encoder_decoder)):
-            if on:
-                raise NotImplementedError(
-                    f"{cfg.name}: {what} comes with a later slice of the "
-                    f"port (ROADMAP.md §1, \"Model zoo: MLA and MoE\" and "
-                    f"\"vision and encoder-decoder builders\")")
-        super().__init__(cfg, device)
+    """Decoder-only transformer: standard attention or MLA, dense FFN or
+    MoE after ``first_k_dense`` dense prefix blocks, and an optional
+    vision frontend whose projected image tokens precede the text."""
 
     def init_tree(self, gen) -> Params:
         cfg, dt = self.cfg, _dtype(self.cfg)
+        n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
         p: Params = {
             "embed": (torch.randn((cfg.vocab_size, cfg.d_model),
                                   generator=gen, device=gen.device)
                       * 0.02).to(dt),
             "final_norm": full(gen, (cfg.d_model,), 0.0, dt),
             "layers": [_init_block(gen, cfg, dt)
-                       for _ in range(cfg.num_layers)],
+                       for _ in range(cfg.num_layers - n_prefix)],
         }
+        if n_prefix:
+            p["prefix_layers"] = [
+                _init_block(gen, cfg, dt, cfg.moe.dense_d_ff or cfg.d_ff)
+                for _ in range(n_prefix)]
         if not cfg.tie_embeddings:
             p["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size),
                                   cfg.d_model, dt)
+        fe = cfg.frontend
+        if fe:
+            p["frontend_proj"] = {
+                "w1": normal(gen, (fe.embed_dim, cfg.d_model), fe.embed_dim,
+                             dt),
+                "w2": normal(gen, (cfg.d_model, cfg.d_model), cfg.d_model,
+                             dt)}
         return p
 
     def head(self) -> torch.Tensor:
         return self["embed"].T if self.cfg.tie_embeddings else self["lm_head"]
 
+    def _prefix(self):
+        return self.get("prefix_layers", [])
+
+    def embed_input(self, batch: Batch) -> torch.Tensor:
+        """Token embeddings, after the projected image tokens when the
+        model has a frontend: gelu(frontend_embeds w1) w2."""
+        h = _embed(self, self._tokens(batch))
+        if self.cfg.frontend:
+            fp = self["frontend_proj"]
+            img = torch.as_tensor(batch["frontend_embeds"]).to(
+                self.device, _dtype(self.cfg))
+            img = dense(act_fn("gelu")(dense(img, fp["w1"]).float()).to(
+                img.dtype), fp["w2"])
+            h = torch.cat([img, h], dim=1)
+        return h
+
     def prefill(self, batch: Batch):
         cfg = self.cfg
-        h = _embed(self, self._tokens(batch))
+        h = self.embed_input(batch)
+        prefix_kv = []
+        for lp in self._prefix():
+            h, kv = _block_prefill(lp, h, cfg)
+            prefix_kv.append(kv)
         ks, vs = [], []
         for lp in self["layers"]:
             h, (k, v) = _block_prefill(lp, h, cfg)
@@ -273,13 +335,23 @@ class DecoderLM(Model):
             vs.append(v)
         h = rms_norm(h, self["final_norm"], cfg.norm_eps)
         logits = logits_last(h[:, -1, :], self.head())
-        return logits, {"kv": (torch.stack(ks), torch.stack(vs)),
-                        "pos": _pos(h.shape[1] - 1)}
+        cache = {"kv": (torch.stack(ks), torch.stack(vs)),
+                 "pos": _pos(h.shape[1] - 1)}
+        if prefix_kv:
+            cache["prefix_kv"] = prefix_kv
+        return logits, cache
 
     def decode(self, cache, batch: Batch):
+        """One token a row at absolute position ``pos`` (image tokens
+        included)."""
         cfg = self.cfg
         h = _embed(self, self._tokens(batch))
         pos = int(batch["pos"])
+        new_prefix = []
+        for lp, kv in zip(self._prefix(), cache.get("prefix_kv", [])):
+            h, (n0, n1) = _block_decode(lp, h, kv, pos, cfg)
+            new_prefix.append((_update_at(kv[0], n0, pos, axis=1),
+                               _update_at(kv[1], n1, pos, axis=1)))
         c0, c1 = cache["kv"]
         nks, nvs = [], []
         for i, lp in enumerate(self["layers"]):
@@ -290,7 +362,10 @@ class DecoderLM(Model):
         cv = _update_at(c1, torch.stack(nvs), pos, axis=2)
         h = rms_norm(h, self["final_norm"], cfg.norm_eps)
         logits = logits_last(h[:, -1, :], self.head())
-        return logits, {"kv": (ck, cv), "pos": _pos(pos)}
+        new_cache = {"kv": (ck, cv), "pos": _pos(pos)}
+        if new_prefix:
+            new_cache["prefix_kv"] = new_prefix
+        return logits, new_cache
 
 
 # ------------------------------------------------------------ zamba2 (hybrid)
@@ -473,3 +548,124 @@ class RWKV6LM(Model):
         logits = logits_last(h[:, -1, :], self["lm_head"])
         return logits, {"shift_att": sa, "wkv": sw, "shift_chan": sc,
                         "pos": _pos(int(cache["pos"]) + 1)}
+
+
+# ----------------------------------------------------------- encoder-decoder
+class EncDecLM(Model):
+    """Encoder-decoder (seamless): a linear projection of the frames and
+    ``num_encoder_layers`` non-causal blocks; decoder blocks of causal
+    self-attention, cross-attention on the encoder output (no RoPE) and
+    the FFN."""
+
+    def init_tree(self, gen) -> Params:
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        D, fe = cfg.d_model, cfg.frontend
+
+        def enc_layer():
+            return {"ln1": full(gen, (D,), 0.0, dt),
+                    "ln2": full(gen, (D,), 0.0, dt),
+                    "attn": init_attention(gen, cfg, dtype=dt),
+                    "ffn": init_ffn(gen, D, cfg.d_ff, dt)}
+
+        def dec_layer():
+            return {"ln1": full(gen, (D,), 0.0, dt),
+                    "ln2": full(gen, (D,), 0.0, dt),
+                    "ln3": full(gen, (D,), 0.0, dt),
+                    "self_attn": init_attention(gen, cfg, dtype=dt),
+                    "cross_attn": init_attention(gen, cfg, dtype=dt),
+                    "ffn": init_ffn(gen, D, cfg.d_ff, dt)}
+
+        return {
+            "embed": (torch.randn((cfg.vocab_size, D), generator=gen,
+                                  device=gen.device) * 0.02).to(dt),
+            "frontend_proj": normal(gen, (fe.embed_dim, D), fe.embed_dim,
+                                    dt),
+            "enc_layers": [enc_layer() for _ in
+                           range(cfg.num_encoder_layers)],
+            "enc_norm": full(gen, (D,), 0.0, dt),
+            "dec_layers": [dec_layer() for _ in range(cfg.num_layers)],
+            "final_norm": full(gen, (D,), 0.0, dt),
+            "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
+        }
+
+    def encode(self, frames) -> torch.Tensor:
+        cfg = self.cfg
+        h = dense(torch.as_tensor(frames).to(self.device, _dtype(cfg)),
+                  self["frontend_proj"])
+        for lp in self["enc_layers"]:
+            h = h + attention(lp["attn"], rms_norm(h, lp["ln1"],
+                                                   cfg.norm_eps),
+                              cfg, causal=False)
+            h = h + ffn(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                        cfg.hidden_act)
+        return rms_norm(h, self["enc_norm"], cfg.norm_eps)
+
+    def _dec_block(self, lp, h, enc_out):
+        cfg = self.cfg
+        h = h + attention(lp["self_attn"], rms_norm(h, lp["ln1"],
+                                                    cfg.norm_eps),
+                          cfg, causal=True)
+        h = h + attention(lp["cross_attn"], rms_norm(h, lp["ln2"],
+                                                     cfg.norm_eps),
+                          cfg, causal=False, kv_x=enc_out, use_rope=False)
+        return h + ffn(lp["ffn"], rms_norm(h, lp["ln3"], cfg.norm_eps),
+                       cfg.hidden_act)
+
+    def prefill(self, batch: Batch):
+        """Cache: the decoder's self-attention K/V ``k``, ``v`` [L,B,S,KV,hd]
+        and the encoder bank's cross-attention K/V ``xk``, ``xv``
+        [L,B,T_enc,KV,hd]."""
+        cfg = self.cfg
+        enc_out = self.encode(batch["frames"])
+        h = _embed(self, self._tokens(batch))
+        B, S, _ = h.shape
+        Te = enc_out.shape[1]
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        sin, cos = rope_angles(torch.arange(S, device=h.device), hd,
+                               cfg.rope_theta)
+        ks, vs, xks, xvs = [], [], [], []
+        for lp in self["dec_layers"]:
+            hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            ks.append(apply_rope(dense(hn, lp["self_attn"]["wk"]).reshape(
+                B, S, KV, hd), sin, cos))
+            vs.append(dense(hn, lp["self_attn"]["wv"]).reshape(B, S, KV, hd))
+            xks.append(dense(enc_out, lp["cross_attn"]["wk"]).reshape(
+                B, Te, KV, hd))
+            xvs.append(dense(enc_out, lp["cross_attn"]["wv"]).reshape(
+                B, Te, KV, hd))
+            h = self._dec_block(lp, h, enc_out)
+        h = rms_norm(h, self["final_norm"], cfg.norm_eps)
+        logits = logits_last(h[:, -1, :], self["lm_head"])
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                        "xk": torch.stack(xks), "xv": torch.stack(xvs),
+                        "pos": _pos(S - 1)}
+
+    def decode(self, cache, batch: Batch):
+        cfg = self.cfg
+        h = _embed(self, self._tokens(batch))
+        B = h.shape[0]
+        pos = int(batch["pos"])
+        H, hd = cfg.num_heads, cfg.head_dim
+        nks, nvs = [], []
+        for i, lp in enumerate(self["dec_layers"]):
+            a, k_new, v_new = attention_decode(
+                lp["self_attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
+                cache["k"][i], cache["v"][i], pos, cfg)
+            h = h + a
+            nks.append(k_new)
+            nvs.append(v_new)
+            # cross-attention over the whole encoder bank
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            q = dense(rms_norm(h, lp["ln2"], cfg.norm_eps),
+                      lp["cross_attn"]["wq"]).reshape(B, 1, H, hd)
+            o = decode_attention(q, xk, xv, xk.shape[1] - 1)
+            h = h + dense(o.reshape(B, 1, H * hd).to(h.dtype),
+                          lp["cross_attn"]["wo"])
+            h = h + ffn(lp["ffn"], rms_norm(h, lp["ln3"], cfg.norm_eps),
+                        cfg.hidden_act)
+        h = rms_norm(h, self["final_norm"], cfg.norm_eps)
+        logits = logits_last(h[:, -1, :], self["lm_head"])
+        return logits, {
+            "k": _update_at(cache["k"], torch.stack(nks), pos, axis=2),
+            "v": _update_at(cache["v"], torch.stack(nvs), pos, axis=2),
+            "xk": cache["xk"], "xv": cache["xv"], "pos": _pos(pos)}

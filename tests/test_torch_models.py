@@ -1,10 +1,12 @@
 """The port's model layers against the reference package on the CPU (every
 layer of the dense, Mamba2 and RWKV6 families, on the same numpy inputs
-and the reference's initialised parameters), and the port's model
+and the reference's initialised parameters; MLA, MoE and the
+encoder-decoder's in tests/test_torch_zoo.py), and the port's model
 invariants: parameter counts and prefill/decode consistency.  Layers agree
 within the reference's ``_tol``; the attention and scans run their plain
 versions here (the kernels run on the card).  Whole models:
 tests/test_torch_lm.py."""
+import dataclasses
 import os
 import sys
 
@@ -29,7 +31,9 @@ from repro_torch.models.lm import build_model, params_from_jax  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-MODELS = ["gemma-7b", "zamba2-2.7b", "rwkv6-3b"]
+MODELS = ["gemma-7b", "zamba2-2.7b", "rwkv6-3b", "qwen3-moe-30b-a3b",
+          "deepseek-v2-236b", "llava-next-mistral-7b",
+          "seamless-m4t-large-v2"]
 
 
 def rel(port, ref) -> float:
@@ -61,10 +65,10 @@ def _x(shape, dtype, seed=0, scale=1.0):
     return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(tdt)
 
 
-def _params(jtree):
+def _params(cfg, jtree):
     """One layer's reference parameters as the port's tree (no stacked
-    ``layers``, so no config is needed)."""
-    return params_from_jax(None, jnp_np(jtree))
+    ``layers``, so converted as they are)."""
+    return params_from_jax(cfg, jnp_np(jtree))
 
 
 # --------------------------------------------------------------------- layers
@@ -116,7 +120,7 @@ def test_attention_and_decode_match_reference(dtype):
     jdt = DTYPES[dtype][0]
     jp = jl.init_attention(jax.random.PRNGKey(0), jcfg, dtype=jdt)
     jp["bq"] = jp["bq"] + 0.1                          # nonzero biases
-    tp = _params(jp)
+    tp = _params(tcfg, jp)
     jx, tx = _x((2, 12, jcfg.d_model), dtype)
     assert_close(to_np(tl.attention(tp, tx, tcfg)),
                  jax.jit(jl.attention, static_argnums=2)(jp, jx, jcfg),
@@ -136,8 +140,9 @@ def test_attention_and_decode_match_reference(dtype):
 def test_ffn_matches_reference(dtype):
     jp = jl.init_ffn(jax.random.PRNGKey(1), 64, 128, DTYPES[dtype][0])
     jx, tx = _x((2, 5, 64), dtype)
+    tp = _params(t_smoke("gemma-7b"), jp)
     for act in ("silu", "gelu"):
-        assert_close(to_np(tl.ffn(_params(jp), tx, act)),
+        assert_close(to_np(tl.ffn(tp, tx, act)),
                      jl.ffn(jp, jx, act), dtype)
 
 
@@ -146,7 +151,7 @@ def test_mamba2_block_and_decode_match_reference(dtype):
     jcfg, tcfg = _smoke("zamba2-2.7b", dtype)
     jp = jssm.init_mamba2(jax.random.PRNGKey(2), jcfg, DTYPES[dtype][0])
     jp["A_log"] = jp["A_log"] + 0.3                    # decays other than 1
-    tp = _params(jp)
+    tp = _params(tcfg, jp)
     jx, tx = _x((2, 64, jcfg.d_model), dtype)
     ref = jax.jit(jssm.mamba2_block_with_state, static_argnums=2)(
         jp, jx, jcfg)
@@ -171,7 +176,7 @@ def test_rwkv6_time_and_channel_mix_match_reference(S, dtype):
     jcfg, tcfg = _smoke("rwkv6-3b", dtype)
     jp = jssm.init_rwkv6(jax.random.PRNGKey(3), jcfg, DTYPES[dtype][0])
     jp["u"] = jp["u"] + 0.2
-    tp = _params(jp)
+    tp = _params(tcfg, jp)
     D, H, N = jcfg.d_model, jcfg.num_heads, jcfg.ssm.head_dim
     jx, tx = _x((2, S, D), dtype)
     jsh, tsh = _x((2, D), dtype, seed=5)
@@ -195,31 +200,42 @@ B, S = 2, 32
 @pytest.mark.parametrize("arch", MODELS)
 def test_port_prefill_decode_consistency(arch):
     """decode(prefill(x[:-1]), x[-1]) agrees with prefill(x) in the port
-    alone (tests/test_models.py's check, fp32, rel < 1e-3), on weights of
-    the port's own generator."""
+    alone (tests/test_models.py's check, fp32, rel < 1e-3, MoE without
+    capacity drops; the same image embeddings or encoder frames on both
+    sides, the frames neither S - 1 nor S long), on weights of the port's
+    own generator."""
     cfg = t_smoke(arch).replace(dtype="float32")
+    if cfg.moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=16.0))
     model = build_model(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.random.RandomState(8).randint(
-        0, cfg.vocab_size, (B, S)).astype(np.int32))
-    lg_full, _ = model.prefill({"tokens": toks})
-    _, cache = model.prefill({"tokens": toks[:, :S - 1]})
-    cache = tserve._grow_kv(cache, S - 1, S)
+    rng = np.random.RandomState(8)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S)).astype(
+        np.int32))
+    extra, n_img, fe = {}, 0, cfg.frontend
+    if fe and fe.kind == "vision":
+        n_img = fe.num_tokens
+        extra["frontend_embeds"] = torch.from_numpy(rng.randn(
+            B, n_img, fe.embed_dim).astype(np.float32))
+    if cfg.encoder_decoder:
+        extra["frames"] = torch.from_numpy(rng.randn(
+            B, S - 8, fe.embed_dim).astype(np.float32))
+    lg_full, _ = model.prefill({"tokens": toks, **extra})
+    _, cache = model.prefill({"tokens": toks[:, :S - 1], **extra})
+    t_old = S - 1 + n_img
+    cache = tserve._grow_kv(cache, t_old, t_old + 1)
     lg_dec, new_cache = model.decode(cache, {"tokens": toks[:, S - 1:],
-                                             "pos": S - 1})
+                                             "pos": t_old})
     assert rel(lg_dec, lg_full.numpy()) < 1e-3
-    assert int(new_cache["pos"]) == S - 1
+    assert int(new_cache["pos"]) == t_old
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_count_matches_analytic_or_raises(arch):
-    """Every family the port builds holds exactly ``count_params(cfg)``
-    parameters; the families of a later slice raise."""
+    """Every architecture of the registry builds and holds exactly
+    ``count_params(cfg)`` parameters."""
     cfg = t_smoke(arch)
-    if cfg.moe or cfg.mla or cfg.frontend or cfg.encoder_decoder:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, "cpu")
-        return
     model = build_model(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0))
     assert sum(p.numel() for p in model.parameters()) == count_params(cfg)
