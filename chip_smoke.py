@@ -36,7 +36,15 @@ SSD-scan and RWKV6-scan kernels, with the prefill/decode consistency check
 and the card held against the CPU at cut depth; and ``launch/serve.py``'s
 ``run_serving`` serves gemma-7b, zamba2-2.7b, rwkv6-3b and
 deepseek-v2-236b (smoke models) in ``sync`` and ``prefetch`` mode,
-prefetch beating sync.  Each phase prints one JSON line; any failure raises and ends the run with a
+prefetch beating sync.  Last, training: K6's backward kernel is held
+against autograd through its plain version at every head-dim pair and
+timed at gemma-7b's shape beside SDPA's backward; gemma-7b at its
+published width, cut to 8 of its 28 layers, takes AdamW steps of 4 x 2048
+tokens through the port's data pipeline, train step and optimizer (loss
+falling, K6 forward and backward launched); the same step at 2 layers in
+fp32 on the card equals the CPU's; and ``examples/train_lm_torch.py``
+recovers from an injected failure under the supervisor and converges.
+Each phase prints one JSON line; any failure raises and ends the run with a
 non-zero exit.  The last three lines are the kernels summary, the card's
 name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -47,6 +55,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import itertools
 import json
 import math
@@ -81,8 +91,12 @@ from repro_torch.kernels.page_gather import page_gather as pg  # noqa: E402
 from repro_torch.kernels.tac_fused import tac_fused as tfk  # noqa: E402
 from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_at  # noqa: E402
 from repro_torch.launch.serve import (ServeConfig, _grow_kv,  # noqa: E402
-                                      run_serving, tree_flatten)
+                                      run_serving, tree_flatten,
+                                      tree_unflatten)
+from repro_torch.launch.steps import loss_and_grads  # noqa: E402
+from repro_torch.launch.train import build_training  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -1330,6 +1344,140 @@ def lm_kernel_phase():
     return main, errs
 
 
+# K6's backward against the plain backward: the largest error of each of
+# dq, dk, dv over the plain gradient's largest magnitude
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gemma-7b's training attention (configs/gemma_7b.py; the train phase's
+# batch): 4 x 2048 tokens, 16 heads of 256, causal, bf16
+GEMMA_ATTN = dict(B=4, S=2048, H=16, KV=16, d=256)
+
+
+def grads_rel(grads, plain) -> float:
+    """max over dq, dk, dv of max |kernel - plain| / max |plain|; inf if a
+    gradient is not finite."""
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        return math.inf
+    return max(max_err(a, b) / (float(b.float().abs().max()) + 1e-30)
+               for a, b in zip(grads, plain))
+
+
+def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
+                    timed=False, fault=False, seed=0):
+    """K6's backward (``flash_attention_backward``: D, dK/dV, dQ) on seeded
+    q, k, v and an output gradient, from the forward kernel's own output and
+    lse, against ``flash_attention_backward_plain`` within ``BWD_TOL``.
+    The forward's output with lse asked for must equal its output without;
+    at untimed shapes lse must equal the plain scores' logsumexp.  With
+    ``fault`` the gate must reject the backward with D left at zero
+    (``backward_from_delta``).  Timed rows add the plain backward's time,
+    the bound (2.5 x the forward's flops, 2 * S * T * (d + dv) * B * H,
+    halved when causal, at the operands' peak; bytes: q, k, v, out, dout,
+    dq, dk, dv once, lse) and SDPA's backward
+    (``scaled_dot_product_attention`` forward once, then its backward
+    alone, timed)."""
+    dv = dv or d
+    T = T or S
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = randn((B, S, H, d), dtype, g)
+    k = randn((B, T, KV, d), dtype, g)
+    v = randn((B, T, KV, dv), dtype, g)
+    dout = randn((B, S, H, dv), dtype, g)
+    out, lse = fa._forward(q, k, v, causal, True)
+    if not torch.equal(out, fa._forward(q, k, v, causal, False)[0]):
+        raise AssertionError(f"flash_attention at {label}: asking for lse "
+                             f"changed the output")
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, causal)
+    plain = fa.flash_attention_backward_plain(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    rel = grads_rel(grads, plain)
+    tol = BWD_TOL[dtype]
+    row = dict(kernel="flash_attention_bwd", shape=label, B=B, S=S, T=T,
+               H=H, KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
+               rel_err=rel, tol=tol,
+               max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
+               plain_max_abs=max(float(b.float().abs().max())
+                                 for b in plain))
+    if not rel <= tol:
+        raise AssertionError(f"flash_attention_bwd differs at {label}: "
+                             f"{row}")
+    if not timed:
+        sc = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float().repeat_interleave(H // KV, dim=2)) \
+            / math.sqrt(d)
+        if causal:
+            sc = sc.masked_fill(torch.arange(S, device="cuda")[:, None]
+                                < torch.arange(T, device="cuda")[None, :],
+                                -math.inf)
+        row["lse_max_abs_err"] = max_err(lse, torch.logsumexp(sc, dim=-1))
+        if not row["lse_max_abs_err"] <= 1e-4 * (1 + float(lse.abs().max())):
+            raise AssertionError(f"flash_attention lse differs at {label}: "
+                                 f"{row}")
+    if fault:
+        bad = fa.backward_from_delta(q, k, v, lse, torch.zeros_like(lse),
+                                     dout, causal)
+        row["planted_fault_rel_err"] = grads_rel(bad, plain)
+        if row["planted_fault_rel_err"] <= tol:
+            raise AssertionError(f"flash_attention_bwd at {label}: the check "
+                                 f"would pass the backward with D left at "
+                                 f"zero")
+        del bad
+    del plain
+    if timed:
+        it = q.element_size()
+        flops = 2.5 * 2 * S * T * (d + dv) * B * H / (2 if causal else 1)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) * it \
+            + 4 * lse.numel()
+        b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
+        ms = device_ms(lambda: fa.flash_attention_backward(
+            q, k, v, out, lse, dout, causal), reps=3, rounds=5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        o_lib = sdpa(*leaves, is_causal=causal, enable_gqa=KV != H)
+        do_lib = dout.transpose(1, 2)
+        row.update(ms=ms,
+                   plain_ms=device_ms(lambda: fa.flash_attention_backward_plain(
+                       q, k, v, dout, causal), reps=1, rounds=3),
+                   bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                   library=f"scaled_dot_product_attention(is_causal="
+                           f"{causal}) backward",
+                   library_ms=device_ms(lambda: torch.autograd.grad(
+                       o_lib, leaves, do_lib, retain_graph=True),
+                       reps=3, rounds=5),
+                   dynamic_smem_bytes=[fa.bwd_smem_bytes(d, dv, dtype, True),
+                                       fa.bwd_smem_bytes(d, dv, dtype, False)],
+                   build=build_facts("flash_attention_bwd",
+                                     f"ILi{d}ELi{dv}E"))
+        del o_lib, leaves
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_kernel_phase():
+    """K6's backward: at every (d, dv) pair of ``PAIRS``, fp32 and bf16,
+    causal and not, at S = T = 100 (ragged tiles) and at S 96 != T 160,
+    with 2 query heads a KV head, and at 4 a KV head; then at gemma-7b's
+    training shape, timed, where the gate must reject D left at zero."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for d, dv in fa.PAIRS:
+                for S, T in ((100, 100), (96, 160)):
+                    r = check_flash_bwd(2, S, 4, 2, d, dtype, causal,
+                                        f"pair {d, dv} S {S} T {T}", dv=dv,
+                                        T=T)
+                    worst = max(worst, r["max_abs_err"])
+            r = check_flash_bwd(1, 130, 8, 2, 64, dtype, causal, "G 4")
+            worst = max(worst, r["max_abs_err"])
+    c = GEMMA_ATTN
+    main = check_flash_bwd(c["B"], c["S"], c["H"], c["KV"], c["d"],
+                           torch.bfloat16, True, "gemma-7b train",
+                           timed=True, fault=True)
+    worst = max(worst, main["max_abs_err"])
+    return main, worst
+
+
 def serve_shape_case():
     """The serve phase's attention launch: one request's 8 KV-head rows of
     5 query heads over a 4097-token history in the arena's pool."""
@@ -1438,7 +1586,7 @@ def reset_launches():
     tp.LAUNCHES = pg.GATHER_LAUNCHES = pg.SCATTER_LAUNCHES = 0
     tfk.STEP_LAUNCHES = tfk.ADMIT_LAUNCHES = 0
     da.LAUNCHES = cms.LAUNCHES = 0
-    fa.LAUNCHES = ms.LAUNCHES = rs.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ms.LAUNCHES = rs.LAUNCHES = 0
 
 
 def launches():
@@ -1447,8 +1595,9 @@ def launches():
             "tac_fused_step": tfk.STEP_LAUNCHES,
             "tac_fused_admit": tfk.ADMIT_LAUNCHES,
             "decode_attention": da.LAUNCHES, "cms_sketch": cms.LAUNCHES,
-            "flash_attention": fa.LAUNCHES, "mamba2_scan": ms.LAUNCHES,
-            "rwkv6_scan": rs.LAUNCHES}
+            "flash_attention": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "mamba2_scan": ms.LAUNCHES, "rwkv6_scan": rs.LAUNCHES}
 
 
 FUSED_KERNELS = ("tac_fused_step", "tac_fused_admit")
@@ -2688,6 +2837,154 @@ def serve_lm_phase():
     return total
 
 
+# the train phase: gemma-7b at its published width (configs/gemma_7b.py),
+# 8 of its 28 layers (bf16 params and grads, fp32 moments: 12 bytes a
+# parameter, 36 GB for 3.0 B parameters; all 28 would need 102 GB), 4 x
+# 2048 tokens a step of the synthetic bigram stream, layers recomputed in
+# the backward; the card against the CPU at 2 layers in fp32 on 512 tokens
+# (the CPU's time); then examples/train_lm_torch.py as it runs
+TRAIN = dict(arch="gemma-7b", layers=8, batch=4, seq=2048, steps=20,
+             timed=10, lr=3e-4, warmup=5, seed=0, cpu_layers=2, cpu_batch=1,
+             cpu_seq=512, loss_rel=1e-4, grad_rel=1e-3, peak_gb=70.0)
+
+
+def train_full_width():
+    """(a) the training step at full width: TRAIN's steps through
+    ``build_training`` on the card.  Returns its JSON row and the launch
+    counts of those steps (the train path)."""
+    c = TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, _, cfg = build_training(
+        c["arch"], smoke=False, batch=c["batch"], seq=c["seq"], lr=c["lr"],
+        seed=c["seed"], device="cuda", warmup=c["warmup"],
+        num_layers=c["layers"], remat="block")
+    n_params = sum(t.numel() for t in tree_flatten(state[0])[0])
+    losses, step_ms = [], []
+    reset_launches()
+    for step in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, step)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        emit("train_step", step=step, loss=losses[-1], ms=step_ms[-1],
+             grad_norm=float(met["grad_norm"]), lr=float(met["lr"]))
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = statistics.median(step_ms[-c["timed"]:])
+    prof = profile_step(lambda: step_fn(state, c["steps"]))
+    row = dict(arch=c["arch"], layers=cfg.num_layers, of_layers=get_config(
+        c["arch"]).num_layers, d_model=cfg.d_model, params=n_params,
+        batch=c["batch"], seq=c["seq"], dtype=cfg.dtype, remat=cfg.remat,
+        lr_peak=c["lr"], warmup=c["warmup"], losses=losses,
+        step_ms=ms_step, step_ms_all=step_ms,
+        tokens_per_s=c["batch"] * c["seq"] / (ms_step / 1e3),
+        peak_gb=peak / 1e9, launches=counts,
+        k6_forward_launches=counts["flash_attention"],
+        k6_backward_launches=counts["flash_attention_bwd"],
+        device_busy_share=prof["device_busy_share"], profile=prof)
+    del state
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and counts["flash_attention_bwd"] > 0
+            and counts["flash_attention"] > 0
+            and row["peak_gb"] < c["peak_gb"]):
+        raise AssertionError(f"train at full width: {row}")
+    return row, counts
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(
+            tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}.{i}")]
+    return [prefix]
+
+
+def train_card_vs_cpu():
+    """(b) the step's loss and gradient (``loss_and_grads``, as
+    ``make_train_step`` takes them) at TRAIN's cpu_layers in fp32, on the
+    card and on the CPU from the same parameters and batch: the loss within
+    TRAIN's loss_rel, each gradient leaf within grad_rel of its norm."""
+    c = TRAIN
+    (params, _), _, model, cfg = build_training(
+        c["arch"], smoke=False, batch=c["cpu_batch"], seq=c["cpu_seq"],
+        lr=c["lr"], seed=c["seed"], device="cuda", warmup=c["warmup"],
+        num_layers=c["cpu_layers"], remat="block", dtype="float32")
+    batch = batch_at(DataConfig(cfg.vocab_size, c["cpu_seq"],
+                                c["cpu_batch"], seed=c["seed"]), 0, "cuda")
+    leaves, treedef = tree_flatten(params)
+    cpu_params = tree_unflatten(treedef, [t.detach().cpu() for t in leaves])
+    reset_launches()
+    loss, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    counts = launches()
+    card = [g.cpu() for g in tree_flatten(grads)[0]]
+    del grads, params, leaves
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(
+        build_model(cfg, "cpu"), cpu_params,
+        {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rels = {name: float((a - b).norm() / b.norm())
+            for name, a, b in zip(leaf_names(cpu_params), card,
+                                  tree_flatten(cpu_grads)[0])}
+    row = dict(layers=cfg.num_layers, dtype=cfg.dtype, batch=c["cpu_batch"],
+               seq=c["cpu_seq"], loss_card=float(loss),
+               loss_cpu=float(cpu_loss),
+               loss_rel=abs(float(loss) - float(cpu_loss))
+               / abs(float(cpu_loss)),
+               grad_rel_worst=max(rels.values()), grad_rel=rels,
+               launches=counts, cpu_s=cpu_s)
+    if not (row["loss_rel"] <= c["loss_rel"]
+            and row["grad_rel_worst"] <= c["grad_rel"]
+            and counts["flash_attention_bwd"] > 0):
+        raise AssertionError(f"train card vs cpu: {row}")
+    return row
+
+
+def train_example():
+    """(c) examples/train_lm_torch.py on the card: the smoke gemma-7b,
+    microbatches of two, a failure injected half-way; the example itself
+    requires one restart and a falling loss."""
+    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rep = example.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = launches()
+    row = dict(example="examples/train_lm_torch.py", restarts=rep.restarts,
+               steps_run=rep.steps_run, loss_first=rep.losses[0],
+               loss_last=rep.losses[-1], wall_s=wall, launches=counts,
+               printed=out.getvalue().splitlines())
+    if not (rep.restarts == 1 and rep.losses[-1] < rep.losses[0]
+            and counts["flash_attention_bwd"] > 0):
+        raise AssertionError(f"train example: {row}")
+    return row
+
+
+def train_phase():
+    """Training on the card: (a) gemma-7b at full width (the train path),
+    (b) the card against the CPU in fp32, (c) the example's supervised run
+    with a failure.  Returns the launch counts of (a)."""
+    row, counts = train_full_width()
+    emit("train", **row)
+    emit("train_card_vs_cpu", **train_card_vs_cpu())
+    emit("train_example", **train_example())
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2711,6 +3008,8 @@ def main() -> int:
     for rows, e in (fused_kernel_phase(), lm_kernel_phase()):
         main_rows.update(rows)
         errs.update(e)
+    main_rows["flash_attention_bwd"], errs["flash_attention_bwd"] = \
+        train_kernel_phase()
     paths = {"e2e": e2e_phase()}
     paths["prefetch"] = prefetch_phase()
     paths["recovery"] = recovery_phase()
@@ -2722,6 +3021,7 @@ def main() -> int:
     paths["hints"] = hints_phase()
     paths["models"] = models_phase()
     paths["serve_lm"] = serve_lm_phase()
+    paths["train"] = train_phase()
     names = {"tac_probe": ("tac_probe.cu",
                            "src/repro/kernels/tac_probe/tac_probe.py:36"),
              "page_gather": ("page_gather.cu",
@@ -2740,6 +3040,11 @@ def main() -> int:
                             "src/repro/kernels/cms_sketch/cms_sketch.py:38"),
              "flash_attention": (
                  "flash_attention.cu",
+                 "src/repro/kernels/flash_attention/flash_attention.py:70"),
+             # the gradient of the same TPU kernel, which has no backward
+             # kernel of its own (the reference differentiates pure jnp)
+             "flash_attention_bwd": (
+                 "flash_attention_bwd.cu",
                  "src/repro/kernels/flash_attention/flash_attention.py:70"),
              "mamba2_scan": ("mamba2_scan.cu",
                              "src/repro/kernels/mamba2_scan/mamba2_scan.py:66"),

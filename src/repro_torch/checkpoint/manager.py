@@ -69,13 +69,16 @@ def _rebuild(template: Any, leaves: Iterator[Any]) -> Any:
 
 
 def _to_numpy(x: Any) -> Tuple[np.ndarray, str]:
-    """A leaf as the array to store and its dtype name."""
+    """A leaf as the array to store and its dtype name: always a copy of
+    its own, since the writer thread reads it while the caller goes on
+    (and may update the leaf in place, as ``optim.adamw.update`` does)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view("V2"), "bfloat16"
-        x = x.numpy()
-    a = np.asarray(x)
+        a = x.numpy()
+    else:
+        a = np.array(x)
     return a, str(a.dtype)
 
 

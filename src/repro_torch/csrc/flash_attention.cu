@@ -22,7 +22,10 @@
 // [B, S, H, DV], all contiguous (the models' own layout, so no transposes
 // around the call).  The Pallas layout [BH, S, d] is the case H = KV = 1.
 // The (DK, DV) pairs instantiated are FLASH_PAIRS below: every pair the
-// model zoo's configs reach.
+// model zoo's configs reach.  For training, the caller may also ask for
+// each row's log-sum-exp lse [B, H, S] (fp32, natural units), which the
+// backward (csrc/flash_attention_bwd.cu) uses to recompute the
+// probabilities; the output does not change.
 //
 // Bound: operations.  Causal attention does 2 * S * T * (DK + DV) / 2
 // flops a head against S * (DK + DV) + T * (DK + DV) elements moved,
@@ -83,8 +86,9 @@ constexpr int smem_floats() {
 template <typename T, int DK, int DV, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
-             int H, int KV, int causal) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int S, int Tk, int H, int KV,
+             int causal) {
   static_assert(BQ % 16 == 0 && BK % 8 == 0, "tile shape");
   constexpr int DP = DK + 1;
   constexpr int VP = DV + 1;
@@ -240,6 +244,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (q0 + r < S)
       store(ob + (q0 + r) * o_stride + c, o_s[i] / fmaxf(l_s[r], 1e-30f));
   }
+  if (lse != nullptr)
+    for (int r = tid; r < BQ && q0 + r < S; r += kThreads)
+      lse[((int64_t)b * H + h) * S + q0 + r] =
+          m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
 // ------------------------------------------------- bf16 on the tensor cores
@@ -254,30 +262,13 @@ constexpr int bf16_smem_bytes() {
   return 2 * ((kRows + 2 * BK) * (pad16(DK) + 8) + 2 * BK * (DV + 8));
 }
 
-// ROWS x W bf16 from global rows of `stride` elements into shared rows of
-// WP + 8, by 16-byte cp.async; rows at or past `n` and the columns from W
-// to WP zero-filled
-template <int W, int WP, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t stride, int n) {
-  static_assert(W % 8 == 0 && WP % 8 == 0 && WP >= W, "row width");
-  constexpr int CPR = WP / 8;          // 16-byte chunks a shared row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += kThreads) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const bool ok = r < n && col < W;
-    cp_async16(smem_addr(dst + r * (WP + 8) + col),
-               src + (ok ? r * stride + col : 0), ok);
-  }
-}
-
 template <int DK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int S, int Tk, int H,
-                  int KV, int causal) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int S, int Tk, int H, int KV, int causal) {
   static_assert(DV % 8 == 0 && BK % 16 == 0, "tile shape");
   constexpr int DKP = pad16(DK);       // key columns, zero-filled past DK
   constexpr int DP = DKP + 8;          // padded Q/K row (16 bytes)
@@ -307,9 +298,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int kv_end = causal ? min(Tk, q0 + kRows) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  load_tile<DK, DKP, kRows>(q_s, qb + q0 * q_stride, q_stride, S - q0);
-  load_tile<DK, DKP, BK>(k_s, kb, k_stride, Tk);
-  load_tile<DV, DV, BK>(v_s, vb, v_stride, Tk);
+  load_tile<DK, DKP, kRows, kThreads>(q_s, qb + q0 * q_stride, q_stride,
+                                      S - q0);
+  load_tile<DK, DKP, BK, kThreads>(k_s, kb, k_stride, Tk);
+  load_tile<DV, DV, BK, kThreads>(v_s, vb, v_stride, Tk);
   cp_async_commit();
 
   float o[NO][4];
@@ -331,10 +323,12 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = tile & 1;
     if (tile + 1 < n_tiles) {
       const int k0n = (tile + 1) * BK;
-      load_tile<DK, DKP, BK>(k_s + (st ^ 1) * BK * DP, kb + k0n * k_stride,
-                             k_stride, Tk - k0n);
-      load_tile<DV, DV, BK>(v_s + (st ^ 1) * BK * VP, vb + k0n * v_stride,
-                            v_stride, Tk - k0n);
+      load_tile<DK, DKP, BK, kThreads>(k_s + (st ^ 1) * BK * DP,
+                                       kb + k0n * k_stride, k_stride,
+                                       Tk - k0n);
+      load_tile<DV, DV, BK, kThreads>(v_s + (st ^ 1) * BK * VP,
+                                      vb + k0n * v_stride, v_stride,
+                                      Tk - k0n);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -425,11 +419,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();                   // this stage is refilled next
   }
 
-  // row sums across the quad, then out = O / l in bf16
+  // row sums across the quad, the row's log-sum-exp (natural units) when
+  // asked, then out = O / l in bf16
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = row0 + r * 8;
+    if (lse != nullptr && tig == 0 && qpos < S)
+      lse[((int64_t)b * H + h) * S + qpos] =
+          (m[r] + log2f(fmaxf(l[r], 1e-30f))) * 0.6931471805599453f;
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
   __nv_bfloat16* ob = out + ((int64_t)b * S * H + h) * DV;
@@ -472,9 +471,9 @@ int configure(K kernel, int bytes) {
 }
 
 template <int DK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Tk, int H, int KV, int causal, int bf16,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int Tk, int H, int KV, int causal,
+           int bf16, cudaStream_t stream) {
   const int bytes = smem_bytes<DK, DV>(bf16);
   if (bf16) {
     constexpr int BK = bf16_bk(DV);
@@ -484,7 +483,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     const dim3 grid((S + kRows - 1) / kRows, B * H);
     flash_bf16_kernel<DK, DV, BK><<<grid, kThreads, bytes, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, KV, causal);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, S, Tk, H, KV,
+        causal);
   } else {
     constexpr int BT = f32_tile(DK, DV);
     static const int configured =
@@ -492,8 +492,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     if (configured != 0) return configured;
     const dim3 grid((S + BT - 1) / BT, B * H);
     flash_kernel<float, DK, DV, BT, BT><<<grid, kThreads, bytes, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, S, Tk,
-        H, KV, causal);
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+        S, Tk, H, KV, causal);
   }
   return (int)cudaGetLastError();
 }
@@ -504,15 +504,19 @@ extern "C" {
 
 // q [B, S, H, DK], k [B, T, KV, DK], v [B, T, KV, DV], out [B, S, H, DV],
 // one type (bf16 != 0: bfloat16, else float32), contiguous and 16-byte
-// aligned; H a multiple of KV.  Returns a CUDA error code;
-// cudaErrorInvalidValue for a (DK, DV) outside FLASH_PAIRS.
+// aligned; H a multiple of KV.  lse, when not null, receives each row's
+// fp32 log-sum-exp of the scaled scores, [B, H, S], for the backward
+// (csrc/flash_attention_bwd.cu); out is the same either way.  Returns a
+// CUDA error code; cudaErrorInvalidValue for a (DK, DV) outside
+// FLASH_PAIRS.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int B, int S, int T, int H, int KV, int DK, int DV,
-                    int causal, int bf16, void* stream) {
+                    void* lse, int B, int S, int T, int H, int KV, int DK,
+                    int DV, int causal, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_CASE(dk, dv)                                               \
-  if (DK == dk && DV == dv)                                              \
-    return launch<dk, dv>(q, k, v, out, B, S, T, H, KV, causal, bf16, st);
+#define FLASH_CASE(dk, dv)                                                \
+  if (DK == dk && DV == dv)                                               \
+    return launch<dk, dv>(q, k, v, out, (float*)lse, B, S, T, H, KV, causal, \
+                          bf16, st);
   FLASH_PAIRS(FLASH_CASE)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 // Tensor-core and async-copy building blocks for Hopper (sm_90a) shared by
-// the attention kernels: cp.async 16-byte copies with zero-fill,
-// ldmatrix (plain and transposed) and mma.sync.m16n8k16 on bf16 with fp32
-// sums.  Fragment layouts are PTX's: for lane l, g = l / 4 and t = l % 4,
+// the attention kernels: cp.async 16-byte copies with zero-fill, a tile
+// loader built on them, ldmatrix (plain and transposed) and
+// mma.sync.m16n8k16 on bf16 with fp32 sums.  Fragment layouts are PTX's: for lane l, g = l / 4 and t = l % 4,
 // an A fragment holds rows g and g + 8, columns 2t, 2t + 1 and 2t + 8,
 // 2t + 9; a B fragment columns g, rows 2t, 2t + 1 and 2t + 8, 2t + 9; a C
 // fragment rows g and g + 8, columns 2t, 2t + 1.
@@ -59,6 +59,23 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ROWS x W bf16 from global rows of `stride` elements into shared rows of
+// WP + 8, by 16-byte cp.async from a block of THREADS threads; rows at or
+// past `n` and the columns from W to WP zero-filled
+template <int W, int WP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t stride, int n) {
+  static_assert(W % 8 == 0 && WP % 8 == 0 && WP >= W, "row width");
+  constexpr int CPR = WP / 8;          // 16-byte chunks a shared row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool ok = r < n && col < W;
+    cp_async16(smem_addr(dst + r * (WP + 8) + col),
+               src + (ok ? r * stride + col : 0), ok);
+  }
 }
 
 }  // namespace

@@ -204,6 +204,7 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     _check(x, dt, A, Bm, Cm, Q, init)
     if x.device.type == "cpu":
         return mamba2_scan_plain(x, dt, A, Bm, Cm, Q, init)
+    cuda_build.refuse_grad("mamba2_scan", (x, dt, A, Bm, Cm, init))
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     kernel_limits(x, Bm, Cm, Q)

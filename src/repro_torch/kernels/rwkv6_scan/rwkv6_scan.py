@@ -122,6 +122,7 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     _check(r, k, v, w, u, init)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, init)
+    cuda_build.refuse_grad("rwkv6_scan", (r, k, v, w, u, init))
     B, S, H, N = r.shape
     kernel_limits(r, k, v, w)
     if not all(t.is_contiguous() for t in (r, k, v, w)):

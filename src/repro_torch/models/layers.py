@@ -10,13 +10,18 @@ Conventions, as in the reference
   (``preferred_element_type=float32``), the port takes the product in fp32
   of the bf16 values, which is the same function.
 * ``blocked_attention`` is the hand-written flash-attention kernel
-  (``kernels/flash_attention``, K6) on the card and its plain version on
-  the CPU; the reference's blocks and ``attn_impl`` only tile the same
-  function, so the port has neither and the kernel chooses its tiles.
-* The reference's sharding annotations (``constraint``), its MoE
+  (``kernels/flash_attention``, K6) on the card, with its hand-written
+  backward when a gradient is asked, and its plain version on the CPU; the
+  reference's blocks and ``attn_impl`` only tile the same function, so the
+  port has neither and the kernel chooses its tiles.  Every layer here is
+  differentiable: ``attention``, ``mla_attention``, ``ffn`` and
+  ``moe_ffn`` (with its load-balance aux loss) are also the training
+  forward.
+* ``bf16_grad`` is the reference's bf16 gradient boundary: the identity,
+  whose cotangent is rounded to bf16.
+* The reference's sharding annotations (``constraint``) and its MoE
   ``expert_scheme`` branches (the same function under other shardings)
-  and its bf16 gradient casts return their input on one device in the
-  forward pass; the port leaves them out until a mesh or a training slice
+  return their input on one device; the port leaves them out until a mesh
   needs them.
 * MLA's prefill decompresses K/V and runs the kernel at ``(nope + rope,
   v_head)``; its absorbed decode and the MoE dispatch and combine are plain
@@ -36,6 +41,26 @@ from repro_torch.kernels.flash_attention.flash_attention import \
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
+
+
+class _BF16Grad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def bf16_grad(x: torch.Tensor) -> torch.Tensor:
+    """Identity with a bf16 gradient boundary: cotangents crossing this
+    point are rounded to bf16 (the reference halves the volume of every
+    activation-gradient all-reduce upstream with it).  With no graph
+    being recorded (serving) it is ``x`` itself."""
+    if not torch.is_grad_enabled():
+        return x
+    return _BF16Grad.apply(x)
 
 
 # --------------------------------------------------------------------- basics

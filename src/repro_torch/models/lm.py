@@ -1,10 +1,10 @@
-"""Model builders for LM serving, in PyTorch: the port of
-``repro/models/lm.py``.
+"""Model builders, in PyTorch: the port of ``repro/models/lm.py``.
 
     model = build_model(cfg, device="cuda")
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     logits, cache = model.prefill({"tokens": tokens})
     logits, cache = model.decode(cache, {"tokens": tok, "pos": pos})
+    loss, metrics = model.train_loss(params, batch)
 
 A vision model's prefill also takes ``frontend_embeds`` [B, n_img,
 embed_dim] (its image tokens come first, so decode positions count them);
@@ -22,29 +22,43 @@ leaves the one it was given unchanged.
 Builders: the decoder (dense, MoE with a dense prefix, MLA, a vision
 frontend), zamba2 (Mamba2 + shared attention), rwkv6 and the
 encoder-decoder; together every architecture of the registry.
-``train_loss`` comes with the training slice of the port (ROADMAP.md §1).
+
+Training takes its parameters as an argument, ``train_loss(params,
+batch)``, in the reference's layout: each stacked layer axis a leading
+dimension (``stack_layers`` of ``init_tree``'s or ``params_from_jax``'s
+tree), so that gradients, optimizer state and checkpoints are the
+reference's leaf for leaf.  The loss is the reference's: the mean
+next-token cross-entropy over sequence chunks (``chunked_xent``, each
+chunk's [B, chunk, V] logits recomputed in the backward), plus 0.01 times
+the MoE load-balance loss, with a vision model's image positions dropped.
+``remat="block"`` recomputes each stacked layer in the backward
+(``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (act_fn, apply_rope, attention,
-                                       attention_decode, decode_attention,
-                                       dense, ffn, full, init_attention,
-                                       init_ffn, init_mla, init_moe,
+                                       attention_decode, bf16_grad,
+                                       decode_attention, dense, ffn, full,
+                                       init_attention, init_ffn, init_mla,
+                                       init_moe,
                                        matmul_f32, mla_attention, mla_decode,
                                        mla_latents, moe_ffn, normal,
                                        rms_norm, rope_angles)
 
 Params = Dict[str, Any]
 Batch = Dict[str, Any]
+
+XENT_CHUNK = 256
 
 
 # ------------------------------------------------------------------ utilities
@@ -75,6 +89,46 @@ def _embed(p, tokens: torch.Tensor) -> torch.Tensor:
 def logits_last(h_last: torch.Tensor, w_head: torch.Tensor) -> torch.Tensor:
     """h_last [B,D] -> [B,V] fp32."""
     return matmul_f32(h_last, w_head, "bd,dv->bv")
+
+
+def _xent_chunk(hc, w_head, tc, mc) -> torch.Tensor:
+    logits = matmul_f32(hc, w_head, "bsd,dv->bsv")
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return ((lse - tgt) * mc).sum()
+
+
+def chunked_xent(h: torch.Tensor, w_head: torch.Tensor, targets,
+                 mask=None, chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """Mean next-token cross-entropy without materialising [B,S,V]: the
+    sequence in chunks, each chunk's fp32 logits recomputed in the backward
+    (the reference's ``jax.checkpoint``), the sums taken in chunk order."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    targets = torch.as_tensor(targets).to(h.device).long()
+    m = torch.ones((B, S), dtype=torch.float32, device=h.device) \
+        if mask is None else torch.as_tensor(mask).to(h.device).float()
+    loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        sl = slice(i, i + chunk)
+        loss = loss + checkpoint(_xent_chunk, h[:, sl], w_head,
+                                 targets[:, sl], m[:, sl],
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        cnt = cnt + m[:, sl].sum()
+    return loss / torch.clamp(cnt, min=1.0)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``remat="block"``
+    when a graph is being recorded."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 class ParamTree(nn.Module):
@@ -152,6 +206,15 @@ class Model(ParamTree):
     def decode(self, cache, batch: Batch):
         raise NotImplementedError
 
+    def train_loss(self, params: Params, batch: Batch):
+        """(loss, metrics) of ``batch`` (``tokens``, ``targets``, an
+        optional ``loss_mask``, and the frontend's inputs) under
+        ``params`` in the reference's layout (module docstring)."""
+        raise NotImplementedError
+
+    def _layers(self, p: Params, name: str) -> List[Params]:
+        return layer_views(p[name], _stacked(self.cfg)[name])
+
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
@@ -211,6 +274,34 @@ def params_from_jax(cfg: ModelConfig, tree: Params) -> Params:
     return out
 
 
+def stack_layers(cfg: ModelConfig, tree: Params) -> Params:
+    """The port's tree (``init_tree``'s, ``params_from_jax``'s: each
+    stacked layer axis a list) in the reference's layout, each of those
+    lists stacked along a new leading axis: training's parameters."""
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return torch.stack(layers)
+    out = dict(tree)
+    for name in _stacked(cfg):
+        if name in out:
+            out[name] = stack(out[name])
+    return out
+
+
+def layer_views(stacked: Params, n: int) -> List[Params]:
+    """A stacked layer tree as ``n`` per-layer trees of views
+    (``torch.unbind``), through which each layer's gradient lands in its
+    slice of the stacked leaf."""
+    if isinstance(stacked, dict):
+        parts = {k: layer_views(v, n) for k, v in stacked.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    if stacked.shape[0] != n:
+        raise ValueError(f"a stacked leaf has {stacked.shape[0]} layers, "
+                         f"the config {n}")
+    return list(torch.unbind(stacked))
+
+
 # ===================================================================== dense
 def _init_block(gen, cfg: ModelConfig, dtype, d_ff=None) -> Params:
     """A block: MLA or standard attention, then the MoE or (with ``d_ff``,
@@ -230,6 +321,20 @@ def _mlp(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "moe" in p:
         return moe_ffn(p["moe"], h, cfg)[0]
     return ffn(p["ffn"], h, cfg.hidden_act)
+
+
+def _block_fwd(p, h: torch.Tensor, cfg: ModelConfig):
+    """Pre-norm transformer block for training; returns (h, moe_aux)."""
+    hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+    h = h + (mla_attention(p["attn"], hn, cfg) if cfg.mla
+             else attention(p["attn"], hn, cfg))
+    hn = rms_norm(h, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        f, aux = moe_ffn(p["moe"], hn, cfg)
+    else:
+        f = ffn(p["ffn"], hn, cfg.hidden_act)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + f, aux
 
 
 def _block_prefill(p, h: torch.Tensor, cfg: ModelConfig):
@@ -302,24 +407,47 @@ class DecoderLM(Model):
                              dt)}
         return p
 
-    def head(self) -> torch.Tensor:
-        return self["embed"].T if self.cfg.tie_embeddings else self["lm_head"]
+    def head(self, p=None) -> torch.Tensor:
+        p = self if p is None else p
+        return p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
 
     def _prefix(self):
         return self.get("prefix_layers", [])
 
-    def embed_input(self, batch: Batch) -> torch.Tensor:
+    def embed_input(self, batch: Batch, p=None) -> torch.Tensor:
         """Token embeddings, after the projected image tokens when the
-        model has a frontend: gelu(frontend_embeds w1) w2."""
-        h = _embed(self, self._tokens(batch))
+        model has a frontend: gelu(frontend_embeds w1) w2.  ``p``: the
+        parameters (the model's own by default)."""
+        p = self if p is None else p
+        h = _embed(p, self._tokens(batch))
         if self.cfg.frontend:
-            fp = self["frontend_proj"]
+            fp = p["frontend_proj"]
             img = torch.as_tensor(batch["frontend_embeds"]).to(
                 self.device, _dtype(self.cfg))
             img = dense(act_fn("gelu")(dense(img, fp["w1"]).float()).to(
                 img.dtype), fp["w2"])
             h = torch.cat([img, h], dim=1)
         return h
+
+    def train_loss(self, params: Params, batch: Batch):
+        cfg = self.cfg
+        h = self.embed_input(batch, params)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lp in params.get("prefix_layers", []):
+            h, a = _block_fwd(lp, h, cfg)
+            aux = aux + a
+        auxs = []
+        for lp in self._layers(params, "layers"):
+            h, a = _remat(cfg, _block_fwd, lp, h, cfg)
+            auxs.append(a)
+        aux = aux + torch.stack(auxs).sum()
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if cfg.frontend:
+            h = h[:, cfg.frontend.num_tokens:, :]
+        loss = chunked_xent(h, self.head(params), batch["targets"],
+                            batch.get("loss_mask"))
+        total = loss + 0.01 * aux if cfg.moe else loss
+        return total, {"xent": loss, "moe_aux": aux}
 
     def prefill(self, batch: Batch):
         cfg = self.cfg
@@ -397,15 +525,40 @@ class ZambaLM(Model):
             "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
         }
 
-    def _shared_block(self, h, x0):
-        sp, cfg = self["shared"], self.cfg
+    def _shared_block(self, h, x0, sp=None):
+        """The shared attention block over concat(h, x0), with the
+        reference's bf16 gradient boundaries; ``sp``: its parameters (the
+        model's own by default)."""
+        sp = self["shared"] if sp is None else sp
+        cfg = self.cfg
         z = torch.cat([h, x0], dim=-1)
         a = attention(sp["attn"], rms_norm(z, sp["ln1"], cfg.norm_eps),
                       self.shared_cfg, heads=self.shared_cfg.num_heads)
-        h = h + a
+        h = bf16_grad(h + a)
         f = ffn(sp["ffn"], rms_norm(h, sp["ln2"], cfg.norm_eps),
                 cfg.hidden_act)
-        return h + f
+        return bf16_grad(h + f)
+
+    def _mamba_layer(self, lp, h):
+        y = ssm_mod.mamba2_block(lp["mamba"],
+                                 rms_norm(h, lp["ln"], self.cfg.norm_eps),
+                                 self.cfg)
+        return bf16_grad(h + y)
+
+    def train_loss(self, params: Params, batch: Batch):
+        cfg = self.cfg
+        h = _embed(params, self._tokens(batch))
+        x0 = h
+        layers = self._layers(params, "layers")
+        for i, j, shared in self._segments():
+            if shared:
+                h = self._shared_block(h, x0, params["shared"])
+            for lp in layers[i:j]:
+                h = _remat(cfg, self._mamba_layer, lp, h)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        loss = chunked_xent(h, params["lm_head"], batch["targets"],
+                            batch.get("loss_mask"))
+        return loss, {"xent": loss}
 
     def _shared_block_decode(self, h, x0, kv, pos):
         sp, cfg = self["shared"], self.cfg
@@ -505,23 +658,40 @@ class RWKV6LM(Model):
             "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
         }
 
-    def _backbone(self, h, states):
+    def _layer(self, lp, h, s_att, s_wkv, s_chan):
         cfg = self.cfg
+        a, sa2, sw2 = ssm_mod.rwkv6_time_mix(
+            lp["mix"], rms_norm(h, lp["ln1"], cfg.norm_eps), s_att, s_wkv,
+            cfg)
+        h = h + a
+        c, sc2 = ssm_mod.rwkv6_channel_mix(
+            lp["mix"], rms_norm(h, lp["ln2"], cfg.norm_eps), s_chan)
+        return h + c, sa2, sw2, sc2
+
+    def _backbone(self, h, states):
         s_att, s_wkv, s_chan = states
         sa, sw, sc = [], [], []
         for i, lp in enumerate(self["layers"]):
-            a, sa2, sw2 = ssm_mod.rwkv6_time_mix(
-                lp["mix"], rms_norm(h, lp["ln1"], cfg.norm_eps), s_att[i],
-                s_wkv[i], cfg)
-            h = h + a
-            c, sc2 = ssm_mod.rwkv6_channel_mix(
-                lp["mix"], rms_norm(h, lp["ln2"], cfg.norm_eps), s_chan[i])
-            h = h + c
+            h, sa2, sw2, sc2 = self._layer(lp, h, s_att[i], s_wkv[i],
+                                           s_chan[i])
             sa.append(sa2)
             sw.append(sw2)
             sc.append(sc2)
-        return rms_norm(h, self["final_norm"], cfg.norm_eps), \
+        return rms_norm(h, self["final_norm"], self.cfg.norm_eps), \
             (torch.stack(sa), torch.stack(sw), torch.stack(sc))
+
+    def train_loss(self, params: Params, batch: Batch):
+        cfg = self.cfg
+        h = rms_norm(_embed(params, self._tokens(batch)), params["ln0"],
+                     cfg.norm_eps)
+        s_att, s_wkv, s_chan = self._zero_states(h.shape[0])
+        for i, lp in enumerate(self._layers(params, "layers")):
+            h = _remat(cfg, self._layer, lp, h, s_att[i], s_wkv[i],
+                       s_chan[i])[0]
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        loss = chunked_xent(h, params["lm_head"], batch["targets"],
+                            batch.get("loss_mask"))
+        return loss, {"xent": loss}
 
     def _zero_states(self, B: int):
         cfg, dt = self.cfg, _dtype(self.cfg)
@@ -588,17 +758,26 @@ class EncDecLM(Model):
             "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
         }
 
-    def encode(self, frames) -> torch.Tensor:
+    def _enc_layer(self, lp, h):
         cfg = self.cfg
+        h = h + attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
+                          cfg, causal=False)
+        return h + ffn(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                       cfg.hidden_act)
+
+    def encode(self, frames, params: Optional[Params] = None
+               ) -> torch.Tensor:
+        """The encoder's output; ``params`` in the reference's layout for
+        training (the model's own by default)."""
+        cfg = self.cfg
+        p = self if params is None else params
         h = dense(torch.as_tensor(frames).to(self.device, _dtype(cfg)),
-                  self["frontend_proj"])
-        for lp in self["enc_layers"]:
-            h = h + attention(lp["attn"], rms_norm(h, lp["ln1"],
-                                                   cfg.norm_eps),
-                              cfg, causal=False)
-            h = h + ffn(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                        cfg.hidden_act)
-        return rms_norm(h, self["enc_norm"], cfg.norm_eps)
+                  p["frontend_proj"])
+        layers = self["enc_layers"] if params is None \
+            else self._layers(params, "enc_layers")
+        for lp in layers:
+            h = _remat(cfg, self._enc_layer, lp, h)
+        return rms_norm(h, p["enc_norm"], cfg.norm_eps)
 
     def _dec_block(self, lp, h, enc_out):
         cfg = self.cfg
@@ -610,6 +789,17 @@ class EncDecLM(Model):
                           cfg, causal=False, kv_x=enc_out, use_rope=False)
         return h + ffn(lp["ffn"], rms_norm(h, lp["ln3"], cfg.norm_eps),
                        cfg.hidden_act)
+
+    def train_loss(self, params: Params, batch: Batch):
+        cfg = self.cfg
+        enc_out = self.encode(batch["frames"], params)
+        h = _embed(params, self._tokens(batch))
+        for lp in self._layers(params, "dec_layers"):
+            h = _remat(cfg, self._dec_block, lp, h, enc_out)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        loss = chunked_xent(h, params["lm_head"], batch["targets"],
+                            batch.get("loss_mask"))
+        return loss, {"xent": loss}
 
     def prefill(self, batch: Batch):
         """Cache: the decoder's self-attention K/V ``k``, ``v`` [L,B,S,KV,hd]

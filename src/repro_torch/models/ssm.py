@@ -10,6 +10,11 @@ included: K8 computes the sequential recurrence where the reference takes
 its chunked closed form (``_rwkv6_chunked``) for lengths that divide into
 chunks and steps one token at a time for the others; all three are the
 same function up to rounding.
+
+Training: on the CPU autograd differentiates the scans' plain versions,
+through the reference's bf16 gradient boundaries on the Mamba2
+projections; on the card K7 and K8 have no backward kernel yet and raise
+when a gradient is asked of them.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels.mamba2_scan.mamba2_scan import mamba2_scan_kernel
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_kernel
-from repro_torch.models.layers import dense, full, normal, rms_norm
+from repro_torch.models.layers import (bf16_grad, dense, full, normal,
+                                       rms_norm)
 
 Params = Dict[str, Any]
 
@@ -93,17 +99,24 @@ def ssd_chunked(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                               Cm.to(xs.dtype).contiguous(), Q, init_state)
 
 
+def mamba2_block(p: Params, x: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """Train/prefill Mamba2 block.  x [B,S,D] -> [B,S,D]."""
+    return mamba2_block_with_state(p, x, cfg)[0]
+
+
 def mamba2_block_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     s: SSMConfig = cfg.ssm
     B, S, D = x.shape
     d_in, H, P, N, conv_dim = mamba2_dims(cfg)
-    z = dense(x, p["w_z"])
-    x_pre = dense(x, p["w_x"])
-    B_pre = dense(x, p["w_Bm"])
-    C_pre = dense(x, p["w_Cm"])
-    dt = dense(x, p["w_dt"])
+    # the reference's bf16 gradient boundaries on the projections
+    z = bf16_grad(dense(x, p["w_z"]))
+    x_pre = bf16_grad(dense(x, p["w_x"]))
+    B_pre = bf16_grad(dense(x, p["w_Bm"]))
+    C_pre = bf16_grad(dense(x, p["w_Cm"]))
+    dt = bf16_grad(dense(x, p["w_dt"]))
     conv_tail = torch.cat([x_pre, B_pre, C_pre],
                           dim=-1)[:, -(s.conv_kernel - 1):, :]
 
