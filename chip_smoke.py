@@ -38,12 +38,14 @@ and the card held against the CPU at cut depth; and ``launch/serve.py``'s
 deepseek-v2-236b (smoke models) in ``sync`` and ``prefetch`` mode,
 prefetch beating sync.  Last, training: K6's backward kernel is held
 against autograd through its plain version at every head-dim pair and
-timed at gemma-7b's shape beside SDPA's backward; gemma-7b at its
-published width, cut to 8 of its 28 layers, takes AdamW steps of 4 x 2048
-tokens through the port's data pipeline, train step and optimizer (loss
-falling, K6 forward and backward launched); the same step at 2 layers in
-fp32 on the card equals the CPU's; and ``examples/train_lm_torch.py``
-recovers from an injected failure under the supervisor and converges.
+timed at gemma-7b's, llava-next-mistral-7b's and deepseek-v2's MLA
+training shapes beside SDPA's backward, two runs bit-equal; gemma-7b at
+its published width, cut to 8 of its 28 layers, takes AdamW steps of 4 x
+2048 tokens through the port's data pipeline, train step and optimizer
+(loss falling, K6 forward and backward launched); the same step at 2
+layers in fp32 on the card equals the CPU's; and
+``examples/train_lm_torch.py`` recovers from an injected failure under
+the supervisor and converges.
 Each phase prints one JSON line; any failure raises and ends the run with a
 non-zero exit.  The last three lines are the kernels summary, the card's
 name and power limit as ``nvidia-smi`` reports them, and
@@ -73,7 +75,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import count_params, get_config  # noqa: E402
+from repro_torch.configs import (count_params, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.core import tac_torch  # noqa: E402
 from repro_torch.core.hint_filter import HintFilter  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
@@ -92,8 +95,9 @@ from repro_torch.kernels.tac_fused import tac_fused as tfk  # noqa: E402
 from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_at  # noqa: E402
-from repro_torch.launch.serve import (ServeConfig, _grow_kv,  # noqa: E402
-                                      run_serving, tree_flatten,
+from repro_torch.launch.serve import (GraphedStep,  # noqa: E402
+                                      ServeConfig, StatePager, _grow_kv,
+                                      decode_step, run_serving, tree_flatten,
                                       tree_unflatten)
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.launch.train import build_training  # noqa: E402
@@ -170,6 +174,14 @@ EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
               ("decode_attention", "decode_32k"): 11.61456044514974,
               ("mamba2_scan", "zamba2-2.7b prefill"): 4.04290542602539,
               ("rwkv6_scan", "rwkv6-3b prefill"): 1.0247103691101074,
+              # K6's backward on mma.sync, 16 keys a dK/dV block at d 256
+              # (gemma-7b as chip_smoke.py timed it; the llava and MLA
+              # shapes by tools/flash_bwd_variants.py)
+              ("flash_attention_bwd", "gemma-7b train"): 4.040746688842773,
+              ("flash_attention_bwd", "llava-next-mistral-7b train"):
+                  2.887674649556478,
+              ("flash_attention_bwd", "deepseek-v2-236b MLA train"):
+                  4.7529120445251465,
               # K4 four blocks ranking lanes by B^2 compares (warm, as
               # device_ms times it)
               ("cms_sketch", "hint_filter"): 0.009600000083446502,
@@ -188,6 +200,16 @@ ROTATE_BATCH = 128             # its calls a spin, within the launch queue
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def smi_clocks() -> str:
+    """The card's SM clock and its maximum, power draw and limit and
+    temperature now, as ``nvidia-smi`` reads them: two runs' times compare
+    only at like clocks."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "power.limit,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
 
 
 def device_ms(fn, reps: int = 20, rounds: int = 7,
@@ -1347,9 +1369,16 @@ def lm_kernel_phase():
 # K6's backward against the plain backward: the largest error of each of
 # dq, dk, dv over the plain gradient's largest magnitude
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# gemma-7b's training attention (configs/gemma_7b.py; the train phase's
-# batch): 4 x 2048 tokens, 16 heads of 256, causal, bf16
-GEMMA_ATTN = dict(B=4, S=2048, H=16, KV=16, d=256)
+# the backward's timed shapes, causal, bf16: gemma-7b's training attention
+# (configs/gemma_7b.py; the train phase's batch: 4 x 2048 tokens, 16 heads
+# of 256), llava-next-mistral-7b's LM (32 query heads on 8 KV heads of 128)
+# and deepseek-v2's MLA (128 heads, d 192, dv 128) at the same tokens
+BWD_TIMED = {
+    "gemma-7b train": dict(B=4, S=2048, H=16, KV=16, d=256, dv=256),
+    "llava-next-mistral-7b train": dict(B=4, S=2048, H=32, KV=8, d=128,
+                                        dv=128),
+    "deepseek-v2-236b MLA train": dict(B=1, S=2048, H=128, KV=128, d=192,
+                                       dv=128)}
 
 
 def grads_rel(grads, plain) -> float:
@@ -1393,7 +1422,7 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
     tol = BWD_TOL[dtype]
     row = dict(kernel="flash_attention_bwd", shape=label, B=B, S=S, T=T,
                H=H, KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
-               rel_err=rel, tol=tol,
+               design=fa.bwd_design(d, dv, dtype), rel_err=rel, tol=tol,
                max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
                plain_max_abs=max(float(b.float().abs().max())
                                  for b in plain))
@@ -1423,6 +1452,22 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
         del bad
     del plain
     if timed:
+        again = fa.flash_attention_backward(q, k, v, out, lse, dout, causal)
+        row["bit_equal_rerun"] = all(torch.equal(a, b)
+                                     for a, b in zip(grads, again))
+        if not row["bit_equal_rerun"]:
+            raise AssertionError(f"flash_attention_bwd at {label}: two runs "
+                                 f"differ")
+        del again
+        smem = [fa.bwd_smem_bytes(d, dv, dtype, True),
+                fa.bwd_smem_bytes(d, dv, dtype, False)]
+        if row["design"] == "wgmma":
+            plans = [fa.wgmma_plan(d, dv, dq) for dq in (False, True)]
+            row["plans"] = [p._asdict() for p in plans]
+            if smem != [p.smem_bytes for p in plans]:
+                raise AssertionError(f"flash_attention_bwd at {label}: the "
+                                     f"source's shared memory {smem} is not "
+                                     f"the plans' {plans}")
         it = q.element_size()
         flops = 2.5 * 2 * S * T * (d + dv) * B * H / (2 if causal else 1)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) * it \
@@ -1438,14 +1483,14 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
         row.update(ms=ms,
                    plain_ms=device_ms(lambda: fa.flash_attention_backward_plain(
                        q, k, v, dout, causal), reps=1, rounds=3),
-                   bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                   bound_ms=b_ms, bound_by=b_by,
+                   **timed_extras("flash_attention_bwd", label, ms, b_ms),
                    library=f"scaled_dot_product_attention(is_causal="
                            f"{causal}) backward",
                    library_ms=device_ms(lambda: torch.autograd.grad(
                        o_lib, leaves, do_lib, retain_graph=True),
                        reps=3, rounds=5),
-                   dynamic_smem_bytes=[fa.bwd_smem_bytes(d, dv, dtype, True),
-                                       fa.bwd_smem_bytes(d, dv, dtype, False)],
+                   dynamic_smem_bytes=smem,
                    build=build_facts("flash_attention_bwd",
                                      f"ILi{d}ELi{dv}E"))
         del o_lib, leaves
@@ -1457,8 +1502,13 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
 def train_kernel_phase():
     """K6's backward: at every (d, dv) pair of ``PAIRS``, fp32 and bf16,
     causal and not, at S = T = 100 (ragged tiles) and at S 96 != T 160,
-    with 2 query heads a KV head, and at 4 a KV head; then at gemma-7b's
-    training shape, timed, where the gate must reject D left at zero."""
+    with 2 query heads a KV head, and at 4 a KV head; then timed at each
+    of ``BWD_TIMED`` (two runs bit-equal), where at gemma-7b's training
+    shape the gate must reject D left at zero.  Returns gemma-7b's row and
+    the largest error.
+
+    Alone on the card: ``python3 -c 'import chip_smoke as c;
+    c.cuda_build.build_all(); c.train_kernel_phase()'``."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
@@ -1470,12 +1520,13 @@ def train_kernel_phase():
                     worst = max(worst, r["max_abs_err"])
             r = check_flash_bwd(1, 130, 8, 2, 64, dtype, causal, "G 4")
             worst = max(worst, r["max_abs_err"])
-    c = GEMMA_ATTN
-    main = check_flash_bwd(c["B"], c["S"], c["H"], c["KV"], c["d"],
-                           torch.bfloat16, True, "gemma-7b train",
-                           timed=True, fault=True)
-    worst = max(worst, main["max_abs_err"])
-    return main, worst
+    rows = {label: check_flash_bwd(c["B"], c["S"], c["H"], c["KV"], c["d"],
+                                   torch.bfloat16, True, label, dv=c["dv"],
+                                   timed=True,
+                                   fault=label == "gemma-7b train")
+            for label, c in BWD_TIMED.items()}
+    worst = max([worst] + [r["max_abs_err"] for r in rows.values()])
+    return rows["gemma-7b train"], worst
 
 
 def serve_shape_case():
@@ -2792,10 +2843,57 @@ def models_phase():
     return total
 
 
+def graphed_step_check(arch: str, prompt: int) -> dict:
+    """run_serving's step on the card (``GraphedStep``: one CUDA graph a
+    decode position) against the eager step on the same perturbed pages of
+    a seeded session: logits, pages and aux must be bit-equal.  Returns the
+    row with both steps' ms (host clock, the mean of 20 after a sync)."""
+    scfg = get_smoke_config(arch)
+    model = build_model(scfg, "cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(LM["seed"]))
+    rng = np.random.RandomState(LM["seed"])
+    tokens = rng.randint(0, scfg.vocab_size, (1, prompt)).astype(np.int32)
+    _, kv = model.prefill({"tokens": torch.from_numpy(tokens)})
+    kv = _grow_kv(kv, prompt, prompt + SERVE_LM["decode_tokens"] + 8)
+    pager = StatePager(kv, ServeConfig.page_elems)
+    pages, aux = pager.to_pages(kv)
+    step = decode_step(model, pager)
+    one = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    positions = range(prompt, prompt + SERVE_LM["decode_tokens"])
+    graphed = GraphedStep(step, pages, aux, one, positions)
+    gen = torch.Generator(device="cuda").manual_seed(LM["seed"])
+    row = dict(arch=arch, positions=list(positions), equal=True)
+    for p in positions:
+        pos = torch.tensor(p, dtype=torch.int32)
+        moved = pages + 0.01 * torch.randn(pages.shape, device="cuda",
+                                           generator=gen)
+        want, got = step(moved, aux, one, pos), graphed(moved, aux, one, pos)
+        row["equal"] &= bool(
+            torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+            and [int(a) for a in want[2]] == [int(a) for a in got[2]])
+        for name, fn in (("eager_ms", step), ("graph_ms", graphed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn(moved, aux, one, pos)
+            torch.cuda.synchronize()
+            row.setdefault(name, []).append(
+                (time.perf_counter() - t0) / 20 * 1e3)
+    if not row["equal"]:
+        raise AssertionError(f"serve_lm {arch}: the graphed step differs "
+                             f"from the eager step: {row}")
+    return row
+
+
 def serve_lm_phase():
+    """run_serving on the card in sync and prefetch mode for each arch of
+    SERVE_LM.  Its decode step is a CUDA graph a position: the kernels
+    count where the warm-up and the capture launch them and in the
+    sessions' prefills; a replay goes through no wrapper and adds none."""
     total = {k: 0 for k in launches()}
     c = SERVE_LM
     for arch, prompt in c["prompts"].items():
+        emit("serve_lm_graph", **graphed_step_check(arch, prompt))
         cfg = ServeConfig(arch=arch, n_sessions=c["n_sessions"],
                           n_requests=c["n_requests"], prompt_len=prompt,
                           decode_tokens=c["decode_tokens"],
@@ -2871,6 +2969,7 @@ def train_full_width():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         emit("train_step", step=step, loss=losses[-1], ms=step_ms[-1],
              grad_norm=float(met["grad_norm"]), lr=float(met["lr"]))
+    clocks = smi_clocks()                # right after the timed steps
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     ms_step = statistics.median(step_ms[-c["timed"]:])
@@ -2884,7 +2983,8 @@ def train_full_width():
         peak_gb=peak / 1e9, launches=counts,
         k6_forward_launches=counts["flash_attention"],
         k6_backward_launches=counts["flash_attention_bwd"],
-        device_busy_share=prof["device_busy_share"], profile=prof)
+        device_busy_share=prof["device_busy_share"], clocks=clocks,
+        profile=prof)
     del state
     torch.cuda.empty_cache()
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
@@ -2995,7 +3095,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, clocks=smi_clocks())
     # float32 products in full float32: the tolerances are 2e-5
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -26,25 +26,74 @@
 //
 // Bound: operations.  2.5 times the forward's flops: the forward's S and
 // P V products again, and dP, dK and dQ; at gemma-7b's training shape
-// (B 4, H 16, S 2048, d 256, causal) 3.44e11 flop against ~0.13 GB moved.
+// (B 4, H 16, S 2048, d 256, causal) 3.44e11 flop against ~0.13 GB moved,
+// 0.347 ms at 989 TFLOP/s.
 //
-// Design, bfloat16 (the models' training type): FlashAttention-2's
-// backward on mma.sync.m16n8k16 (bf16 in, fp32 sums), 4 warps a block.
-// The dK/dV kernel has a block per (batch row, KV head, key tile); it
-// holds its K and V tiles in shared memory and walks the G query heads and
-// their query tiles of 64 rows, from the first tile that sees its keys
-// when causal: S^T = K Q^T and dP^T = V dO^T by warps of 16 keys x 64 / WC
-// queries, P^T and dS^T rounded to bf16 into shared memory (P as the
-// forward rounds it before its P V), then dV += P^T dO and dK += dS^T Q
+// Design, bfloat16 at the head dims that are whole 64-column boxes ((64,
+// 64), (128, 128), (192, 128), (256, 256): the pairs that train on the
+// card) -- Hopper's: wgmma (m64n64k16, bf16 in, fp32 sums), TMA and
+// mbarriers (csrc/hopper.cuh).  Two kernels, dK/dV then dQ, each a block
+// of three warpgroups: one thread of the producer group loads the
+// block's resident rows and keeps 2-4 streamed 64-row tile pairs in
+// flight in a ring of stages (4-D tensor maps of [B, S, H, d], boxes of
+// 64 rows x 64 columns in the 128-byte swizzle that the products read;
+// rows past S or T arrive as zeros), and hands its registers to the two
+// consumer groups (setmaxnreg: 40 and 232 a thread).
+//   Blocks are numbered in groups of 4 (batch row, head) pairs, tiles
+//   first within a group and the longest first when causal, so that the
+//   ~132 blocks in flight stream a few heads' tiles, which stay in the L2
+//   (numbered tile first across all heads, gemma-7b's 128 MB of Q and dO
+//   went to device memory: 1.43 against 1.24 ms).
+//   dK/dV: a block per (64 keys, batch row, KV head); it holds K and V and
+//   walks the G query heads of its KV head and each one's query tiles
+//   from the first that sees its keys (masked tiles are never loaded).
+//   Exchange mode: group 0 computes S^T = K Q^T and P^T (rounded to bf16
+//   as the forward rounds P before its P V) and adds P^T dO into dV;
+//   group 1 computes
+//   dP^T = V dO^T, takes P^T from group 0 through a 16 KB fp32 buffer in
+//   fragment order, forms dS^T = P^T (dP^T - D) and adds dS^T Q into dK.
+//   The A operands of the sums come from registers, dV and dK stay in
+//   registers (at d 256 128 a thread: why the groups split them), so the
+//   block needs no atomics; 64 keys a block at every head dim (the
+//   mma.sync design below would hold 16 at d 256), so Q and dO are read
+//   from the L2 4x less.
+//   dQ: a block per (query rows, batch row, head), the last rows first
+//   when causal; it holds Q and dO and walks the key tiles up to the
+//   diagonal.  Rows mode (up to d 192, where 128 resident rows and two
+//   stages fit): 128 queries a block, each group owns 64 of them end to
+//   end (S and dP back to back, P, dS, dQ += dS K), so K and V are read
+//   half as often.  Exchange mode (d 256): 64 queries, group 0 computes S
+//   and P, group 1 dP, they swap P and dP and each adds dS K into its
+//   columns of dQ (split at a whole box so that the two are even).
+//   Between products the groups are elementwise (P = 2^(s log2e / sqrt(d)
+//   - lse), dS), and that pass is on the products' path: it takes P from
+//   the MUFU's ex2.approx alone and applies the mask only to the tiles
+//   that cross the diagonal or a ragged end (-inf before the one pass),
+//   which took gemma-7b's backward from 1.25 to 1.05 ms.
+//   dQ route: a separate kernel that recomputes S and dP (7 products where
+//   5 suffice), chosen over summing dQ's partials in key-tile order inside
+//   the dK/dV kernel: at d 256 a group holding dK (or dV) has no registers
+//   left for a 64 x 256 fp32 partial, and a third consumer group does not
+//   fit the register file; the dQ kernel is 0.43 of the backward's 1.05 ms
+//   at gemma-7b's shape (tools/flash_bwd_variants.py, H100 80GB HBM3 at
+//   700 W; SDPA's backward 1.12).  Every output element has one block and
+//   one order of sums: the result is bit-equal run to run (and, in this
+//   order, to the mma.sync design's on the timed shapes).
+//
+// Design, bfloat16 at the other pairs ((8, 8), (16, 16), (24, 16), (32,
+// 32), (80, 80)): FlashAttention-2's backward on mma.sync.m16n8k16 (bf16
+// in, fp32 sums), 4 warps a block.  The dK/dV kernel has a block per
+// (batch row, KV head, key tile); it holds its K and V tiles in shared
+// memory and walks the G query heads and their query tiles of 64 rows,
+// from the first tile that sees its keys when causal: S^T = K Q^T and
+// dP^T = V dO^T by warps of 16 keys x 64 / WC queries, P^T and dS^T
+// rounded to bf16 into shared memory, then dV += P^T dO and dK += dS^T Q
 // into fp32 register fragments, each warp 16 keys x DV / WC and DK / WC
 // columns.  The dQ kernel mirrors it: a block per (batch row, head, query
 // tile), the key tiles of 64 up to the diagonal when causal, dS to shared
-// memory, dQ += dS K.  WC (warps across the columns) is 4 at a head dim
-// above 128, 2 above 64, else 1, so that a warp's accumulators stay within
-// 64 columns each: at d 256 a dK/dV block has 16 keys and a dQ block 16
-// queries, and the block's shared memory is ~89 KB (dynamic, above the
-// 48 KB default).  Operand rows are padded by 16 bytes so that ldmatrix
-// meets no bank conflict; a head dim that is no multiple of 16 (8, 24) is
+// memory, dQ += dS K.  WC (warps across the columns) is 2 above d 64,
+// else 1.  Operand rows are padded by 16 bytes so that ldmatrix meets no
+// bank conflict; a head dim that is no multiple of 16 (8, 24) is
 // zero-filled up to the next one where it is a product's k-dimension.
 //
 // Design, float32 (the models' agreement checks): the same blocks on the
@@ -56,7 +105,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tensor_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -312,9 +361,10 @@ constexpr int kStep = 64;              // queries (dK/dV), keys (dQ) a step
 __host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
 
 // warps across the output columns (the other 4 / WC across the rows): a
-// warp's dK and dV (or dQ) fragments stay within 64 columns each
+// warp's dK and dV (or dQ) fragments stay within 64 columns each (this
+// design's pairs reach d 80)
 __host__ __device__ constexpr int col_warps(int DK, int DV) {
-  return DK > 128 || DV > 128 ? 4 : DK > 64 || DV > 64 ? 2 : 1;
+  return DK > 64 || DV > 64 ? 2 : 1;
 }
 
 // a block's bytes of dynamic shared memory: its own rows (R = 64 / WC of
@@ -645,6 +695,503 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   q_stride, wr * 16, S - q0, cq0, 1.f / sqrtf((float)DK));
 }
 
+// ------------------------------------------- bf16 on wgmma (Hopper's design)
+// a block: two consumer warpgroups (warps 0-3, 4-7) and a producer
+// warpgroup (8-11) of which one thread issues the loads; the producer gives
+// its registers to the consumers (168 each at launch, 40 and 232 after)
+constexpr int kWgThreads = 384;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kBox = 64 * 64;          // bf16 of a TMA box, 8 KB
+constexpr int kGroupHeads = 4;         // (b, head) pairs a group of blocks
+constexpr int kSmemLimit = 232448;     // an H100 block's shared memory
+
+// the pairs on this design: head dims that are whole 64-column boxes
+__host__ __device__ constexpr bool on_wgmma(int DK, int DV) {
+  return DK % 64 == 0 && DV % 64 == 0;
+}
+
+// A block of the dK/dV (DQ false) or the dQ kernel holds its own rows
+// resident (K and V of its keys, or Q and dO of its queries) and streams
+// 64-row tile pairs of the other kind (Q and dO, or K and V) through
+// kStages stages.  Rows mode (dQ, where two stages fit beside 128
+// resident rows: up to d 192): 128 rows a block, each consumer warpgroup
+// owns 64 of them end to end.  Exchange mode (dK/dV, whose dK and dV of
+// 64 keys would not fit one group's registers above d 64, and dQ at d
+// 256): 64 rows a block, the two groups split the products and pass P
+// (and dP) through two 16 KB fp32 buffers.  1 KB of alignment slack and
+// the mbarriers besides.
+template <int DK, int DV, bool DQ>
+struct WgPlan {
+  static constexpr int kPair = 64 * (DK + DV) * 2;  // bytes of a tile pair
+  static constexpr bool kRows = DQ && 1280 + 4 * kPair <= kSmemLimit;
+  static constexpr int kRowsPerBlock = kRows ? 128 : 64;
+  static constexpr int kXchg = kRows ? 0 : 2 * 64 * 64 * 4;
+  static constexpr int kFixed =
+      1024 + 256 + kRowsPerBlock / 64 * kPair + kXchg;
+  static constexpr int kStages0 = (kSmemLimit - kFixed) / kPair;
+  static constexpr int kStages = kStages0 > 4 ? 4 : kStages0;
+  static constexpr int kSmem = kFixed + kStages * kPair;
+  static_assert(kStages >= 2, "two stages at least");
+};
+
+// exchange mode's dQ: the first group's boxes of columns (the rest are the
+// second's), whole boxes that even the two groups' products out
+__host__ __device__ constexpr int dq_boxes0(int DV) { return DV / 2 / 64; }
+
+// issues one warpgroup's 64 x 64 scores (S or dP, as `x`) from two
+// K-major tiles of W columns, `a` resident and `b` a stage's, as a group
+template <int W>
+__device__ __forceinline__ void issue_scores(float (&x)[32], const bf16* a,
+                                             const bf16* b) {
+  const uint64_t da = kmajor_desc(a), db = kmajor_desc(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    // box kk / 4 (8 KB, 512 in 16-byte units), 32 bytes a k-step within it
+    const uint64_t off = (kk / 4) * 512 + (kk % 4) * 2;
+    wgmma_ss(x, da + off, db + off, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// the scores, waited for
+template <int W>
+__device__ __forceinline__ void scores(float (&x)[32], const bf16* a,
+                                       const bf16* b) {
+  issue_scores<W>(x, a, b);
+  wgmma_wait<0>();
+  fence_acc(x);
+}
+
+// acc[c] += a (64 x 64, A fragments of 4 k-steps) times columns
+// 64 (C0 + c) .. of the MN-major tile `b` (k-rows 0..63)
+template <int NC, int C0>
+__device__ __forceinline__ void accumulate(float (&acc)[NC][32],
+                                           const uint32_t (&a)[4][4],
+                                           const bf16* b) {
+  const uint64_t db = mnmajor_desc(b);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_acc(acc[c]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      // box C0 + c; 16 rows of 128 bytes a k-step
+      wgmma_rs(acc[c], a[kk], db + (C0 + c) * 512 + kk * 128, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_acc(acc[c]);
+}
+
+// fragment-order exchange: value v of warpgroup thread i at float
+// (v / 4 * 128 + i) * 4 + v % 4, so that a warp's 16-byte stores and loads
+// are contiguous
+__device__ __forceinline__ void put_frag(float* buf, int i,
+                                         const float (&x)[32]) {
+#pragma unroll
+  for (int v = 0; v < 32; v += 4)
+    *reinterpret_cast<float4*>(buf + (v / 4 * 128 + i) * 4) =
+        make_float4(x[v], x[v + 1], x[v + 2], x[v + 3]);
+}
+__device__ __forceinline__ void get_frag(const float* buf, int i,
+                                         float (&x)[32]) {
+#pragma unroll
+  for (int v = 0; v < 32; v += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(buf + (v / 4 * 128 + i)
+                                                      * 4);
+    x[v] = f.x, x[v + 1] = f.y, x[v + 2] = f.z, x[v + 3] = f.w;
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void zero(float (&acc)[NC][32]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) acc[c][v] = 0.f;
+}
+
+// a warpgroup's NC x 64 output columns from `col0`, times `mul`, as bf16
+// into rows `row0 + r` (r < 64, row0 + r < n_rows) of `out`, `stride` apart
+template <int NC>
+__device__ __forceinline__ void store_acc(const float (&acc)[NC][32],
+                                          bf16* out, int64_t stride,
+                                          int row0, int n_rows, int col0,
+                                          float mul, int i) {
+  const int w = i / 32, g = i % 32 / 4, t = i % 4;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int v = 0; v < 32; v += 2) {
+      const int r = 16 * w + g + 8 * ((v >> 1) & 1);
+      if (row0 + r >= n_rows) continue;
+      const int col = col0 + 64 * c + 8 * (v >> 2) + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * stride + col) =
+          __floats2bfloat162_rn(acc[c][v] * mul, acc[c][v + 1] * mul);
+    }
+}
+
+// whether the 64 x 64 scores of queries q0.. and keys k0.. are all kept:
+// the same for every thread of a step; the others' masked scores are set
+// to -inf, so that one pass of 2^(s sl2 - lse) gives P with zeros there
+__device__ __forceinline__ bool inside(int q0, int k0, int S, int Tk,
+                                       int causal) {
+  return q0 + 63 < S && k0 + 63 < Tk && (!causal || q0 >= k0 + 63);
+}
+
+// What a block walks: its batch row, head (a KV head for dK/dV), first row
+// and steps; step s streams rows 64 * step_tile(s) of head step_head(s).
+struct Walk {
+  int b, head, row0, n_steps, n_q, i0, G;
+  __device__ int step_head(int s, bool dq) const {
+    return dq ? head / G : head * G + s / n_q;
+  }
+  __device__ int step_tile(int s, bool dq) const {
+    return dq ? s : i0 + s % n_q;
+  }
+};
+
+// Rows mode (dQ): a warpgroup owns the block's queries r0 .. r0 + 63 end
+// to end: S = Q K^T and dP = dO V^T back to back, P, dS = P (dP - D),
+// dQ += dS K.
+template <int DK, int DV, int NST>
+__device__ __forceinline__ void dq_rows_group(
+    const bf16* xa, const bf16* xb, const bf16* ys, uint64_t* full,
+    uint64_t* empty, const float* lse, const float* delta, bf16* dq,
+    const Walk& wk, int r0, int S, int Tk, int H, int causal) {
+  constexpr int NA = DK / 64, NB = DV / 64;
+  const int i = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int w = i / 32, g = lane / 4, t = lane % 4;
+  const float sl2 = kLog2e / sqrtf((float)DK);
+  float acc[NA][32];
+  zero(acc);
+  float l2[2], dd[2];                  // this thread's rows' lse (log2), D
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int q = r0 + 16 * w + g + 8 * hh;
+    const int64_t at = ((int64_t)wk.b * H + wk.head) * S + q;
+    l2[hh] = q < S ? lse[at] * kLog2e : 0.f;
+    dd[hh] = q < S ? delta[at] : 0.f;
+  }
+  for (int s = 0; s < wk.n_steps; ++s) {
+    const int st = s % NST, k0 = 64 * s;
+    const bf16* ya = ys + st * (NA + NB) * kBox;
+    mbar_wait(&full[st], (s / NST) & 1);
+    float x[32], y[32];
+    issue_scores<DK>(x, xa, ya);
+    issue_scores<DV>(y, xb, ya + NA * kBox);
+    wgmma_wait<0>();
+    fence_acc(x);
+    fence_acc(y);
+    if (!inside(r0, k0, S, Tk, causal)) {
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int q = r0 + 16 * w + g + 8 * ((v >> 1) & 1);
+        const int key = k0 + 8 * (v >> 2) + 2 * t + (v & 1);
+        if (!(key < Tk && q < S && (!causal || q >= key)))
+          x[v] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const float p = ex2_approx(fmaf(x[v], sl2, -l2[(v >> 1) & 1]));
+      y[v] = p * (y[v] - dd[(v >> 1) & 1]);
+    }
+    uint32_t a[4][4];
+    acc_to_a(y, a);
+    accumulate<NA, 0>(acc, a, ya);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  store_acc<NA>(acc, dq + (int64_t)wk.b * S * H * DK + wk.head * DK,
+                (int64_t)H * DK, r0, S, 0, 1.f / sqrtf((float)DK), i);
+}
+
+// Exchange mode, dK/dV: the first group computes S^T = K Q^T and P^T,
+// hands P^T to the second and adds P^T dO into dV; the second computes
+// dP^T = V dO^T, dS^T = P^T (dP^T - D) and adds dS^T Q into dK.
+template <int DK, int DV, int NST, bool FIRST>
+__device__ __forceinline__ void dkdv_xchg_group(
+    const bf16* xa, const bf16* xb, const bf16* ys, float* p_buf,
+    uint64_t* full, uint64_t* empty, const float* lse, const float* delta,
+    bf16* out, const Walk& wk, int S, int Tk, int H, int KV, int causal) {
+  constexpr int NA = DK / 64, NB = DV / 64;
+  constexpr int NC = FIRST ? NB : NA;
+  const int i = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int w = i / 32, g = lane / 4, t = lane % 4;
+  const int k0 = wk.row0;
+  const float sl2 = kLog2e / sqrtf((float)DK);
+  float acc[NC][32];                   // dV (first) or dK
+  zero(acc);
+  for (int s = 0; s < wk.n_steps; ++s) {
+    const int st = s % NST;
+    const int h = wk.step_head(s, false), q0 = 64 * wk.step_tile(s, false);
+    // this thread's columns' lse (log2) or D
+    const float* row = (FIRST ? lse : delta) + ((int64_t)wk.b * H + h) * S;
+    float cv[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int q = q0 + 8 * j + 2 * t + c;
+        cv[2 * j + c] = q < S ? row[q] * (FIRST ? kLog2e : 1.f) : 0.f;
+      }
+    const bf16* ya = ys + st * (NA + NB) * kBox;
+    mbar_wait(&full[st], (s / NST) & 1);
+    float x[32];
+    if (FIRST) {
+      scores<DK>(x, xa, ya);
+      if (!inside(q0, k0, S, Tk, causal)) {
+#pragma unroll
+        for (int v = 0; v < 32; ++v) {
+          const int key = k0 + 16 * w + g + 8 * ((v >> 1) & 1);
+          const int q = q0 + 8 * (v >> 2) + 2 * t + (v & 1);
+          if (!(key < Tk && q < S && (!causal || q >= key)))
+            x[v] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        x[v] = ex2_approx(fmaf(x[v], sl2, -cv[2 * (v >> 2) + (v & 1)]));
+      if (s > 0) named_sync(2, 256);  // step s - 1's P^T was read
+      put_frag(p_buf, i, x);
+      named_sync(1, 256);
+    } else {
+      scores<DV>(x, xb, ya + NA * kBox);
+      if (s > 0) named_sync(2, 256);
+      named_sync(1, 256);
+      // dS^T = P^T (dP^T - D), P^T four values at a time from the buffer
+#pragma unroll
+      for (int v = 0; v < 32; v += 4) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            p_buf + (v / 4 * 128 + i) * 4);
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[v + e] = pv[e] * (x[v + e] - cv[2 * (v >> 2) + (e & 1)]);
+      }
+    }
+    uint32_t a[4][4];
+    acc_to_a(x, a);
+    accumulate<NC, 0>(acc, a, FIRST ? ya + NA * kBox : ya);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  const int64_t stride = (int64_t)KV * (FIRST ? DV : DK);
+  store_acc<NC>(acc, out + (int64_t)wk.b * Tk * stride
+                         + wk.head * (FIRST ? DV : DK),
+                stride, k0, Tk, 0, FIRST ? 1.f : 1.f / sqrtf((float)DK), i);
+}
+
+// Exchange mode, dQ: the first group computes S = Q K^T and P, the second
+// dP = dO V^T; they swap P and dP through `xch`, and each forms
+// dS = P (dP - D) and adds dS K into NC boxes of dQ's columns from box
+// COFF
+template <int DK, int DV, int NST, int NC, int COFF, bool FIRST>
+__device__ __forceinline__ void dq_xchg_group(
+    const bf16* xa, const bf16* xb, const bf16* ys, float* xch,
+    uint64_t* full, uint64_t* empty, const float* lse, const float* delta,
+    bf16* dq, const Walk& wk, int S, int Tk, int H, int causal) {
+  constexpr int NA = DK / 64, NB = DV / 64;
+  const int i = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int w = i / 32, g = lane / 4, t = lane % 4;
+  const int q0 = wk.row0, h = wk.head;
+  const float sl2 = kLog2e / sqrtf((float)DK);
+  float l2[2], dd[2];                  // this thread's rows' lse (log2), D
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int q = q0 + 16 * w + g + 8 * hh;
+    const int64_t at = ((int64_t)wk.b * H + h) * S + q;
+    l2[hh] = q < S ? lse[at] * kLog2e : 0.f;
+    dd[hh] = q < S ? delta[at] : 0.f;
+  }
+  float acc[NC > 0 ? NC : 1][32];
+  zero(acc);
+  float* mine = FIRST ? xch : xch + 64 * 64;
+  const float* other = FIRST ? xch + 64 * 64 : xch;
+  for (int s = 0; s < wk.n_steps; ++s) {
+    const int st = s % NST, k0 = 64 * s;
+    const bf16* ya = ys + st * (NA + NB) * kBox;
+    mbar_wait(&full[st], (s / NST) & 1);
+    float x[32], y[32];
+    if (FIRST) {
+      scores<DK>(x, xa, ya);
+      if (!inside(q0, k0, S, Tk, causal)) {
+#pragma unroll
+        for (int v = 0; v < 32; ++v) {
+          const int q = q0 + 16 * w + g + 8 * ((v >> 1) & 1);
+          const int key = k0 + 8 * (v >> 2) + 2 * t + (v & 1);
+          if (!(key < Tk && q < S && (!causal || q >= key)))
+            x[v] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        x[v] = ex2_approx(fmaf(x[v], sl2, -l2[(v >> 1) & 1]));
+    } else {
+      scores<DV>(x, xb, ya + NA * kBox);
+    }
+    if (s > 0) named_sync(2, 256);    // step s - 1's buffers were read
+    put_frag(mine, i, x);
+    named_sync(1, 256);
+    get_frag(other, i, y);
+    // dS = P (dP - D): x is P and y dP in the first group, the other way
+    // round in the second
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const float pv = FIRST ? x[v] : y[v], dpv = FIRST ? y[v] : x[v];
+      x[v] = pv * (dpv - dd[(v >> 1) & 1]);
+    }
+    if constexpr (NC > 0) {
+      uint32_t a[4][4];
+      acc_to_a(x, a);
+      accumulate<NC, COFF>(acc, a, ya);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  if constexpr (NC > 0)
+    store_acc<NC>(acc, dq + (int64_t)wk.b * S * H * DK + h * DK,
+                  (int64_t)H * DK, q0, S, 64 * COFF, 1.f / sqrtf((float)DK),
+                  i);
+}
+
+// The dK/dV (DQ false) or dQ (DQ true) kernel of the bf16 design for
+// Hopper.  dK/dV: a block per (key tile, batch row, KV head); it walks the
+// G query heads of its KV head and each one's query tiles of 64 from the
+// first that sees its keys.  dQ: a block per (query tile, batch row,
+// head); it walks the key tiles of 64 up to the diagonal.  Blocks are
+// numbered by groups of kGroupHeads (batch row, head) pairs, and within a
+// group tile first, the longest first when causal.  The producer thread
+// loads the block's resident rows, then keeps NST streamed tile pairs in
+// flight.
+template <int DK, int DV, bool DQ>
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
+                 __grid_constant__ const CUtensorMap k_map,
+                 __grid_constant__ const CUtensorMap v_map,
+                 __grid_constant__ const CUtensorMap do_map,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ out0,
+                 bf16* __restrict__ out1, int B, int S, int Tk, int H,
+                 int KV, int causal) {
+  using Plan = WgPlan<DK, DV, DQ>;
+  constexpr int NA = DK / 64, NB = DV / 64;   // boxes of a tile's two parts
+  constexpr int NST = Plan::kStages, R = Plan::kRowsPerBlock;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // resident rows, 64 at a time: (K, V) or (Q, dO) boxes
+  bf16* res = reinterpret_cast<bf16*>(base);
+  bf16* ys = res + R / 64 * (NA + NB) * kBox;  // stages: (Q, dO) or (K, V)
+  float* xch = reinterpret_cast<float*>(ys + NST * (NA + NB) * kBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xch + Plan::kXchg / 4);
+  uint64_t* empty = full + NST;
+  uint64_t* res_full = empty + NST;
+
+  Walk wk;
+  wk.G = H / KV;
+  const int n_qt = (S + 63) / 64, n_kt = (Tk + 63) / 64;
+  // (row tile, b * heads + head): heads in groups of kGroupHeads, so that
+  // the blocks in flight stream few heads' tiles, which stay in the L2;
+  // within a group the tiles are numbered first, the longest first when
+  // causal (dK/dV's first tile, dQ's last)
+  const int n_t = DQ ? (S + R - 1) / R : (Tk + R - 1) / R;
+  const int n_bh = B * (DQ ? H : KV);
+  const int group = blockIdx.x / (kGroupHeads * n_t);
+  const int in_group = min(kGroupHeads, n_bh - group * kGroupHeads);
+  const int rank = blockIdx.x % (kGroupHeads * n_t) / in_group;
+  const int bh = group * kGroupHeads
+                 + blockIdx.x % (kGroupHeads * n_t) % in_group;
+  const int tile = DQ && causal ? n_t - 1 - rank : rank;
+  wk.b = bh / (DQ ? H : KV);
+  wk.head = bh % (DQ ? H : KV);
+  wk.row0 = R * tile;
+  if (!DQ) {                           // K and V of keys row0 ..
+    wk.i0 = causal ? wk.row0 / 64 : 0; // the first query tile seeing a key
+    wk.n_q = max(0, n_qt - wk.i0);
+    wk.n_steps = wk.G * wk.n_q;
+  } else {                             // Q and dO of queries row0 ..
+    wk.i0 = 0;
+    wk.n_q = 1;
+    wk.n_steps = causal ? min((wk.row0 + R - 1) / 64 + 1, n_kt) : n_kt;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);         // a lane of each consumer warp
+    }
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                     // ------------------------ producer
+    reg_dealloc<kProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    const CUtensorMap* ra = DQ ? &q_map : &k_map;
+    const CUtensorMap* rb = DQ ? &do_map : &v_map;
+    const CUtensorMap* sa = DQ ? &k_map : &q_map;
+    const CUtensorMap* sb = DQ ? &v_map : &do_map;
+    mbar_expect_tx(res_full, R / 64 * Plan::kPair);
+    for (int half = 0; half < R / 64; ++half) {
+      bf16* dst = res + half * (NA + NB) * kBox;
+      const int r = wk.row0 + 64 * half;
+      for (int c = 0; c < NA; ++c)
+        tma_load_4d(dst + c * kBox, ra, res_full, 64 * c, wk.head, r, wk.b);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(dst + (NA + c) * kBox, rb, res_full, 64 * c, wk.head, r,
+                    wk.b);
+    }
+    for (int s = 0; s < wk.n_steps; ++s) {
+      const int st = s % NST;
+      if (s >= NST) mbar_wait(&empty[st], (s / NST - 1) & 1);
+      const int h = wk.step_head(s, DQ), r = 64 * wk.step_tile(s, DQ);
+      bf16* ya = ys + st * (NA + NB) * kBox;
+      mbar_expect_tx(&full[st], Plan::kPair);
+      for (int c = 0; c < NA; ++c)
+        tma_load_4d(ya + c * kBox, sa, &full[st], 64 * c, h, r, wk.b);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(ya + (NA + c) * kBox, sb, &full[st], 64 * c, h, r, wk.b);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  reg_alloc<kConsumerRegs>();
+  const int wg = warp / 4;
+  mbar_wait(res_full, 0);
+  if constexpr (Plan::kRows) {
+    const bf16* xa = res + wg * (NA + NB) * kBox;
+    dq_rows_group<DK, DV, NST>(xa, xa + NA * kBox, ys, full, empty, lse,
+                               delta, out0, wk, wk.row0 + 64 * wg, S, Tk, H,
+                               causal);
+  } else if constexpr (DQ) {
+    constexpr int C0 = dq_boxes0(DV);
+    if (wg == 0)
+      dq_xchg_group<DK, DV, NST, C0, 0, true>(
+          res, res + NA * kBox, ys, xch, full, empty, lse, delta, out0, wk,
+          S, Tk, H, causal);
+    else
+      dq_xchg_group<DK, DV, NST, NA - C0, C0, false>(
+          res, res + NA * kBox, ys, xch, full, empty, lse, delta, out0, wk,
+          S, Tk, H, causal);
+  } else {
+    if (wg == 0)
+      dkdv_xchg_group<DK, DV, NST, true>(res, res + NA * kBox, ys, xch, full,
+                                         empty, lse, delta, out1, wk, S, Tk,
+                                         H, KV, causal);
+    else
+      dkdv_xchg_group<DK, DV, NST, false>(res, res + NA * kBox, ys, xch,
+                                          full, empty, lse, delta, out0, wk,
+                                          S, Tk, H, KV, causal);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 // the forward's FLASH_PAIRS (csrc/flash_attention.cu)
 #define FLASH_PAIRS(X) \
@@ -659,10 +1206,45 @@ int configure(K kernel, int bytes) {
 
 template <int DK, int DV>
 int smem_bytes(int is_bf16, int dkdv) {
-  if (is_bf16) return dkdv ? bf16_smem_bytes<DK, DV>(true)
-                        : bf16_smem_bytes<DK, DV>(false);
+  if (is_bf16) {
+    if constexpr (on_wgmma(DK, DV))
+      return dkdv ? WgPlan<DK, DV, false>::kSmem : WgPlan<DK, DV, true>::kSmem;
+    else return dkdv ? bf16_smem_bytes<DK, DV>(true)
+                     : bf16_smem_bytes<DK, DV>(false);
+  }
   return (int)sizeof(float) * (dkdv ? f32_dkdv_floats<DK, DV>()
                                     : f32_dq_floats<DK, DV>());
+}
+
+// the wgmma design's two launches, each from the four tensors' TMA maps
+template <int DK, int DV>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, int B, int S, int Tk, int H,
+                 int KV, int causal, cudaStream_t stream) {
+  constexpr int kv_bytes = WgPlan<DK, DV, false>::kSmem;
+  constexpr int q_bytes = WgPlan<DK, DV, true>::kSmem;
+  constexpr int kv_rows = WgPlan<DK, DV, false>::kRowsPerBlock;
+  constexpr int q_rows = WgPlan<DK, DV, true>::kRowsPerBlock;
+  static const int configured =
+      configure(bwd_wgmma_kernel<DK, DV, false>, kv_bytes)
+      | configure(bwd_wgmma_kernel<DK, DV, true>, q_bytes);
+  if (configured != 0) return configured;
+  CUtensorMap qm, km, vm, om;
+  int err = bf16_box_map(&qm, q, B, S, H, DK);
+  if (err == 0) err = bf16_box_map(&km, k, B, Tk, KV, DK);
+  if (err == 0) err = bf16_box_map(&vm, v, B, Tk, KV, DV);
+  if (err == 0) err = bf16_box_map(&om, dout, B, S, H, DV);
+  if (err != 0) return err;
+  bwd_wgmma_kernel<DK, DV, false>
+      <<<(Tk + kv_rows - 1) / kv_rows * B * KV, kWgThreads, kv_bytes,
+         stream>>>(qm, km, vm, om, lse, delta, (bf16*)dk, (bf16*)dv, B, S,
+                   Tk, H, KV, causal);
+  bwd_wgmma_kernel<DK, DV, true>
+      <<<(S + q_rows - 1) / q_rows * B * H, kWgThreads, q_bytes, stream>>>(
+          qm, km, vm, om, lse, delta, (bf16*)dq, nullptr, B, S, Tk, H, KV,
+          causal);
+  return (int)cudaGetLastError();
 }
 
 template <int DK, int DV>
@@ -673,20 +1255,26 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const int kv_bytes = smem_bytes<DK, DV>(is_bf16, 1);
   const int q_bytes = smem_bytes<DK, DV>(is_bf16, 0);
   if (is_bf16) {
-    constexpr int R = 64 / col_warps(DK, DV);
-    static const int configured =
-        configure(bwd_dkdv_bf16_kernel<DK, DV>, kv_bytes)
-        | configure(bwd_dq_bf16_kernel<DK, DV>, q_bytes);
-    if (configured != 0) return configured;
-    bwd_dkdv_bf16_kernel<DK, DV>
-        <<<dim3((Tk + R - 1) / R, B * KV), kThreads, kv_bytes, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v,
-            (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, S, Tk, H,
-            KV, causal);
-    bwd_dq_bf16_kernel<DK, DV>
-        <<<dim3((S + R - 1) / R, B * H), kThreads, q_bytes, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v,
-            (const bf16*)dout, lse, delta, (bf16*)dq, S, Tk, H, KV, causal);
+    if constexpr (on_wgmma(DK, DV)) {
+      return launch_wgmma<DK, DV>(q, k, v, dout, lse, delta, dq, dk, dv, B,
+                                  S, Tk, H, KV, causal, stream);
+    } else {
+      constexpr int R = 64 / col_warps(DK, DV);
+      static const int configured =
+          configure(bwd_dkdv_bf16_kernel<DK, DV>, kv_bytes)
+          | configure(bwd_dq_bf16_kernel<DK, DV>, q_bytes);
+      if (configured != 0) return configured;
+      bwd_dkdv_bf16_kernel<DK, DV>
+          <<<dim3((Tk + R - 1) / R, B * KV), kThreads, kv_bytes, stream>>>(
+              (const bf16*)q, (const bf16*)k, (const bf16*)v,
+              (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, S, Tk, H,
+              KV, causal);
+      bwd_dq_bf16_kernel<DK, DV>
+          <<<dim3((S + R - 1) / R, B * H), kThreads, q_bytes, stream>>>(
+              (const bf16*)q, (const bf16*)k, (const bf16*)v,
+              (const bf16*)dout, lse, delta, (bf16*)dq, S, Tk, H, KV,
+              causal);
+    }
   } else {
     static const int configured =
         configure(bwd_dkdv_f32_kernel<DK, DV>, kv_bytes)
@@ -756,6 +1344,16 @@ int flash_attention_bwd_smem_bytes(int DK, int DV, int is_bf16, int dkdv) {
   FLASH_PAIRS(FLASH_CASE)
 #undef FLASH_CASE
   return 0;
+}
+
+// The design that runs at (DK, DV) in the given type: 0 the CUDA cores
+// (float32), 1 mma.sync, 2 wgmma; -1 for a pair outside FLASH_PAIRS.
+int flash_attention_bwd_design(int DK, int DV, int is_bf16) {
+#define FLASH_CASE(dk_, dv_) \
+  if (DK == dk_ && DV == dv_) return is_bf16 ? (on_wgmma(dk_, dv_) ? 2 : 1) : 0;
+  FLASH_PAIRS(FLASH_CASE)
+#undef FLASH_CASE
+  return -1;
 }
 
 }  // extern "C"

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -90,6 +91,62 @@ def bwd_smem_bytes(d: int, dv: int, dtype, dkdv: bool) -> int:
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     return fn(d, dv, _DTYPES[dtype], int(dkdv))
+
+
+# the backward's designs, by ``flash_attention_bwd_design``'s code
+BWD_DESIGNS = {0: "cuda_cores", 1: "mma_sync", 2: "wgmma"}
+# the wgmma design's rows a tile and the shared memory an H100 block may
+# take (csrc/flash_attention_bwd.cu: kSmemLimit)
+BWD_TILE = 64
+SMEM_LIMIT = 232448
+# (batch row, head) pairs whose blocks the wgmma backward numbers together
+# (kGroupHeads), so that the blocks in flight share few heads' tiles
+BWD_GROUP_HEADS = 4
+
+
+class BwdPlan(NamedTuple):
+    """A wgmma backward block's plan (``WgPlan`` in the source)."""
+    rows: bool             # each warpgroup owns 64 rows end to end
+    rows_per_block: int    # 128 in rows mode, else 64
+    stages: int            # streamed tile pairs in flight
+    smem_bytes: int        # dynamic shared memory a block
+    dq_cols0: int          # exchange mode's dQ columns of the first group
+
+
+def bwd_design(d: int, dv: int, dtype) -> str:
+    """The backward's design at ``(d, dv)`` in ``dtype`` as the library
+    built it: ``wgmma`` (bf16 at head dims that are whole 64-column
+    boxes), ``mma_sync`` (the other bf16 pairs) or ``cuda_cores``
+    (float32)."""
+    fn = cuda_build.load("flash_attention_bwd").flash_attention_bwd_design
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return BWD_DESIGNS[fn(d, dv, _DTYPES[dtype])]
+
+
+def on_wgmma(d: int, dv: int) -> bool:
+    """Whether the bf16 backward at ``(d, dv)`` runs the wgmma design:
+    head dims that are whole 64-column TMA boxes."""
+    return d % 64 == 0 and dv % 64 == 0
+
+
+def wgmma_plan(d: int, dv: int, dq: bool) -> BwdPlan:
+    """``WgPlan<d, dv, dq>``, the dQ kernel's (``dq``) or the dK/dV
+    kernel's: rows mode (128 rows a block, 64 a warpgroup end to end) for
+    dQ where 128 resident rows leave room for two stages, else exchange
+    mode (64 rows a block, the products split between the two groups,
+    two 16 KB fp32 buffers); 1 KB of alignment and the barriers; then as
+    many streamed 64-row tile pairs as fit, 2 to 4.  Exchange mode's dQ
+    columns split at a whole box so that each group's products are even
+    (its score product's depth plus its share of dQ)."""
+    pair = BWD_TILE * (d + dv) * 2
+    rows = dq and 1280 + 4 * pair <= SMEM_LIMIT
+    per_block = 2 * BWD_TILE if rows else BWD_TILE
+    fixed = 1280 + per_block // BWD_TILE * pair \
+        + (0 if rows else 2 * BWD_TILE * BWD_TILE * 4)
+    stages = min(4, (SMEM_LIMIT - fixed) // pair)
+    return BwdPlan(rows, per_block, stages, fixed + stages * pair,
+                   dv // 2 // 64 * 64)
 
 
 def _check(q, k, v) -> None:

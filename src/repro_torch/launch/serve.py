@@ -10,12 +10,15 @@ store, which stages the session's pages toward the arena while the request
 queues.  The ``sync`` baseline stages on demand; ``async`` overlaps I/O but
 has no lookahead window.
 
-Decode compute is REAL (the smoke model, eager, on ``device``); store I/O
-is modelled by the calibrated backend latencies on a virtual clock that the
-measured compute also advances — so TTFT/TPOT mix real compute with
-modelled staging and differ from device to device.  The model, the arena
-and its pools sit on ``device`` ("cuda" unless the caller asks for "cpu");
-the store's tiers hold host tensors.
+Decode compute is REAL (the smoke model on ``device``: eager on the CPU,
+timed by the thread's CPU time; on the card one CUDA graph a decode
+position, captured before the measurement as the reference jits its
+step, timed to its end); store I/O is modelled by the calibrated backend
+latencies on a virtual clock that the measured compute also advances —
+so TTFT/TPOT mix real compute with modelled staging and differ from
+device to device.  The model, the arena and its pools sit on ``device``
+("cuda" unless the caller asks for "cpu"); the store's tiers hold host
+tensors.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 48
 """
@@ -147,6 +150,61 @@ def _grow_kv(kv: Any, prompt_len: int, T: int) -> Any:
     return tree_unflatten(treedef, [grow(l) for l in leaves])
 
 
+def decode_step(model, pager: StatePager):
+    """One device step: pages -> KV -> decode -> pages."""
+    def step(pages, aux, tok, pos):
+        kv = pager.from_pages(pages, aux)
+        kv["pos"] = pos
+        logits, kv2 = model.decode(kv, {"tokens": tok, "pos": pos})
+        pages2, aux2 = pager.to_pages(kv2)
+        return logits, pages2, aux2
+    return step
+
+
+# one warm-up stream a device: a stream that runs a GEMM keeps its cuBLAS
+# workspace for the life of the process
+_WARMUP_STREAMS: Dict[torch.device, Any] = {}
+
+
+class GraphedStep:
+    """The decode step on the card as one CUDA graph a decode position,
+    the counterpart of the reference's ``jax.jit`` step: a replay is one
+    host dispatch where the eager step issues one per kernel, so the
+    measured compute is the card's, not the host's Python.  The model
+    reads the position on the host (cache slices), so each position of
+    ``positions`` is captured once, after a warm-up on a side stream;
+    pages and token are copied into the graphs' inputs.  The outputs are
+    the graph's own buffers, overwritten by the next replay; the position
+    leaves of the returned aux are host tensors made at capture."""
+
+    def __init__(self, step, pages: torch.Tensor, aux: List[Any],
+                 tok: torch.Tensor, positions):
+        self.pages = pages.clone()
+        self.tok = tok.to(pages.device).clone()
+        self.graphs = {}
+        side = _WARMUP_STREAMS.get(pages.device)
+        if side is None:
+            side = _WARMUP_STREAMS[pages.device] = torch.cuda.Stream(
+                pages.device)
+        for p in positions:
+            pos = torch.tensor(p, dtype=torch.int32)
+            side.wait_stream(torch.cuda.current_stream(pages.device))
+            with torch.cuda.stream(side):
+                step(self.pages, aux, self.tok, pos)
+            torch.cuda.current_stream(pages.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = step(self.pages, aux, self.tok, pos)
+            self.graphs[int(p)] = (graph, out)
+
+    def __call__(self, pages, aux, tok, pos):
+        graph, out = self.graphs[int(pos)]
+        self.pages.copy_(pages)
+        self.tok.copy_(tok)
+        graph.replay()
+        return out
+
+
 def run_serving(cfg: ServeConfig, mode: str, seed: int = 0,
                 device="cuda") -> Dict[str, float]:
     """Serve ``n_requests`` multi-turn requests in the given mode and return
@@ -196,23 +254,27 @@ def run_serving(cfg: ServeConfig, mode: str, seed: int = 0,
                                         max_batch=cfg.max_batch, clock=clock,
                                         metrics=ServingMetrics())
 
-    # ---- one device step: pages -> KV -> decode -> pages
-    def step(pages, aux, tok, pos):
-        kv = pager.from_pages(pages, aux)
-        kv["pos"] = pos
-        logits, kv2 = model.decode(kv, {"tokens": tok, "pos": pos})
-        pages2, aux2 = pager.to_pages(kv2)
-        return logits, pages2, aux2
+    step = decode_step(model, pager)
 
     def sync():
         if on_card:
             torch.cuda.synchronize(device)
 
-    one = torch.ones((1, 1), dtype=torch.int32)
-    # warm up outside the measurement
+    # a step's compute: on the card the time to its end after a sync; on
+    # the CPU the serving thread's own CPU time, so that time the host
+    # gives other processes does not advance the virtual clock (all of the
+    # step's compute when torch runs one intra-op thread)
+    compute_time = time.perf_counter if on_card else time.thread_time
+
+    one = torch.ones((1, 1), dtype=torch.int32, device=device)
+    # warm up (on the card: capture) outside the measurement
     warm_pages, warm_aux = pager.to_pages(kv0)
-    step(warm_pages, warm_aux, one, torch.tensor(cfg.prompt_len,
-                                                 dtype=torch.int32))
+    if on_card:
+        step = GraphedStep(step, warm_pages, warm_aux, one, range(
+            cfg.prompt_len, cfg.prompt_len + cfg.decode_tokens))
+    else:
+        step(warm_pages, warm_aux, one, torch.tensor(cfg.prompt_len,
+                                                     dtype=torch.int32))
     sync()
 
     # ---- request stream (equal offered load across modes)
@@ -252,10 +314,10 @@ def run_serving(cfg: ServeConfig, mode: str, seed: int = 0,
                 continue
             pages = arena.gather(slots)["state"]
             pos = torch.tensor(req.meta["pos"], dtype=torch.int32)
-            tw = time.perf_counter()
+            tw = compute_time()
             _, pages2, aux2 = step(pages, session_aux[sid], one, pos)
             sync()
-            clock.advance(time.perf_counter() - tw)
+            clock.advance(compute_time() - tw)
             arena.stage(slots, {"state": pages2})
             session_aux[sid] = aux2
             req.meta["pos"] += 1

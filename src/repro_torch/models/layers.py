@@ -245,8 +245,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if use_rope:
-        sin, cos = rope_angles(torch.tensor([int(pos)], device=x.device), hd,
-                               cfg.rope_theta)
+        at = torch.full((1,), int(pos), device=x.device)
+        sin, cos = rope_angles(at, hd, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     k = k.to(cache_k.dtype)
@@ -331,7 +331,7 @@ def mla_decode(p: Params, x: torch.Tensor, cache_ckv: torch.Tensor,
     H = cfg.num_heads
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     r = m.kv_lora_rank
-    at = torch.tensor([int(pos)], device=x.device)
+    at = torch.full((1,), int(pos), device=x.device)
     q_nope, q_rope = _mla_queries(p, x, cfg, at)
     ckv_t, kr_t = mla_latents(p, x, cfg, at)
     ckv_t = ckv_t.to(cache_ckv.dtype)                       # [B,1,r]

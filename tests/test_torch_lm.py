@@ -223,6 +223,37 @@ def test_state_pager_pages_bit_equal_to_reference(arch):
 @pytest.mark.parametrize("arch,prompt_len", [("gemma-7b", 16),
                                              ("zamba2-2.7b", 32),
                                              ("rwkv6-3b", 32),
+                                             ("deepseek-v2-236b", 32)])
+def test_decode_step_is_the_decode_through_the_pager(arch, prompt_len):
+    """``decode_step`` (what ``GraphedStep`` captures on the card) equals
+    the model's decode of the unpaged cache: the same logits, and pages
+    and aux that are the pager's of the decoded cache, at two positions."""
+    cfg = t_smoke(arch)
+    model = build_model(cfg, "cpu").init_params(
+        torch.Generator().manual_seed(0))
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, prompt_len)).astype(np.int32)
+    _, kv = model.prefill({"tokens": torch.from_numpy(tokens)})
+    kv = tserve._grow_kv(kv, prompt_len, prompt_len + 10)
+    pager = tserve.StatePager(kv, tserve.ServeConfig.page_elems)
+    step = tserve.decode_step(model, pager)
+    one = torch.ones((1, 1), dtype=torch.int32)
+    pages, aux = pager.to_pages(kv)
+    for p in (prompt_len, prompt_len + 1):
+        pos = torch.tensor(p, dtype=torch.int32)
+        logits, pages2, aux2 = step(pages, aux, one, pos)
+        cache = pager.from_pages(pages, aux)
+        cache["pos"] = pos
+        want, kv2 = model.decode(cache, {"tokens": one, "pos": pos})
+        want_pages, want_aux = pager.to_pages(kv2)
+        assert torch.equal(logits, want) and torch.equal(pages2, want_pages)
+        assert [int(a) for a in aux2] == [int(a) for a in want_aux]
+        pages, aux = pages2, aux2
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("gemma-7b", 16),
+                                             ("zamba2-2.7b", 32),
+                                             ("rwkv6-3b", 32),
                                              ("qwen3-moe-30b-a3b", 32),
                                              ("deepseek-v2-236b", 32)])
 def test_run_serving_prefetch_beats_sync(arch, prompt_len):
