@@ -39,11 +39,16 @@ deepseek-v2-236b (smoke models) in ``sync`` and ``prefetch`` mode,
 prefetch beating sync.  Last, training: K6's backward kernel is held
 against autograd through its plain version at every head-dim pair and
 timed at gemma-7b's, llava-next-mistral-7b's and deepseek-v2's MLA
-training shapes beside SDPA's backward, two runs bit-equal; gemma-7b at
-its published width, cut to 8 of its 28 layers, takes AdamW steps of 4 x
-2048 tokens through the port's data pipeline, train step and optimizer
-(loss falling, K6 forward and backward launched); the same step at 2
-layers in fp32 on the card equals the CPU's; and
+training shapes beside SDPA's backward, two runs bit-equal; so are the
+backward kernels of the SSD scan (fp32, bf16) and the RWKV6 scan (fp32)
+at every chunk and state size the zoo reaches, timed at zamba2-2.7b's
+and rwkv6-3b's training shapes, each gate rejecting a planted fault;
+gemma-7b at its published width, cut to 8 of its 28 layers, and
+zamba2-2.7b and rwkv6-3b at their published width and depth take AdamW
+steps of 4 x 2048 tokens through the port's data pipeline, train step
+and optimizer (losses falling, each arch's kernels launched forward and
+backward); each step at 2 layers in fp32 on the card equals the CPU's;
+and
 ``examples/train_lm_torch.py`` recovers from an injected failure under
 the supervisor and converges.
 Each phase prints one JSON line; any failure raises and ends the run with a
@@ -1499,13 +1504,284 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
     return row
 
 
+def rwkv_bwd_undecayed(r, k, v, w, u, init, dy, dstate):
+    """A planted fault: K8's gradient with the state gradient carried back
+    without its decay, G_t = G_{t+1} + r_t dy_t^T (not diag(w_t) G_{t+1}
+    + ...), the formulas of csrc/rwkv6_scan_bwd.cu stepped in plain
+    PyTorch.  Returns (dr, dk, dv, dw, du, dinit) in fp32."""
+    B, S, H, N = r.shape
+    uf = u.reshape(B, H, N)
+    P = init.clone()
+    states = []
+    for t in range(S):
+        states.append(P)
+        P = w[:, t, :, :, None] * P + k[:, t, :, :, None] * v[:, t, :, None]
+    G = dstate.clone()
+    grads = [torch.empty_like(r) for _ in range(4)]
+    du = torch.zeros_like(uf)
+    for t in reversed(range(S)):
+        vd = (v[:, t] * dy[:, t]).sum(-1, keepdim=True)          # [B, H, 1]
+        grads[0][:, t] = (states[t] * dy[:, t, :, None]).sum(-1) \
+            + uf * k[:, t] * vd
+        grads[1][:, t] = (G * v[:, t, :, None]).sum(-1) + uf * r[:, t] * vd
+        grads[2][:, t] = (G * k[:, t, :, :, None]).sum(-2) \
+            + (r[:, t] * uf * k[:, t]).sum(-1, keepdim=True) * dy[:, t]
+        grads[3][:, t] = (G * states[t]).sum(-1)
+        du += r[:, t] * k[:, t] * vd
+        G = G + r[:, t, :, :, None] * dy[:, t, :, None]
+    return (*grads, du.reshape(B * H, N), G)
+
+
+def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
+                    fault=False, seed=0):
+    """K7's backward (``mamba2_scan_backward``: the state gradients at the
+    chunks' ends, then each chunk's gradients) on seeded inputs from a
+    nonzero initial state, with nonzero gradients of y and of the final
+    state, from the forward kernel's own saved states, against
+    ``mamba2_scan_backward_plain`` within ``BWD_TOL``.  The forward's
+    output with the states asked for must equal its output without.
+    With ``fault`` the gate must reject the backward with the state
+    gradients dropped between chunks (``backward_from_dstates`` given
+    zeros but at the last chunk).  Timed rows add two runs bit-equal, the
+    plain backward's time and the bound: flops 2 Q^2 (2 N + 2 P) + 8 Q N P
+    a (b h, chunk) and 2 Q^2 N a (b g, chunk) at the operands' peak;
+    bytes the gradient's own, each once: x, dt, A, Bm, Cm, init, dy and
+    dstate in, their gradients out.  The chunk-entry states that this
+    design saves are not the function's traffic and are reported apart
+    (``saved_state_bytes``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = randn((B, S, H, P), dtype, g)
+    dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, g))
+    A = -torch.exp(randn((B * H,), torch.float32, g, 0.5))
+    Bm = randn((B, S, G, N), dtype, g)
+    Cm = randn((B, S, G, N), dtype, g)
+    init = randn((B, H, N, P), torch.float32, g, 0.3)
+    dy = randn((B, S, H, P), dtype, g)
+    dstate = randn((B, H, N, P), torch.float32, g, 0.3)
+    args = (x, dt, A, Bm, Cm, Q)
+    y, st, s_prev = ms._forward(*args, init, True)
+    y0, st0, _ = ms._forward(*args, init, False)
+    if not (torch.equal(y, y0) and torch.equal(st, st0)):
+        raise AssertionError(f"mamba2_scan at {label}: saving the states "
+                             f"changed the output")
+    del y0, st0
+    grads = ms.mamba2_scan_backward(*args, s_prev, dy, dstate)
+    plain = ms.mamba2_scan_backward_plain(*args, init, dy, dstate)
+    torch.cuda.synchronize()
+    rel = grads_rel(grads, plain)
+    tol = BWD_TOL[dtype]
+    row = dict(kernel="mamba2_scan_bwd", shape=label, B=B, S=S, H=H, G=G,
+               N=N, P=P, Q=Q, dtype=dtype_name(dtype), rel_err=rel, tol=tol,
+               rel_by_grad=[max_err(a, b) / (float(b.float().abs().max())
+                                             + 1e-30)
+                            for a, b in zip(grads, plain)],
+               max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
+               plain_max_abs=max(float(b.float().abs().max())
+                                 for b in plain))
+    if not rel <= tol:
+        raise AssertionError(f"mamba2_scan_bwd differs at {label}: {row}")
+    if fault:
+        ds, _ = ms.backward_dstates(x, dt, A, Cm, Q, dy, dstate)
+        ds[:, :-1] = 0
+        bad = ms.backward_from_dstates(*args, s_prev, dy, ds)
+        row["planted_fault_rel_err"] = grads_rel(bad, plain[:5])
+        if row["planted_fault_rel_err"] <= tol:
+            raise AssertionError(f"mamba2_scan_bwd at {label}: the check "
+                                 f"would pass the backward without the "
+                                 f"state gradients between chunks")
+        del bad, ds
+    if timed:
+        again = ms.mamba2_scan_backward(*args, s_prev, dy, dstate)
+        row["bit_equal_rerun"] = all(torch.equal(a, b)
+                                     for a, b in zip(grads, again))
+        if not row["bit_equal_rerun"]:
+            raise AssertionError(f"mamba2_scan_bwd at {label}: two runs "
+                                 f"differ")
+        del again
+        it = x.element_size()
+        nc = -(-S // Q)
+        flops = (2 * Q * Q * (2 * N + 2 * P) + 8 * Q * N * P) * B * H * nc \
+            + 2 * Q * Q * N * B * G * nc
+        nbytes = (3 * x.numel() + 4 * Bm.numel()) * it \
+            + 4 * (2 * dt.numel() + 2 * A.numel() + 3 * init.numel())
+        b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
+        t_ms = device_ms(lambda: ms.mamba2_scan_backward(
+            *args, s_prev, dy, dstate), reps=3, rounds=5)
+        row.update(ms=t_ms,
+                   plain_ms=device_ms(lambda: ms.mamba2_scan_backward_plain(
+                       *args, init, dy, dstate), reps=1, rounds=3),
+                   bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                   saved_state_bytes=s_prev.numel() * s_prev.element_size(),
+                   **timed_extras("mamba2_scan_bwd", label, t_ms, b_ms),
+                   library_ms=None,
+                   library="none: no single PyTorch call computes the "
+                           "gradient of a chunked SSD scan",
+                   scratch_bytes=ms.bwd_scratch_bytes(B, S, H, G, N, P, Q,
+                                                      dtype),
+                   dynamic_smem_bytes=ms.bwd_smem_bytes(Q, N, P),
+                   build=build_facts("mamba2_scan_bwd", "ssd_bwd"))
+        src_smem = ms.kernel_bwd_smem_bytes(Q, N, P)
+        if tuple(src_smem) != tuple(row["dynamic_smem_bytes"]):
+            raise AssertionError(f"mamba2_scan_bwd at {label}: the wrapper's "
+                                 f"shared memory {row['dynamic_smem_bytes']}"
+                                 f" is not the source's {src_smem}")
+    del plain, grads
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
+                   fault=False, seed=0):
+    """K8's backward (``rwkv6_scan_backward``) in fp32 on seeded inputs
+    drawn as ``check_rwkv`` draws them, from a nonzero initial state, with
+    nonzero gradients of y and of the final state, from the forward
+    kernel's own saved states, against ``rwkv6_scan_backward_plain`` on
+    the first ``plain_rows`` batch rows (all by default) within
+    ``BWD_TOL``.  The forward's output with the states asked for must
+    equal its output without.  With ``fault`` the gate must reject the
+    gradient whose state gradient is not decayed by w
+    (``rwkv_bwd_undecayed``).  Timed rows add two runs bit-equal, the
+    plain backward's time on those rows and the bound: 14 flops a state
+    element a (b h, t) (the state recomputed, dr, dk, dv, dw, the state
+    gradient) at the fp32 peak; bytes the gradient's own, each once: r,
+    k, v, w, u, init, dy and dstate in, their gradients out.  The states
+    that this design saves are reported apart (``saved_state_bytes``)."""
+    dtype = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = randn((B, S, H, N), dtype, g)
+    k = randn((B, S, H, N), dtype, g, 0.3)
+    v = randn((B, S, H, N), dtype, g)
+    w = torch.sigmoid(randn((B, S, H, N), torch.float32, g))
+    u = randn((B * H, N), torch.float32, g, 0.1)
+    s0 = randn((B, H, N, N), torch.float32, g, 0.1)
+    dy = randn((B, S, H, N), dtype, g)
+    dstate = randn((B, H, N, N), torch.float32, g, 0.3)
+    y, st, states = rs._forward(r, k, v, w, u, s0, True)
+    y0, st0, _ = rs._forward(r, k, v, w, u, s0, False)
+    if not (torch.equal(y, y0) and torch.equal(st, st0)):
+        raise AssertionError(f"rwkv6_scan at {label}: saving the states "
+                             f"changed the output")
+    del y0, st0
+    grads = rs.rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate)
+    n = B if plain_rows is None else plain_rows
+    pargs = (r[:n], k[:n], v[:n], w[:n], u[:n * H], s0[:n], dy[:n],
+             dstate[:n])
+    plain = rs.rwkv6_scan_backward_plain(*pargs)
+    rows = [t[:n] for t in grads[:4]] + [grads[4][:n * H], grads[5][:n]]
+    torch.cuda.synchronize()
+    rel = grads_rel(rows, plain)
+    tol = BWD_TOL[dtype]
+    row = dict(kernel="rwkv6_scan_bwd", shape=label, B=B, S=S, H=H, N=N,
+               dtype=dtype_name(dtype), checked_rows=n, rel_err=rel, tol=tol,
+               rel_by_grad=[max_err(a, b) / (float(b.float().abs().max())
+                                             + 1e-30)
+                            for a, b in zip(rows, plain)],
+               max_abs_err=max(max_err(a, b) for a, b in zip(rows, plain)),
+               plain_max_abs=max(float(b.float().abs().max())
+                                 for b in plain))
+    if not rel <= tol:
+        raise AssertionError(f"rwkv6_scan_bwd differs at {label}: {row}")
+    if fault:
+        bad = rwkv_bwd_undecayed(*pargs)
+        row["planted_fault_rel_err"] = grads_rel(bad, plain)
+        if row["planted_fault_rel_err"] <= tol:
+            raise AssertionError(f"rwkv6_scan_bwd at {label}: the check "
+                                 f"would pass the backward whose state "
+                                 f"gradient is not decayed by w")
+        del bad
+    if timed:
+        again = rs.rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate)
+        row["bit_equal_rerun"] = all(torch.equal(a, b)
+                                     for a, b in zip(grads, again))
+        if not row["bit_equal_rerun"]:
+            raise AssertionError(f"rwkv6_scan_bwd at {label}: two runs "
+                                 f"differ")
+        del again
+        nbytes = 4 * (9 * r.numel() + 2 * u.numel() + 3 * s0.numel())
+        b_ms, b_by = bound(nbytes, ops=14.0 * N * N * B * H * S)
+        t_ms = device_ms(lambda: rs.rwkv6_scan_backward(
+            r, k, v, w, u, states, dy, dstate), reps=3, rounds=5)
+        smem = rs.bwd_smem_bytes(N)
+        if rs.kernel_bwd_smem_bytes(N) != smem:
+            raise AssertionError(f"rwkv6_scan_bwd at {label}: the wrapper's "
+                                 f"shared memory {smem} is not the source's")
+        row.update(ms=t_ms,
+                   plain_ms=device_ms(lambda: rs.rwkv6_scan_backward_plain(
+                       *pargs), reps=1, rounds=3),
+                   plain_ms_rows=n, bound_ms=b_ms, bound_by=b_by,
+                   bound_bytes=nbytes, saved_state_bytes=4 * states.numel(),
+                   **timed_extras("rwkv6_scan_bwd", label, t_ms, b_ms),
+                   library_ms=None,
+                   library="none: no single PyTorch call computes the "
+                           "gradient of the RWKV6 recurrence",
+                   blocks=B * H * rs.bwd_tiles(N), threads=N,
+                   dynamic_smem_bytes=smem,
+                   scratch_bytes=rs.bwd_scratch_bytes(B, S, H, N),
+                   build=build_facts("rwkv6_scan_bwd", "wkv_bwd"))
+    del plain, grads
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+# K7's and K8's backward at the chunk and state sizes the zoo reaches
+# (zamba2-2.7b: Q 128, N = P = 64, G 1; the smoke config: Q 32, N = P = 16;
+# ragged last chunks; two groups), then timed at the models' training
+# shapes (the train phase's batch, 4 x 2048 tokens): zamba2-2.7b's 80
+# heads in bf16, rwkv6-3b's 40 heads in fp32 (the model's type for K8)
+MAMBA_BWD_SHAPES = {"zamba2 chunk": (1, 384, 4, 1, 64, 64, 128),
+                    "smoke chunk": (2, 128, 4, 1, 16, 16, 32),
+                    "ragged 200 of Q 128": (2, 200, 3, 1, 64, 64, 128),
+                    "ragged 70 of Q 32": (1, 70, 3, 1, 16, 16, 32),
+                    "groups": (2, 96, 4, 2, 16, 16, 32)}
+SCAN_BWD_TIMED = {"zamba2-2.7b train": (4, 2048, 80, 1, 64, 64, 128),
+                  "rwkv6-3b train": (4, 2048, 40, 64)}
+
+
+def scan_bwd_rows():
+    """K7's backward in fp32 and bf16 at ``MAMBA_BWD_SHAPES`` and K8's at
+    every N of ``HEAD_DIMS`` (S 100: a last stretch of 4 steps), then
+    both timed at ``SCAN_BWD_TIMED`` with their planted faults; K8 must
+    refuse a bf16 gradient on CUDA tensors.  Returns the timed rows and
+    the largest errors."""
+    worst = {"mamba2_scan_bwd": 0.0, "rwkv6_scan_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape in MAMBA_BWD_SHAPES.items():
+            r = check_mamba_bwd(*shape, dtype, label, fault=label == "groups")
+            worst["mamba2_scan_bwd"] = max(worst["mamba2_scan_bwd"],
+                                           r["max_abs_err"])
+    for N in rs.HEAD_DIMS:
+        r = check_rwkv_bwd(2, 100, 3, N, f"N {N}", fault=N == 16)
+        worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"],
+                                      r["max_abs_err"])
+    q = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16, device="cuda",
+                    requires_grad=True)
+    try:                               # a type the backward does not take
+        rs.rwkv6_scan_kernel(q, q, q, q, torch.zeros((2, 16), device="cuda"))
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("rwkv6_scan took a bf16 gradient")
+    rows = {"mamba2_scan_bwd": check_mamba_bwd(
+        *SCAN_BWD_TIMED["zamba2-2.7b train"], torch.bfloat16,
+        "zamba2-2.7b train", timed=True, fault=True),
+        "rwkv6_scan_bwd": check_rwkv_bwd(
+        *SCAN_BWD_TIMED["rwkv6-3b train"], "rwkv6-3b train", timed=True,
+        plain_rows=1, fault=True)}
+    for k, r in rows.items():
+        worst[k] = max(worst[k], r["max_abs_err"])
+    return rows, worst
+
+
 def train_kernel_phase():
-    """K6's backward: at every (d, dv) pair of ``PAIRS``, fp32 and bf16,
-    causal and not, at S = T = 100 (ragged tiles) and at S 96 != T 160,
-    with 2 query heads a KV head, and at 4 a KV head; then timed at each
-    of ``BWD_TIMED`` (two runs bit-equal), where at gemma-7b's training
-    shape the gate must reject D left at zero.  Returns gemma-7b's row and
-    the largest error.
+    """The backward kernels.  K6's: at every (d, dv) pair of ``PAIRS``,
+    fp32 and bf16, causal and not, at S = T = 100 (ragged tiles) and at
+    S 96 != T 160, with 2 query heads a KV head, and at 4 a KV head; then
+    timed at each of ``BWD_TIMED`` (two runs bit-equal), where at
+    gemma-7b's training shape the gate must reject D left at zero.  Then
+    K7's and K8's (``scan_bwd_rows``).  Returns the main row of each
+    backward (K6 at gemma-7b's shape) and the largest errors.
 
     Alone on the card: ``python3 -c 'import chip_smoke as c;
     c.cuda_build.build_all(); c.train_kernel_phase()'``."""
@@ -1526,7 +1802,10 @@ def train_kernel_phase():
                                    fault=label == "gemma-7b train")
             for label, c in BWD_TIMED.items()}
     worst = max([worst] + [r["max_abs_err"] for r in rows.values()])
-    return rows["gemma-7b train"], worst
+    main, errs = scan_bwd_rows()
+    main["flash_attention_bwd"] = rows["gemma-7b train"]
+    errs["flash_attention_bwd"] = worst
+    return main, errs
 
 
 def serve_shape_case():
@@ -1638,6 +1917,7 @@ def reset_launches():
     tfk.STEP_LAUNCHES = tfk.ADMIT_LAUNCHES = 0
     da.LAUNCHES = cms.LAUNCHES = 0
     fa.LAUNCHES = fa.BWD_LAUNCHES = ms.LAUNCHES = rs.LAUNCHES = 0
+    ms.BWD_LAUNCHES = rs.BWD_LAUNCHES = 0
 
 
 def launches():
@@ -1648,7 +1928,8 @@ def launches():
             "decode_attention": da.LAUNCHES, "cms_sketch": cms.LAUNCHES,
             "flash_attention": fa.LAUNCHES,
             "flash_attention_bwd": fa.BWD_LAUNCHES,
-            "mamba2_scan": ms.LAUNCHES, "rwkv6_scan": rs.LAUNCHES}
+            "mamba2_scan": ms.LAUNCHES, "mamba2_scan_bwd": ms.BWD_LAUNCHES,
+            "rwkv6_scan": rs.LAUNCHES, "rwkv6_scan_bwd": rs.BWD_LAUNCHES}
 
 
 FUSED_KERNELS = ("tac_fused_step", "tac_fused_admit")
@@ -2943,20 +3224,41 @@ def serve_lm_phase():
 # (the CPU's time); then examples/train_lm_torch.py as it runs
 TRAIN = dict(arch="gemma-7b", layers=8, batch=4, seq=2048, steps=20,
              timed=10, lr=3e-4, warmup=5, seed=0, cpu_layers=2, cpu_batch=1,
-             cpu_seq=512, loss_rel=1e-4, grad_rel=1e-3, peak_gb=70.0)
+             cpu_seq=512, loss_rel=1e-4, grad_rel=1e-3, peak_gb=70.0,
+             boundary_rel=1e-2)
+# zamba2's fp32 leaves through its bf16 gradient boundaries are held to
+# boundary_rel (grad_rel holds them with the boundaries as identities);
+# the relative noises on K7's output of the CPU's witness runs: one
+# rounding of fp32 (2^-24), and K7's fp32 backward's distance from its
+# plain version on the card (2.58e-5 of the largest gradient)
+BOUNDARY_NOISE = (2.0 ** -24, 2.6e-5)
+# zamba2-2.7b (K6, K7) and rwkv6-3b (K8) the same way at their published
+# width and depth (configs/zamba2_2_7b.py: 54 layers, 2.44 B parameters,
+# 29 GB of state; configs/rwkv6_3b.py: 32 layers, 3.10 B, 37 GB), fewer
+# steps to keep the script's time
+TRAIN_SSM = {"zamba2-2.7b": dict(TRAIN, arch="zamba2-2.7b", layers=None,
+                                 steps=12, timed=6),
+             "rwkv6-3b": dict(TRAIN, arch="rwkv6-3b", layers=None, steps=12,
+                              timed=6)}
+# the kernels each arch's training step must launch, forward and backward
+TRAIN_KERNELS = {"gemma-7b": ("flash_attention", "flash_attention_bwd"),
+                 "zamba2-2.7b": ("flash_attention", "flash_attention_bwd",
+                                 "mamba2_scan", "mamba2_scan_bwd"),
+                 "rwkv6-3b": ("rwkv6_scan", "rwkv6_scan_bwd")}
 
 
-def train_full_width():
-    """(a) the training step at full width: TRAIN's steps through
-    ``build_training`` on the card.  Returns its JSON row and the launch
-    counts of those steps (the train path)."""
-    c = TRAIN
+def train_full_width(c=TRAIN):
+    """(a) the training step at full width: ``c``'s steps through
+    ``build_training`` on the card (every layer when ``c["layers"]`` is
+    None).  Returns its JSON row and the launch counts of those steps (the
+    arch's train path)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    depth = {} if c["layers"] is None else dict(num_layers=c["layers"])
     state, step_fn, _, cfg = build_training(
         c["arch"], smoke=False, batch=c["batch"], seq=c["seq"], lr=c["lr"],
-        seed=c["seed"], device="cuda", warmup=c["warmup"],
-        num_layers=c["layers"], remat="block")
+        seed=c["seed"], device="cuda", warmup=c["warmup"], remat="block",
+        **depth)
     n_params = sum(t.numel() for t in tree_flatten(state[0])[0])
     losses, step_ms = [], []
     reset_launches()
@@ -2967,8 +3269,9 @@ def train_full_width():
         losses.append(float(met["loss"]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        emit("train_step", step=step, loss=losses[-1], ms=step_ms[-1],
-             grad_norm=float(met["grad_norm"]), lr=float(met["lr"]))
+        emit("train_step", arch=c["arch"], step=step, loss=losses[-1],
+             ms=step_ms[-1], grad_norm=float(met["grad_norm"]),
+             lr=float(met["lr"]))
     clocks = smi_clocks()                # right after the timed steps
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
@@ -2981,17 +3284,15 @@ def train_full_width():
         step_ms=ms_step, step_ms_all=step_ms,
         tokens_per_s=c["batch"] * c["seq"] / (ms_step / 1e3),
         peak_gb=peak / 1e9, launches=counts,
-        k6_forward_launches=counts["flash_attention"],
-        k6_backward_launches=counts["flash_attention_bwd"],
+        kernel_launches={k: counts[k] for k in TRAIN_KERNELS[c["arch"]]},
         device_busy_share=prof["device_busy_share"], clocks=clocks,
         profile=prof)
     del state
     torch.cuda.empty_cache()
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-            and counts["flash_attention_bwd"] > 0
-            and counts["flash_attention"] > 0
+            and all(counts[k] > 0 for k in TRAIN_KERNELS[c["arch"]])
             and row["peak_gb"] < c["peak_gb"]):
-        raise AssertionError(f"train at full width: {row}")
+        raise AssertionError(f"train {c['arch']} at full width: {row}")
     return row, counts
 
 
@@ -3006,46 +3307,178 @@ def leaf_names(tree, prefix: str = "") -> list:
     return [prefix]
 
 
-def train_card_vs_cpu():
-    """(b) the step's loss and gradient (``loss_and_grads``, as
+def card_and_cpu_grads(arch: str, card_faults=None, cpu_noises=()):
+    """The step's loss and gradient (``loss_and_grads``, as
     ``make_train_step`` takes them) at TRAIN's cpu_layers in fp32, on the
-    card and on the CPU from the same parameters and batch: the loss within
-    TRAIN's loss_rel, each gradient leaf within grad_rel of its norm."""
+    card and on the CPU from the same parameters and batch: (loss on the
+    card, on the CPU, the leaves' relative errors, the card's launch
+    counts, the CPU's seconds, the extra runs).  Each of ``card_faults``
+    (name: context manager) reruns the card inside it, and each of
+    ``cpu_noises`` reruns the CPU with K7's output perturbed by that
+    relative noise (``k7_output_noise``); each extra run is held against
+    the CPU's own gradient: {name: (loss_rel, the leaves' relative
+    errors)}."""
     c = TRAIN
     (params, _), _, model, cfg = build_training(
-        c["arch"], smoke=False, batch=c["cpu_batch"], seq=c["cpu_seq"],
+        arch, smoke=False, batch=c["cpu_batch"], seq=c["cpu_seq"],
         lr=c["lr"], seed=c["seed"], device="cuda", warmup=c["warmup"],
         num_layers=c["cpu_layers"], remat="block", dtype="float32")
     batch = batch_at(DataConfig(cfg.vocab_size, c["cpu_seq"],
                                 c["cpu_batch"], seed=c["seed"]), 0, "cuda")
     leaves, treedef = tree_flatten(params)
     cpu_params = tree_unflatten(treedef, [t.detach().cpu() for t in leaves])
-    reset_launches()
-    loss, grads = loss_and_grads(model, params, batch)
-    torch.cuda.synchronize()
-    counts = launches()
-    card = [g.cpu() for g in tree_flatten(grads)[0]]
-    del grads, params, leaves
+    card_runs = {}
+    for name, ctx in {"": contextlib.nullcontext(),
+                      **(card_faults or {})}.items():
+        reset_launches()
+        with ctx:
+            loss, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        card_runs[name] = (float(loss), launches(),
+                           [g.cpu() for g in tree_flatten(grads)[0]])
+        del grads
+    del params, leaves
     torch.cuda.empty_cache()
+    cpu_model = build_model(cfg, "cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads = loss_and_grads(
-        build_model(cfg, "cpu"), cpu_params,
-        {k: v.cpu() for k, v in batch.items()})
+    cpu_loss, cpu_grads = loss_and_grads(cpu_model, cpu_params, cpu_batch)
     cpu_s = time.perf_counter() - t0
-    rels = {name: float((a - b).norm() / b.norm())
-            for name, a, b in zip(leaf_names(cpu_params), card,
-                                  tree_flatten(cpu_grads)[0])}
-    row = dict(layers=cfg.num_layers, dtype=cfg.dtype, batch=c["cpu_batch"],
-               seq=c["cpu_seq"], loss_card=float(loss),
-               loss_cpu=float(cpu_loss),
-               loss_rel=abs(float(loss) - float(cpu_loss))
-               / abs(float(cpu_loss)),
-               grad_rel_worst=max(rels.values()), grad_rel=rels,
+    names = leaf_names(cpu_params)
+    ref = tree_flatten(cpu_grads)[0]
+    cpu_loss = float(cpu_loss)
+
+    def held(loss, grads):
+        return (abs(float(loss) - cpu_loss) / abs(cpu_loss),
+                {n: float((a - b).norm() / b.norm())
+                 for n, a, b in zip(names, grads, ref)})
+
+    extra = {name: held(loss, grads)
+             for name, (loss, _, grads) in card_runs.items() if name}
+    for noise in cpu_noises:
+        with k7_output_noise(noise):
+            loss, grads = loss_and_grads(cpu_model, cpu_params, cpu_batch)
+        extra[f"cpu, K7 output x (1 + {noise:g} n)"] = held(
+            loss, tree_flatten(grads)[0])
+    loss, counts, card = card_runs[""]
+    return loss, cpu_loss, held(loss, card)[1], counts, cpu_s, extra
+
+
+@contextlib.contextmanager
+def identity_boundaries():
+    """The models' bf16 gradient boundaries (``bf16_grad``) as identities,
+    on both devices."""
+    saved = [(m, m.bf16_grad) for m in (ssm_mod, lm_mod)]
+    try:
+        for m, _ in saved:
+            m.bf16_grad = lambda x: x
+        yield
+    finally:
+        for m, f in saved:
+            m.bf16_grad = f
+
+
+@contextlib.contextmanager
+def k7_output_noise(rel: float, seed: int = 1):
+    """The models' K7 (``ssm.mamba2_scan_kernel``) with its output y
+    multiplied by 1 + rel n, n standard normal from a seeded generator: a
+    stand-in for another device's rounding of the same scan."""
+    real = ssm_mod.mamba2_scan_kernel
+    g = torch.Generator().manual_seed(seed)
+
+    def noisy(*args, **kw):
+        y, state = real(*args, **kw)
+        n = torch.randn(y.shape, generator=g).to(y.device, y.dtype)
+        return y * (1 + rel * n), state
+
+    ssm_mod.mamba2_scan_kernel = noisy
+    try:
+        yield
+    finally:
+        ssm_mod.mamba2_scan_kernel = real
+
+
+@contextlib.contextmanager
+def k7_state_grads_dropped():
+    """A planted fault on the card: K7's backward with the state gradients
+    between chunks dropped (all but the last chunk's set to zero before
+    ``backward_from_dstates``), the fault the kernel gate plants."""
+    real = ms.backward_dstates
+
+    def dropped(*args, **kw):
+        ds, dinit = real(*args, **kw)
+        ds[:, :-1] = 0
+        return ds, dinit
+
+    ms.backward_dstates = dropped
+    try:
+        yield
+    finally:
+        ms.backward_dstates = real
+
+
+def train_card_vs_cpu(arch: str = TRAIN["arch"]):
+    """(b) the card against the CPU at TRAIN's cpu_layers in fp32
+    (``card_and_cpu_grads``): the loss within TRAIN's loss_rel, each
+    gradient leaf within grad_rel of its norm, every kernel of the arch's
+    training launched.  zamba2 goes through its bf16 gradient boundaries
+    (``bf16_grad``) on both devices, where a cotangent whose fp32 value
+    differs in its last bits between the devices can round to the
+    neighbouring bf16 value, and each boundary upstream turns those into
+    more.  So its leaves are held to grad_rel with the boundaries as
+    identities on both sides, and through the boundaries to boundary_rel,
+    which the card's run with K7's state gradients dropped between chunks
+    (``k7_state_grads_dropped``) must miss.  Beside them, the CPU against
+    itself with K7's output perturbed (``k7_output_noise``) at
+    ``BOUNDARY_NOISE`` through the boundaries and without them: how far
+    the boundaries alone spread a difference of that size."""
+    c = TRAIN
+    zamba = arch == "zamba2-2.7b"
+    loss, cpu_loss, rels, counts, cpu_s, extra = card_and_cpu_grads(
+        arch, card_faults={"k7_state_grads_dropped": k7_state_grads_dropped()}
+        if zamba else None, cpu_noises=BOUNDARY_NOISE if zamba else ())
+    row = dict(arch=arch, layers=c["cpu_layers"], dtype="float32",
+               batch=c["cpu_batch"], seq=c["cpu_seq"], loss_card=loss,
+               loss_cpu=cpu_loss,
+               loss_rel=abs(loss - cpu_loss) / abs(cpu_loss),
+               grad_rel_worst=max(rels.values()),
+               grad_rel_worst_leaf=max(rels, key=rels.get), grad_rel=rels,
                launches=counts, cpu_s=cpu_s)
+    held, limit = row, c["grad_rel"]
+    if zamba:
+        limit = c["boundary_rel"]
+
+        def summary(loss_rel, r):
+            return dict(loss_rel=loss_rel, grad_rel_worst=max(r.values()),
+                        grad_rel_worst_leaf=max(r, key=r.get),
+                        leaves_above_grad_rel=sum(v > c["grad_rel"]
+                                                  for v in r.values()))
+
+        fault = summary(*extra.pop("k7_state_grads_dropped"))
+        row.update(boundary_rel=limit, planted_fault=fault,
+                   bf16_boundary_misses={k: v for k, v in rels.items()
+                                         if v > c["grad_rel"]},
+                   boundary_witness={k: summary(*v)
+                                     for k, v in extra.items()})
+        with identity_boundaries():
+            loss_i, cpu_loss_i, rels_i, counts_i, _, extra_i = \
+                card_and_cpu_grads(arch, cpu_noises=BOUNDARY_NOISE)
+        held = dict(loss_rel=abs(loss_i - cpu_loss_i) / abs(cpu_loss_i),
+                    grad_rel_worst=max(rels_i.values()),
+                    grad_rel_worst_leaf=max(rels_i, key=rels_i.get))
+        row.update(identity_boundaries=dict(
+            held, grad_rel=rels_i, launches=counts_i,
+            witness={k: summary(*v) for k, v in extra_i.items()}))
+        if not fault["grad_rel_worst"] > limit:
+            raise AssertionError(f"train card vs cpu {arch}: the limit "
+                                 f"{limit} through the boundaries would pass "
+                                 f"K7's state gradients dropped: {row}")
     if not (row["loss_rel"] <= c["loss_rel"]
-            and row["grad_rel_worst"] <= c["grad_rel"]
-            and counts["flash_attention_bwd"] > 0):
-        raise AssertionError(f"train card vs cpu: {row}")
+            and row["grad_rel_worst"] <= limit
+            and held["loss_rel"] <= c["loss_rel"]
+            and held["grad_rel_worst"] <= c["grad_rel"]
+            and all(counts[k] > 0 for k in TRAIN_KERNELS[arch])):
+        raise AssertionError(f"train card vs cpu {arch}: {row}")
     return row
 
 
@@ -3075,14 +3508,19 @@ def train_example():
 
 
 def train_phase():
-    """Training on the card: (a) gemma-7b at full width (the train path),
-    (b) the card against the CPU in fp32, (c) the example's supervised run
-    with a failure.  Returns the launch counts of (a)."""
-    row, counts = train_full_width()
-    emit("train", **row)
-    emit("train_card_vs_cpu", **train_card_vs_cpu())
+    """Training on the card: (a) gemma-7b, zamba2-2.7b and rwkv6-3b at
+    full width (each arch's train path), (b) each against the CPU in
+    fp32, (c) the example's supervised run with a failure.  Returns the
+    launch counts of each (a), by path."""
+    paths = {}
+    for path, c in (("train", TRAIN),
+                    ("train_zamba2", TRAIN_SSM["zamba2-2.7b"]),
+                    ("train_rwkv6", TRAIN_SSM["rwkv6-3b"])):
+        row, paths[path] = train_full_width(c)
+        emit("train", **row)
+        emit("train_card_vs_cpu", **train_card_vs_cpu(c["arch"]))
     emit("train_example", **train_example())
-    return counts
+    return paths
 
 
 def main() -> int:
@@ -3108,8 +3546,9 @@ def main() -> int:
     for rows, e in (fused_kernel_phase(), lm_kernel_phase()):
         main_rows.update(rows)
         errs.update(e)
-    main_rows["flash_attention_bwd"], errs["flash_attention_bwd"] = \
-        train_kernel_phase()
+    rows, e = train_kernel_phase()
+    main_rows.update(rows)
+    errs.update(e)
     paths = {"e2e": e2e_phase()}
     paths["prefetch"] = prefetch_phase()
     paths["recovery"] = recovery_phase()
@@ -3121,7 +3560,7 @@ def main() -> int:
     paths["hints"] = hints_phase()
     paths["models"] = models_phase()
     paths["serve_lm"] = serve_lm_phase()
-    paths["train"] = train_phase()
+    paths.update(train_phase())
     names = {"tac_probe": ("tac_probe.cu",
                            "src/repro/kernels/tac_probe/tac_probe.py:36"),
              "page_gather": ("page_gather.cu",
@@ -3141,15 +3580,22 @@ def main() -> int:
              "flash_attention": (
                  "flash_attention.cu",
                  "src/repro/kernels/flash_attention/flash_attention.py:70"),
-             # the gradient of the same TPU kernel, which has no backward
-             # kernel of its own (the reference differentiates pure jnp)
+             # the gradients of the same TPU kernels (K6-K8), which have no
+             # backward kernel of their own (the reference differentiates
+             # pure jnp)
              "flash_attention_bwd": (
                  "flash_attention_bwd.cu",
                  "src/repro/kernels/flash_attention/flash_attention.py:70"),
              "mamba2_scan": ("mamba2_scan.cu",
                              "src/repro/kernels/mamba2_scan/mamba2_scan.py:66"),
+             "mamba2_scan_bwd": (
+                 "mamba2_scan_bwd.cu",
+                 "src/repro/kernels/mamba2_scan/mamba2_scan.py:66"),
              "rwkv6_scan": ("rwkv6_scan.cu",
-                            "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:52")}
+                            "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:52"),
+             "rwkv6_scan_bwd": (
+                 "rwkv6_scan_bwd.cu",
+                 "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:52")}
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/csrc/{names[k][0]}",
                     replaces=names[k][1],

@@ -72,7 +72,9 @@
 // Per chunk the block stages B, C, dtx and cum in shared memory, builds
 // the [Q, Q] decayed C B^T matrix, then each thread computes an
 // interleaved register tile of y and, after a barrier, of the state
-// update.
+// update.  For training it also writes the state entering each
+// chunk, s_prev [B, chunks, H, N, P] fp32 (the bf16 passes leave theirs
+// in the scratch), which the backward (csrc/mamba2_scan_bwd.cu) reads.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -94,13 +96,14 @@ __host__ __device__ constexpr int smem_floats(int Q, int N, int P) {
   return 2 * Q * (N + 1) + Q * P + Q * (Q + 1) + N * P + 2 * Q;
 }
 
-template <typename T>
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
            const T* __restrict__ Cm, const float* __restrict__ init,
-           T* __restrict__ y, float* __restrict__ final_state, int S, int H,
-           int G, int N, int P, int Q) {
+           T* __restrict__ y, float* __restrict__ final_state,
+           float* __restrict__ s_prev, int S, int H, int G, int N, int P,
+           int Q) {
   extern __shared__ float smem[];
   const int NP1 = N + 1;
   float* B_s = smem;                     // [Q][N + 1]
@@ -125,6 +128,10 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int s0 = ch * Q;
     __syncthreads();                     // last chunk's readers are done
+    if constexpr (SAVE) {                // the state entering this chunk
+      float* out = s_prev + (((int64_t)b * n_chunks + ch) * H + h) * N * P;
+      for (int i = tid; i < N * P; i += kThreads) out[i] = st_s[i];
+    }
     for (int i = tid; i < Q; i += kThreads) {
       const int s = s0 + i;
       dt_s[i] = s < S ? dt[((int64_t)b * S + s) * H + h] : 0.f;
@@ -763,19 +770,34 @@ int configure(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
-               const void* Cm, const void* init, void* y, void* state, int B,
-               int S, int H, int G, int N, int P, int Q, cudaStream_t stream) {
+template <bool SAVE>
+int launch_f32_save(const void* x, const void* dt, const void* A,
+                    const void* Bm, const void* Cm, const void* init, void* y,
+                    void* state, void* s_prev, int B, int S, int H, int G,
+                    int N, int P, int Q, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(Q, N, P);
   static const int configured = configure(
-      ssd_kernel<float>,
+      ssd_kernel<float, SAVE>,
       (int)(sizeof(float) * smem_floats(kMaxQ, kMaxNP, kMaxNP)));
   if (configured != 0) return configured;
-  ssd_kernel<float><<<B * H, kThreads, bytes, stream>>>(
+  ssd_kernel<float, SAVE><<<B * H, kThreads, bytes, stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
-      (const float*)Cm, (const float*)init, (float*)y, (float*)state, S, H, G,
-      N, P, Q);
+      (const float*)Cm, (const float*)init, (float*)y, (float*)state,
+      (float*)s_prev, S, H, G, N, P, Q);
   return (int)cudaGetLastError();
+}
+
+// Without s_prev the instance built without the store runs, so that
+// inference's chunk loop carries no branch for it.
+int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, const void* init, void* y, void* state,
+               void* s_prev, int B, int S, int H, int G, int N, int P, int Q,
+               cudaStream_t stream) {
+  if (s_prev == nullptr)
+    return launch_f32_save<false>(x, dt, A, Bm, Cm, init, y, state, s_prev,
+                                  B, S, H, G, N, P, Q, stream);
+  return launch_f32_save<true>(x, dt, A, Bm, Cm, init, y, state, s_prev, B,
+                               S, H, G, N, P, Q, stream);
 }
 
 int configure_bf16() {
@@ -826,8 +848,11 @@ extern "C" {
 // bfloat16, else float32); dt [B, S, H], A [B * H], init (or null: zeros)
 // and state [B, H, N, P] float32; all contiguous, H a multiple of G.
 // bfloat16 also takes the scratch s_loc [B, chunks, H, N, P] float32,
-// s_prev of that shape in bfloat16 and dec [B, chunks, H] float32, and
-// the heads a block of passes (a) and (c) takes; float32 ignores them.
+// s_prev [B, chunks, H, 2, N, P] in bfloat16 (hi and lo halves of the
+// state entering each chunk) and dec [B, chunks, H] float32, and the
+// heads a block of passes (a) and (c) takes; float32 ignores all but
+// s_prev, which it fills in float32 [B, chunks, H, N, P] unless it is
+// null.
 // Returns a CUDA error code; cudaErrorInvalidValue outside 1 <= Q <= 128,
 // 1 <= N, P <= 64 and, for bfloat16, 1 <= heads <= 16.
 int mamba2_scan(const void* x, const void* dt, const void* A, const void* Bm,
@@ -842,8 +867,8 @@ int mamba2_scan(const void* x, const void* dt, const void* A, const void* Bm,
   if (bf16)
     return launch_bf16(x, dt, A, Bm, Cm, init, y, state, s_loc, s_prev, dec,
                        B, S, H, G, N, P, Q, heads, st);
-  return launch_f32(x, dt, A, Bm, Cm, init, y, state, B, S, H, G, N, P, Q,
-                    st);
+  return launch_f32(x, dt, A, Bm, Cm, init, y, state, s_prev, B, S, H, G, N,
+                    P, Q, st);
 }
 
 // How many blocks of the bfloat16 pass (c), the longest, an SM holds at

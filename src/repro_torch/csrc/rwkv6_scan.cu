@@ -43,9 +43,17 @@
 // kStep steps are copied by 16-byte cp.async into the second of two
 // buffers while the first is computed, so the step loop never waits on a
 // global load.  N in {8, 16, 32, 64}; S = 1 (decode) is one step.
+//
+// For training the kernel also writes the state before every kSave-th
+// step (states [B, ceil(S / kSave), H, N, N] fp32), from which the
+// backward (csrc/rwkv6_scan_bwd.cu) recomputes the states within each
+// stretch of kSave steps.  The saving is a template parameter: without
+// a states pointer the kernel runs the instance built without it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -53,6 +61,8 @@ namespace {
 
 constexpr int kStep = 32;             // time steps a buffer holds
 constexpr int kCols = 4;              // state columns a thread
+constexpr int kSave = 16;             // steps between saved states
+static_assert(kStep % kSave == 0, "a saved state starts a buffer's slice");
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -139,12 +149,13 @@ __host__ __device__ constexpr int block_threads() {
   return COLS / kCols * (N / rows_per_lane(N));
 }
 
-template <typename T, int N, int COLS>
+template <typename T, int N, int COLS, bool SAVE>
 __global__ void __launch_bounds__(block_threads<N, COLS>())
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ w,
            const float* __restrict__ u, const float* __restrict__ init,
-           T* __restrict__ y, float* __restrict__ final_state, int S, int H) {
+           T* __restrict__ y, float* __restrict__ final_state,
+           float* __restrict__ states, int S, int H) {
   constexpr int R = rows_per_lane(N), L = N / R;
   constexpr int PAD = row_pad<T>(), NS = row_len<T>(N);
   constexpr int NT = block_threads<N, COLS>();
@@ -222,6 +233,15 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
     __syncthreads();
     const int at = sl * (R + PAD);
     for (int t = 0; t < n; ++t) {
+      if constexpr (SAVE) {
+        if (t % kSave == 0) {            // the state before step t0 + t
+          float* sv = states + ((((int64_t)b * ((S + kSave - 1) / kSave)
+                                  + (t0 + t) / kSave) * H + h) * N + i0) * N
+                      + j0 + jc;
+#pragma unroll
+          for (int q = 0; q < R; ++q) store_cols(sv + q * N, st[q]);
+        }
+      }
       float vj[kCols], acc[kCols];
       load_cols(vt + t * COLS, vj);
       const float bonus = ruk_s[sl * kStep + t];
@@ -265,41 +285,59 @@ int configure(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int N, int COLS>
-int launch_cols(const void* r, const void* k, const void* v, const void* w,
-                const void* u, const void* init, void* y, void* state, int B,
-                int S, int H, cudaStream_t stream) {
+template <typename T, int N, int COLS, bool SAVE>
+int launch_save(const void* r, const void* k, const void* v, const void* w,
+                const void* u, const void* init, void* y, void* state,
+                void* states, int B, int S, int H, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T>(N, COLS);
-  static const int configured = configure(wkv_kernel<T, N, COLS>, bytes);
+  static const int configured =
+      configure(wkv_kernel<T, N, COLS, SAVE>, bytes);
   if (configured != 0) return configured;
-  wkv_kernel<T, N, COLS>
+  wkv_kernel<T, N, COLS, SAVE>
       <<<B * H * (N / COLS), block_threads<N, COLS>(), bytes, stream>>>((const T*)r, (const T*)k, (const T*)v, (const T*)w,
                    (const float*)u, (const float*)init, (T*)y, (float*)state,
-                   S, H);
+                   (float*)states, S, H);
   return (int)cudaGetLastError();
+}
+
+// Without `states` the instance built without the store runs, so that
+// serving's step loop carries no branch for it; only float32 saves (the
+// backward's one type).
+template <typename T, int N, int COLS>
+int launch_cols(const void* r, const void* k, const void* v, const void* w,
+                const void* u, const void* init, void* y, void* state,
+                void* states, int B, int S, int H, cudaStream_t stream) {
+  if (states == nullptr)
+    return launch_save<T, N, COLS, false>(r, k, v, w, u, init, y, state,
+                                          states, B, S, H, stream);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_save<T, N, COLS, true>(r, k, v, w, u, init, y, state,
+                                         states, B, S, H, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int N>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* init, void* y, void* state, int B,
-           int S, int H, int cols, cudaStream_t st) {
+           const void* u, const void* init, void* y, void* state,
+           void* states, int B, int S, int H, int cols, cudaStream_t st) {
   switch (cols) {
     case 8:
-      return launch_cols<T, N, 8>(r, k, v, w, u, init, y, state, B, S, H, st);
+      return launch_cols<T, N, 8>(r, k, v, w, u, init, y, state, states,
+                                  B, S, H, st);
     case 16:
       if constexpr (N >= 16)
-        return launch_cols<T, N, 16>(r, k, v, w, u, init, y, state, B, S, H,
-                                     st);
+        return launch_cols<T, N, 16>(r, k, v, w, u, init, y, state, states,
+                                     B, S, H, st);
       break;
     case 32:
       if constexpr (N >= 32)
-        return launch_cols<T, N, 32>(r, k, v, w, u, init, y, state, B, S, H,
-                                     st);
+        return launch_cols<T, N, 32>(r, k, v, w, u, init, y, state, states,
+                                     B, S, H, st);
       break;
     case 64:
       if constexpr (N >= 64)
-        return launch_cols<T, N, 64>(r, k, v, w, u, init, y, state, B, S, H,
-                                     st);
+        return launch_cols<T, N, 64>(r, k, v, w, u, init, y, state, states,
+                                     B, S, H, st);
       break;
   }
   return (int)cudaErrorInvalidValue;
@@ -307,13 +345,18 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 
 template <typename T>
 int launch_dim(const void* r, const void* k, const void* v, const void* w,
-               const void* u, const void* init, void* y, void* state, int B,
-               int S, int H, int N, int cols, cudaStream_t st) {
+               const void* u, const void* init, void* y, void* state,
+               void* states, int B, int S, int H, int N, int cols,
+               cudaStream_t st) {
   switch (N) {
-    case 8: return launch<T, 8>(r, k, v, w, u, init, y, state, B, S, H, cols, st);
-    case 16: return launch<T, 16>(r, k, v, w, u, init, y, state, B, S, H, cols, st);
-    case 32: return launch<T, 32>(r, k, v, w, u, init, y, state, B, S, H, cols, st);
-    case 64: return launch<T, 64>(r, k, v, w, u, init, y, state, B, S, H, cols, st);
+    case 8: return launch<T, 8>(r, k, v, w, u, init, y, state, states,
+                                B, S, H, cols, st);
+    case 16: return launch<T, 16>(r, k, v, w, u, init, y, state, states,
+                                  B, S, H, cols, st);
+    case 32: return launch<T, 32>(r, k, v, w, u, init, y, state, states,
+                                  B, S, H, cols, st);
+    case 64: return launch<T, 64>(r, k, v, w, u, init, y, state, states,
+                                  B, S, H, cols, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -324,18 +367,21 @@ extern "C" {
 
 // r, k, v, w and y [B, S, H, N] of one type (bf16 != 0: bfloat16, else
 // float32); u [B * H, N], init (or null: zeros) and state [B, H, N, N]
-// float32; all contiguous; a block takes `cols` state columns (8 <= cols
-// <= N, dividing N).  Returns a CUDA error code; cudaErrorInvalidValue for
-// N outside {8, 16, 32, 64} or such cols.
+// float32; states (or null: not written) [B, ceil(S / 16), H, N, N]
+// float32, the state before steps 0, 16, 32, ...; all contiguous; a
+// block takes `cols` state columns (8 <= cols <= N, dividing N).  Returns
+// a CUDA error code; cudaErrorInvalidValue for N outside {8, 16, 32, 64}
+// or such cols, and for states with bfloat16 inputs.
 int rwkv6_scan(const void* r, const void* k, const void* v, const void* w,
-               const void* u, const void* init, void* y, void* state, int B,
-               int S, int H, int N, int cols, int bf16, void* stream) {
+               const void* u, const void* init, void* y, void* state,
+               void* states, int B, int S, int H, int N, int cols, int bf16,
+               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return launch_dim<__nv_bfloat16>(r, k, v, w, u, init, y, state, B, S, H,
-                                     N, cols, st);
-  return launch_dim<float>(r, k, v, w, u, init, y, state, B, S, H, N, cols,
-                           st);
+    return launch_dim<__nv_bfloat16>(r, k, v, w, u, init, y, state, states,
+                                     B, S, H, N, cols, st);
+  return launch_dim<float>(r, k, v, w, u, init, y, state, states, B, S, H,
+                           N, cols, st);
 }
 
 // The dynamic shared memory a block takes at these sizes.

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = ROOT / "build" / "repro_torch"
 SOURCES = ("tac_probe", "page_gather", "tac_fused", "decode_attention",
            "cms_sketch", "flash_attention", "flash_attention_bwd",
-           "mamba2_scan", "rwkv6_scan")
+           "mamba2_scan", "mamba2_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -124,18 +124,6 @@ def check(err: int, what: str) -> None:
     """Raise when a launch returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
-def refuse_grad(name: str, tensors) -> None:
-    """Raise when a gradient is asked of a CUDA kernel that has no
-    backward yet (K7, K8): its plain version does not run on the card."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: no backward kernel on the card yet; it comes with the "
-            "next slice of the port, 'K7 and K8 backward kernels' "
-            "(ROADMAP.md section 1)")
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,6 +18,15 @@ adds nothing.
 other.  In bf16 the kernel is three passes (chunk states, state passing,
 chunk outputs; see the source's note), counted as one launch; ``plan``
 sets their blocks and scratch.  fp32 runs one pass on the CUDA cores.
+
+When a gradient is asked of CUDA tensors, the call goes through
+``Mamba2Scan``, a ``torch.autograd.Function``: its forward launches the
+same kernel and keeps the state entering each chunk (bf16: the passes'
+hi and lo scratch; fp32: an output of the one-pass kernel), and its
+backward launches ``csrc/mamba2_scan_bwd.cu`` (``mamba2_scan_backward``:
+the state gradients at the chunk boundaries, then each chunk's
+gradients).  On the CPU autograd differentiates the plain version, which
+is also the plain backward (``mamba2_scan_backward_plain``).
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import cuda_build
 
-# launches of the CUDA kernel (not of the plain version) since the last reset
+# launches of the CUDA kernel (not of the plain version) since the last
+# reset, and of the backward (its four kernels, once a call)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 MAX_CHUNK = 128
 MAX_NP = 64
@@ -103,6 +114,30 @@ def plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
                 scratch=scratch_bytes(B, S, H, N, P, Q))
 
 
+def bwd_smem_bytes(Q: int, N: int, P: int):
+    """(kernel (a), kernel (c)) dynamic shared memory of a backward block,
+    as ``csrc/mamba2_scan_bwd.cu`` lays it out, all fp32.  (a): exp(cum) C
+    [Q][N], dy [Q][P], dt and cum; (c): B and C [Q][N + 1], dtx and dy
+    [Q][P + 1], the state gradient (then s_prev) [N][P + 1], M [Q][Q + 1]
+    and 16 vectors of Q."""
+    return (4 * (Q * N + Q * P + 2 * Q),
+            4 * (2 * Q * (N + 1) + 2 * Q * (P + 1) + N * (P + 1)
+                 + Q * (Q + 1) + 16 * Q))
+
+
+def bwd_scratch_bytes(B: int, S: int, H: int, G: int, N: int, P: int,
+                      Q: int, dtype) -> dict:
+    """What the backward holds beside its inputs and gradients: the state
+    entering each chunk from the forward (fp32, or bf16 hi and lo), the
+    state gradient at each chunk's end ds [B, chunks, H, N, P] and the
+    chunks' decays [B, chunks, H] fp32, the per-head parts of dB and dC
+    [B, S, H, N] and the chunks' parts of dA [B, chunks, H] fp32."""
+    nc = -(-S // Q)
+    return dict(s_prev=4 * B * nc * H * N * P, ds=4 * B * nc * H * N * P,
+                dec=4 * B * nc * H, dBC_part=2 * 4 * B * S * H * N,
+                dA_part=4 * B * nc * H)
+
+
 def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
     """The chunked SSD scan in plain PyTorch (fp32), the chunks vectorised
     and the state carried over them in a loop.  Returns (y in x's type,
@@ -148,6 +183,28 @@ def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
         * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B_, S + pad, H, P)[:, :S]
     return y.to(x.dtype), s.reshape(B_, H, N, P)
+
+
+def mamba2_scan_backward_plain(x, dt, A, Bm, Cm, Q: int, init, dy,
+                               dstate=None):
+    """(dx, ddt, dA, dB, dC, dinit): autograd through ``mamba2_scan_plain``
+    for the gradients ``dy`` of y and ``dstate`` (or none) of the final
+    state, each in its input's type; dinit is fp32, the gradient of a zero
+    initial state when ``init`` is None."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[3]
+    if init is None:
+        init = torch.zeros((B_, H, N, P), dtype=torch.float32,
+                           device=x.device)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, dt, A, Bm, Cm, init)]
+        y, st = mamba2_scan_plain(*leaves[:5], Q, leaves[5])
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(st)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, leaves, grads)
 
 
 def _check(x, dt, A, Bm, Cm, Q: int, init) -> None:
@@ -199,36 +256,51 @@ def kernel_limits(x, Bm, Cm, Q: int) -> None:
 
 def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     """Returns (y [B, S, H, P] in x's type, final state [B, H, N, P]
-    fp32)."""
-    global LAUNCHES
+    fp32), differentiable (through ``Mamba2Scan`` on the card)."""
     _check(x, dt, A, Bm, Cm, Q, init)
     if x.device.type == "cpu":
         return mamba2_scan_plain(x, dt, A, Bm, Cm, Q, init)
-    cuda_build.refuse_grad("mamba2_scan", (x, dt, A, Bm, Cm, init))
-    B_, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    kernel_limits(x, Bm, Cm, Q)
     dt = dt.float().contiguous()
     A = A.float().contiguous()
     if init is not None:
         init = init.float().contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init)):
+        return Mamba2Scan.apply(x, dt, A, Bm, Cm, Q, init)
+    return _forward(x, dt, A, Bm, Cm, Q, init, False)[:2]
+
+
+def _forward(x, dt, A, Bm, Cm, Q: int, init, with_states: bool):
+    """The kernel's (y, final state, the state entering each chunk or
+    None): fp32 [B, chunks, H, N, P], or bf16 hi and lo [B, chunks, H, 2,
+    N, P] (the bf16 passes' own scratch, kept).  dt, A and init fp32."""
+    global LAUNCHES
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    kernel_limits(x, Bm, Cm, Q)
     if not (x.is_contiguous() and Bm.is_contiguous() and Cm.is_contiguous()):
         raise ValueError("mamba2_scan: tensors must be contiguous")
     y = torch.empty_like(x)
     state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
-    if B_ * H == 0:
-        return y, state
     bf16 = x.dtype == torch.bfloat16
+    nc = -(-S // Q)
     heads, scratch = 0, (None, None, None)
     if bf16:
         pl = plan(B_, S, H, G, N, P, Q, *card_slots(Q, N, P, x.device))
-        nc, heads = pl["chunks"], pl["heads"]
+        heads = pl["heads"]
         scratch = (torch.empty((B_, nc, H, N, P), dtype=torch.float32,
                                device=x.device),
                    torch.empty((B_, nc, H, 2, N, P), dtype=torch.bfloat16,
                                device=x.device),
                    torch.empty((B_, nc, H), dtype=torch.float32,
                                device=x.device))
+    elif with_states:
+        scratch = (None, torch.empty((B_, nc, H, N, P), dtype=torch.float32,
+                                     device=x.device), None)
+    s_prev = scratch[1] if with_states else None
+    if B_ * H == 0:
+        return y, state, s_prev
     fn = cuda_build.load("mamba2_scan").mamba2_scan
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
@@ -242,7 +314,125 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
              cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan")
     LAUNCHES += 1
-    return y, state
+    return y, state, s_prev
+
+
+def _bwd_check(x, dt, A, Bm, Cm, Q: int, dy, dstate) -> None:
+    B_, S, H, P = x.shape
+    N = Bm.shape[3]
+    kernel_limits(x, Bm, Cm, Q)
+    if any(not t.is_contiguous() for t in (x, dt, A, Bm, Cm, dy)) \
+            or dt.dtype != torch.float32 or A.dtype != torch.float32 \
+            or dy.shape != x.shape or dy.dtype != x.dtype \
+            or (dstate is not None
+                and (dstate.shape != (B_, H, N, P)
+                     or dstate.dtype != torch.float32
+                     or not dstate.is_contiguous())):
+        raise ValueError("mamba2_scan_backward: contiguous inputs, fp32 dt "
+                         "and A, dy [B, S, H, P] in x's type and fp32 "
+                         "dstate [B, H, N, P] expected")
+
+
+def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate=None):
+    """Kernels (a) and (b) of the backward: the gradient of the state
+    leaving each chunk, ds [B, chunks, H, N, P], and dinit [B, H, N, P],
+    fp32.  Not counted: ``mamba2_scan_backward`` is the entry point."""
+    B_, S, H, P = x.shape
+    G, N = Cm.shape[2], Cm.shape[3]
+    nc = -(-S // Q)
+    ds = torch.empty((B_, nc, H, N, P), dtype=torch.float32, device=x.device)
+    dec = torch.empty((B_, nc, H), dtype=torch.float32, device=x.device)
+    dinit = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
+    fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_dstates
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(dt.data_ptr(), A.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+             0 if dstate is None else dstate.data_ptr(), ds.data_ptr(),
+             dec.data_ptr(), dinit.data_ptr(), B_, S, H, G, N, P, Q,
+             int(x.dtype == torch.bfloat16), cuda_build.stream_ptr(x.device))
+    cuda_build.check(err, "mamba2_scan_bwd_dstates")
+    return ds, dinit
+
+
+def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds):
+    """Kernels (c) and (d) of the backward: (dx, ddt, dA, dB, dC) from the
+    forward's ``s_prev`` and the state gradients ``ds`` at the chunks'
+    ends.  Not counted: ``mamba2_scan_backward`` is the entry point."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // Q)
+    bf16 = x.dtype == torch.bfloat16
+    want = (B_, nc, H, 2, N, P) if bf16 else (B_, nc, H, N, P)
+    if s_prev.shape != want or s_prev.dtype != x.dtype \
+            or ds.shape != (B_, nc, H, N, P):
+        raise ValueError(f"mamba2_scan_backward: s_prev {want} in x's type "
+                         f"and ds [B, chunks, H, N, P] expected")
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    parts = [torch.empty((B_, S, H, N), dtype=torch.float32,
+                         device=x.device) for _ in range(2)]
+    dA_part = torch.empty((B_, nc, H), dtype=torch.float32, device=x.device)
+    fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_chunks
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+             Cm.data_ptr(), dy.data_ptr(), s_prev.data_ptr(), ds.data_ptr(),
+             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+             dC.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+             dA_part.data_ptr(), B_, S, H, G, N, P, Q, int(bf16),
+             cuda_build.stream_ptr(x.device))
+    cuda_build.check(err, "mamba2_scan_bwd_chunks")
+    return dx, ddt, dA, dB, dC
+
+
+def mamba2_scan_backward(x, dt, A, Bm, Cm, Q: int, s_prev, dy, dstate=None):
+    """(dx, ddt, dA, dB, dC, dinit) of the scan for the gradients ``dy`` of
+    y and ``dstate`` (or none) of the final state, from the forward's
+    ``s_prev``: the backward's four kernels, counted once."""
+    global BWD_LAUNCHES
+    _bwd_check(x, dt, A, Bm, Cm, Q, dy, dstate)
+    ds, dinit = backward_dstates(x, dt, A, Cm, Q, dy, dstate)
+    grads = backward_from_dstates(x, dt, A, Bm, Cm, Q, s_prev, dy, ds)
+    BWD_LAUNCHES += 1
+    return (*grads, dinit)
+
+
+class Mamba2Scan(torch.autograd.Function):
+    """The scan with its backward kernels, for CUDA tensors; on CPU tensors
+    the plain version and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, Q, init):
+        if x.device.type == "cpu":
+            (y, state), s_prev = mamba2_scan_plain(x, dt, A, Bm, Cm, Q,
+                                                   init), None
+        else:
+            y, state, s_prev = _forward(x, dt, A, Bm, Cm, Q, init, True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init, s_prev)
+        ctx.Q = Q
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, init, s_prev = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype) \
+            .contiguous()
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        if x.device.type == "cpu":
+            grads = mamba2_scan_backward_plain(x, dt, A, Bm, Cm, ctx.Q, init,
+                                               dy, dstate)
+        else:
+            grads = mamba2_scan_backward(x, dt, A, Bm, Cm, ctx.Q, s_prev, dy,
+                                         dstate)
+        return (*grads[:5], None, None if init is None else grads[5])
 
 
 def kernel_smem_bytes(Q: int, N: int, P: int, heads: int):
@@ -250,3 +440,11 @@ def kernel_smem_bytes(Q: int, N: int, P: int, heads: int):
     source computes it (for the card's checks against ``smem_bytes``)."""
     fn = cuda_build.load("mamba2_scan").mamba2_scan_smem_bytes
     return fn(Q, N, P, heads, 0), fn(Q, N, P, heads, 1)
+
+
+def kernel_bwd_smem_bytes(Q: int, N: int, P: int):
+    """(kernel (a), kernel (c)) shared memory of a backward block as the
+    CUDA source computes it (for the card's checks against
+    ``bwd_smem_bytes``)."""
+    fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_smem_bytes
+    return fn(Q, N, P, 0), fn(Q, N, P, 1)

@@ -16,6 +16,14 @@ is the case H = 1.
 other.  The kernel cuts each head's state columns over blocks
 (``plan_columns``) and its rows over the lanes of a block
 (``rows_per_lane``); see the source's note.
+
+When a gradient is asked of CUDA tensors, the call goes through
+``RWKV6Scan``, a ``torch.autograd.Function``: its forward launches the
+same kernel, which also writes the state before every ``SAVE_EVERY``-th
+step, and its backward launches ``csrc/rwkv6_scan_bwd.cu``
+(``rwkv6_scan_backward``), fp32 only.  On the CPU autograd differentiates
+the plain version, which is also the plain backward
+(``rwkv6_scan_backward_plain``).
 """
 from __future__ import annotations
 
@@ -25,14 +33,18 @@ import torch
 
 from repro_torch.kernels import cuda_build
 
-# launches of the CUDA kernel (not of the plain version) since the last reset
+# launches of the CUDA kernel (not of the plain version) since the last
+# reset, and of the backward (its two kernels, once a call)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 HEAD_DIMS = (8, 16, 32, 64)          # the kernel's state sizes N
 MIN_COLS = 8                         # state columns a block, at least
 COLS_PER_THREAD = 4
 STEPS = 32                           # time steps a staging buffer holds
 SMEM_LIMIT = 232_448                 # dynamic shared memory a block may take
+SAVE_EVERY = 16                      # steps between saved states (kSave)
+BWD_COLS = 8                         # state columns a backward block, at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -71,6 +83,38 @@ def smem_bytes(N: int, cols: int, dtype) -> int:
     return it * 2 * STEPS * (3 * row + cols) + 4 * (L * STEPS * (cols + 1) + N)
 
 
+def saved_states(S: int) -> int:
+    """States the forward saves for the backward: the state before steps
+    0, ``SAVE_EVERY``, 2 ``SAVE_EVERY``, ..."""
+    return -(-S // SAVE_EVERY)
+
+
+def bwd_tiles(N: int) -> int:
+    """Column tiles of the backward: a block per (batch row, head, tile)
+    of ``min(N, BWD_COLS)`` state columns, a thread per state row."""
+    return N // min(N, BWD_COLS)
+
+
+def bwd_smem_bytes(N: int) -> int:
+    """A backward block's dynamic shared memory, as
+    ``csrc/rwkv6_scan_bwd.cu`` lays it out: the stretch's states, a row of
+    the tile's columns and one more [SAVE_EVERY][N][C + 1], the tile's v
+    and dy [2][SAVE_EVERY][C], and two sums a step, all fp32."""
+    C = min(N, BWD_COLS)
+    return 4 * (SAVE_EVERY * N * (C + 1) + 2 * SAVE_EVERY * C
+                + 2 * SAVE_EVERY)
+
+
+def bwd_scratch_bytes(B: int, S: int, H: int, N: int) -> dict:
+    """What the backward holds beside its inputs and gradients: the
+    forward's saved states [B, saved_states(S), H, N, N], the column
+    tiles' partial dr, dk, dw [3, T, B, S, H, N] and du [T, B * H, N], all
+    fp32."""
+    T = bwd_tiles(N)
+    return dict(states=4 * B * saved_states(S) * H * N * N,
+                partials=4 * 3 * T * B * S * H * N, du=4 * T * B * H * N)
+
+
 def rwkv6_scan_plain(r, k, v, w, u, init=None):
     """The recurrence in plain PyTorch, one step at a time in fp32.
     Returns (y in r's type, final state [B, H, N, N] fp32)."""
@@ -103,6 +147,26 @@ def _check(r, k, v, w, u, init) -> None:
                          "u [B * H, N], init [B, H, N, N] expected")
 
 
+def rwkv6_scan_backward_plain(r, k, v, w, u, init, dy, dstate=None):
+    """(dr, dk, dv, dw, du, dinit): autograd through ``rwkv6_scan_plain``
+    for the gradients ``dy`` of y and ``dstate`` (or none) of the final
+    state, each in its input's type; dinit is fp32, the gradient of a zero
+    initial state when ``init`` is None."""
+    B, S, H, N = r.shape
+    if init is None:
+        init = torch.zeros((B, H, N, N), dtype=torch.float32,
+                           device=r.device)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (r, k, v, w, u, init)]
+        y, st = rwkv6_scan_plain(*leaves)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(st)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, leaves, grads)
+
+
 def kernel_limits(r, k, v, w) -> None:
     """Raise on what the CUDA kernel does not take: a type other than fp32
     or bf16 (r, k, v and w alike), or N outside ``HEAD_DIMS``."""
@@ -117,37 +181,122 @@ def kernel_limits(r, k, v, w) -> None:
 
 def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     """Returns (y [B, S, H, N] in r's type, final state [B, H, N, N]
-    fp32)."""
-    global LAUNCHES
+    fp32), differentiable (through ``RWKV6Scan`` on the card, in fp32)."""
     _check(r, k, v, w, u, init)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, init)
-    cuda_build.refuse_grad("rwkv6_scan", (r, k, v, w, u, init))
+    u = u.float().contiguous()
+    if init is not None:
+        init = init.float().contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, init)):
+        if any(t.dtype != torch.float32 for t in (r, k, v, w)):
+            raise TypeError(f"rwkv6_scan: the backward kernel takes float32 "
+                            f"r/k/v/w only, not "
+                            f"{[t.dtype for t in (r, k, v, w)]}")
+        return RWKV6Scan.apply(r, k, v, w, u, init)
+    return _forward(r, k, v, w, u, init, False)[:2]
+
+
+def _forward(r, k, v, w, u, init, with_states: bool):
+    """The kernel's (y, final state, the saved states [B,
+    saved_states(S), H, N, N] fp32 or None); u and init fp32."""
+    global LAUNCHES
     B, S, H, N = r.shape
     kernel_limits(r, k, v, w)
     if not all(t.is_contiguous() for t in (r, k, v, w)):
         raise ValueError("rwkv6_scan: tensors must be contiguous")
-    u = u.float().contiguous()
-    if init is not None:
-        init = init.float().contiguous()
     y = torch.empty_like(r)
     state = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    states = torch.empty((B, saved_states(S), H, N, N), dtype=torch.float32,
+                         device=r.device) if with_states else None
     if B * H == 0:
-        return y, state
+        return y, state, states
     sms = torch.cuda.get_device_properties(r.device).multi_processor_count
     fn = cuda_build.load("rwkv6_scan").rwkv6_scan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), 0 if init is None else init.data_ptr(),
-             y.data_ptr(), state.data_ptr(), B, S, H, N,
+             y.data_ptr(), state.data_ptr(),
+             0 if states is None else states.data_ptr(), B, S, H, N,
              plan_columns(B * H, N, sms), _DTYPES[r.dtype],
              cuda_build.stream_ptr(r.device))
     cuda_build.check(err, "rwkv6_scan")
     LAUNCHES += 1
-    return y, state
+    return y, state, states
+
+
+def rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate=None):
+    """(dr, dk, dv, dw, du, dinit) of the scan for the gradients ``dy`` of
+    y and ``dstate`` (or none) of the final state, from the forward's
+    saved ``states``: the backward kernel and the sum of its column
+    tiles, counted once.  fp32 throughout."""
+    global BWD_LAUNCHES
+    B, S, H, N = r.shape
+    tensors = (r, k, v, w, u, dy, states) + (() if dstate is None
+                                             else (dstate,))
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors) or N not in HEAD_DIMS \
+            or dy.shape != r.shape or u.shape != (B * H, N) \
+            or states.shape != (B, saved_states(S), H, N, N) \
+            or (dstate is not None and dstate.shape != (B, H, N, N)):
+        raise ValueError("rwkv6_scan_backward: contiguous float32 r/k/v/w/"
+                         "dy [B, S, H, N], u [B * H, N], states [B, "
+                         "ceil(S / 16), H, N, N], dstate [B, H, N, N] and "
+                         f"N in {HEAD_DIMS} expected")
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((B * H, N), dtype=torch.float32, device=r.device)
+    dinit = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    T = bwd_tiles(N)
+    part = torch.empty((3, T, B, S, H, N), dtype=torch.float32,
+                       device=r.device)
+    du_part = torch.empty((T, B * H, N), dtype=torch.float32, device=r.device)
+    fn = cuda_build.load("rwkv6_scan_bwd").rwkv6_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), dy.data_ptr(),
+             0 if dstate is None else dstate.data_ptr(), states.data_ptr(),
+             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+             du.data_ptr(), dinit.data_ptr(), part.data_ptr(),
+             du_part.data_ptr(), B, S, H, N, cuda_build.stream_ptr(r.device))
+    cuda_build.check(err, "rwkv6_scan_bwd")
+    BWD_LAUNCHES += 1
+    return dr, dk, dv, dw, du, dinit
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The scan with its backward kernel, for CUDA tensors; on CPU tensors
+    the plain version and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, init):
+        if r.device.type == "cpu":
+            (y, state), states = rwkv6_scan_plain(r, k, v, w, u, init), None
+        else:
+            y, state, states = _forward(r, k, v, w, u, init, True)
+        ctx.save_for_backward(r, k, v, w, u, init, states)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, init, states = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype) \
+            .contiguous()
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        if r.device.type == "cpu":
+            grads = rwkv6_scan_backward_plain(r, k, v, w, u, init, dy,
+                                              dstate)
+        else:
+            grads = rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate)
+        return (*grads[:5], None if init is None else grads[5])
 
 
 def kernel_smem_bytes(N: int, cols: int, dtype) -> int:
@@ -155,3 +304,9 @@ def kernel_smem_bytes(N: int, cols: int, dtype) -> int:
     card's checks against ``smem_bytes``)."""
     fn = cuda_build.load("rwkv6_scan").rwkv6_scan_smem_bytes
     return fn(N, cols, int(dtype == torch.bfloat16))
+
+
+def kernel_bwd_smem_bytes(N: int) -> int:
+    """A backward block's shared memory as the CUDA source computes it
+    (for the card's checks against ``bwd_smem_bytes``)."""
+    return cuda_build.load("rwkv6_scan_bwd").rwkv6_scan_bwd_smem_bytes(N)

@@ -11,10 +11,12 @@ its chunked closed form (``_rwkv6_chunked``) for lengths that divide into
 chunks and steps one token at a time for the others; all three are the
 same function up to rounding.
 
-Training: on the CPU autograd differentiates the scans' plain versions,
-through the reference's bf16 gradient boundaries on the Mamba2
-projections; on the card K7 and K8 have no backward kernel yet and raise
-when a gradient is asked of them.
+Training: the reference's bf16 gradient boundaries sit on the Mamba2
+projections.  On the CPU autograd differentiates the scans' plain
+versions; on the card the scan wrappers route a gradient through their
+backward kernels themselves (K7: ``csrc/mamba2_scan_bwd.cu``, fp32 and
+bf16; K8: ``csrc/rwkv6_scan_bwd.cu``, fp32, the type every model path
+gives it).
 """
 from __future__ import annotations
 

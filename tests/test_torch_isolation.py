@@ -122,6 +122,28 @@ def test_no_source_imports_jax_or_repro():
     assert not bad, bad
 
 
+def test_the_scans_backward_wrappers_stand_alone():
+    """K7's and K8's backward (the ``autograd.Function``s, the plain and
+    kernel backwards) live in the scan wrappers that the import scan above
+    blocks ``jax`` and ``repro`` for, and bind only the port's own CUDA
+    sources."""
+    mods = {"repro_torch.kernels.mamba2_scan.mamba2_scan":
+            ("Mamba2Scan", "mamba2_scan_backward",
+             "mamba2_scan_backward_plain", "mamba2_scan_bwd"),
+            "repro_torch.kernels.rwkv6_scan.rwkv6_scan":
+            ("RWKV6Scan", "rwkv6_scan_backward",
+             "rwkv6_scan_backward_plain", "rwkv6_scan_bwd")}
+    assert set(mods) <= set(port_modules())
+    for mod, names in mods.items():
+        path = SRC / (mod.replace(".", "/") + ".py")
+        text = path.read_text()
+        assert not FORBIDDEN.search(text), mod
+        for name in names[:3]:
+            assert re.search(rf"^(class|def) {name}\b", text, re.M), name
+        assert f'cuda_build.load("{names[3]}")' in text
+        assert (PORT / "csrc" / f"{names[3]}.cu").exists()
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copy_has_not_drifted(rel):
     ref = (SRC / "repro" / rel).read_text()

@@ -126,12 +126,13 @@ def main() -> int:
             tol, extra = 2e-2, dict(heads=heads)
         else:
             fn = lib.rwkv6_scan
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
                 + [ctypes.c_void_p]
             cols = param or rs.plan_columns(4 * K, 64, torch.cuda.
                                             get_device_properties(0).
                                             multi_processor_count)
-            ptrs = [t.data_ptr() for t in (r, k, v, w, u, s0, y8, st8)]
+            ptrs = [t.data_ptr() for t in (r, k, v, w, u, s0, y8, st8)] \
+                + [0]                  # no saved states: the serving kernel
             call = lambda: fn(*ptrs, 4, 2048, K, 64, cols, 0, stream)  # noqa
             out = [(y8[:1], ry), (st8[:1], rst)]
             tol, extra = 2e-5, dict(cols=cols)
