@@ -187,6 +187,10 @@ EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
                   2.887674649556478,
               ("flash_attention_bwd", "deepseek-v2-236b MLA train"):
                   4.7529120445251465,
+              # K7's backward fp32 on the CUDA cores for both types, K8's a
+              # block a column tile with the tiles' partials summed apart
+              ("mamba2_scan_bwd", "zamba2-2.7b train"): 8.317504247029623,
+              ("rwkv6_scan_bwd", "rwkv6-3b train"): 4.4280961354573565,
               # K4 four blocks ranking lanes by B^2 compares (warm, as
               # device_ms times it)
               ("cms_sketch", "hint_filter"): 0.009600000083446502,
@@ -1548,7 +1552,8 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     bytes the gradient's own, each once: x, dt, A, Bm, Cm, init, dy and
     dstate in, their gradients out.  The chunk-entry states that this
     design saves are not the function's traffic and are reported apart
-    (``saved_state_bytes``)."""
+    (``saved_state_bytes``).  bf16 rows print the plan's heads a block
+    and tiles a group (``bwd_plan``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = randn((B, S, H, P), dtype, g)
     dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, g))
@@ -1570,8 +1575,10 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     torch.cuda.synchronize()
     rel = grads_rel(grads, plain)
     tol = BWD_TOL[dtype]
+    heads = ms.bwd_heads(x, Bm, Q)
     row = dict(kernel="mamba2_scan_bwd", shape=label, B=B, S=S, H=H, G=G,
-               N=N, P=P, Q=Q, dtype=dtype_name(dtype), rel_err=rel, tol=tol,
+               N=N, P=P, Q=Q, dtype=dtype_name(dtype), heads=heads,
+               tiles=-(-(H // G) // heads), rel_err=rel, tol=tol,
                rel_by_grad=[max_err(a, b) / (float(b.float().abs().max())
                                              + 1e-30)
                             for a, b in zip(grads, plain)],
@@ -1581,9 +1588,9 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     if not rel <= tol:
         raise AssertionError(f"mamba2_scan_bwd differs at {label}: {row}")
     if fault:
-        ds, _ = ms.backward_dstates(x, dt, A, Cm, Q, dy, dstate)
+        ds, _ = ms.backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
         ds[:, :-1] = 0
-        bad = ms.backward_from_dstates(*args, s_prev, dy, ds)
+        bad = ms.backward_from_dstates(*args, s_prev, dy, ds, heads)
         row["planted_fault_rel_err"] = grads_rel(bad, plain[:5])
         if row["planted_fault_rel_err"] <= tol:
             raise AssertionError(f"mamba2_scan_bwd at {label}: the check "
@@ -1617,10 +1624,11 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
                    library="none: no single PyTorch call computes the "
                            "gradient of a chunked SSD scan",
                    scratch_bytes=ms.bwd_scratch_bytes(B, S, H, G, N, P, Q,
-                                                      dtype),
-                   dynamic_smem_bytes=ms.bwd_smem_bytes(Q, N, P),
-                   build=build_facts("mamba2_scan_bwd", "ssd_bwd"))
-        src_smem = ms.kernel_bwd_smem_bytes(Q, N, P)
+                                                      dtype, heads),
+                   dynamic_smem_bytes=ms.bwd_smem_bytes(Q, N, P, heads,
+                                                        dtype),
+                   build=build_facts("mamba2_scan_bwd", "ssd_"))
+        src_smem = ms.kernel_bwd_smem_bytes(Q, N, P, heads, dtype)
         if tuple(src_smem) != tuple(row["dynamic_smem_bytes"]):
             raise AssertionError(f"mamba2_scan_bwd at {label}: the wrapper's "
                                  f"shared memory {row['dynamic_smem_bytes']}"
@@ -1629,6 +1637,23 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
     return row
+
+
+def rwkv_bwd_flops(B: int, S: int, H: int, N: int,
+                   L: int = rs.SAVE_EVERY) -> int:
+    """K8's backward counted from the chunked form that the reference
+    differentiates (``models/ssm.py``: ``_rwkv6_chunked``), at chunks of
+    ``L`` steps entered from the states the forward saves.  A chunk of n
+    steps a (b, h): 8 n N^2 flops of products with an N x N matrix (S0
+    dy_t, G v_j, G^T (k_j E_j) and the chunk's r-dy^T part of the state
+    gradient), 15 N a pair of its steps (their decays 2, v_j . dy_t 2, s
+    3, the pair's parts of dr and dk 3 each and of dv 2) and 3 N^2 (the
+    state gradient's decay and the row sums of G . S0 for dw); terms of
+    O(n N) are left out.  tests/test_torch_scan_bwd.py replays this form
+    against the reference's gradient, counting the same."""
+    per = lambda n: 8 * n * N * N + 15 * n * (n - 1) // 2 * N + 3 * N * N  # noqa
+    full, last = divmod(S, L)
+    return B * H * (full * per(L) + (per(last) if last else 0))
 
 
 def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
@@ -1642,11 +1667,11 @@ def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
     equal its output without.  With ``fault`` the gate must reject the
     gradient whose state gradient is not decayed by w
     (``rwkv_bwd_undecayed``).  Timed rows add two runs bit-equal, the
-    plain backward's time on those rows and the bound: 14 flops a state
-    element a (b h, t) (the state recomputed, dr, dk, dv, dw, the state
-    gradient) at the fp32 peak; bytes the gradient's own, each once: r,
-    k, v, w, u, init, dy and dstate in, their gradients out.  The states
-    that this design saves are reported apart (``saved_state_bytes``)."""
+    plain backward's time on those rows and the bound: the chunked form's
+    operations (``rwkv_bwd_flops``) at the fp32 peak; bytes the
+    gradient's own, each once: r, k, v, w, u, init, dy and dstate in,
+    their gradients out.  The states that this design saves are reported
+    apart (``saved_state_bytes``)."""
     dtype = torch.float32
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = randn((B, S, H, N), dtype, g)
@@ -1699,7 +1724,7 @@ def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
                                  f"differ")
         del again
         nbytes = 4 * (9 * r.numel() + 2 * u.numel() + 3 * s0.numel())
-        b_ms, b_by = bound(nbytes, ops=14.0 * N * N * B * H * S)
+        b_ms, b_by = bound(nbytes, ops=rwkv_bwd_flops(B, S, H, N))
         t_ms = device_ms(lambda: rs.rwkv6_scan_backward(
             r, k, v, w, u, states, dy, dstate), reps=3, rounds=5)
         smem = rs.bwd_smem_bytes(N)
@@ -1715,7 +1740,8 @@ def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
                    library_ms=None,
                    library="none: no single PyTorch call computes the "
                            "gradient of the RWKV6 recurrence",
-                   blocks=B * H * rs.bwd_tiles(N), threads=N,
+                   blocks=2 * B * H * rs.saved_states(S),
+                   threads=rs.bwd_threads(N),
                    dynamic_smem_bytes=smem,
                    scratch_bytes=rs.bwd_scratch_bytes(B, S, H, N),
                    build=build_facts("rwkv6_scan_bwd", "wkv_bwd"))
@@ -1734,14 +1760,19 @@ MAMBA_BWD_SHAPES = {"zamba2 chunk": (1, 384, 4, 1, 64, 64, 128),
                     "smoke chunk": (2, 128, 4, 1, 16, 16, 32),
                     "ragged 200 of Q 128": (2, 200, 3, 1, 64, 64, 128),
                     "ragged 70 of Q 32": (1, 70, 3, 1, 16, 16, 32),
-                    "groups": (2, 96, 4, 2, 16, 16, 32)}
+                    "groups": (2, 96, 4, 2, 16, 16, 32),
+                    # the bf16 plan cuts the group into 2 or 4 tiles of 4
+                    # or 2 heads (one or two blocks an SM); last chunk 16
+                    "head tiles, ragged 2000 of Q 32": (2, 2000, 8, 1, 32,
+                                                        32, 32)}
 SCAN_BWD_TIMED = {"zamba2-2.7b train": (4, 2048, 80, 1, 64, 64, 128),
                   "rwkv6-3b train": (4, 2048, 40, 64)}
 
 
 def scan_bwd_rows():
     """K7's backward in fp32 and bf16 at ``MAMBA_BWD_SHAPES`` and K8's at
-    every N of ``HEAD_DIMS`` (S 100: a last stretch of 4 steps), then
+    every N of ``HEAD_DIMS`` (S 100: a last stretch of 4 steps) and at S
+    1000 (many stretches, the last of 8 steps), then
     both timed at ``SCAN_BWD_TIMED`` with their planted faults; K8 must
     refuse a bf16 gradient on CUDA tensors.  Returns the timed rows and
     the largest errors."""
@@ -1749,12 +1780,20 @@ def scan_bwd_rows():
     for dtype in (torch.float32, torch.bfloat16):
         for label, shape in MAMBA_BWD_SHAPES.items():
             r = check_mamba_bwd(*shape, dtype, label, fault=label == "groups")
+            if dtype == torch.bfloat16 and label.startswith("head tiles") \
+                    and not (r["heads"] > 1 and r["tiles"] > 1):
+                raise AssertionError(f"mamba2_scan_bwd at {label}: the plan "
+                                     f"is not several tiles of several "
+                                     f"heads: {r}")
             worst["mamba2_scan_bwd"] = max(worst["mamba2_scan_bwd"],
                                            r["max_abs_err"])
     for N in rs.HEAD_DIMS:
         r = check_rwkv_bwd(2, 100, 3, N, f"N {N}", fault=N == 16)
         worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"],
                                       r["max_abs_err"])
+    # 62 whole stretches and a last one of 8 steps, at rwkv6's N
+    r = check_rwkv_bwd(2, 1000, 3, 64, "ragged 1000 of 16")
+    worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"], r["max_abs_err"])
     q = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16, device="cuda",
                     requires_grad=True)
     try:                               # a type the backward does not take
@@ -2876,12 +2915,38 @@ def params_on_cpu(module):
     return tree
 
 
+def kernel_names(path) -> set:
+    """The ``__global__`` functions of one CUDA source or header."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                     r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(")
+    return set(pat.findall(Path(path).read_text()))
+
+
 def port_kernel_names() -> set:
-    """The ``__global__`` functions of the port's CUDA sources."""
-    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
-                     r"(\w+)\s*\(")
-    return {name for src in cuda_build.CSRC.glob("*.cu")
-            for name in pat.findall(src.read_text())}
+    """The ``__global__`` functions of the port's CUDA sources and shared
+    headers."""
+    return {name for src in (*cuda_build.CSRC.glob("*.cu"),
+                             *cuda_build.CSRC.glob("*.cuh"))
+            for name in kernel_names(src)}
+
+
+def bwd_kernel_ms(prof) -> dict:
+    """A ``profile_step``'s device time in each kernel of the backward
+    sources (K6's, K7's, K8's), by name with its template arguments:
+    [launches, ms].  K7's kernel (a) is the shared chunk-state kernel's
+    gradient instance, ``ssd_state_kernel<true>``."""
+    mine = set().union(*(kernel_names(cuda_build.CSRC / f"{src}.cu")
+                         for src in ("flash_attention_bwd", "mamba2_scan_bwd",
+                                     "rwkv6_scan_bwd")))
+    pat = re.compile(r"::(\w+(?:<[^>(]*>)?)\(")
+    out = {}
+    for name, n, ms_, _ in prof["port_kernels"]:
+        m = pat.search(name)
+        if m and (m.group(1).split("<")[0] in mine
+                  or m.group(1) == "ssd_state_kernel<true>"):
+            c, t = out.get(m.group(1), (0, 0.0))
+            out[m.group(1)] = [c + n, t + ms_]
+    return out
 
 
 def profile_step(fn, top: int = 10):
@@ -3277,6 +3342,8 @@ def train_full_width(c=TRAIN):
     peak = torch.cuda.max_memory_allocated()
     ms_step = statistics.median(step_ms[-c["timed"]:])
     prof = profile_step(lambda: step_fn(state, c["steps"]))
+    layer = k7_layer_check(step_fn, state, c["steps"] + 1) \
+        if "mamba2_scan_bwd" in TRAIN_KERNELS[c["arch"]] else None
     row = dict(arch=c["arch"], layers=cfg.num_layers, of_layers=get_config(
         c["arch"]).num_layers, d_model=cfg.d_model, params=n_params,
         batch=c["batch"], seq=c["seq"], dtype=cfg.dtype, remat=cfg.remat,
@@ -3286,7 +3353,7 @@ def train_full_width(c=TRAIN):
         peak_gb=peak / 1e9, launches=counts,
         kernel_launches={k: counts[k] for k in TRAIN_KERNELS[c["arch"]]},
         device_busy_share=prof["device_busy_share"], clocks=clocks,
-        profile=prof)
+        bwd_kernels=bwd_kernel_ms(prof), k7_layer=layer, profile=prof)
     del state
     torch.cuda.empty_cache()
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
@@ -3294,6 +3361,65 @@ def train_full_width(c=TRAIN):
             and row["peak_gb"] < c["peak_gb"]):
         raise AssertionError(f"train {c['arch']} at full width: {row}")
     return row, counts
+
+
+@contextlib.contextmanager
+def k7_first_backward(record: dict):
+    """K7's backward (``ms.mamba2_scan_backward``) with its first call
+    inside recorded into ``record``: copies of its arguments and of the
+    gradients it returned."""
+    real = ms.mamba2_scan_backward
+
+    def recording(*args):
+        grads = real(*args)
+        if not record:
+            record["args"] = [a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args]
+            record["grads"] = [g.clone() for g in grads]
+        return grads
+
+    ms.mamba2_scan_backward = recording
+    try:
+        yield
+    finally:
+        ms.mamba2_scan_backward = real
+
+
+def k7_layer_check(step_fn, state, step: int) -> dict:
+    """K7's backward at one layer's real training inputs: one more step
+    of ``step_fn``, whose first call of K7's backward (the last Mamba2
+    layer's: the forward's inputs and saved states, the cotangent the
+    step gave it) is recorded and held against
+    ``mamba2_scan_backward_plain`` on the same card tensors within
+    ``BWD_TOL`` of its type (zamba2 trains in bf16: the tensor-core
+    design).  Training starts every scan from a zero state, which the
+    saved state entering the first chunk must show."""
+    rec = {}
+    with k7_first_backward(rec):
+        step_fn(state, step)
+    torch.cuda.synchronize()
+    x, dt, A, Bm, Cm, Q, s_prev, dy, dstate = rec["args"]
+    if bool(s_prev[:, 0].any()):
+        raise AssertionError("k7_layer_check: the scan did not start from "
+                             "a zero state")
+    plain = ms.mamba2_scan_backward_plain(x, dt, A, Bm, Cm, Q, None, dy,
+                                          dstate)
+    grads = rec["grads"]
+    tol = BWD_TOL[x.dtype]
+    B, S, H, P = x.shape
+    row = dict(shape=[B, S, H, Bm.shape[2], Bm.shape[3], P, Q],
+               dtype=dtype_name(x.dtype), heads=ms.bwd_heads(x, Bm, Q),
+               dstate=dstate is not None, rel_err=grads_rel(grads, plain),
+               tol=tol,
+               rel_by_grad=[max_err(a, b) / (float(b.float().abs().max())
+                                             + 1e-30)
+                            for a, b in zip(grads, plain)])
+    del rec, plain, grads
+    torch.cuda.empty_cache()
+    if x.dtype != torch.bfloat16 or not row["rel_err"] <= tol:
+        raise AssertionError(f"K7's backward at a layer's training inputs: "
+                             f"{row}")
+    return row
 
 
 def leaf_names(tree, prefix: str = "") -> list:

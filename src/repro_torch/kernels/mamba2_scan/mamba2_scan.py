@@ -25,7 +25,8 @@ same kernel and keeps the state entering each chunk (bf16: the passes'
 hi and lo scratch; fp32: an output of the one-pass kernel), and its
 backward launches ``csrc/mamba2_scan_bwd.cu`` (``mamba2_scan_backward``:
 the state gradients at the chunk boundaries, then each chunk's
-gradients).  On the CPU autograd differentiates the plain version, which
+gradients; in bf16 on the tensor cores with a tile of heads a block,
+``bwd_plan``).  On the CPU autograd differentiates the plain version, which
 is also the plain backward (``mamba2_scan_backward_plain``).
 """
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import cuda_build
 
 # launches of the CUDA kernel (not of the plain version) since the last
-# reset, and of the backward (its four kernels, once a call)
+# reset, and of the backward (its kernels, once a call)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -48,7 +49,7 @@ MAX_HEADS = 16                   # heads a block of passes (a) and (c)
 WAVE_SHARE = 0.9                 # how full pass (c)'s last wave must be
 SMEM_LIMIT = 232_448             # dynamic shared memory a block may take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PER_SM = {}                     # (Q, N, P) -> blocks of pass (c) an SM
+_PER_SM = {}                     # (library, Q, N, P) -> blocks an SM
 
 
 def pad16(n: int) -> int:
@@ -114,28 +115,57 @@ def plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
                 scratch=scratch_bytes(B, S, H, N, P, Q))
 
 
-def bwd_smem_bytes(Q: int, N: int, P: int):
-    """(kernel (a), kernel (c)) dynamic shared memory of a backward block,
-    as ``csrc/mamba2_scan_bwd.cu`` lays it out, all fp32.  (a): exp(cum) C
-    [Q][N], dy [Q][P], dt and cum; (c): B and C [Q][N + 1], dtx and dy
-    [Q][P + 1], the state gradient (then s_prev) [N][P + 1], M [Q][Q + 1]
-    and 16 vectors of Q."""
+def bwd_smem_bytes(Q: int, N: int, P: int, heads: int, dtype):
+    """(kernel (a), the chunk kernels) dynamic shared memory of a backward
+    block, as ``csrc/mamba2_scan_bwd.cu`` lays it out.  bf16 (a) is the
+    forward's pass (a) (``smem_bytes``); (c1) and (c2) hold B or C, two
+    buffers of x and dy, s_prev or dS as hi and lo, bf16 rows padded by 8
+    elements, and five fp32 vectors of Qp and four floats.  fp32, all
+    fp32: (a) exp(cum) C [Q][N], dy [Q][P], dt and cum; (c) B and C
+    [Q][N + 1], dtx and dy [Q][P + 1], the state gradient (then s_prev)
+    [N][P + 1], M [Q][Q + 1] and 16 vectors of Q."""
+    if dtype == torch.bfloat16:
+        Qp, Np, Pp = pad16(Q), pad16(N), pad16(P)
+        return (smem_bytes(Q, N, P, heads)[0],
+                2 * (Qp * (Np + 8) + 4 * Qp * (Pp + 8) + 2 * Np * (Pp + 8))
+                + 4 * (5 * Qp + 4))
     return (4 * (Q * N + Q * P + 2 * Q),
             4 * (2 * Q * (N + 1) + 2 * Q * (P + 1) + N * (P + 1)
                  + Q * (Q + 1) + 16 * Q))
 
 
 def bwd_scratch_bytes(B: int, S: int, H: int, G: int, N: int, P: int,
-                      Q: int, dtype) -> dict:
-    """What the backward holds beside its inputs and gradients: the state
-    entering each chunk from the forward (fp32, or bf16 hi and lo), the
-    state gradient at each chunk's end ds [B, chunks, H, N, P] and the
-    chunks' decays [B, chunks, H] fp32, the per-head parts of dB and dC
-    [B, S, H, N] and the chunks' parts of dA [B, chunks, H] fp32."""
+                      Q: int, dtype, heads: int = 1) -> dict:
+    """What the backward holds beside its inputs and gradients, all fp32
+    but the bf16 hi and lo halves: the state entering each chunk from the
+    forward (fp32, or hi and lo); the state gradient at each chunk's end
+    ds [B, chunks, H, N, P] (fp32; bf16: hi and lo, from the chunks' own
+    parts ds_loc, fp32) and the chunks' decays [B, chunks, H]; the parts
+    of dB and dC [B, S, G tiles, N] of each tile of ``heads`` heads (fp32:
+    a head a tile); W's row sums plus the inter term [B, chunks, H,
+    pad16(Q)] (bf16 only); the chunks' parts of dA [B, chunks, H]."""
     nc = -(-S // Q)
-    return dict(s_prev=4 * B * nc * H * N * P, ds=4 * B * nc * H * N * P,
-                dec=4 * B * nc * H, dBC_part=2 * 4 * B * S * H * N,
-                dA_part=4 * B * nc * H)
+    state = 4 * B * nc * H * N * P
+    tiles = -(-(H // G) // heads)
+    out = dict(s_prev=state, ds=state, dec=4 * B * nc * H,
+               dBC_part=2 * 4 * B * S * G * tiles * N, dA_part=4 * B * nc * H)
+    if dtype == torch.bfloat16:
+        out.update(ds_loc=state, rsi=4 * B * nc * H * pad16(Q))
+    return out
+
+
+def bwd_plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
+             sms: int, per_sm: int) -> dict:
+    """The bf16 backward's launch at these shapes: heads a block of
+    kernels (a), (c1) and (c2) (``plan_heads`` on the blocks of (c2) an
+    SM holds), tiles of a group, blocks, shared memory and scratch."""
+    nc = -(-S // Q)
+    heads = plan_heads(B * nc * G, H // G, sms, per_sm)
+    tiles = -(-(H // G) // heads)
+    return dict(chunks=nc, heads=heads, tiles=tiles, blocks=B * nc * G * tiles,
+                smem=bwd_smem_bytes(Q, N, P, heads, torch.bfloat16),
+                scratch=bwd_scratch_bytes(B, S, H, G, N, P, Q, torch.bfloat16,
+                                          heads))
 
 
 def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
@@ -224,20 +254,34 @@ def _check(x, dt, A, Bm, Cm, Q: int, init) -> None:
                          "init [B, H, N, P] and a chunk >= 1 expected")
 
 
-def card_slots(Q: int, N: int, P: int, device):
-    """(SMs of the card, blocks of pass (c) an SM holds at these sizes), as
-    the library reports them (the latter asked once a size)."""
-    key = (Q, N, P)
+def card_slots(Q: int, N: int, P: int, device, lib: str = "mamba2_scan"):
+    """(SMs of the card, blocks an SM holds at these sizes), as the library
+    reports them (asked once a size): of the forward's pass (c) for
+    ``lib`` "mamba2_scan", of the backward's kernel (c2) for
+    "mamba2_scan_bwd"."""
+    key = (lib, Q, N, P)
     if key not in _PER_SM:
-        fn = cuda_build.load("mamba2_scan").mamba2_scan_blocks_per_sm
+        fn = getattr(cuda_build.load(lib), f"{lib}_blocks_per_sm")
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         n = ctypes.c_int(0)
         cuda_build.check(fn(Q, N, P, ctypes.byref(n)),
-                         "mamba2_scan blocks per SM")
+                         f"{lib} blocks per SM")
         _PER_SM[key] = n.value
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms, _PER_SM[key]
+
+
+def bwd_heads(x, Bm, Q: int) -> int:
+    """Heads a block of the backward's tensor-core kernels take (bf16), 1
+    for fp32 (a block a head)."""
+    if x.dtype != torch.bfloat16:
+        return 1
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // Q)
+    return plan_heads(B_ * nc * G, H // G,
+                      *card_slots(Q, N, P, x.device, "mamba2_scan_bwd"))
 
 
 def kernel_limits(x, Bm, Cm, Q: int) -> None:
@@ -333,60 +377,72 @@ def _bwd_check(x, dt, A, Bm, Cm, Q: int, dy, dstate) -> None:
                          "dstate [B, H, N, P] expected")
 
 
-def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate=None):
-    """Kernels (a) and (b) of the backward: the gradient of the state
-    leaving each chunk, ds [B, chunks, H, N, P], and dinit [B, H, N, P],
-    fp32.  Not counted: ``mamba2_scan_backward`` is the entry point."""
+def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate, heads: int):
+    """Kernels (a) and (b) of the backward, ``heads`` heads a block
+    (``bwd_heads``): the gradient of the state leaving each chunk, ds [B,
+    chunks, H, N, P] fp32 (bf16: its hi and lo halves [B, chunks, H, 2,
+    N, P]), and dinit [B, H, N, P] fp32.  Not counted:
+    ``mamba2_scan_backward`` is the entry point."""
     B_, S, H, P = x.shape
     G, N = Cm.shape[2], Cm.shape[3]
     nc = -(-S // Q)
-    ds = torch.empty((B_, nc, H, N, P), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    ds = torch.empty((B_, nc, H, 2, N, P) if bf16 else (B_, nc, H, N, P),
+                     dtype=x.dtype, device=x.device)
+    ds_loc = torch.empty((B_, nc, H, N, P), dtype=torch.float32,
+                         device=x.device) if bf16 else None
     dec = torch.empty((B_, nc, H), dtype=torch.float32, device=x.device)
     dinit = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_dstates
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(dt.data_ptr(), A.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
              0 if dstate is None else dstate.data_ptr(), ds.data_ptr(),
-             dec.data_ptr(), dinit.data_ptr(), B_, S, H, G, N, P, Q,
-             int(x.dtype == torch.bfloat16), cuda_build.stream_ptr(x.device))
+             0 if ds_loc is None else ds_loc.data_ptr(), dec.data_ptr(),
+             dinit.data_ptr(), B_, S, H, G, N, P, Q, heads, int(bf16),
+             cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan_bwd_dstates")
     return ds, dinit
 
 
-def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds):
-    """Kernels (c) and (d) of the backward: (dx, ddt, dA, dB, dC) from the
-    forward's ``s_prev`` and the state gradients ``ds`` at the chunks'
-    ends.  Not counted: ``mamba2_scan_backward`` is the entry point."""
+def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
+                          heads: int):
+    """The chunk kernels and (d) of the backward, ``heads`` heads a block:
+    (dx, ddt, dA, dB, dC) from the forward's ``s_prev`` and the state
+    gradients ``ds`` at the chunks' ends.  Not counted:
+    ``mamba2_scan_backward`` is the entry point."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc = -(-S // Q)
     bf16 = x.dtype == torch.bfloat16
     want = (B_, nc, H, 2, N, P) if bf16 else (B_, nc, H, N, P)
     if s_prev.shape != want or s_prev.dtype != x.dtype \
-            or ds.shape != (B_, nc, H, N, P):
-        raise ValueError(f"mamba2_scan_backward: s_prev {want} in x's type "
-                         f"and ds [B, chunks, H, N, P] expected")
+            or ds.shape != want or ds.dtype != x.dtype:
+        raise ValueError(f"mamba2_scan_backward: s_prev and ds {want} in "
+                         f"x's type expected")
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
-    parts = [torch.empty((B_, S, H, N), dtype=torch.float32,
+    tiles = -(-(H // G) // heads)
+    parts = [torch.empty((B_, S, G * tiles, N), dtype=torch.float32,
                          device=x.device) for _ in range(2)]
     dA_part = torch.empty((B_, nc, H), dtype=torch.float32, device=x.device)
+    rsi = torch.empty((B_, nc, H, pad16(Q)), dtype=torch.float32,
+                      device=x.device) if bf16 else None
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_chunks
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), dy.data_ptr(), s_prev.data_ptr(), ds.data_ptr(),
              dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
              dC.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-             dA_part.data_ptr(), B_, S, H, G, N, P, Q, int(bf16),
-             cuda_build.stream_ptr(x.device))
+             dA_part.data_ptr(), 0 if rsi is None else rsi.data_ptr(), B_, S,
+             H, G, N, P, Q, heads, int(bf16), cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan_bwd_chunks")
     return dx, ddt, dA, dB, dC
 
@@ -394,11 +450,12 @@ def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds):
 def mamba2_scan_backward(x, dt, A, Bm, Cm, Q: int, s_prev, dy, dstate=None):
     """(dx, ddt, dA, dB, dC, dinit) of the scan for the gradients ``dy`` of
     y and ``dstate`` (or none) of the final state, from the forward's
-    ``s_prev``: the backward's four kernels, counted once."""
+    ``s_prev``: the backward's kernels, counted once."""
     global BWD_LAUNCHES
     _bwd_check(x, dt, A, Bm, Cm, Q, dy, dstate)
-    ds, dinit = backward_dstates(x, dt, A, Cm, Q, dy, dstate)
-    grads = backward_from_dstates(x, dt, A, Bm, Cm, Q, s_prev, dy, ds)
+    heads = bwd_heads(x, Bm, Q)
+    ds, dinit = backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
+    grads = backward_from_dstates(x, dt, A, Bm, Cm, Q, s_prev, dy, ds, heads)
     BWD_LAUNCHES += 1
     return (*grads, dinit)
 
@@ -442,9 +499,10 @@ def kernel_smem_bytes(Q: int, N: int, P: int, heads: int):
     return fn(Q, N, P, heads, 0), fn(Q, N, P, heads, 1)
 
 
-def kernel_bwd_smem_bytes(Q: int, N: int, P: int):
-    """(kernel (a), kernel (c)) shared memory of a backward block as the
-    CUDA source computes it (for the card's checks against
+def kernel_bwd_smem_bytes(Q: int, N: int, P: int, heads: int, dtype):
+    """(kernel (a), the chunk kernels) shared memory of a backward block as
+    the CUDA source computes it (for the card's checks against
     ``bwd_smem_bytes``)."""
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_smem_bytes
-    return fn(Q, N, P, 0), fn(Q, N, P, 1)
+    bf16 = int(dtype == torch.bfloat16)
+    return fn(Q, N, P, heads, bf16, 0), fn(Q, N, P, heads, bf16, 1)

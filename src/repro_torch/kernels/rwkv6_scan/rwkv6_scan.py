@@ -21,7 +21,9 @@ When a gradient is asked of CUDA tensors, the call goes through
 ``RWKV6Scan``, a ``torch.autograd.Function``: its forward launches the
 same kernel, which also writes the state before every ``SAVE_EVERY``-th
 step, and its backward launches ``csrc/rwkv6_scan_bwd.cu``
-(``rwkv6_scan_backward``), fp32 only.  On the CPU autograd differentiates
+(``rwkv6_scan_backward``: the stretches between saved states, each
+one's own part of the state gradient, a pass over them, then all of them
+at once), fp32 only.  On the CPU autograd differentiates
 the plain version, which is also the plain backward
 (``rwkv6_scan_backward_plain``).
 """
@@ -34,7 +36,7 @@ import torch
 from repro_torch.kernels import cuda_build
 
 # launches of the CUDA kernel (not of the plain version) since the last
-# reset, and of the backward (its two kernels, once a call)
+# reset, and of the backward (its four kernels, once a call)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -44,7 +46,9 @@ COLS_PER_THREAD = 4
 STEPS = 32                           # time steps a staging buffer holds
 SMEM_LIMIT = 232_448                 # dynamic shared memory a block may take
 SAVE_EVERY = 16                      # steps between saved states (kSave)
-BWD_COLS = 8                         # state columns a backward block, at most
+BWD_SUB = 4                          # steps between the backward's checkpoints
+# the backward's piece of the [N, N] state a thread (rows, columns)
+BWD_PIECE = {8: (1, 2), 16: (2, 4), 32: (4, 4), 64: (4, 4)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,30 +93,34 @@ def saved_states(S: int) -> int:
     return -(-S // SAVE_EVERY)
 
 
-def bwd_tiles(N: int) -> int:
-    """Column tiles of the backward: a block per (batch row, head, tile)
-    of ``min(N, BWD_COLS)`` state columns, a thread per state row."""
-    return N // min(N, BWD_COLS)
+def bwd_threads(N: int) -> int:
+    """Threads a block of the backward's stretch kernels: one a
+    ``BWD_PIECE`` piece of the [N, N] state, so a block holds whole
+    rows."""
+    ra, ca = BWD_PIECE[N]
+    return (N // ra) * (N // ca)
 
 
 def bwd_smem_bytes(N: int) -> int:
-    """A backward block's dynamic shared memory, as
-    ``csrc/rwkv6_scan_bwd.cu`` lays it out: the stretch's states, a row of
-    the tile's columns and one more [SAVE_EVERY][N][C + 1], the tile's v
-    and dy [2][SAVE_EVERY][C], and two sums a step, all fp32."""
-    C = min(N, BWD_COLS)
-    return 4 * (SAVE_EVERY * N * (C + 1) + 2 * SAVE_EVERY * C
-                + 2 * SAVE_EVERY)
+    """A block of the backward's stretch walk (kernel (3)), dynamic shared
+    memory as ``csrc/rwkv6_scan_bwd.cu`` lays it out, all fp32: the
+    stretch's r, k, v, w, dy [5][SAVE_EVERY][N] and two sums a step, the
+    checkpoints [SAVE_EVERY / BWD_SUB][N][N], the column sums' parts
+    [BWD_SUB][N / rows a piece][N] and dr, dk, dw [3][SAVE_EVERY][N]."""
+    L, ra = SAVE_EVERY, BWD_PIECE[N][0]
+    return 4 * (5 * L * N + 2 * L + L // BWD_SUB * N * N
+                + BWD_SUB * (N // ra) * N + 3 * L * N)
 
 
 def bwd_scratch_bytes(B: int, S: int, H: int, N: int) -> dict:
-    """What the backward holds beside its inputs and gradients: the
-    forward's saved states [B, saved_states(S), H, N, N], the column
-    tiles' partial dr, dk, dw [3, T, B, S, H, N] and du [T, B * H, N], all
-    fp32."""
-    T = bwd_tiles(N)
-    return dict(states=4 * B * saved_states(S) * H * N * N,
-                partials=4 * 3 * T * B * S * H * N, du=4 * T * B * H * N)
+    """What the backward holds beside its inputs and gradients, all fp32:
+    the forward's saved states [B, saved_states(S), H, N, N]; each
+    stretch's own part of the state gradient, then the state gradient at
+    its end, gs [B, saved_states(S), H, N, N]; each stretch's decay and
+    its part of du [B, saved_states(S), H, N]."""
+    ns = saved_states(S)
+    return dict(states=4 * B * ns * H * N * N, gs=4 * B * ns * H * N * N,
+                dec=4 * B * ns * H * N, du=4 * B * ns * H * N)
 
 
 def rwkv6_scan_plain(r, k, v, w, u, init=None):
@@ -232,8 +240,8 @@ def _forward(r, k, v, w, u, init, with_states: bool):
 def rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate=None):
     """(dr, dk, dv, dw, du, dinit) of the scan for the gradients ``dy`` of
     y and ``dstate`` (or none) of the final state, from the forward's
-    saved ``states``: the backward kernel and the sum of its column
-    tiles, counted once.  fp32 throughout."""
+    saved ``states``: the backward's four kernels, counted once.  fp32
+    throughout."""
     global BWD_LAUNCHES
     B, S, H, N = r.shape
     tensors = (r, k, v, w, u, dy, states) + (() if dstate is None
@@ -250,20 +258,20 @@ def rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate=None):
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((B * H, N), dtype=torch.float32, device=r.device)
     dinit = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    T = bwd_tiles(N)
-    part = torch.empty((3, T, B, S, H, N), dtype=torch.float32,
-                       device=r.device)
-    du_part = torch.empty((T, B * H, N), dtype=torch.float32, device=r.device)
+    ns = saved_states(S)
+    gs = torch.empty((B, ns, H, N, N), dtype=torch.float32, device=r.device)
+    dec, du_part = (torch.empty((B, ns, H, N), dtype=torch.float32,
+                                device=r.device) for _ in range(2))
     fn = cuda_build.load("rwkv6_scan_bwd").rwkv6_scan_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), dy.data_ptr(),
              0 if dstate is None else dstate.data_ptr(), states.data_ptr(),
              dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-             du.data_ptr(), dinit.data_ptr(), part.data_ptr(),
+             du.data_ptr(), dinit.data_ptr(), gs.data_ptr(), dec.data_ptr(),
              du_part.data_ptr(), B, S, H, N, cuda_build.stream_ptr(r.device))
     cuda_build.check(err, "rwkv6_scan_bwd")
     BWD_LAUNCHES += 1
@@ -307,6 +315,7 @@ def kernel_smem_bytes(N: int, cols: int, dtype) -> int:
 
 
 def kernel_bwd_smem_bytes(N: int) -> int:
-    """A backward block's shared memory as the CUDA source computes it
-    (for the card's checks against ``bwd_smem_bytes``)."""
+    """A block of the backward's stretch walk, shared memory as the CUDA
+    source computes it (for the card's checks against
+    ``bwd_smem_bytes``)."""
     return cuda_build.load("rwkv6_scan_bwd").rwkv6_scan_bwd_smem_bytes(N)

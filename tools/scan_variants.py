@@ -3,13 +3,19 @@
 
     python3 tools/scan_variants.py
 
-Each variant is the committed source of K7 (``csrc/mamba2_scan.cu``) or
-K8 (``csrc/rwkv6_scan.cu``) with a textual edit or another launch
+Each variant is the committed source of K7 (``csrc/mamba2_scan.cu``),
+K7's backward (``csrc/mamba2_scan_bwd.cu``) or K8
+(``csrc/rwkv6_scan.cu``) with a textual edit or another launch
 parameter.  All are built with nvcc at once into ``build/scan_variants``
 and timed at the models' prefill shapes, zamba2-2.7b (4 x 80 heads,
 S 2048, Q 128, N = P = 64, bf16) and rwkv6-3b (4 x 40 heads, S 2048,
 N 64, fp32), each held against its plain version by ``chip_smoke``'s
-gate.  Prints one JSON line a variant; exits 1 without a card.
+gate.  The backward's variants run through the package's wrapper with
+the variant's library in place of the built one, and print each
+gradient's error (dx, ddt, dA, dB, dC, dinit) of its largest magnitude
+against the plain backward on fp32 copies of the same bf16 inputs, and
+the gate's reading (``rel_err``, against the plain backward in the
+inputs' type).  Prints one JSON line a variant; exits 1 without a card.
 """
 from __future__ import annotations
 
@@ -29,6 +35,10 @@ OUT = ROOT / "build" / "scan_variants"
 ONE_ROUNDING = [  # M, B^T and s_prev rounded to bf16 once, not hi + lo
     ("  lo = pack_bf16(a - f.x, b - f.y);", "  lo = 0u;"),
     ("__float2bfloat16(s - __bfloat162float(hi));", "__float2bfloat16(0.f);")]
+# the backward's M and LG (an A operand of d dtx += M^T g, dB += LG^T C
+# and dC += LG B) rounded to bf16 once and multiplied once, not as hi + lo
+ML_ONCE = [(f"mma_split({acc}, ah, al,", f"mma_row({acc}, ah,")
+           for acc in ("dC[q]", "dd[q]", "dB[q]")]
 COLS = "constexpr int kCols = 4;"
 ROWS = "  return N < 16 ? N : 16;"
 STEPS = "constexpr int kStep = 32;"
@@ -38,6 +48,8 @@ VARIANTS = {
     "k7 8 heads a block": ("mamba2_scan", [], 8),
     "k7 16 heads a block": ("mamba2_scan", [], 16),
     "k7 one bf16 rounding": ("mamba2_scan", ONE_ROUNDING, None),
+    "k7 bwd as built": ("mamba2_scan_bwd", [], None),
+    "k7 bwd one rounding of M and LG": ("mamba2_scan_bwd", ML_ONCE, None),
     "k8 as built": ("rwkv6_scan", [], None),
     "k8 tile of 32 columns": ("rwkv6_scan", [], 32),
     "k8 16 steps a buffer": ("rwkv6_scan",
@@ -57,6 +69,8 @@ def build():
     procs = {}
     for i, (name, (src, edits, _)) in enumerate(VARIANTS.items()):
         text = (cuda_build.CSRC / f"{src}.cu").read_text()
+        inc = '#include "ssd_tc.cuh"'   # K7's shared pieces, edited in place
+        text = text.replace(inc, (cuda_build.CSRC / "ssd_tc.cuh").read_text())
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"{name}: the source has no {old!r}")
@@ -111,8 +125,34 @@ def main() -> int:
     ry, rst = rs.rwkv6_scan_plain(r[:1], k[:1], v[:1], w[:1], u[:K], s0[:1])
     y8, st8 = torch.empty_like(r), torch.empty_like(s0)
     stream = cuda_build.stream_ptr(x.device)
+    # K7's backward at zamba2's training shape, from the forward's states
+    dy = c.randn((B, S, H, P), torch.bfloat16, g)
+    dstate = c.randn((B, H, N, P), torch.float32, g, 0.3)
+    bargs = (x, dt, A, Bm, Cm, Q, ms._forward(x, dt, A, Bm, Cm, Q, None,
+                                              True)[2], dy, dstate)
+    gate = ms.mamba2_scan_backward_plain(x, dt, A, Bm, Cm, Q, None, dy,
+                                         dstate)
+    fine = ms.mamba2_scan_backward_plain(x.float(), dt, A, Bm.float(),
+                                         Cm.float(), Q, None, dy.float(),
+                                         dstate)
     for name, lib in libs.items():
         src, _, param = VARIANTS[name]
+        if src == "mamba2_scan_bwd":
+            built = cuda_build.load(src)
+            cuda_build._LIBS[src] = lib
+            try:
+                grads = ms.mamba2_scan_backward(*bargs)
+                torch.cuda.synchronize()
+                row = dict(variant=name, ms=c.device_ms(
+                    lambda: ms.mamba2_scan_backward(*bargs), reps=3,
+                    rounds=5), rel_err=c.grads_rel(grads, gate),
+                    rel_by_grad=[c.max_err(a, b) / float(b.abs().max())
+                                 for a, b in zip(grads, fine)],
+                    heads=ms.bwd_heads(x, Bm, Q))
+            finally:
+                cuda_build._LIBS[src] = built
+            print(json.dumps(row), flush=True)
+            continue
         if src == "mamba2_scan":
             fn = lib.mamba2_scan
             fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
