@@ -69,6 +69,7 @@ import json
 import math
 import os
 import re
+import runpy
 import statistics
 import subprocess
 import sys
@@ -84,7 +85,8 @@ from repro_torch.configs import (count_params, get_config,  # noqa: E402
                                  get_smoke_config)
 from repro_torch.core import tac_torch  # noqa: E402
 from repro_torch.core.hint_filter import HintFilter  # noqa: E402
-from repro_torch.kernels import cuda_build  # noqa: E402
+from repro_torch.kernels import costs, cuda_build  # noqa: E402
+from repro_torch.kernels.costs import rwkv_bwd_flops  # noqa: E402,F401
 from repro_torch.kernels.cms_sketch import cms_sketch as cms  # noqa: E402
 from repro_torch.kernels.cms_sketch import ops as cms_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import \
@@ -100,6 +102,7 @@ from repro_torch.kernels.tac_fused import tac_fused as tfk  # noqa: E402
 from repro_torch.kernels.tac_probe import tac_probe as tp  # noqa: E402
 from repro_torch.kernels.tac_probe.ops import bucket_of  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_at  # noqa: E402
+from repro_torch.launch import hw  # noqa: E402
 from repro_torch.launch.serve import (GraphedStep,  # noqa: E402
                                       ServeConfig, StatePager, _grow_kv,
                                       decode_step, run_serving, tree_flatten,
@@ -124,11 +127,12 @@ from repro_torch.streaming.recovery import (  # noqa: E402
     CheckpointCoordinator, SnapshotStore, inject_failure_at)
 from repro_torch.streaming.ysb import YSBConfig, build_ysb  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12       # fp32 outside the tensor cores; the probe's
-#                                int32 compares are counted at this rate
-BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores (dense)
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit), from
+# the port's one source of them (src/repro_torch/launch/hw.py)
+HBM_BYTES_PER_S = hw.HBM_BW
+SCALAR_OPS_PER_S = hw.PEAK_FLOPS_FP32   # fp32 outside the tensor cores;
+#                                the probe's int32 compares count at it
+BF16_OPS_PER_S = hw.PEAK_FLOPS_BF16     # bf16 on the tensor cores (dense)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # the full-run configuration of BENCH_engine.json / benchmarks/engine.py
 E2E = dict(rate=5000.0, duration=6.0, warmup=2.0, cache_entries=2048,
@@ -136,6 +140,12 @@ E2E = dict(rate=5000.0, duration=6.0, warmup=2.0, cache_entries=2048,
 # the prefetch phase's run after its 2 s warm-up: BENCH_engine.json's 6 s
 # cut to 3 s, to keep the script's time (PERF.md section 4)
 PREFETCH_DURATION = 3.0
+# the card-against-CPU comparison of q5 and q7 (``e2e``, ``prefetch``): both
+# run the same events of a shorter stream, 0.5 s of warm-up and 2 s after
+# it, which closes q7's first window (the CPU side of the full runs took
+# ~125-220 s of the script's time); the card's metrics come from its
+# full-length run
+COMPARE = dict(duration=2.0, warmup=0.5)
 # BENCH_recovery.json's q5 configuration (benchmarks/recovery.py FULL and
 # run_one: replayable source, replay x2.0), on the fused plane in the
 # paper's mode, Keyed Prefetching; its 9 s run cut to 6 s, to keep the
@@ -1131,10 +1141,9 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
         del bad
     del plain
     if timed:
-        it = q.element_size()
-        flops = 2 * S * T * (d + dv) * B * H / (2 if causal else 1)
-        b_ms, b_by = bound((B * S * H + B * T * KV) * (d + dv) * it,
-                           ops=flops, peak=peak_for(dtype))
+        flops, nbytes = costs.flash_fwd(B, S, T, H, KV, d, dv, causal,
+                                        q.element_size())
+        b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = device_ms(lambda: fa.flash_attention_kernel(q, k, v, causal),
@@ -1203,12 +1212,8 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
         del fault
     del py, pst
     if timed:
-        it = x.element_size()
-        n_chunks = -(-S // Q)
-        flops = (2 * Q * Q * N * G
-                 + (2 * Q * Q * P + 4 * Q * N * P) * H) * B * n_chunks
-        nbytes = (2 * B * S * H * P * it + B * S * H * 4 + B * H * 4
-                  + 2 * B * S * G * N * it + B * H * N * P * 4)
+        flops, nbytes = costs.mamba_fwd(B, S, H, G, N, P, Q,
+                                        x.element_size())
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: ms.mamba2_scan_kernel(*args), reps=5,
                          rounds=5)
@@ -1274,10 +1279,8 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
                                  f"pass the scan that lost a row slice's "
                                  f"part of y")
         del fault
-        it = r.element_size()
-        b_ms, b_by = bound(5 * B * S * H * N * it + B * H * N * 4
-                           + 2 * B * H * N * N * 4,
-                           ops=4.0 * N * N * B * H * S, peak=peak_for(dtype))
+        flops, nbytes = costs.rwkv_fwd(B, S, H, N, r.element_size())
+        b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: rs.rwkv6_scan_kernel(r, k, v, w, u, s0),
                          reps=5, rounds=5)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1477,10 +1480,8 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
                 raise AssertionError(f"flash_attention_bwd at {label}: the "
                                      f"source's shared memory {smem} is not "
                                      f"the plans' {plans}")
-        it = q.element_size()
-        flops = 2.5 * 2 * S * T * (d + dv) * B * H / (2 if causal else 1)
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) * it \
-            + 4 * lse.numel()
+        flops, nbytes = costs.flash_bwd(B, S, T, H, KV, d, dv, causal,
+                                        q.element_size())
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         ms = device_ms(lambda: fa.flash_attention_backward(
             q, k, v, out, lse, dout, causal), reps=3, rounds=5)
@@ -1605,12 +1606,8 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
             raise AssertionError(f"mamba2_scan_bwd at {label}: two runs "
                                  f"differ")
         del again
-        it = x.element_size()
-        nc = -(-S // Q)
-        flops = (2 * Q * Q * (2 * N + 2 * P) + 8 * Q * N * P) * B * H * nc \
-            + 2 * Q * Q * N * B * G * nc
-        nbytes = (3 * x.numel() + 4 * Bm.numel()) * it \
-            + 4 * (2 * dt.numel() + 2 * A.numel() + 3 * init.numel())
+        flops, nbytes = costs.mamba_bwd(B, S, H, G, N, P, Q,
+                                        x.element_size())
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: ms.mamba2_scan_backward(
             *args, s_prev, dy, dstate), reps=3, rounds=5)
@@ -1637,23 +1634,6 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
     return row
-
-
-def rwkv_bwd_flops(B: int, S: int, H: int, N: int,
-                   L: int = rs.SAVE_EVERY) -> int:
-    """K8's backward counted from the chunked form that the reference
-    differentiates (``models/ssm.py``: ``_rwkv6_chunked``), at chunks of
-    ``L`` steps entered from the states the forward saves.  A chunk of n
-    steps a (b, h): 8 n N^2 flops of products with an N x N matrix (S0
-    dy_t, G v_j, G^T (k_j E_j) and the chunk's r-dy^T part of the state
-    gradient), 15 N a pair of its steps (their decays 2, v_j . dy_t 2, s
-    3, the pair's parts of dr and dk 3 each and of dv 2) and 3 N^2 (the
-    state gradient's decay and the row sums of G . S0 for dw); terms of
-    O(n N) are left out.  tests/test_torch_scan_bwd.py replays this form
-    against the reference's gradient, counting the same."""
-    per = lambda n: 8 * n * N * N + 15 * n * (n - 1) // 2 * N + 3 * N * N  # noqa
-    full, last = divmod(S, L)
-    return B * H * (full * per(L) + (per(last) if last else 0))
 
 
 def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
@@ -1723,8 +1703,8 @@ def check_rwkv_bwd(B, S, H, N, label, timed=False, plain_rows=None,
             raise AssertionError(f"rwkv6_scan_bwd at {label}: two runs "
                                  f"differ")
         del again
-        nbytes = 4 * (9 * r.numel() + 2 * u.numel() + 3 * s0.numel())
-        b_ms, b_by = bound(nbytes, ops=rwkv_bwd_flops(B, S, H, N))
+        flops, nbytes = costs.rwkv_bwd(B, S, H, N, rs.SAVE_EVERY)
+        b_ms, b_by = bound(nbytes, ops=flops)
         t_ms = device_ms(lambda: rs.rwkv6_scan_backward(
             r, k, v, w, u, states, dy, dstate), reps=3, rounds=5)
         smem = rs.bwd_smem_bytes(N)
@@ -1988,7 +1968,8 @@ def on_cpu_threads(fn, *args, **kw):
 
 
 def run_query(query: str, device: str, mode: str = "async",
-              duration: float = E2E["duration"]):
+              duration: float = E2E["duration"],
+              warmup: float = E2E["warmup"]):
     c = E2E
     if query == "ysb":
         eng = build_ysb("tac", mode, YSBConfig(rate=c["rate"], seed=11),
@@ -2006,7 +1987,7 @@ def run_query(query: str, device: str, mode: str = "async",
                           buffer_timeout=0.002, fused=True,
                           fused_batch=c["batch"], device=device)
     t0 = time.perf_counter()
-    m = eng.run(duration=duration, warmup=c["warmup"])
+    m = eng.run(duration=duration, warmup=warmup)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2041,33 +2022,63 @@ def step_a_batch(label: str, counts: dict, res: dict) -> None:
                              f"{res['fused_batches']} batches")
 
 
+def card_equals_cpu(total: dict, query: str, mode: str, **run) -> dict:
+    """``query`` in ``mode`` on the card and on the CPU over the same
+    events (``run``: a duration and a warm-up); the results must be equal.
+    The card run's launches go to ``total``, the comparisons' own count,
+    apart from the phase's full runs.  Returns the comparison's facts for
+    the phase's line."""
+    (gpu, gpu_wall), counts = counted(total, f"{query} {mode} compare",
+                                      run_query, query, "cuda", mode, **run)
+    cpu, cpu_wall = on_cpu_threads(run_query, query, "cpu", mode, **run)
+    if gpu != cpu or not gpu["n_outputs"]:
+        raise AssertionError(f"{query} {mode}: cuda run {gpu} != cpu run "
+                             f"{cpu}, or no outputs")
+    step_a_batch(f"{query} {mode} compare", counts, gpu)
+    return dict(equal=True, compared=dict(run, n_outputs=gpu["n_outputs"],
+                                          fused_batches=gpu["fused_batches"],
+                                          cuda_wall_s=gpu_wall),
+                cpu_wall_s=cpu_wall)
+
+
 def e2e_phase():
+    """q5, q7 and YSB fused on the card at the e2e deployment, each held
+    equal to the CPU's run: YSB at full length, q5 and q7 over the shorter
+    stream of ``COMPARE``.  Returns the launch counts of the full runs and
+    those of the comparisons' card runs."""
     total = {k: 0 for k in launches()}
+    compare = {k: 0 for k in launches()}
     for query in ("q5", "q7", "ysb"):
         (gpu, gpu_wall), counts = counted(total, query, run_query, query,
                                           "cuda")
-        cpu, cpu_wall = on_cpu_threads(run_query, query, "cpu")
-        if gpu != cpu:
-            raise AssertionError(f"{query}: cuda run {gpu} != cpu run {cpu}")
         if not gpu["n_outputs"]:
             raise AssertionError(f"{query}: no outputs")
         step_a_batch(query, counts, gpu)
-        emit("e2e", query=query, equal=True, cuda_wall_s=gpu_wall,
-             cpu_wall_s=cpu_wall, launches=counts,
+        if query == "ysb":
+            cpu, cpu_wall = on_cpu_threads(run_query, query, "cpu")
+            if gpu != cpu:
+                raise AssertionError(f"{query}: cuda run {gpu} != cpu run "
+                                     f"{cpu}")
+            same = dict(equal=True, cpu_wall_s=cpu_wall)
+        else:
+            same = card_equals_cpu(compare, query, "async", **COMPARE)
+        emit("e2e", query=query, cuda_wall_s=gpu_wall, launches=counts,
              step_launches_per_batch=counts["tac_fused_step"]
-             / gpu["fused_batches"], **gpu)
-    return total
+             / gpu["fused_batches"], **same, **gpu)
+    return total, compare
 
 
 def prefetch_phase():
     """The paper's mode on the device plane: q5 and q7 fused at the e2e
-    deployment (a shorter run) in ``prefetch`` mode on the card and on the CPU (equal
-    results, one ``tac_fused_step`` launch a batch), and in ``sync`` mode
-    on the card.  The headline's gate (prefetch p99.9 below sync, at
+    deployment (a shorter run) in ``prefetch`` mode on the card, held equal
+    to the CPU over the shorter stream of ``COMPARE`` (one
+    ``tac_fused_step`` launch a batch), and in ``sync`` mode on the card.  The headline's gate (prefetch p99.9 below sync, at
     >= 0.98x its throughput; tests/test_system.py) is printed, not
     enforced: at this deployment both modes give the same p99.9 on q5 and
-    on q7, in the reference as in the port (PERF.md section 7)."""
+    on q7, in the reference as in the port (PERF.md section 7).  Returns
+    the launch counts of the card's runs and those of the comparisons'."""
     total = {k: 0 for k in launches()}
+    compare = {k: 0 for k in launches()}
     for query in ("q5", "q7"):
         runs = {}
         for mode in ("prefetch", "sync"):
@@ -2078,12 +2089,8 @@ def prefetch_phase():
             line = dict(query=query, mode=mode, cuda_wall_s=wall,
                         launches=counts)
             if mode == "prefetch":
-                cpu, cpu_wall = on_cpu_threads(run_query, query, "cpu", mode,
-                                               PREFETCH_DURATION)
-                if cpu != runs[mode]:
-                    raise AssertionError(f"{query} prefetch: cuda run "
-                                         f"{runs[mode]} != cpu run {cpu}")
-                line.update(equal=True, cpu_wall_s=cpu_wall)
+                line.update(card_equals_cpu(compare, query, mode,
+                                            **COMPARE))
             r = runs[mode]
             emit("prefetch", **line, n_outputs=r["n_outputs"], p50=r["p50"],
                  p99=r["p99"], p999=r["p999"], throughput=r["throughput"],
@@ -2095,7 +2102,7 @@ def prefetch_phase():
              throughput_ratio=kp["throughput"] / sync["throughput"],
              hit_rate_prefetch=kp["stateful_hit_rate"],
              hit_rate_sync=sync["stateful_hit_rate"])
-    return total
+    return total, compare
 
 
 # ------------------------------------------------- checkpoints and recovery
@@ -3649,6 +3656,207 @@ def train_phase():
     return paths
 
 
+# ------------------------------------------- the launch and analysis slice
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+# serve_lm_torch: its defaults (gemma-7b, every mode), then zamba2-2.7b and
+# rwkv6-3b in prefetch mode for K7 and K8
+SERVE_LM_RUNS = ([], ["--arch", "zamba2-2.7b", "--modes", "prefetch"],
+                 ["--arch", "rwkv6-3b", "--modes", "prefetch"])
+SERVE_EXAMPLE_KERNELS = ("tac_probe", "page_gather", "page_scatter",
+                         "flash_attention", "mamba2_scan", "rwkv6_scan")
+
+
+def run_example(name: str, args) -> str:
+    """``examples/<name>`` run as a script with ``args``; its stdout."""
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = [str(EXAMPLES / name)] + list(args)
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(EXAMPLES / name), run_name="__main__")
+    finally:
+        sys.argv = argv
+    return out.getvalue()
+
+
+def serve_examples_phase():
+    """The serving examples at their default sizes on the card:
+    ``serve_stream_torch.py`` prints what its ``--device cpu`` run prints,
+    and ``serve_lm_torch.py`` (``launch/serve.py``'s ``main``) launches
+    K1-K3 and K6-K8.  Returns the launch counts of both."""
+    total = {k: 0 for k in launches()}
+    t0 = time.perf_counter()
+    reset_launches()
+    stream = {dev: run_example("serve_stream_torch.py", ["--device", dev])
+              for dev in ("cuda", "cpu")}
+    counts = launches()
+    if stream["cuda"] != stream["cpu"] or "ttft" not in stream["cuda"]:
+        raise AssertionError(f"serve_stream_torch: the card printed "
+                             f"{stream['cuda'][-400:]!r}, the CPU "
+                             f"{stream['cpu'][-400:]!r}")
+    for k in total:
+        total[k] += counts[k]
+    emit("serve_examples", example="examples/serve_stream_torch.py",
+         equal_to_cpu=True, summary=stream["cuda"].strip().splitlines()[-1],
+         launches=counts, wall_s=time.perf_counter() - t0)
+    for args in SERVE_LM_RUNS:
+        reset_launches()
+        t1 = time.perf_counter()
+        printed = run_example("serve_lm_torch.py", args)
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        emit("serve_examples", example="examples/serve_lm_torch.py",
+             args=args, printed=printed.strip().splitlines(),
+             launches=counts, wall_s=time.perf_counter() - t1)
+    if min(total[k] for k in SERVE_EXAMPLE_KERNELS) == 0:
+        raise AssertionError(f"serve examples: a kernel never launched: "
+                             f"{total}")
+    emit("serve_examples_total", launches=total,
+         wall_s=time.perf_counter() - t0)
+    return total
+
+
+# the mesh phase: gemma-7b at its published width, 2 of its 28 layers, 3
+# AdamW steps of 2 microbatches of 2 x 1024 tokens, without a mesh and on
+# a 1 x 1 DeviceMesh of one NCCL rank
+MESH_TRAIN = dict(arch="gemma-7b", layers=2, batch=4, seq=1024, n_micro=2,
+                  steps=3, lr=3e-4, warmup=5, seed=0)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_steps(mesh=None, c=MESH_TRAIN):
+    """``c``'s steps through ``build_training`` (with ``mesh``, placed on
+    it); (losses, step ms, final params)."""
+    state, step_fn, _model, _cfg = build_training(
+        c["arch"], smoke=False, batch=c["batch"], seq=c["seq"],
+        n_micro=c["n_micro"], lr=c["lr"], seed=c["seed"], device="cuda",
+        warmup=c["warmup"], mesh=mesh, num_layers=c["layers"],
+        remat="block")
+    losses, step_ms = [], []
+    for step in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, step)
+        loss = met["loss"]
+        losses.append(float(loss.full_tensor() if hasattr(
+            loss, "full_tensor") else loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, state[0]
+
+
+def mesh_phase():
+    """The port on a DeviceMesh: a one-rank NCCL group and a 1 x 1
+    ``("data", "model")`` mesh.  gemma-7b's steps with parameters and
+    moments as DTensors placed by ``policy_for(cfg, "train")`` and the
+    gradients pinned by ``grad_shardings`` give the losses of the same
+    steps without a mesh, bit for bit (on 1 x 1 the local ops are the same
+    ops); K6's forward and backward launch under ``local_map``;
+    ``int8_allreduce`` on the group equals quantise-dequantise;
+    ``reshard_params`` from (1, 1) to (1,) keeps every leaf.  Returns the
+    launch counts of the meshed steps."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.compression import (dequantize_int8,
+                                                 int8_allreduce,
+                                                 quantize_int8)
+    from repro_torch.runtime.elastic import reshard_params
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        plain, plain_ms, _ = mesh_steps()
+        torch.cuda.empty_cache()
+        reset_launches()
+        meshed, mesh_ms, params = mesh_steps(mesh)
+        counts = launches()
+        leaves = tree_flatten(params)[0]
+        if not all(isinstance(t, DTensor) for t in leaves):
+            raise AssertionError("mesh: a parameter is no DTensor")
+        if meshed != plain or counts["flash_attention"] == 0 \
+                or counts["flash_attention_bwd"] == 0:
+            raise AssertionError(f"mesh: losses {meshed} against {plain} "
+                                 f"without a mesh, launches {counts}")
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(4096, generator=g, device="cuda")
+        reduced = int8_allreduce(x)
+        int8_ok = torch.equal(reduced, dequantize_int8(*quantize_int8(x)))
+        on1 = reshard_params(params, make_mesh((1,), ("data",)))
+        reshard_ok = all(torch.equal(a.full_tensor(), b.full_tensor())
+                         for a, b in zip(leaves, tree_flatten(on1)[0]))
+        if not (int8_ok and reshard_ok):
+            raise AssertionError(f"mesh: int8_allreduce {int8_ok}, "
+                                 f"reshard_params {reshard_ok}")
+        row = dict(arch=MESH_TRAIN["arch"], layers=MESH_TRAIN["layers"],
+                   mesh=[1, 1], axes=["data", "model"], backend="nccl",
+                   losses=meshed, losses_without_mesh=plain, equal=True,
+                   step_ms=statistics.median(mesh_ms[1:]),
+                   step_ms_without_mesh=statistics.median(plain_ms[1:]),
+                   step_ms_all=mesh_ms, step_ms_all_without_mesh=plain_ms,
+                   flash_attention_launches=counts["flash_attention"],
+                   flash_attention_bwd_launches=counts[
+                       "flash_attention_bwd"],
+                   int8_allreduce_equal=True, reshard_equal=True,
+                   n_params=len(leaves), launches=counts)
+        del params, on1, leaves
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    emit("mesh", **row)
+    return counts
+
+
+DRYRUN_CELLS = (("gemma-7b", "train_4k", "single"),
+                ("deepseek-v2-236b", "decode_32k", "multi"))
+
+
+def dryrun_phase():
+    """``python -m repro_torch.launch.dryrun`` for each cell of
+    ``DRYRUN_CELLS``, each in a process of its own (its fake process group
+    must not meet this process's), all at once; each record must be
+    ``ok``.  An analysis on meta tensors with the H100's figures: it runs
+    nothing on the card."""
+    import tempfile
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        procs = [(cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)) for cell in DRYRUN_CELLS]
+        for cell, proc in procs:
+            try:
+                _stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            path = Path(out) / f"{'__'.join(cell)}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            if proc.returncode or not rec.get("ok"):
+                raise AssertionError(f"dryrun {cell}: exit {proc.returncode}"
+                                     f", {rec.get('error')}, "
+                                     f"{stderr[-2000:]}")
+            r, mem = rec["roofline"], rec["memory"]
+            emit("dryrun", arch=cell[0], shape=cell[1], mesh=cell[2],
+                 dominant=r["dominant"],
+                 roofline_fraction=r["roofline_fraction"],
+                 live_gib=mem["live_bytes"] / 2 ** 30,
+                 wall_s=rec["wall_s"], record=rec)
+    emit("dryrun_total", wall_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3675,8 +3883,8 @@ def main() -> int:
     rows, e = train_kernel_phase()
     main_rows.update(rows)
     errs.update(e)
-    paths = {"e2e": e2e_phase()}
-    paths["prefetch"] = prefetch_phase()
+    paths = dict(zip(("e2e", "e2e_compare"), e2e_phase()))
+    paths.update(zip(("prefetch", "prefetch_compare"), prefetch_phase()))
     paths["recovery"] = recovery_phase()
     for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
         plane_phase(slots)
@@ -3687,6 +3895,9 @@ def main() -> int:
     paths["models"] = models_phase()
     paths["serve_lm"] = serve_lm_phase()
     paths.update(train_phase())
+    paths["serve_examples"] = serve_examples_phase()
+    paths["mesh"] = mesh_phase()
+    dryrun_phase()
     names = {"tac_probe": ("tac_probe.cu",
                            "src/repro/kernels/tac_probe/tac_probe.py:36"),
              "page_gather": ("page_gather.cu",

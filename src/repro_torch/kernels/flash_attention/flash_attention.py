@@ -23,6 +23,13 @@ same kernel, which also writes each row's log-sum-exp, and its backward
 launches ``flash_attention_backward`` (D = rowsum(dO o), then dK/dV and
 dQ).  On the CPU autograd differentiates the plain version, which is also
 the plain backward (``flash_attention_backward_plain``).
+
+Given DTensors (under a mesh), the wrapper runs on the local shards
+(``kernels/sharded.py``): batch and heads may be split over the mesh, the
+sequence and the head dim stay whole; the KV heads must split as the
+query heads do.  Given meta tensors, the forward and the backward return
+empty outputs of the right shapes and book their cost
+(``kernels/costs.py``) instead of running.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import costs, cuda_build, sharded
 
 # launches of the CUDA kernel (not of the plain version) since the last
 # reset, and of the backward (its three kernels, once a call)
@@ -152,7 +159,7 @@ def wgmma_plan(d: int, dv: int, dq: bool) -> BwdPlan:
 def _check(q, k, v) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: all tensors must be on one device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or k.shape[:3] != v.shape[:3] or k.shape[0] != q.shape[0] \
@@ -165,12 +172,33 @@ def _check(q, k, v) -> None:
 def flash_attention_kernel(q, k, v, causal: bool = True):
     """q [B, S, H, d]; k/v [B, T, KV, d*].  Returns [B, S, H, dv] in q's
     type, differentiable (through ``FlashAttention`` on the card)."""
+    if sharded.any_dtensor(q, k, v):
+        return _on_mesh(q, k, v, causal)
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal)
     return _forward(q, k, v, causal, False)[0]
+
+
+def _on_mesh(q, k, v, causal: bool):
+    """The kernel on each shard: batch and heads split, or replicated."""
+    mesh = sharded.mesh_of(q, k, v)
+    lay = sharded.layout("flash_attention", q, mesh,
+                         {0: "batch", 2: "heads"})
+    q, k, v = (sharded.placed("flash_attention", t, mesh, lay,
+                              sharded.SAME4) for t in (q, k, v))
+    return sharded.run(
+        lambda a, b, c: flash_attention_kernel(
+            a.contiguous(), b.contiguous(), c.contiguous(), causal),
+        mesh, (q, k, v), lay, [sharded.SAME4])
+
+
+def _cost(q, k, v, causal: bool, fn=costs.flash_fwd):
+    B, S, H, d = q.shape
+    return fn(B, S, k.shape[1], H, k.shape[2], d, v.shape[3], causal,
+              q.element_size())
 
 
 def _cuda_limits(q, k, v) -> None:
@@ -186,7 +214,7 @@ def _cuda_limits(q, k, v) -> None:
         raise ValueError("flash_attention: tensors must be contiguous")
     if k.shape[1] == 0:
         raise ValueError("flash_attention: no keys")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: tensors must be 16-byte aligned")
 
 
@@ -200,6 +228,9 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
     if out.numel() == 0:
+        return out, lse
+    if q.device.type == "meta":
+        costs.book("flash_attention", _cost(q, k, v, causal))
         return out, lse
     fn = cuda_build.load("flash_attention").flash_attention
     if fn.argtypes is None:
@@ -255,6 +286,10 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
            or not t.is_contiguous() for t in (out, dout)):
         raise ValueError("flash_attention_backward: out and dout "
                          "[B, S, H, dv], contiguous, in q's type expected")
+    if q.device.type == "meta":
+        costs.book("flash_attention_bwd",
+                   _cost(q, k, v, causal, costs.flash_bwd))
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if delta.numel():
         fn = cuda_build.load("flash_attention_bwd").flash_attention_bwd_delta

@@ -28,6 +28,13 @@ the state gradients at the chunk boundaries, then each chunk's
 gradients; in bf16 on the tensor cores with a tile of heads a block,
 ``bwd_plan``).  On the CPU autograd differentiates the plain version, which
 is also the plain backward (``mamba2_scan_backward_plain``).
+
+Given DTensors (under a mesh), the wrapper runs on the local shards
+(``kernels/sharded.py``): batch and heads may be split over the mesh,
+the sequence and the state dims stay whole; the groups of Bm/Cm split as
+the heads do, or stay whole when there is one group.  Given meta tensors,
+the forward and the backward return empty outputs of the right shapes
+and book their cost (``kernels/costs.py``) instead of running.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import costs, cuda_build, sharded
 
 # launches of the CUDA kernel (not of the plain version) since the last
 # reset, and of the backward (its kernels, once a call)
@@ -241,7 +248,7 @@ def _check(x, dt, A, Bm, Cm, Q: int, init) -> None:
     tensors = [x, dt, A, Bm, Cm] + ([] if init is None else [init])
     if any(t.device != x.device for t in tensors):
         raise ValueError("mamba2_scan: all tensors must be on one device")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"mamba2_scan: no kernel for device {x.device}")
     B_, S, H, P = x.shape if x.dim() == 4 else (0, 0, 0, 0)
     if x.dim() != 4 or dt.shape != (B_, S, H) or A.shape != (B_ * H,) \
@@ -301,6 +308,8 @@ def kernel_limits(x, Bm, Cm, Q: int) -> None:
 def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     """Returns (y [B, S, H, P] in x's type, final state [B, H, N, P]
     fp32), differentiable (through ``Mamba2Scan`` on the card)."""
+    if sharded.any_dtensor(x, dt, A, Bm, Cm, init):
+        return _on_mesh(x, dt, A, Bm, Cm, Q, init)
     _check(x, dt, A, Bm, Cm, Q, init)
     if x.device.type == "cpu":
         return mamba2_scan_plain(x, dt, A, Bm, Cm, Q, init)
@@ -313,6 +322,27 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
             for t in (x, dt, A, Bm, Cm, init)):
         return Mamba2Scan.apply(x, dt, A, Bm, Cm, Q, init)
     return _forward(x, dt, A, Bm, Cm, Q, init, False)[:2]
+
+
+def _on_mesh(x, dt, A, Bm, Cm, Q: int, init):
+    """The kernel on each shard: batch and heads split, or replicated; A
+    [B * H] is taken as [B, H]."""
+    mesh = sharded.mesh_of(x, dt, A, Bm, Cm, init)
+    lay = sharded.layout("mamba2_scan", x, mesh, {0: "batch", 2: "heads"})
+    B_, _S, H, _P = x.shape
+    groups = {0: 0, 2: 2 if Bm.shape[2] > 1 else None}
+    A2 = sharded.as_dtensor(A, mesh).reshape(B_, H)
+    args = tuple(sharded.placed("mamba2_scan", t, mesh, lay, dims)
+                 for t, dims in ((x, sharded.SAME4), (dt, sharded.SAME4),
+                                 (A2, {0: 0, 2: 1}), (Bm, groups),
+                                 (Cm, groups), (init, sharded.BH)))
+
+    def local(x, dt, A2, Bm, Cm, init):
+        return mamba2_scan_kernel(
+            x.contiguous(), dt.contiguous(), A2.reshape(-1),
+            Bm.contiguous(), Cm.contiguous(), Q,
+            None if init is None else init.contiguous())
+    return sharded.run(local, mesh, args, lay, [sharded.SAME4, sharded.BH])
 
 
 def _forward(x, dt, A, Bm, Cm, Q: int, init, with_states: bool):
@@ -329,6 +359,11 @@ def _forward(x, dt, A, Bm, Cm, Q: int, init, with_states: bool):
     state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
     bf16 = x.dtype == torch.bfloat16
     nc = -(-S // Q)
+    if x.device.type == "meta":
+        costs.book("mamba2_scan", costs.mamba_fwd(B_, S, H, G, N, P, Q,
+                                                  x.element_size()))
+        return y, state, torch.empty((B_, nc, H, N, P), dtype=torch.float32,
+                                     device="meta") if with_states else None
     heads, scratch = 0, (None, None, None)
     if bf16:
         pl = plan(B_, S, H, G, N, P, Q, *card_slots(Q, N, P, x.device))
@@ -453,6 +488,14 @@ def mamba2_scan_backward(x, dt, A, Bm, Cm, Q: int, s_prev, dy, dstate=None):
     ``s_prev``: the backward's kernels, counted once."""
     global BWD_LAUNCHES
     _bwd_check(x, dt, A, Bm, Cm, Q, dy, dstate)
+    if x.device.type == "meta":
+        B_, S, H, P = x.shape
+        G, N = Bm.shape[2], Bm.shape[3]
+        costs.book("mamba2_scan_bwd", costs.mamba_bwd(B_, S, H, G, N, P, Q,
+                                                      x.element_size()))
+        return (*(torch.empty_like(t) for t in (x, dt, A, Bm, Cm)),
+                torch.empty((B_, H, N, P), dtype=torch.float32,
+                            device="meta"))
     heads = bwd_heads(x, Bm, Q)
     ds, dinit = backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
     grads = backward_from_dstates(x, dt, A, Bm, Cm, Q, s_prev, dy, ds, heads)

@@ -26,6 +26,13 @@ one's own part of the state gradient, a pass over them, then all of them
 at once), fp32 only.  On the CPU autograd differentiates
 the plain version, which is also the plain backward
 (``rwkv6_scan_backward_plain``).
+
+Given DTensors (under a mesh), the wrapper runs on the local shards
+(``kernels/sharded.py``): batch and heads may be split over the mesh, the
+sequence and the head dim stay whole.  Given meta tensors, the forward
+and the backward return empty outputs of the right shapes and book their
+cost (``kernels/costs.py``) instead of running, the plain version's step
+loop included.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import costs, cuda_build, sharded
 
 # launches of the CUDA kernel (not of the plain version) since the last
 # reset, and of the backward (its four kernels, once a call)
@@ -145,7 +152,7 @@ def _check(r, k, v, w, u, init) -> None:
     tensors = [r, k, v, w, u] + ([] if init is None else [init])
     if any(t.device != r.device for t in tensors):
         raise ValueError("rwkv6_scan: all tensors must be on one device")
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
     B, S, H, N = r.shape if r.dim() == 4 else (0, 0, 0, 0)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)) \
@@ -190,6 +197,8 @@ def kernel_limits(r, k, v, w) -> None:
 def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     """Returns (y [B, S, H, N] in r's type, final state [B, H, N, N]
     fp32), differentiable (through ``RWKV6Scan`` on the card, in fp32)."""
+    if sharded.any_dtensor(r, k, v, w, u, init):
+        return _on_mesh(r, k, v, w, u, init)
     _check(r, k, v, w, u, init)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, init)
@@ -206,6 +215,26 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     return _forward(r, k, v, w, u, init, False)[:2]
 
 
+def _on_mesh(r, k, v, w, u, init):
+    """The kernel on each shard: batch and heads split, or replicated; u
+    [B * H, N] is taken as [B, H, N]."""
+    mesh = sharded.mesh_of(r, k, v, w, u, init)
+    lay = sharded.layout("rwkv6_scan", r, mesh, {0: "batch", 2: "heads"})
+    B, _S, H, N = r.shape
+    u3 = sharded.as_dtensor(u, mesh).reshape(B, H, N)
+    args = tuple(sharded.placed("rwkv6_scan", t, mesh, lay, dims)
+                 for t, dims in ((r, sharded.SAME4), (k, sharded.SAME4),
+                                 (v, sharded.SAME4), (w, sharded.SAME4),
+                                 (u3, sharded.BH), (init, sharded.BH)))
+
+    def local(r, k, v, w, u3, init):
+        return rwkv6_scan_kernel(
+            r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+            u3.reshape(-1, u3.shape[-1]),
+            None if init is None else init.contiguous())
+    return sharded.run(local, mesh, args, lay, [sharded.SAME4, sharded.BH])
+
+
 def _forward(r, k, v, w, u, init, with_states: bool):
     """The kernel's (y, final state, the saved states [B,
     saved_states(S), H, N, N] fp32 or None); u and init fp32."""
@@ -219,6 +248,10 @@ def _forward(r, k, v, w, u, init, with_states: bool):
     states = torch.empty((B, saved_states(S), H, N, N), dtype=torch.float32,
                          device=r.device) if with_states else None
     if B * H == 0:
+        return y, state, states
+    if r.device.type == "meta":
+        costs.book("rwkv6_scan", costs.rwkv_fwd(B, S, H, N,
+                                                r.element_size()))
         return y, state, states
     sms = torch.cuda.get_device_properties(r.device).multi_processor_count
     fn = cuda_build.load("rwkv6_scan").rwkv6_scan
@@ -258,6 +291,9 @@ def rwkv6_scan_backward(r, k, v, w, u, states, dy, dstate=None):
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((B * H, N), dtype=torch.float32, device=r.device)
     dinit = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        costs.book("rwkv6_scan_bwd", costs.rwkv_bwd(B, S, H, N, SAVE_EVERY))
+        return dr, dk, dv, dw, du, dinit
     ns = saved_states(S)
     gs = torch.empty((B, ns, H, N, N), dtype=torch.float32, device=r.device)
     dec, du_part = (torch.empty((B, ns, H, N), dtype=torch.float32,

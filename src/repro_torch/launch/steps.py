@@ -3,9 +3,12 @@ train step (gradient accumulation over microbatches, then AdamW) and the
 serving steps.
 
 The reference jits these with explicit shardings; the port runs them
-eagerly on one device.  On the card every kernel of the step is the
-port's or a library's matrix product: attention's forward and backward
-are the hand-written K6 (``kernels/flash_attention``).
+eagerly, on one device or, under a mesh (``launch/sharding.py``:
+``axis_rules``), on DTensors placed by ``launch/specs.py``, where
+``grad_shardings`` pins the gradients to the parameters' layout.  On the
+card every kernel of the step is the port's or a library's matrix product:
+attention's forward and backward are the hand-written K6
+(``kernels/flash_attention``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.launch.serve import tree_flatten, tree_unflatten
+from repro_torch.launch.sharding import redistribute
+from repro_torch.launch.specs import tree_map2
 from repro_torch.models.lm import Model
 from repro_torch.optim import adamw
 
@@ -44,6 +49,12 @@ def loss_and_grads(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
     return loss.detach(), tree_unflatten(treedef, grads)
 
 
+def accumulate(acc_leaves, grads) -> None:
+    """Add a microbatch's gradients to the fp32 accumulator's leaves."""
+    for a, x in zip(acc_leaves, adamw.tree_leaves(grads)):
+        a.add_(x.float())
+
+
 def make_train_step(model: Model, acfg: adamw.AdamWConfig,
                     n_micro: int = 1,
                     grad_transform: Optional[Callable] = None,
@@ -52,25 +63,33 @@ def make_train_step(model: Model, acfg: adamw.AdamWConfig,
 
     With n_micro > 1 the global batch is split along dim 0 and gradients
     are accumulated in fp32 over the microbatches, one autograd pass each.
-    ``grad_transform`` hooks gradient compression.  ``grad_shardings`` is
-    accepted for the reference's signature and ignored: on one device there
-    is no layout to pin the accumulator to.  The update is in place
-    (``optim/adamw.py``)."""
+    ``grad_transform`` hooks gradient compression.  ``grad_shardings`` (a
+    tree of ``NamedSharding`` matching params) pins the gradients and the
+    fp32 accumulator to the parameter layout, as the reference's
+    ``_constrain`` does: each microbatch's gradients are redistributed to
+    it before they are added (a reduce-scatter where the parameter is
+    sharded); ``None`` leaves them as autograd gives them.  The update is
+    in place (``optim/adamw.py``)."""
+
+    def _constrain(tree):
+        if grad_shardings is None:
+            return tree
+        return tree_map2(redistribute, tree, grad_shardings)
 
     def train_step(params, opt_state, batch):
         if n_micro <= 1:
             loss, grads = loss_and_grads(model, params, batch)
+            grads = _constrain(grads)
         else:
             mb = microbatch_reshape(batch, n_micro)
-            gacc = adamw.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gacc = _constrain(adamw.tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params))
             acc_leaves = adamw.tree_leaves(gacc)
             lsum = None
             for i in range(n_micro):
                 li, g = loss_and_grads(model, params,
                                        {k: v[i] for k, v in mb.items()})
-                for a, x in zip(acc_leaves, adamw.tree_leaves(g)):
-                    a.add_(x.float())
+                accumulate(acc_leaves, _constrain(g))
                 lsum = li if lsum is None else lsum + li
             grads = adamw.tree_map(lambda g: g / n_micro, gacc)
             loss = lsum / n_micro

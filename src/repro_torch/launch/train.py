@@ -1,6 +1,8 @@
 """Training launcher, in PyTorch: the port of ``repro/launch/train.py``:
 data pipeline -> model -> AdamW, with checkpointing, fault-tolerant
-supervision and optional gradient compression, on one device.
+supervision and optional gradient compression, on one device or, given a
+``DeviceMesh`` (``build_training(..., mesh=)``), with parameters,
+moments and batches as DTensors placed by ``launch/specs.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 20
@@ -14,6 +16,7 @@ other.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
 import time
@@ -23,6 +26,12 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.launch.sharding import (NamedSharding, axis_rules,
+                                         default_rules, mesh_sizes, on_mesh,
+                                         placements)
+from repro_torch.launch.specs import (batch_pspec, opt_pspec_tree,
+                                      param_pspec_tree, policy_for,
+                                      tree_map2)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import build_model, stack_layers
 from repro_torch.optim import adamw
@@ -31,16 +40,39 @@ from repro_torch.runtime.supervisor import (SupervisorConfig, TrainSupervisor,
                                             inject_failure_at)
 
 
+def place_training(cfg, mesh, params, opt_state):
+    """The training state on ``mesh`` as the launcher places it: params
+    and moments as DTensors by ``policy_for(cfg, "train")``'s specs (the
+    launcher's rules, less the axes the mesh lacks).  Returns (params,
+    opt_state, grad_shardings, rules)."""
+    from torch.distributed.tensor import distribute_tensor
+    rules = on_mesh(default_rules("pod" in mesh_sizes(mesh)), mesh)
+    policy = policy_for(cfg, "train")
+    pspec = param_pspec_tree(params, mesh, rules, policy)
+    ospec = opt_pspec_tree(params, mesh, rules, policy)
+
+    def put(spec, t):
+        return distribute_tensor(t, mesh, placements(spec, mesh))
+    opt_state = adamw.AdamWState(step=opt_state.step,
+                                 mu=tree_map2(put, ospec, opt_state.mu),
+                                 nu=tree_map2(put, ospec, opt_state.nu))
+    grad_sh = tree_map2(lambda s, _t: NamedSharding(mesh, s), pspec, params)
+    return tree_map2(put, pspec, params), opt_state, grad_sh, rules
+
+
 def build_training(arch: str, smoke: bool, batch: int, seq: int,
                    n_micro: int = 1, compress: bool = False,
                    lr: float = 1e-3, seed: int = 0, device="cuda",
-                   warmup: int = 10, **overrides):
+                   warmup: int = 10, mesh=None, **overrides):
     """(state, step_fn, model, cfg) as the reference builds them: state is
     (params, opt_state), params in the reference's layout drawn from a
     generator seeded with ``seed`` on ``device``, and ``step_fn(state,
     step)`` trains on ``batch_at(step)``.  ``warmup`` is the schedule's
     warm-up (the reference's 10); ``overrides`` replace config fields
-    (``num_layers``, ``remat``, ``dtype``)."""
+    (``num_layers``, ``remat``, ``dtype``).  With a ``mesh`` the state and
+    each batch are placed on it (``place_training``, ``batch_pspec``), the
+    gradients are pinned to the parameters' layout, and each step runs
+    under the launcher's axis rules."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
@@ -69,13 +101,27 @@ def build_training(arch: str, smoke: bool, batch: int, seq: int,
     else:
         grad_transform = None
 
+    grad_sh = rules = None
+    if mesh is not None:
+        params, opt_state, grad_sh, rules = place_training(cfg, mesh, params,
+                                                           opt_state)
     step_fn_raw = make_train_step(model, acfg, n_micro=n_micro,
-                                  grad_transform=grad_transform)
+                                  grad_transform=grad_transform,
+                                  grad_shardings=grad_sh)
 
     def step_fn(state, step):
         params, opt_state = state
         b = batch_at(dcfg, step, device)
-        params, opt_state, metrics = step_fn_raw(params, opt_state, b)
+        if mesh is None:
+            ctx = contextlib.nullcontext()
+        else:
+            from torch.distributed.tensor import distribute_tensor
+            bspec = batch_pspec(b, mesh, rules)
+            b = {k: distribute_tensor(v, mesh, placements(bspec[k], mesh))
+                 for k, v in b.items()}
+            ctx = axis_rules(mesh, rules)
+        with ctx:
+            params, opt_state, metrics = step_fn_raw(params, opt_state, b)
         return (params, opt_state), metrics
 
     return (params, opt_state), step_fn, model, cfg

@@ -19,10 +19,13 @@ Conventions, as in the reference
   forward.
 * ``bf16_grad`` is the reference's bf16 gradient boundary: the identity,
   whose cotangent is rounded to bf16.
-* The reference's sharding annotations (``constraint``) and its MoE
-  ``expert_scheme`` branches (the same function under other shardings)
-  return their input on one device; the port leaves them out until a mesh
-  needs them.
+* The reference's sharding annotations (``constraint``, from
+  ``launch/sharding.py``) sit at its sites, as do its MoE
+  ``expert_scheme`` branches (the same function under other shardings).
+  Without a mesh each returns its input, the very tensor, so one device
+  computes what it did without them, bit for bit; under a mesh
+  (``axis_rules``) the tensors are DTensors and each annotation
+  redistributes to the placements its logical axes resolve to.
 * MLA's prefill decompresses K/V and runs the kernel at ``(nope + rope,
   v_head)``; its absorbed decode and the MoE dispatch and combine are plain
   torch, as the reference's are plain jnp.
@@ -38,6 +41,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_kernel
+from repro_torch.launch.sharding import (as_dtensor, constraint, gathered,
+                                         is_dtensor, reshaped, settled)
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -80,6 +85,7 @@ def act_fn(name: str):
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           out_dtype=None) -> torch.Tensor:
+    w = gathered(w)
     ct = torch.promote_types(x.dtype, w.dtype)
     if x.device.type == "cpu":
         # the product accumulated in fp32 and rounded once, as XLA and
@@ -87,10 +93,50 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         y = torch.matmul(x.float(), w.float()).to(ct)
     else:
         y = torch.matmul(x.to(ct), w.to(ct))
+    y = settled(y)
     out = out_dtype or x.dtype
     if b is not None:
         y = y.to(out) + b
     return y.to(out)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  Under a mesh that splits the
+    vocabulary (the table's dim 0), each shard looks up the tokens in its
+    own rows, zeros for the others, and the result is a pending sum over
+    the vocabulary's mesh dims (its gradient lands in each shard's rows);
+    a constraint settles it."""
+    if not is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    table = gathered(table)
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements)
+             if p.is_shard() and p.dim == 0]
+    if not vocab:
+        return F.embedding(tokens.long(), table)
+    tokens = as_dtensor(tokens, mesh)
+    if any(tokens.placements[i] != Replicate() for i in vocab):
+        raise ValueError("embed_lookup: the tokens are split over a mesh "
+                         "dim that splits the vocabulary")
+
+    def local(tab, tok):
+        rows, start = tab.shape[0], 0
+        for i in vocab:
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        idx = tok.long() - start * rows
+        ok = (idx >= 0) & (idx < rows)
+        out = F.embedding(torch.where(ok, idx, 0), tab)
+        return out * ok[..., None].to(out.dtype)
+
+    out = [Partial() if i in vocab else
+           (Shard(p.dim) if p.is_shard() else Replicate())
+           for i, p in enumerate(tokens.placements)]
+    return local_map(local, out_placements=out,
+                     in_placements=(tuple(table.placements),
+                                    tuple(tokens.placements)),
+                     device_mesh=mesh)(table, tokens)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
@@ -126,8 +172,21 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash-style attention.  q [B,S,H,dk]; k [B,T,KV,dk]; v [B,T,KV,dv];
     H = KV*G.  Returns [B,S,H,dv] in q's type.  The kernel tiles by itself
     and bounds-checks ragged S and T; the causal mask starts at position 0
-    (the reference's ``q_offset=0``, which every caller passes)."""
+    (the reference's ``q_offset=0``, which every caller passes).  Under a
+    mesh whose model axis splits the query heads but not the KV heads,
+    the KV heads are repeated to one a query head first (the reference's
+    wrapper repeats them too), so that each shard holds its heads' keys."""
+    if is_dtensor(q) and _heads_split(q) != _heads_split(k):
+        G = q.shape[2] // k.shape[2]
+        k, v = (constraint(t.repeat_interleave(G, dim=2), "batch", "seq",
+                           "heads", None) for t in (k, v))
     return flash_attention_kernel(q, k, v, causal)
+
+
+def _heads_split(t) -> tuple:
+    """The mesh dims that split dim 2 (heads) of DTensor ``t``."""
+    return tuple(i for i, p in enumerate(t.placements)
+                 if p.is_shard() and p.dim == 2)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -136,17 +195,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token attention.  q [B,1,H,dk]; caches [B,T,KV,d*].  The cache
     is read-only (positions < pos, or <= pos when k_new is None) and the
-    new token's (k_new, v_new) [B,1,KV,d*] is merged via online softmax."""
+    new token's (k_new, v_new) [B,1,KV,d*] is merged via online softmax.
+    Under a mesh it runs on the local shards (``_decode_on_mesh``)."""
+    if is_dtensor(q) or is_dtensor(k_cache):
+        return _decode_on_mesh(q, k_cache, v_cache, pos, k_new, v_new)
+    return _decode_local(q, k_cache, v_cache, pos, k_new, v_new)
+
+
+def _decode_stats(q, k_cache, limit: int, start: int = 0):
+    """(q as [B,KV,G,dk], the scaled scores [B,KV,G,T] with the cache
+    positions start + t >= limit masked); q [B,1,H,dk], G = H / KV."""
     B, _, H, dk = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
-    G = H // KV
+    qh = q.reshape(B, KV, H // KV, dk)
+    s = matmul_f32(qh, k_cache, "bhgd,bkhd->bhgk") * (1.0 / math.sqrt(dk))
+    valid = (torch.arange(start, start + T, device=q.device)
+             < limit)[None, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    return qh, s
+
+
+def _decode_local(q, k_cache, v_cache, pos, k_new=None, v_new=None):
+    B, _, H, dk = q.shape
+    KV = k_cache.shape[2]
     dv = v_cache.shape[-1]
     scale = 1.0 / math.sqrt(dk)
-    qh = q.reshape(B, KV, G, dk)
-    s = matmul_f32(qh, k_cache, "bhgd,bkhd->bhgk") * scale
     limit = int(pos) if k_new is not None else int(pos) + 1
-    valid = (torch.arange(T, device=q.device) < limit)[None, None, None, :]
-    s = torch.where(valid, s, NEG_INF)
+    qh, s = _decode_stats(q, k_cache, limit)
     m = s.amax(dim=-1)                                      # [B,KV,G]
     if k_new is not None:
         s_self = matmul_f32(qh, k_new, "bhgd,bxhd->bhg") * scale
@@ -160,6 +235,72 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         o = o + p_self[..., None] * v_new.reshape(B, KV, 1, dv).float()
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, 1, H, dv).to(q.dtype)
+
+
+def _decode_on_mesh(q, k_cache, v_cache, pos, k_new, v_new):
+    """``decode_attention`` on DTensors: the caches may split batch, KV
+    heads and positions over the mesh; q and the new token's K/V follow
+    (cut locally where replicated).  Without a positions split each shard
+    attends on its own; with one, each shard's log-sum-exp and normalised
+    output over its positions are merged across the shards (and with the
+    new token) by their log-sum-exps, as split-K decode merges.  The new
+    token's q, K and V are placed on the caches' batch and heads split
+    (gathered where the caches split positions)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import sharded
+    mesh = sharded.mesh_of(q, k_cache, v_cache)
+    kc = as_dtensor(k_cache, mesh)
+    lay = sharded.layout("decode_attention", kc, mesh,
+                         {0: "batch", 1: "positions", 2: "heads"})
+    seq = [i for i, d in enumerate(lay) if d == 1]
+    rows = tuple(None if d == 1 else d for d in lay)    # batch and heads
+    same = {0: 0, 2: 2}
+    want = [Shard(d) if d is not None else Replicate() for d in rows]
+    q, kn, vn = (None if t is None else
+                 as_dtensor(t, mesh).redistribute(mesh, want)
+                 for t in (q, k_new, v_new))
+    kc, vc = (sharded.placed("decode_attention", t, mesh, lay,
+                             {0: 0, 1: 1, 2: 2}) for t in (kc, v_cache))
+    if not seq:
+        return sharded.run(
+            lambda a, b, c, d, e: _decode_local(a, b, c, pos, d, e),
+            mesh, (q, kc, vc, kn, vn), rows, [same])
+    limit = int(pos) if k_new is not None else int(pos) + 1
+
+    def part(a, b, c):
+        start = 0
+        for i in seq:
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        _qh, s = _decode_stats(a, b, limit, start * b.shape[1])
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(dim=-1)
+        o = matmul_f32(p.to(c.dtype), c, "bhgk,bkhd->bhgd")
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        return (m + torch.log(torch.clamp(l, min=1e-30)))[None], o[None]
+
+    def placed_out(dims):
+        return [Shard(0) if i in seq else
+                (Shard(dims[d]) if d is not None else Replicate())
+                for i, d in enumerate(rows)]
+    from torch.distributed.tensor.experimental import local_map
+    lse_all, o_all = local_map(
+        part, out_placements=(placed_out({0: 1, 2: 2}),
+                              placed_out({0: 1, 2: 2})),
+        in_placements=(tuple(q.placements), tuple(kc.placements),
+                       tuple(vc.placements)), device_mesh=mesh)(q, kc, vc)
+    lse = torch.logsumexp(lse_all, dim=0)                   # [B,KV,G]
+    o = (torch.exp(lse_all - lse)[..., None] * o_all).sum(0)
+    B, _, H, dk = q.shape
+    KV, dv = kc.shape[2], vc.shape[-1]
+    if k_new is not None:
+        qh = reshaped(q, B, KV, H // KV, dk)
+        s_self = matmul_f32(qh, kn, "bhgd,bxhd->bhg") * (1.0 / math.sqrt(dk))
+        m = torch.maximum(lse, s_self)
+        a, b = torch.exp(lse - m), torch.exp(s_self - m)
+        o = (o * a[..., None] + b[..., None]
+             * reshaped(vn, B, KV, 1, dv).float()) / (a + b)[..., None]
+    return reshaped(o, B, 1, H, dv).to(q.dtype)
 
 
 # ------------------------------------------------------------- initialisers
@@ -209,9 +350,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     src = kv_x if kv_x is not None else x
     T = src.shape[1]
-    q = dense(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = dense(src, p["wk"], p.get("bk")).reshape(B, T, KV, hd)
-    v = dense(src, p["wv"], p.get("bv")).reshape(B, T, KV, hd)
+    q = reshaped(dense(x, p["wq"], p.get("bq")), B, S, H, hd)
+    k = reshaped(dense(src, p["wk"], p.get("bk")), B, T, KV, hd)
+    v = reshaped(dense(src, p["wv"], p.get("bv")), B, T, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -223,8 +364,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         sin_k, cos_k = rope_angles(torch.arange(T, device=x.device), hd,
                                    cfg.rope_theta)
         k = apply_rope(k, sin_k, cos_k)
+    q = constraint(q, "batch", "seq", "heads", None)
+    k = constraint(k, "batch", "seq", "kv_heads", None)
+    v = constraint(v, "batch", "seq", "kv_heads", None)
     o = blocked_attention(q, k, v, causal=causal)
-    o = o.to(x.dtype).reshape(B, S, H * hd)
+    o = reshaped(o.to(x.dtype), B, S, H * hd)
     return dense(o, p["wo"])
 
 
@@ -238,9 +382,9 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     B = x.shape[0]
     H = heads or cfg.num_heads
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    q = dense(x, p["wq"], p.get("bq")).reshape(B, 1, H, hd)
-    k = dense(x, p["wk"], p.get("bk")).reshape(B, 1, KV, hd)
-    v = dense(x, p["wv"], p.get("bv")).reshape(B, 1, KV, hd)
+    q = reshaped(dense(x, p["wq"], p.get("bq")), B, 1, H, hd)
+    k = reshaped(dense(x, p["wk"], p.get("bk")), B, 1, KV, hd)
+    v = reshaped(dense(x, p["wv"], p.get("bv")), B, 1, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -252,7 +396,7 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     k = k.to(cache_k.dtype)
     v = v.to(cache_v.dtype)
     o = decode_attention(q, cache_k, cache_v, pos, k_new=k, v_new=v)
-    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    o = reshaped(o, B, 1, H * hd).to(x.dtype)
     return dense(o, p["wo"]), k, v
 
 
@@ -294,7 +438,7 @@ def _mla_queries(p: Params, x: torch.Tensor, cfg: ModelConfig, positions
     B, S, _ = x.shape
     nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
     cq = rms_norm(dense(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
-    q = dense(cq, p["w_uq"]).reshape(B, S, cfg.num_heads, nope + rope_d)
+    q = reshaped(dense(cq, p["w_uq"]), B, S, cfg.num_heads, nope + rope_d)
     sin, cos = rope_angles(positions, rope_d, cfg.rope_theta)
     return q[..., :nope], apply_rope(q[..., nope:], sin, cos)
 
@@ -310,12 +454,15 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig
     positions = torch.arange(S, device=x.device)
     q_nope, q_rope = _mla_queries(p, x, cfg, positions)
     ckv, k_rope = mla_latents(p, x, cfg, positions)
-    kv = dense(ckv, p["w_ukv"]).reshape(B, S, H, nope + vd)
+    kv = reshaped(dense(ckv, p["w_ukv"]), B, S, H, nope + vd)
     k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
         B, S, H, rope_d)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = blocked_attention(q, k, kv[..., nope:].contiguous(), causal=True)
-    o = o.to(x.dtype).reshape(B, S, H * vd)
+    q = constraint(torch.cat([q_nope, q_rope], dim=-1),
+                   "batch", "seq", "heads", None)
+    k = constraint(k, "batch", "seq", "heads", None)
+    v = constraint(kv[..., nope:].contiguous(), "batch", "seq", "heads", None)
+    o = blocked_attention(q, k, v, causal=True)
+    o = reshaped(o.to(x.dtype), B, S, H * vd)
     return dense(o, p["wo"])
 
 
@@ -336,7 +483,7 @@ def mla_decode(p: Params, x: torch.Tensor, cache_ckv: torch.Tensor,
     ckv_t, kr_t = mla_latents(p, x, cfg, at)
     ckv_t = ckv_t.to(cache_ckv.dtype)                       # [B,1,r]
     kr_t = kr_t.to(cache_kr.dtype)
-    w_ukv = p["w_ukv"].reshape(r, H, nope + vd)
+    w_ukv = reshaped(p["w_ukv"], r, H, nope + vd)
     w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]       # [r,H,*]
     q_eff = matmul_f32(q_nope[:, 0], w_uk, "bhn,rhn->bhr")
     qr = q_rope[:, 0].float()
@@ -357,7 +504,7 @@ def mla_decode(p: Params, x: torch.Tensor, cache_ckv: torch.Tensor,
         + p_self[..., None] * ckv_t.float()
     ctx = ctx / torch.clamp(l, min=1e-30)[..., None]
     o = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float())
-    o = o.reshape(B, 1, H * vd).to(x.dtype)
+    o = reshaped(o, B, 1, H * vd).to(x.dtype)
     return dense(o, p["wo"]), ckv_t, kr_t
 
 
@@ -372,6 +519,7 @@ def ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     g = dense(x, p["w_gate"])
     u = dense(x, p["w_up"])
     h = act_fn(act)(g.float()).to(x.dtype) * u
+    h = constraint(h, "batch", "seq", "mlp")
     return dense(h, p["w_down"])
 
 
@@ -408,7 +556,8 @@ def moe_route(p: Params, x: torch.Tensor, cfg: ModelConfig):
     mo: MoEConfig = cfg.moe
     B, S, _ = x.shape
     E, K = mo.num_experts, mo.num_experts_per_tok
-    probs = torch.softmax(matmul_f32(x, p["router"], "bsd,de->bse"), dim=-1)
+    probs = torch.softmax(matmul_f32(x, gathered(p["router"]),
+                                     "bsd,de->bse"), dim=-1)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = order.values[..., :K], order.indices[..., :K]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -427,13 +576,73 @@ def _expert_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     in a's type; one batched product over the experts, each expert's
     weights read once for all B x C rows."""
     B, E, C, X = a.shape
+    w = gathered(w)
     rows = a.transpose(0, 1).reshape(E, B * C, X)
     if a.device.type == "cpu":
         y = torch.bmm(rows.float(), w.float())
     else:
         y = torch.bmm(rows, w.to(a.dtype))
-    y = y.reshape(E, B, C, -1).transpose(0, 1)
+    y = settled(y).reshape(E, B, C, -1).transpose(0, 1)
     return y.to(torch.bfloat16).to(a.dtype)
+
+
+def _moe_dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Route x [B,S,D] and scatter its tokens into [B,E,C,D] (each batch
+    row a group).  Returns (buf, probs, gates, idx, pos_c, hit): hit
+    [B,S,E] marks the experts each token chose."""
+    mo: MoEConfig = cfg.moe
+    B, S, D = x.shape
+    E, K = mo.num_experts, mo.num_experts_per_tok
+    C = moe_capacity(cfg, S)
+    probs, gates, idx, pos, keep = moe_route({"router": router}, x, cfg)
+    pos_c = torch.clamp(pos, 0, C - 1)
+    rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
+    # the reference adds each kept token at its slot and zeros for the
+    # dropped ones; here the dropped ones go to a spare slot C, dropped
+    buf = x.new_zeros((B, E, C + 1, D)).index_put_(
+        (rows, idx, torch.where(keep, pos, C)),
+        x[:, :, None, :].expand(B, S, K, D))[:, :, :C]
+    hit = (F.one_hot(idx, E).sum(2) > 0).float()
+    return buf, probs, gates, idx, pos_c, hit
+
+
+def _moe_combine(y_buf: torch.Tensor, idx: torch.Tensor,
+                 pos_c: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Each token's K expert outputs gathered from y_buf [B,E,C,D] and
+    summed by their gates in fp32."""
+    B, S, K = idx.shape
+    rows = torch.arange(B, device=y_buf.device)[:, None, None].expand(B, S, K)
+    y = y_buf[rows, idx, pos_c]                             # [B,S,K,D]
+    return (y.float() * gates[..., None]).sum(dim=2).to(y_buf.dtype)
+
+
+def _rows_local(fn, n_out: int, rows_args: tuple, whole: tuple = ()):
+    """``fn(*rows_args, *whole)`` on each shard's batch rows: dim 0 of each
+    of ``rows_args`` and of the ``n_out`` outputs split as the first's,
+    the ``whole`` arguments replicated (their gradients summed over the
+    shards).  The MoE's dispatch and combine are local to a batch row, as
+    the reference groups them.  A split of another dim raises."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lead = rows_args[0]
+    mesh = lead.device_mesh
+    if any(not (p.is_replicate() or (p.is_shard() and p.dim == 0))
+           for p in lead.placements):
+        raise ValueError(f"moe_ffn: the dispatch takes tokens split over "
+                         f"the batch only, not {tuple(lead.placements)}")
+    rows = [Shard(0) if p.is_shard() else Replicate()
+            for p in lead.placements]
+    rep = [Replicate()] * mesh.ndim
+    summed = [Partial() if p.is_shard() else Replicate()
+              for p in lead.placements]
+    args = tuple(a.redistribute(mesh, rows) for a in rows_args) \
+        + tuple(a.redistribute(mesh, rep) for a in whole)
+    return local_map(
+        fn, out_placements=tuple([rows] * n_out),
+        in_placements=tuple([rows] * len(rows_args) + [rep] * len(whole)),
+        in_grad_placements=tuple([rows] * len(rows_args)
+                                 + [summed] * len(whole)),
+        device_mesh=mesh)(*args)
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -442,27 +651,41 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     dispatched into [B,E,C,D], each expert's gated FFN runs as batched
     matrix products, and each token's K outputs are gathered back and
     summed by their gates in fp32; the shared experts' FFN is added.
-    Returns (y, Switch-style load-balance aux loss)."""
+    Under a mesh the dispatch and the combine run on each shard's batch
+    rows.  Returns (y, Switch-style load-balance aux loss)."""
     mo: MoEConfig = cfg.moe
     B, S, D = x.shape
-    E, K = mo.num_experts, mo.num_experts_per_tok
-    C = moe_capacity(cfg, S)
-    probs, gates, idx, pos, keep = moe_route(p, x, cfg)
-    pos_c = torch.clamp(pos, 0, C - 1)
-    rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
-    # the reference adds each kept token at its slot and zeros for the
-    # dropped ones; here the dropped ones go to a spare slot C, dropped
-    buf = x.new_zeros((B, E, C + 1, D)).index_put_(
-        (rows, idx, torch.where(keep, pos, C)),
-        x[:, :, None, :].expand(B, S, K, D))[:, :, :C]
-    g = _expert_product(buf, p["w_gate"])
-    u = _expert_product(buf, p["w_up"])
-    h = act_fn(cfg.hidden_act)(g.float()).to(x.dtype) * u
+    E = mo.num_experts
+    router = gathered(p["router"])
+    if is_dtensor(x):
+        x = constraint(x, "batch", "seq", "embed")
+        buf, probs, gates, idx, pos_c, hit = _rows_local(
+            lambda a, r: _moe_dispatch(a, r, cfg), 6, (x,), (router,))
+    else:
+        buf, probs, gates, idx, pos_c, hit = _moe_dispatch(x, router, cfg)
+    if cfg.expert_scheme == "ep_data_tp_ffn":
+        # tokens move to the expert's data shard; the expert FFN hidden is
+        # model-sharded, so the weights never move (serving)
+        buf = constraint(buf, None, "experts_data", None, None)
+        g = _expert_product(buf, p["w_gate"])
+        u = _expert_product(buf, p["w_up"])
+        h = act_fn(cfg.hidden_act)(g.float()).to(x.dtype) * u
+        h = constraint(h, None, "experts_data", None, "mlp")
+    else:
+        buf = constraint(buf, "batch", "experts", None, None)
+        g = _expert_product(buf, p["w_gate"])
+        u = _expert_product(buf, p["w_up"])
+        h = act_fn(cfg.hidden_act)(g.float()).to(x.dtype) * u
+        h = constraint(h, "batch", "experts", None, None)
     y_buf = _expert_product(h, p["w_down"])
-    y = y_buf[rows, idx, pos_c]                             # [B,S,K,D]
-    y = (y.float() * gates[..., None]).sum(dim=2).to(x.dtype)
+    # back to batch-only sharding so that the combine gather is local
+    y_buf = constraint(y_buf, "batch", None, None, None)
+    if is_dtensor(y_buf):
+        y = _rows_local(_moe_combine, 1, (y_buf, idx, pos_c, gates))
+    else:
+        y = _moe_combine(y_buf, idx, pos_c, gates)
     if "shared" in p:
         y = y + ffn(p["shared"], x, cfg.hidden_act)
     me = probs.mean(dim=(0, 1))
-    ce = (F.one_hot(idx, E).sum(2).reshape(B * S, E) > 0).float().mean(0)
+    ce = hit.reshape(B * S, E).mean(0)
     return y, (me * ce).sum() * E

@@ -33,6 +33,15 @@ chunk's [B, chunk, V] logits recomputed in the backward), plus 0.01 times
 the MoE load-balance loss, with a vision model's image positions dropped.
 ``remat="block"`` recomputes each stacked layer in the backward
 (``torch.utils.checkpoint``).
+
+``cache_spec(B, T)`` and ``input_specs(shape)`` give a step's cache and
+batch as meta tensors (the reference's keys, shapes and dtypes), and
+``meta_params(cfg)`` the stacked parameter tree, for the launch modules'
+specs and the dry run (``launch/specs.py``, ``launch/dryrun.py``).  Under
+a mesh (``launch/sharding.py``) the same code runs on DTensors: the
+reference's ``constraint`` sites redistribute, weights are gathered over
+the FSDP axes where a product uses them and a split contraction's sums
+are settled at once, as the reference's compiler places them.
 """
 from __future__ import annotations
 
@@ -41,14 +50,16 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.sharding import (constraint, gathered, is_dtensor,
+                                         reshaped)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (act_fn, apply_rope, attention,
                                        attention_decode, bf16_grad,
-                                       decode_attention, dense, ffn, full,
+                                       decode_attention, dense,
+                                       embed_lookup, ffn, full,
                                        init_attention, init_ffn, init_mla,
                                        init_moe,
                                        matmul_f32, mla_attention, mla_decode,
@@ -74,27 +85,40 @@ def _pos(pos) -> torch.Tensor:
 def _update_at(a: torch.Tensor, new: torch.Tensor, pos, axis: int
                ) -> torch.Tensor:
     """``lax.dynamic_update_slice_in_dim`` on a copy: the start index is
-    clamped so that ``new`` fits, as in JAX."""
+    clamped so that ``new`` fits, as in JAX.  A DTensor cache (under a
+    mesh) takes the same values by a select over ``axis``, which keeps a
+    sequence-sharded cache on its shards."""
     n = new.shape[axis]
     start = min(max(int(pos), 0), a.shape[axis] - n)
+    if is_dtensor(a) and n == 1:
+        at = torch.arange(a.shape[axis], device=a.device) == start
+        at = at.reshape((-1,) + (1,) * (a.ndim - axis - 1))
+        return torch.where(at, new.to(a.dtype), a)
     out = a.clone()
     out.narrow(axis, start, n).copy_(new)
     return out
 
 
 def _embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["embed"])
+    """The tokens' rows of the embedding; under a mesh the lookup's
+    pending vocab-parallel sum is settled here."""
+    return constraint(embed_lookup(p["embed"], tokens),
+                      "batch", "seq", "embed")
 
 
 def logits_last(h_last: torch.Tensor, w_head: torch.Tensor) -> torch.Tensor:
     """h_last [B,D] -> [B,V] fp32."""
-    return matmul_f32(h_last, w_head, "bd,dv->bv")
+    return constraint(matmul_f32(h_last, gathered(w_head), "bd,dv->bv"),
+                      "batch", "vocab")
 
 
 def _xent_chunk(hc, w_head, tc, mc) -> torch.Tensor:
-    logits = matmul_f32(hc, w_head, "bsd,dv->bsv")
+    logits = constraint(matmul_f32(hc, gathered(w_head), "bsd,dv->bsv"),
+                        "batch", "seq", "vocab")
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+    # a vocab-parallel gather's pending sum is settled before the select
+    tgt = constraint(torch.gather(logits, -1, tc[..., None]),
+                     "batch", "seq", None)[..., 0]
     return ((lse - tgt) * mc).sum()
 
 
@@ -215,6 +239,51 @@ class Model(ParamTree):
     def _layers(self, p: Params, name: str) -> List[Params]:
         return layer_views(p[name], _stacked(self.cfg)[name])
 
+    def cache_spec(self, B: int, T: int) -> Dict[str, Any]:
+        """The cache that ``prefill`` returns for B rows of T positions
+        (and ``decode`` takes), as meta tensors: the reference's keys,
+        shapes and dtypes."""
+        raise NotImplementedError
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The batch of one step of ``shape`` (train, prefill or decode)
+        as meta tensors: the reference's keys, shapes and dtypes."""
+        raise NotImplementedError
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _token_specs(shape: ShapeConfig, n_txt: int) -> Dict[str, torch.Tensor]:
+    """tokens (and targets) [B, n_txt] int32 for train and prefill; one
+    token a row and the position for decode."""
+    B = shape.global_batch
+    if shape.kind == "train":
+        return {"tokens": _meta((B, n_txt), torch.int32),
+                "targets": _meta((B, n_txt), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": _meta((B, n_txt), torch.int32)}
+    return {"tokens": _meta((B, 1), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+def meta_params(cfg: ModelConfig) -> Params:
+    """``init_tree``'s tree in the stacked layout (``stack_layers``) as
+    meta tensors: every leaf's shape and dtype, no memory."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = stack_layers(cfg, build_model(cfg, "cpu").init_tree(
+            torch.Generator()))
+
+    def meta(t):
+        if isinstance(t, dict):
+            return {k: meta(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [meta(v) for v in t]
+        return _meta(tuple(t.shape), t.dtype)
+    return meta(tree)
+
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
@@ -289,6 +358,16 @@ def stack_layers(cfg: ModelConfig, tree: Params) -> Params:
     return out
 
 
+def unstack_layers(cfg: ModelConfig, tree: Params) -> Params:
+    """``stack_layers``' inverse, in views: a training tree in the serving
+    layout (each stacked layer axis a list), for ``Model.load_params``."""
+    out = dict(tree)
+    for name, n in _stacked(cfg).items():
+        if name in out:
+            out[name] = layer_views(out[name], n)
+    return out
+
+
 def layer_views(stacked: Params, n: int) -> List[Params]:
     """A stacked layer tree as ``n`` per-layer trees of views
     (``torch.unbind``), through which each layer's gradient lands in its
@@ -334,7 +413,7 @@ def _block_fwd(p, h: torch.Tensor, cfg: ModelConfig):
     else:
         f = ffn(p["ffn"], hn, cfg.hidden_act)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + f, aux
+    return constraint(h + f, "batch", "seq", "embed"), aux
 
 
 def _block_prefill(p, h: torch.Tensor, cfg: ModelConfig):
@@ -349,10 +428,10 @@ def _block_prefill(p, h: torch.Tensor, cfg: ModelConfig):
         a = mla_attention(p["attn"], hn, cfg)
     else:
         KV, hd = cfg.num_kv_heads, cfg.head_dim
-        k = dense(hn, p["attn"]["wk"], p["attn"].get("bk")).reshape(
-            B, S, KV, hd)
-        v = dense(hn, p["attn"]["wv"], p["attn"].get("bv")).reshape(
-            B, S, KV, hd)
+        k = reshaped(dense(hn, p["attn"]["wk"], p["attn"].get("bk")),
+                     B, S, KV, hd)
+        v = reshaped(dense(hn, p["attn"]["wv"], p["attn"].get("bv")),
+                     B, S, KV, hd)
         if cfg.qk_norm:
             k = rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps)
         sin, cos = rope_angles(positions, hd, cfg.rope_theta)
@@ -406,6 +485,31 @@ class DecoderLM(Model):
                 "w2": normal(gen, (cfg.d_model, cfg.d_model), cfg.d_model,
                              dt)}
         return p
+
+    def cache_spec(self, B: int, T: int) -> Dict[str, Any]:
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
+        n_scan = cfg.num_layers - n_prefix
+        if cfg.mla:
+            dims = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,))
+        else:
+            kv = (cfg.num_kv_heads, cfg.head_dim)
+            dims = (kv, kv)
+        spec = {"kv": tuple(_meta((n_scan, B, T) + d, dt) for d in dims),
+                "pos": _meta((), torch.int32)}
+        if n_prefix:
+            spec["prefix_kv"] = [tuple(_meta((B, T) + d, dt) for d in dims)
+                                 for _ in range(n_prefix)]
+        return spec
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        fe = self.cfg.frontend
+        d = _token_specs(shape, shape.seq_len - (fe.num_tokens if fe else 0))
+        if fe and shape.kind != "decode":
+            d["frontend_embeds"] = _meta(
+                (shape.global_batch, fe.num_tokens, fe.embed_dim),
+                _dtype(self.cfg))
+        return d
 
     def head(self, p=None) -> torch.Tensor:
         p = self if p is None else p
@@ -525,6 +629,23 @@ class ZambaLM(Model):
             "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
         }
 
+    def cache_spec(self, B: int, T: int) -> Dict[str, Any]:
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        L = cfg.num_layers
+        _d_in, H, P, N, conv_dim = ssm_mod.mamba2_dims(cfg)
+        K = cfg.ssm.conv_kernel
+        n_inv = sum(1 for _i, _j, shared in self._segments() if shared)
+        kv = (B, T, cfg.num_kv_heads, cfg.head_dim)
+        return {"conv": _meta((L, B, K - 1, conv_dim), dt),
+                "ssd": _meta((L, B, H, N, P), torch.float32),
+                "shared_kv": [(_meta(kv, dt), _meta(kv, dt))
+                              for _ in range(n_inv)],
+                "x0_last": _meta((B, cfg.d_model), dt),
+                "pos": _meta((), torch.int32)}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        return _token_specs(shape, shape.seq_len)
+
     def _shared_block(self, h, x0, sp=None):
         """The shared attention block over concat(h, x0), with the
         reference's bf16 gradient boundaries; ``sp``: its parameters (the
@@ -594,8 +715,8 @@ class ZambaLM(Model):
                 hn = rms_norm(torch.cat([h, x0], dim=-1), sp["ln1"],
                               cfg.norm_eps)
                 KVh, hd = cfg.num_kv_heads, cfg.head_dim
-                k = dense(hn, sp["attn"]["wk"]).reshape(B, S, KVh, hd)
-                v = dense(hn, sp["attn"]["wv"]).reshape(B, S, KVh, hd)
+                k = reshaped(dense(hn, sp["attn"]["wk"]), B, S, KVh, hd)
+                v = reshaped(dense(hn, sp["attn"]["wv"]), B, S, KVh, hd)
                 sin, cos = rope_angles(torch.arange(S, device=h.device), hd,
                                        cfg.rope_theta)
                 shared_kv.append((apply_rope(k, sin, cos), v))
@@ -657,6 +778,18 @@ class RWKV6LM(Model):
             "final_norm": full(gen, (D,), 0.0, dt),
             "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
         }
+
+    def cache_spec(self, B: int, T: int) -> Dict[str, Any]:
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        L, D, H, N = cfg.num_layers, cfg.d_model, cfg.num_heads, \
+            cfg.ssm.head_dim
+        return {"shift_att": _meta((L, B, D), dt),
+                "wkv": _meta((L, B, H, N, N), torch.float32),
+                "shift_chan": _meta((L, B, D), dt),
+                "pos": _meta((), torch.int32)}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        return _token_specs(shape, shape.seq_len)
 
     def _layer(self, lp, h, s_att, s_wkv, s_chan):
         cfg = self.cfg
@@ -758,6 +891,23 @@ class EncDecLM(Model):
             "lm_head": normal(gen, (D, cfg.vocab_size), D, dt),
         }
 
+    def cache_spec(self, B: int, T: int) -> Dict[str, Any]:
+        """``xk``/``xv`` as the reference sizes them: T positions of the
+        encoder bank."""
+        cfg, dt = self.cfg, _dtype(self.cfg)
+        shp = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": _meta(shp, dt), "v": _meta(shp, dt),
+                "xk": _meta(shp, dt), "xv": _meta(shp, dt),
+                "pos": _meta((), torch.int32)}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        d = _token_specs(shape, shape.seq_len)
+        if shape.kind != "decode":
+            d = {"frames": _meta((shape.global_batch, shape.seq_len,
+                                  self.cfg.frontend.embed_dim),
+                                 _dtype(self.cfg)), **d}
+        return d
+
     def _enc_layer(self, lp, h):
         cfg = self.cfg
         h = h + attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
@@ -816,13 +966,14 @@ class EncDecLM(Model):
         ks, vs, xks, xvs = [], [], [], []
         for lp in self["dec_layers"]:
             hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-            ks.append(apply_rope(dense(hn, lp["self_attn"]["wk"]).reshape(
-                B, S, KV, hd), sin, cos))
-            vs.append(dense(hn, lp["self_attn"]["wv"]).reshape(B, S, KV, hd))
-            xks.append(dense(enc_out, lp["cross_attn"]["wk"]).reshape(
-                B, Te, KV, hd))
-            xvs.append(dense(enc_out, lp["cross_attn"]["wv"]).reshape(
-                B, Te, KV, hd))
+            ks.append(apply_rope(reshaped(
+                dense(hn, lp["self_attn"]["wk"]), B, S, KV, hd), sin, cos))
+            vs.append(reshaped(dense(hn, lp["self_attn"]["wv"]),
+                               B, S, KV, hd))
+            xks.append(reshaped(dense(enc_out, lp["cross_attn"]["wk"]),
+                                B, Te, KV, hd))
+            xvs.append(reshaped(dense(enc_out, lp["cross_attn"]["wv"]),
+                                B, Te, KV, hd))
             h = self._dec_block(lp, h, enc_out)
         h = rms_norm(h, self["final_norm"], cfg.norm_eps)
         logits = logits_last(h[:, -1, :], self["lm_head"])
@@ -846,10 +997,10 @@ class EncDecLM(Model):
             nvs.append(v_new)
             # cross-attention over the whole encoder bank
             xk, xv = cache["xk"][i], cache["xv"][i]
-            q = dense(rms_norm(h, lp["ln2"], cfg.norm_eps),
-                      lp["cross_attn"]["wq"]).reshape(B, 1, H, hd)
+            q = reshaped(dense(rms_norm(h, lp["ln2"], cfg.norm_eps),
+                               lp["cross_attn"]["wq"]), B, 1, H, hd)
             o = decode_attention(q, xk, xv, xk.shape[1] - 1)
-            h = h + dense(o.reshape(B, 1, H * hd).to(h.dtype),
+            h = h + dense(reshaped(o, B, 1, H * hd).to(h.dtype),
                           lp["cross_attn"]["wo"])
             h = h + ffn(lp["ffn"], rms_norm(h, lp["ln3"], cfg.norm_eps),
                         cfg.hidden_act)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels.mamba2_scan.mamba2_scan import mamba2_scan_kernel
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_kernel
+from repro_torch.launch.sharding import constraint, reshaped
 from repro_torch.models.layers import (bf16_grad, dense, full, normal,
                                        rms_norm)
 
@@ -125,14 +126,15 @@ def mamba2_block_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig
     def conv(v, w, b):
         return F.silu(_causal_conv(v, w, b).float()).to(x.dtype)
 
-    xs = conv(x_pre, p["conv_x"], p["conv_bx"]).reshape(B, S, H, P)
-    Bm = conv(B_pre, p["conv_B"], p["conv_bB"]).reshape(B, S, s.n_groups, N)
-    Cm = conv(C_pre, p["conv_C"], p["conv_bC"]).reshape(B, S, s.n_groups, N)
+    xs = reshaped(constraint(conv(x_pre, p["conv_x"], p["conv_bx"]),
+                             "batch", "seq", "ssm_inner"), B, S, H, P)
+    Bm = reshaped(conv(B_pre, p["conv_B"], p["conv_bB"]), B, S, s.n_groups, N)
+    Cm = reshaped(conv(C_pre, p["conv_C"], p["conv_bC"]), B, S, s.n_groups, N)
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, state = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk)
     y = y + (p["D_skip"][:, None] * xs.float()).to(y.dtype)
-    y = y.reshape(B, S, d_in)
+    y = reshaped(y, B, S, d_in)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
     return dense(y, p["w_out"]), state, conv_tail
 
@@ -160,9 +162,9 @@ def mamba2_decode(p: Params, x: torch.Tensor, conv_state: torch.Tensor,
         + conv_b.float()
     xBC = F.silu(xBC).to(x.dtype)
 
-    xs = xBC[..., :d_in].reshape(B, H, P).float()
-    Bm = xBC[..., d_in:d_in + gn].reshape(B, s.n_groups, N)
-    Cm = xBC[..., d_in + gn:].reshape(B, s.n_groups, N)
+    xs = reshaped(xBC[..., :d_in], B, H, P).float()
+    Bm = reshaped(xBC[..., d_in:d_in + gn], B, s.n_groups, N)
+    Cm = reshaped(xBC[..., d_in + gn:], B, s.n_groups, N)
     dt = F.softplus(dt.float() + p["dt_bias"])             # [B,H]
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A)                                  # [B,H]
@@ -173,7 +175,7 @@ def mamba2_decode(p: Params, x: torch.Tensor, conv_state: torch.Tensor,
     state = ssd_state.float() * dA[..., None, None] + dBx
     y = torch.einsum("bhn,bhnp->bhp", Ch, state)
     y = y + p["D_skip"][:, None] * xs
-    y = y.reshape(B, d_in).to(x.dtype)
+    y = reshaped(y, B, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
     return dense(y, p["w_out"])[:, None, :], conv_state, \
         state.to(ssd_state.dtype)
@@ -219,11 +221,11 @@ def _group_norm_heads(y: torch.Tensor, scale: torch.Tensor,
                       eps: float = 64e-5) -> torch.Tensor:
     """GroupNorm with one group per head; y [...,D]."""
     shp = y.shape
-    y = y.reshape(*shp[:-1], H, shp[-1] // H).float()
+    y = reshaped(y, *shp[:-1], H, shp[-1] // H).float()
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, unbiased=False)
     y = (y - mu) * torch.rsqrt(var + eps)
-    y = y.reshape(shp)
+    y = reshaped(y, *shp)
     return y * scale + bias
 
 
@@ -244,17 +246,17 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, shift_state: torch.Tensor,
     mix = x[:, :, None, :] + dx[:, :, None, :] * (p["mu"] + adj)
     xr, xk, xv, xw, xg = [mix[:, :, i, :] for i in range(5)]
 
-    r = dense(xr, p["wr"]).reshape(B, S, H, N).float()
-    kk = dense(xk, p["wk"]).reshape(B, S, H, N).float()
-    v = dense(xv, p["wv"]).reshape(B, S, H, N).float()
+    r = reshaped(dense(xr, p["wr"]), B, S, H, N).float()
+    kk = reshaped(dense(xk, p["wk"]), B, S, H, N).float()
+    v = reshaped(dense(xv, p["wv"]), B, S, H, N).float()
     g = F.silu(dense(xg, p["wg"]).float())
     ww = p["w0"] + dense(torch.tanh(dense(xw, p["decay_A"])),
                          p["decay_B"]).float()
-    w = torch.exp(-torch.exp(ww)).reshape(B, S, H, N)      # decay in (0,1)
+    w = reshaped(torch.exp(-torch.exp(ww)), B, S, H, N)   # decay in (0,1)
     u_bh = p["u"].float().reshape(1, H, N).expand(B, H, N).reshape(B * H, N)
     y, new_state = rwkv6_scan_kernel(r, kk, v, w.contiguous(), u_bh,
                                      wkv_state.float())
-    y = y.reshape(B, S, D)                                 # fp32
+    y = reshaped(y, B, S, D)                               # fp32
     y = _group_norm_heads(y, p["ln_scale"], p["ln_bias"], H)
     y = (y * g).to(x.dtype)
     return dense(y, p["wo"]), x[:, -1, :], new_state.to(wkv_state.dtype)
@@ -267,7 +269,8 @@ def rwkv6_channel_mix(p: Params, x: torch.Tensor, shift_state: torch.Tensor
     dx = x_prev - x
     xk = x + dx * p["cm_mu_k"]
     xr = x + dx * p["cm_mu_r"]
-    k = torch.square(F.relu(dense(xk, p["cm_wk"]).float())).to(x.dtype)
+    k = constraint(torch.square(F.relu(dense(xk, p["cm_wk"]).float()))
+                   .to(x.dtype), "batch", "seq", "mlp")
     out = torch.sigmoid(dense(xr, p["cm_wr"]).float()).to(x.dtype) \
         * dense(k, p["cm_wv"])
     return out, x[:, -1, :]

@@ -8,8 +8,13 @@
   the quantisation error carries into the next step (Karimireddy et al.
   2019).  ``quantize_int8`` takes a lossless scale-1 path for integer
   tensors and raises when a value cannot be represented exactly in int8,
-  as the reference's does.  The reference's ``int8_allreduce`` is a
-  collective over a mesh axis and comes with the port's launch modules.
+  as the reference's does.
+* **int8 all-reduce**: ``int8_allreduce`` over a ``torch.distributed``
+  process group, the reference's collective over a mesh axis step for
+  step, including its fault (ROADMAP.md, "Faults of the reference"): each
+  rank quantises with its own scale, but the summed payload is
+  dequantised with the largest scale, so ranks with unequal scales give a
+  wrong sum ([1.0] and [100.0] sum to 200, not 101).
 """
 from __future__ import annotations
 
@@ -167,3 +172,17 @@ def _map_pair(fn, a, b) -> Tuple[Any, Any]:
                 {k: p[1] for k, p in parts.items()})
     parts = [_map_pair(fn, x, y) for x, y in zip(a, b)]
     return type(a)(p[0] for p in parts), type(a)(p[1] for p in parts)
+
+
+def int8_allreduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Quantise locally, all-reduce the scale with MAX and the int8 payload
+    (summed in int32) with SUM over ``group``, dequantise with the reduced
+    scale: the reference's ``int8_allreduce``, fault included (module
+    docstring)."""
+    import torch.distributed as dist
+    q, scale = quantize_int8(x)
+    scale = scale.clone()
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total.float() * scale

@@ -112,10 +112,51 @@ def test_the_import_scan_covers_every_port_package():
     assert {"repro_torch.optim.adamw", "repro_torch.data.pipeline",
             "repro_torch.launch.steps", "repro_torch.launch.train",
             "repro_torch.runtime.supervisor"} <= set(port_modules())
+    # the launch and analysis modules
+    assert {"repro_torch.launch.hw", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.program_analysis",
+            "repro_torch.runtime.elastic", "repro_torch.runtime.compression",
+            "repro_torch.kernels.costs", "repro_torch.kernels.sharded"} \
+        <= set(port_modules())
+
+
+def torch_examples():
+    return sorted((ROOT / "examples").glob("*_torch.py"))
+
+
+def test_torch_examples_import_with_jax_and_repro_blocked():
+    """``examples/*_torch.py`` run with ``jax`` and ``repro`` blocked
+    (``--help`` parses their arguments and stops)."""
+    names = [p.name for p in torch_examples()]
+    assert {"serve_lm_torch.py", "serve_stream_torch.py",
+            "train_lm_torch.py"} <= set(names)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for path in torch_examples():
+        runner = (
+            "import runpy, sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"sys.argv = [{str(path)!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            "assert not any(k.split('.')[0] in ('jax', 'repro')\n"
+            "               for k in sys.modules)\n"
+            "print('ran')\n")
+        out = subprocess.run([sys.executable, "-c", runner], env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (path.name, out.stderr)
+        assert "ran" in out.stdout, path.name
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + torch_examples()
     assert len(files) > 20
     bad = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
            for p in files for m in FORBIDDEN.finditer(p.read_text())]
