@@ -25,8 +25,13 @@ filter's sketch, at B 16,384 and saturating; each timed row's gate must
 reject a planted fault.  Then it serves paged session state (arena,
 tiered store, continuous-batching scheduler, paged decode attention at
 qwen2.5-32b's attention width) in ``sync`` and ``prefetch`` mode on the
-card and on the CPU and requires identical serving stats, and classifies
-the q5 bid stream's keys through the device count-min sketch on both.  Then the LM
+card and on the CPU and requires identical serving stats, classifies
+the q5 bid stream's keys through ``HintFilter(device="cuda")``, whose
+count-min sketch stays on the card, against a CPU filter, and drives the
+rest of the device TAC (lookup, the sequential and the shard-owned admit,
+shard ownership, watermark expiry, the barrier's dirty flush and a
+migration between shards) over four shards of 65,536 slots on the card
+and on the CPU, bit-equal after every call.  Then the LM
 serving path: zamba2-2.7b, rwkv6-3b, qwen3-moe-30b-a3b,
 llava-next-mistral-7b and seamless-m4t-large-v2 at their published width
 and depth, and deepseek-v2-236b at its width cut to seven layers (bf16,
@@ -50,7 +55,10 @@ and optimizer (losses falling, each arch's kernels launched forward and
 backward); each step at 2 layers in fp32 on the card equals the CPU's;
 and
 ``examples/train_lm_torch.py`` recovers from an injected failure under
-the supervisor and converges.
+the supervisor and converges.  Then the examples: the serving examples,
+and ``examples/quickstart_torch.py --fused`` (the paper's fraud-detection
+pipeline) printing on the card what it prints on the CPU; gemma-7b's
+steps on a one-rank NCCL mesh; and two dry-run cells.
 Each phase prints one JSON line; any failure raises and ends the run with a
 non-zero exit.  The last three lines are the kernels summary, the card's
 name and power limit as ``nvidia-smi`` reports them, and
@@ -59,6 +67,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -68,11 +77,13 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import runpy
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,6 +134,7 @@ from repro_torch.streaming.engine import (Engine, SourceOp,  # noqa: E402
 from repro_torch.streaming.fused import FusedPlane, FusedSpec, Lane  # noqa: E402
 from repro_torch.streaming.nexmark import (BID, NexmarkConfig,  # noqa: E402
                                           NexmarkGen, build_query)
+from repro_torch.streaming.shards import hash_partition  # noqa: E402
 from repro_torch.streaming.recovery import (  # noqa: E402
     CheckpointCoordinator, SnapshotStore, inject_failure_at)
 from repro_torch.streaming.ysb import YSBConfig, build_ysb  # noqa: E402
@@ -1854,6 +1866,9 @@ def kernel_phase():
     # the fused path's shapes: one bucket of W ways; pool [W + 1, 1, V + 1]
     main["tac_probe"] = check_probe(1, W, 1, 256, torch.float32, timed=True)
     check_probe(1, DEPLOY_SLOTS, 1, 256, torch.float32, timed=True)
+    # a shard of the tac_ops phase: 8192 buckets x 8 ways, D 1
+    check_probe(TAC_OPS["buckets"], TAC_OPS["ways"], 1, TAC_OPS["batch"],
+                torch.float32, timed=True)
     main["page_scatter"] = check_scatter(W + 1, 1, 2, 256, torch.float32,
                                          timed=True)
     # one bandwidth-sized scatter (serving-like 8 KB pages)
@@ -1967,6 +1982,53 @@ def on_cpu_threads(fn, *args, **kw):
         torch.set_num_threads(threads)
 
 
+# the processes CpuSide starts; any still running when the script ends
+# is killed
+CPU_SIDES = []
+atexit.register(lambda: [p.kill() for p in CPU_SIDES if p.poll() is None])
+
+
+class CpuSide:
+    """``chip_smoke.<name>(*args, **kw)`` on the CPU in a process of its
+    own (torch on one thread, no CUDA device visible), started at once so
+    that it runs beside the card's side of a comparison; ``result()``
+    waits for it and returns ``(result, wall s)``."""
+
+    def __init__(self, name: str, *args, **kw):
+        fd, self.out = tempfile.mkstemp(suffix=".pkl")
+        os.close(fd)
+        here = str(Path(__file__).resolve().parent)
+        code = ("import pickle, sys, time\n"
+                f"sys.path.insert(0, {here!r})\n"
+                "import torch\n"
+                "torch.set_num_threads(1)\n"
+                "import chip_smoke\n"
+                "name, args, kw, out = pickle.load(sys.stdin.buffer)\n"
+                "t0 = time.perf_counter()\n"
+                "res = getattr(chip_smoke, name)(*args, **kw)\n"
+                "wall = time.perf_counter() - t0\n"
+                "with open(out, 'wb') as f:\n"
+                "    pickle.dump((res, wall), f)\n")
+        self.name = name
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], stdin=subprocess.PIPE,
+            stdout=sys.stderr, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        CPU_SIDES.append(self.proc)
+        self.proc.stdin.write(pickle.dumps((name, args, kw, self.out)))
+        self.proc.stdin.close()
+
+    def result(self):
+        rc = self.proc.wait()
+        try:
+            if rc != 0 or not os.path.getsize(self.out):
+                raise RuntimeError(f"the CPU side {self.name} exited {rc} "
+                                   f"with no result")
+            with open(self.out, "rb") as f:
+                return pickle.load(f)
+        finally:
+            os.unlink(self.out)
+
+
 def run_query(query: str, device: str, mode: str = "async",
               duration: float = E2E["duration"],
               warmup: float = E2E["warmup"]):
@@ -2022,15 +2084,24 @@ def step_a_batch(label: str, counts: dict, res: dict) -> None:
                              f"{res['fused_batches']} batches")
 
 
-def card_equals_cpu(total: dict, query: str, mode: str, **run) -> dict:
-    """``query`` in ``mode`` on the card and on the CPU over the same
-    events (``run``: a duration and a warm-up); the results must be equal.
-    The card run's launches go to ``total``, the comparisons' own count,
-    apart from the phase's full runs.  Returns the comparison's facts for
-    the phase's line."""
+def cpu_compare(query: str, mode: str) -> CpuSide:
+    """The CPU side of ``card_equals_cpu``'s comparison of ``query`` in
+    ``mode``, started now."""
+    return CpuSide("run_query", query, "cpu", mode, **COMPARE)
+
+
+def card_equals_cpu(total: dict, query: str, mode: str,
+                    cpu_side: CpuSide) -> dict:
+    """``query`` in ``mode`` on the card and, in ``cpu_side``
+    (``cpu_compare``), on the CPU over the same events (``COMPARE``: a
+    duration and a warm-up); the results must be equal.  The card run's
+    launches go to ``total``, the comparisons' own count, apart from the
+    phase's full runs.  Returns the comparison's facts for the phase's
+    line."""
+    run = COMPARE
     (gpu, gpu_wall), counts = counted(total, f"{query} {mode} compare",
                                       run_query, query, "cuda", mode, **run)
-    cpu, cpu_wall = on_cpu_threads(run_query, query, "cpu", mode, **run)
+    (cpu, cpu_wall), _ = cpu_side.result()
     if gpu != cpu or not gpu["n_outputs"]:
         raise AssertionError(f"{query} {mode}: cuda run {gpu} != cpu run "
                              f"{cpu}, or no outputs")
@@ -2048,6 +2119,7 @@ def e2e_phase():
     those of the comparisons' card runs."""
     total = {k: 0 for k in launches()}
     compare = {k: 0 for k in launches()}
+    cpu_sides = {q: cpu_compare(q, "async") for q in ("q5", "q7")}
     for query in ("q5", "q7", "ysb"):
         (gpu, gpu_wall), counts = counted(total, query, run_query, query,
                                           "cuda")
@@ -2061,7 +2133,8 @@ def e2e_phase():
                                      f"{cpu}")
             same = dict(equal=True, cpu_wall_s=cpu_wall)
         else:
-            same = card_equals_cpu(compare, query, "async", **COMPARE)
+            same = card_equals_cpu(compare, query, "async",
+                                   cpu_sides[query])
         emit("e2e", query=query, cuda_wall_s=gpu_wall, launches=counts,
              step_launches_per_batch=counts["tac_fused_step"]
              / gpu["fused_batches"], **same, **gpu)
@@ -2079,6 +2152,7 @@ def prefetch_phase():
     the launch counts of the card's runs and those of the comparisons'."""
     total = {k: 0 for k in launches()}
     compare = {k: 0 for k in launches()}
+    cpu_sides = {q: cpu_compare(q, "prefetch") for q in ("q5", "q7")}
     for query in ("q5", "q7"):
         runs = {}
         for mode in ("prefetch", "sync"):
@@ -2090,7 +2164,7 @@ def prefetch_phase():
                         launches=counts)
             if mode == "prefetch":
                 line.update(card_equals_cpu(compare, query, mode,
-                                            **COMPARE))
+                                            cpu_sides[query]))
             r = runs[mode]
             emit("prefetch", **line, n_outputs=r["n_outputs"], p50=r["p50"],
                  p99=r["p99"], p999=r["p999"], throughput=r["throughput"],
@@ -2687,38 +2761,34 @@ def serve_phase():
     return total
 
 
-def hints_phase(n_batches: int = 200, batch: int = 256):
-    """The q5 bid stream's auction keys (the e2e phase's generator
-    settings), in batches, through the port's ``HintFilter.classify_batch``
-    on two filters: one as it stands, whose sketch call asks for the CPU
-    (``interpret=True``) and runs the plain version, and one whose sketch
-    call is routed to the kernel on the card.  ``hint_filter.py`` is a
-    verbatim copy of the reference, so its call cannot name the card; the
-    route swaps ``cms_sketch.ops.cms_update_and_classify`` for the length
-    of each call, moving the host arrays ``classify_batch`` passes to the
-    card and the results back.  Hashing and aging stay ``classify_batch``'s
-    own.  Hot masks and counters must be bit-equal after every batch."""
+def q5_bids(n: int):
+    """The first ``n`` bids of the q5 stream (the e2e phase's generator
+    settings): auction keys (int32), event times and prices (float32)."""
     cfg = NexmarkConfig(rate=E2E["rate"], active_window=1.0, oo_bound=0.3,
                         seed=7)
     gen = NexmarkGen(cfg)
-    keys, n = [], 0
-    while len(keys) < n_batches * batch:
-        rec = gen(n / cfg.rate)
-        n += 1
+    keys, ts, prices, i = [], [], [], 0
+    while len(keys) < n:
+        rec = gen(i / cfg.rate)
+        i += 1
         if rec[1]["type"] == BID:
             keys.append(rec[1]["auction"])
-    stream = np.asarray(keys, np.int32).reshape(n_batches, batch)
-    plain_call = cms_ops.cms_update_and_classify
+            ts.append(rec[3])
+            prices.append(rec[1]["price"])
+    return (np.asarray(keys, np.int32), np.asarray(ts, np.float32),
+            np.asarray(prices, np.float32))
 
-    def on_card(keys, counters, a, b, *, threshold, max_count, interpret):
-        new, hot = plain_call(
-            torch.from_numpy(keys).cuda(),
-            torch.from_numpy(np.ascontiguousarray(counters)).cuda(), a, b,
-            threshold=threshold, max_count=max_count, interpret=False)
-        return new.cpu(), hot.cpu()
 
+def hints_phase(n_batches: int = 200, batch: int = 256):
+    """The q5 bid stream's auction keys, in batches, through the port's
+    ``HintFilter.classify_batch`` on two filters: ``device="cuda"``, whose
+    sketch stays on the card and runs the kernel, and ``device="cpu"``,
+    which runs its plain version.  Hot masks, counters and the aging
+    count must be equal after every batch."""
+    stream = q5_bids(n_batches * batch)[0].reshape(n_batches, batch)
     # the default sketch on both; both draw the same hash multipliers
-    cpu_filt, card_filt = HintFilter(mode="hot"), HintFilter(mode="hot")
+    cpu_filt = HintFilter(mode="hot", device="cpu")
+    card_filt = HintFilter(mode="hot", device="cuda")
     reset_launches()
     n_hot = 0
     cpu_s = cuda_s = 0.0
@@ -2726,27 +2796,161 @@ def hints_phase(n_batches: int = 200, batch: int = 256):
         t0 = time.perf_counter()
         hot_cpu = cpu_filt.classify_batch(keys)
         cpu_s += time.perf_counter() - t0
-        cms_ops.cms_update_and_classify = on_card
-        try:
-            t0 = time.perf_counter()
-            hot = card_filt.classify_batch(keys)
-            cuda_s += time.perf_counter() - t0
-        finally:
-            cms_ops.cms_update_and_classify = plain_call
-        if not (np.array_equal(hot, hot_cpu)
-                and np.array_equal(card_filt._dev["counters"],
-                                   cpu_filt._dev["counters"])
+        t0 = time.perf_counter()
+        hot = card_filt.classify_batch(keys)
+        cuda_s += time.perf_counter() - t0
+        if not (card_filt._dev["counters"].is_cuda
+                and np.array_equal(hot, hot_cpu)
+                and torch.equal(card_filt._dev["counters"].cpu(),
+                                cpu_filt._dev["counters"])
                 and card_filt._dev["since_aging"]
                 == cpu_filt._dev["since_aging"]):
             raise AssertionError("hints: card and cpu sketches differ")
         n_hot += int(hot.sum())
     counts = launches()
-    if counts["cms_sketch"] == 0:
-        raise AssertionError("hints: the sketch kernel never launched")
+    if counts["cms_sketch"] != n_batches:
+        raise AssertionError(f"hints: {counts['cms_sketch']} sketch kernel "
+                             f"launches for {n_batches} batches")
     emit("hints", batches=n_batches, batch=batch, equal=True,
          distinct_keys=int(len(np.unique(stream))),
          hot_share=n_hot / stream.size, cuda_s=cuda_s, cpu_s=cpu_s,
          launches=counts)
+    return counts
+
+
+# the tac_ops phase: the device TAC's calls of the sharded state plane
+# (DESIGN.md §7, §9-§11) at the deployment size, DEPLOY_SLOTS slots in
+# four logical shards of 8192 buckets x 8 ways, D = 1 (the width every
+# directory of both packages is built with); the q5 bid stream's keys with
+# their event times, the watermark trailing each batch's lowest event time
+# by q5's out-of-order bound and q5's window (nexmark.py: 2 s) as the
+# retention; a bin of shard 3's keys moves to shard 0 once
+TAC_OPS = dict(shards=4, buckets=8192, ways=8, batches=200, batch=256,
+               lateness=0.3, retention=2.0, admit_every=10, flush_every=20,
+               bins=8)
+
+
+def host_outputs(out) -> list:
+    """A call's outputs as host arrays, in order; the state the call
+    returns is left out (the directories are compared apart)."""
+    if isinstance(out, tac_torch.TACState):
+        return []
+    if isinstance(out, tuple):
+        return [a for o in out for a in host_outputs(o)]
+    if isinstance(out, torch.Tensor):
+        return [out.cpu().numpy()]
+    return [np.asarray(out)]
+
+
+def tac_ops_phase(c=TAC_OPS):
+    """``lookup``, ``admit``, ``shard_of``, ``probe_owned``,
+    ``admit_owned``, ``evict_expired``, ``set_dirty``, ``flush_dirty``,
+    ``export_mask`` and ``import_entries`` on four shards on the card, and
+    the same sequence on CPU tensors: after every call every output and
+    all four directories must be bit-equal.  Returns the card's launch
+    counts; K1 must have launched."""
+    n, S = c["shards"], c["batches"]
+    if n * c["buckets"] * c["ways"] != DEPLOY_SLOTS:
+        raise AssertionError("tac_ops: the shards do not hold DEPLOY_SLOTS")
+    keys, ts, vals = (a.reshape(S + 1, c["batch"], *a.shape[1:]) for a in
+                      q5_bids((S + 1) * c["batch"]))
+    vals = vals[..., None]
+    sides = {dev: [tac_torch.init(c["buckets"], c["ways"], 1, device=dev)
+                   for _ in range(n)] for dev in ("cuda", "cpu")}
+    wall = {"cuda": 0.0, "cpu": 0.0}
+    by_call = {}                 # call -> [count, card s, CPU s]
+    tally = dict(calls=0, hits=0, lookup_hits=0, dropped=0, reclaimed=0,
+                 flushed=0, migrated=0)
+
+    def both(label, call):
+        """``call(shards)`` on the card's shards and on the CPU's; returns
+        the card's outputs as host arrays."""
+        outs = {}
+        row = by_call.setdefault(label, [0, 0.0, 0.0])
+        row[0] += 1
+        for i, dev in enumerate(("cuda", "cpu")):
+            t0 = time.perf_counter()
+            outs[dev] = call(sides[dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            wall[dev] += dt
+            row[1 + i] += dt
+        card, cpu = host_outputs(outs["cuda"]), host_outputs(outs["cpu"])
+        if len(card) != len(cpu) or not all(
+                a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b) for a, b in zip(card, cpu)):
+            raise AssertionError(f"tac_ops {label}: card outputs {card} "
+                                 f"!= cpu outputs {cpu}")
+        for s in range(n):
+            for f in tac_torch.TACState._fields:
+                if not torch.equal(getattr(sides["cuda"][s], f).cpu(),
+                                   getattr(sides["cpu"][s], f)):
+                    raise AssertionError(f"tac_ops {label}: shard {s}'s "
+                                         f"{f} differ")
+        tally["calls"] += 1
+        return card
+
+    def run():
+        exported = {}
+        for i in range(S):
+            k, t, v = keys[i], ts[i], vals[i]
+            nk, nt, nv = keys[i + 1], ts[i + 1], vals[i + 1]
+            for s in range(n):
+                out = both("admit_owned", lambda sh: tac_torch.admit_owned(
+                    sh[s], k, t, s, n, v))
+                tally["dropped"] += int(out[-1])
+            for s in range(n):
+                hit = both("probe_owned", lambda sh: tac_torch.probe_owned(
+                    sh[s], nk, s, n))[1]
+                tally["hits"] += int(hit.sum())
+                hit = both("lookup", lambda sh: tac_torch.lookup(
+                    sh[s], nk, nt))[1]
+                tally["lookup_hits"] += int(hit.sum())
+            owner = both("shard_of", lambda sh: tac_torch.shard_of(
+                torch.from_numpy(k).to(sh[0].keys.device), n))[0]
+            if owner.tolist() != [hash_partition(int(x), n) for x in k]:
+                raise AssertionError("tac_ops: shard_of != hash_partition")
+            wm = float(t.min()) - c["lateness"]
+            for s in range(n):
+                tally["reclaimed"] += int(both(
+                    "evict_expired", lambda sh: tac_torch.evict_expired(
+                        sh[s], wm, c["retention"]))[0])
+            if i % c["admit_every"] == c["admit_every"] - 1:
+                s = (i // c["admit_every"]) % n
+                own = np.mod(nk, n) == s
+                both("admit", lambda sh: tac_torch.admit(
+                    sh[s], nk[own], nt[own], nv[own]))
+            if i % c["flush_every"] == c["flush_every"] - 1:
+                for s in range(n):
+                    both("set_dirty", lambda sh: tac_torch.set_dirty(
+                        sh[s], k))
+                    out = both("flush_dirty",
+                               lambda sh: tac_torch.flush_dirty(sh[s]))
+                    tally["flushed"] += len(out[0])
+            if i == S // 2:
+                resident = sides["cuda"][3].keys.cpu().numpy()
+                mask = (resident // n) % c["bins"] == 0
+
+                def drain(sh):
+                    exported[sh[0].keys.device.type] = e = \
+                        tac_torch.export_mask(sh[3], mask)
+                    return e
+                tally["migrated"] = len(both("export_mask", drain)[0])
+                both("import_entries", lambda sh: tac_torch.import_entries(
+                    sh[0], *exported[sh[0].keys.device.type][1:5]))
+
+    reset_launches()
+    on_cpu_threads(run)
+    counts = launches()
+    if counts["tac_probe"] == 0 or not (tally["hits"] and tally["reclaimed"]
+                                        and tally["flushed"]
+                                        and tally["migrated"]):
+        raise AssertionError(f"tac_ops: K1 never launched or a call did "
+                             f"nothing: {counts}, {tally}")
+    emit("tac_ops", batches=S, batch=c["batch"], shards=n,
+         slots=DEPLOY_SLOTS, equal=True, **tally, cuda_s=wall["cuda"],
+         cpu_s=wall["cpu"], by_call=by_call, launches=counts)
     return counts
 
 
@@ -3682,7 +3886,9 @@ def serve_examples_phase():
     """The serving examples at their default sizes on the card:
     ``serve_stream_torch.py`` prints what its ``--device cpu`` run prints,
     and ``serve_lm_torch.py`` (``launch/serve.py``'s ``main``) launches
-    K1-K3 and K6-K8.  Returns the launch counts of both."""
+    K1-K3 and K6-K8; then the quickstart (``quickstart_run``).  Returns
+    the launch counts of the serving examples and of the quickstart's
+    card run, by path."""
     total = {k: 0 for k in launches()}
     t0 = time.perf_counter()
     reset_launches()
@@ -3713,7 +3919,32 @@ def serve_examples_phase():
                              f"{total}")
     emit("serve_examples_total", launches=total,
          wall_s=time.perf_counter() - t0)
-    return total
+    return {"serve_examples": total, "quickstart": quickstart_run()}
+
+
+def quickstart_run():
+    """``examples/quickstart_torch.py --fused`` on the card prints what its
+    ``--device cpu`` run prints, line for line; its fused run launches
+    both fused kernels.  Returns the card run's launch counts."""
+    cpu_side = CpuSide("run_example", "quickstart_torch.py",
+                       ["--fused", "--device", "cpu"])
+    t0 = time.perf_counter()
+    reset_launches()
+    card = run_example("quickstart_torch.py", ["--fused"])
+    counts = launches()
+    card_s = time.perf_counter() - t0
+    cpu, cpu_s = cpu_side.result()
+    lines = card.strip().splitlines()
+    if lines != cpu.strip().splitlines() or "batch-fill" not in lines[-1]:
+        raise AssertionError(f"quickstart_torch: the card printed {card!r}, "
+                             f"the CPU {cpu!r}")
+    if min(counts[k] for k in FUSED_KERNELS) == 0:
+        raise AssertionError(f"quickstart_torch: a fused kernel never "
+                             f"launched: {counts}")
+    emit("serve_examples", example="examples/quickstart_torch.py",
+         args=["--fused"], equal_to_cpu=True, printed=lines,
+         launches=counts, cuda_wall_s=card_s, cpu_wall_s=cpu_s)
+    return counts
 
 
 # the mesh phase: gemma-7b at its published width, 2 of its 28 layers, 3
@@ -3892,10 +4123,11 @@ def main() -> int:
         profile_phase(slots)
     paths["serve"] = serve_phase()
     paths["hints"] = hints_phase()
+    paths["tac_ops"] = tac_ops_phase()
     paths["models"] = models_phase()
     paths["serve_lm"] = serve_lm_phase()
     paths.update(train_phase())
-    paths["serve_examples"] = serve_examples_phase()
+    paths.update(serve_examples_phase())
     paths["mesh"] = mesh_phase()
     dryrun_phase()
     names = {"tac_probe": ("tac_probe.cu",

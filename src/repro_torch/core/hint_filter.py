@@ -1,3 +1,5 @@
+# Copy of repro/core/hint_filter.py; differs only in `classify_batch`, which keeps
+# its sketch on the `device` argument's card (tests/test_torch_isolation.py).
 """Selective hint admission for lookahead operators (DESIGN.md §13).
 
 Every lookahead used to run one fixed rule: suppress the hint iff the
@@ -78,7 +80,8 @@ class HintFilter:
                  speculative: bool = False,
                  spec_width: int = 2,
                  spec_min_est: Optional[int] = None,
-                 sweep_every: int = 4096):
+                 sweep_every: int = 4096,
+                 device: str = "cuda"):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         self.mode = mode
@@ -110,6 +113,8 @@ class HintFilter:
         self._bucket_cap = self._tokens
         self._last_refill = 0.0
         # device-twin state for classify_batch, built lazily on first use
+        # on ``device``
+        self.device = device
         self._dev = None
 
     # -------------------------------------------------------------- admission
@@ -204,34 +209,39 @@ class HintFilter:
     # ------------------------------------------------------------ device twin
     def classify_batch(self, keys):
         """Batched hot/cold classification through the ``cms_sketch``
-        Pallas kernel (interpret mode on CPU).  Maintains a SEPARATE
-        counter/hash state from the host sketch — the two share
-        semantics, not hash values — and applies the same aging rule
-        (halve every ``aging_interval`` updates).  Returns a bool[B]
-        hot mask."""
+        kernel on ``self.device`` (its plain version on the CPU).
+        Maintains a SEPARATE counter/hash state from the host sketch — the
+        two share semantics, not hash values — and applies the same aging
+        rule (halve every ``aging_interval`` updates).  The counters stay
+        on the device between calls; a CUDA filter without a CUDA device
+        raises here.  Returns a bool[B] hot mask on the host (one copy of
+        B bytes from the device)."""
         import numpy as np
+        import torch
         from repro_torch.kernels.cms_sketch.ops import cms_update_and_classify
         cms = self.cms
         if self._dev is None:
             rng = np.random.RandomState(1)
+            on = lambda x: torch.from_numpy(  # noqa: E731
+                x.astype(np.int64)).to(self.device)
             self._dev = {
-                "counters": np.zeros((cms.d, cms.w), dtype=np.int32),
-                "a": (rng.randint(1, 2 ** 31 - 1, size=cms.d)
-                      .astype(np.uint32) | 1),
-                "b": rng.randint(0, 2 ** 31 - 1,
-                                 size=cms.d).astype(np.uint32),
+                "counters": torch.zeros((cms.d, cms.w), dtype=torch.int32,
+                                        device=self.device),
+                "a": on(rng.randint(1, 2 ** 31 - 1, size=cms.d)
+                        .astype(np.uint32) | 1),
+                "b": on(rng.randint(0, 2 ** 31 - 1,
+                                    size=cms.d).astype(np.uint32)),
                 "since_aging": 0,
             }
         dev = self._dev
-        keys = np.asarray(keys, dtype=np.int32)
-        new_counters, hot = cms_update_and_classify(
+        keys = torch.as_tensor(np.asarray(keys, dtype=np.int32),
+                               device=dev["counters"].device)
+        counters, hot = cms_update_and_classify(
             keys, dev["counters"], dev["a"], dev["b"],
-            threshold=cms.threshold, max_count=cms.max_count,
-            interpret=True)
-        counters = np.asarray(new_counters)
+            threshold=cms.threshold, max_count=cms.max_count)
         dev["since_aging"] += int(keys.shape[0])
         if dev["since_aging"] >= cms.aging_interval:
             counters = counters >> 1
             dev["since_aging"] = 0
         dev["counters"] = counters
-        return np.asarray(hot)
+        return hot.cpu().numpy()

@@ -1,36 +1,43 @@
-"""Device-side Timestamp-Aware Cache on PyTorch tensors: the calls of
-``repro/core/tac_jax.py`` that the serving arena's page table (DESIGN.md
-§6, §9) and the fused hot path (§14) make.
+"""Device-side Timestamp-Aware Cache on PyTorch tensors: every call of
+``repro/core/tac_jax.py``.
 
 State rows live in (n_buckets x ways) slots; eviction picks the
-min-timestamp way within the key's bucket.  ``admit_batch`` resolves a
-batch in conflict rounds with the result of the reference's sequential
-``admit`` and reports each key's slot and the key and dirty bit it
-displaced.  The fused plane uses one bucket of
-``ways = capacity`` slots.  The payload pool is
-``pages [n_slots + 1, 1, V + 1]``: channel 0 is a presence flag (0 = the
-pane was never written; decodes to the Python side's ``None``), channels
-1..V the value vector, and the LAST row a zeroed scratch slot that
-miss/read/padding lanes alias so their scatters are inert.  The host
-shadow directory (``streaming/fused.py``) owns eviction ORDER and slot
-assignment; the device directory (``TACState.keys``) is authoritative for
-MEMBERSHIP and the pool for payloads.
+min-timestamp way within the key's bucket.  Lookups go through the probe
+kernel.  ``admit`` has the reference's sequential semantics (duplicate
+keys in one batch see each other's effects); ``admit_batch`` resolves a
+batch in conflict rounds with the same result and reports each key's
+slot and the key and dirty bit it displaced.  Around them sit the
+sharded plane's ownership calls (``shard_of``, ``shard_mask``,
+``probe_owned``, ``admit_owned``, DESIGN.md §9), the watermark reclaim
+(``evict_expired``, §10, §11), migration (``export_mask``,
+``import_entries``) and the barrier's dirty export (``flush_dirty``,
+§7).  The fused plane uses one bucket of ``ways = capacity`` slots.  The
+payload pool is ``pages [n_slots + 1, 1, V + 1]``: channel 0 is a
+presence flag (0 = the pane was never written; decodes to the Python
+side's ``None``), channels 1..V the value vector, and the LAST row a
+zeroed scratch slot that miss/read/padding lanes alias so their scatters
+are inert.  The host shadow directory (``streaming/fused.py``) owns
+eviction ORDER and slot assignment; the device directory
+(``TACState.keys``) is authoritative for MEMBERSHIP and the pool for
+payloads.
 
 Unlike the reference, whose arrays are immutable, these functions update
 ``state`` and ``pages`` IN PLACE and return them: a batch touches a few
 hundred rows of a pool that can hold hundreds of thousands.  Callers that
-need the old state clone it first.  Probe, gather and scatter go through
-the kernels of ``repro_torch.kernels`` (CUDA on a CUDA tensor, the plain
+need the old state clone it first; the host arrays that the bulk exports
+return are copies taken before the state changes.  The state's device
+decides where the work runs: probe, gather and scatter go through the
+kernels of ``repro_torch.kernels`` (CUDA on a CUDA tensor, the plain
 PyTorch versions on a CPU tensor): the fused plane's batch step and
-admission are one kernel each (``kernels/tac_fused``); the serving arena's
-calls use the probe and page kernels around plain tensor code.  Where a
+admission are one kernel each (``kernels/tac_fused``); the other calls
+use the probe and page kernels around plain tensor code.  Where a
 probe's miss lanes alias way 0 of their bucket, the updates are
 ``scatter_reduce_`` with a neutral value for those lanes, never a plain
 ``scatter_``, whose order on duplicate indices is unspecified.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -123,6 +130,15 @@ def renew(state: TACState, keys, hint_ts) -> TACState:
     return state
 
 
+def lookup(state: TACState, qkeys, now_ts
+           ) -> Tuple[torch.Tensor, torch.Tensor, TACState]:
+    """Batched probe+gather; refreshes the timestamps of hits (max with
+    ``now_ts``) IN PLACE.  Returns ``(vals [B, D], hit [B] bool, state)``."""
+    vals, hit, at = _probe(state, _on(state, qkeys).int())
+    refresh_ts(state, at, hit, now_ts)
+    return vals, hit, state
+
+
 class AdmitResult(NamedTuple):
     state: TACState
     slots: torch.Tensor          # [B] int32 flat slot (bucket * ways + way)
@@ -198,6 +214,15 @@ def admit_batch(state: TACState, keys, ts, vals=None,
     return AdmitResult(state, slots.int(), ev_k, ev_d)
 
 
+def admit(state: TACState, keys, ts, vals=None, dirty=None) -> TACState:
+    """Insert a batch (prefetched or freshly computed state), IN PLACE,
+    with the reference's sequential semantics: each insert overwrites a
+    matching key (its timestamp replaced) if present, else evicts the
+    bucket's first min-ts way, and duplicate buckets compose in batch
+    order.  ``admit_batch``'s conflict rounds give exactly that state."""
+    return admit_batch(state, keys, ts, vals, dirty).state
+
+
 def set_dirty(state: TACState, keys, value: bool = True) -> TACState:
     """Flip the dirty bit of resident keys (no-op for missing keys), IN
     PLACE.  Miss lanes alias way 0 of their bucket, so the update is an
@@ -209,6 +234,82 @@ def set_dirty(state: TACState, keys, value: bool = True) -> TACState:
         _flat(state.dirty).scatter_reduce_(0, at, (~hit).to(torch.uint8),
                                            "amin")
     return state
+
+
+# ----------------------------------------------------------- sharded plane
+# Key ownership in the sharded state plane (DESIGN.md §9): int32 keys are
+# assigned to shards by a floor modulo, which agrees with the engine-side
+# ``hash_partition`` for ints (CPython hash(i) == i for small ints), so a
+# hint routed host-side and a page admitted device-side land at the same
+# owner.
+
+def shard_of(keys, n_shards: int) -> torch.Tensor:
+    """Owning shard per key, int32 (device-side twin of ``hash_partition``).
+    ``torch.remainder`` is a floor modulo, as the reference's ``jnp.mod``:
+    a negative key maps into [0, n_shards) too.  A tensor stays on its
+    device; other array-likes become CPU tensors."""
+    return torch.remainder(torch.as_tensor(keys).int(), n_shards)
+
+
+def shard_mask(keys, shard_id: int, n_shards: int) -> torch.Tensor:
+    """True where ``shard_id`` owns the key."""
+    return shard_of(keys, n_shards) == shard_id
+
+
+def probe_owned(state: TACState, keys, shard_id: int, n_shards: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shard-local probe: foreign keys (misrouted in the shard plane) are
+    forced to miss so a stray probe can never refresh another shard's
+    entries.  Returns (vals, hit, owned) — callers count ``~owned`` lanes
+    as misroutes, not misses."""
+    keys = _on(state, keys).int()
+    owned = shard_mask(keys, shard_id, n_shards)
+    vals, hit, _ = _probe(state, keys)
+    return vals, hit & owned, owned
+
+
+def admit_owned(state: TACState, keys, ts, shard_id: int, n_shards: int,
+                vals=None, dirty=None) -> Tuple[AdmitResult, int]:
+    """Shard-local admit, IN PLACE: drops keys the shard does not own
+    before the batched admit (a misrouted admit would orphan a page — no
+    hint or probe would ever find it on this shard again).  The filter
+    runs on the host, as the reference's does (the owned subset's size
+    depends on the data).  Returns (AdmitResult over the owned subset,
+    n_dropped); with every key dropped the result holds zero-length
+    tensors on the state's device."""
+    keys = _on(state, keys).int()
+    owned = shard_mask(keys, shard_id, n_shards).cpu().numpy()
+    at = _on(state, np.nonzero(owned)[0])
+    sub = lambda a: None if a is None else _on(state, a)[at]  # noqa: E731
+    return admit_batch(state, keys[at], sub(ts), sub(vals),
+                       sub(dirty)), int((~owned).sum())
+
+
+def evict_expired(state: TACState, watermark: float, retention: Any = 0.0
+                  ) -> Tuple[TACState, torch.Tensor]:
+    """Watermark-driven bulk reclaim (DESIGN.md §10, §11), IN PLACE:
+    invalidate every occupied slot whose EXPIRY time lies strictly behind
+    ``watermark``.
+
+    The expiry time is ``ts + retention`` in fp32: ``retention == 0`` (the
+    default) makes the slot timestamp the deadline (window panes admitted
+    with their fire deadline, §10); ``retention > 0`` expires slots at
+    their interval end instead (interval-join entries, §11).
+    ``retention`` may be a scalar or a ``[n_buckets, ways]`` array of
+    per-slot bounds.  The watermark is rounded to fp32, as the reference
+    rounds a Python scalar against an fp32 array.  Keys, timestamps (to
+    -inf) and dirty bits are cleared; values stay.  Expired state is
+    purged, not written back, so callers that still need the data flush
+    BEFORE the watermark passes.  Returns (state, number of slots
+    reclaimed as an int32 0-dim tensor on the state's device, so that the
+    call does not wait for the device)."""
+    expiry = state.ts + _on(state, retention, torch.float32)
+    expired = (state.keys >= 0) & (expiry < _on(state, watermark,
+                                                torch.float32))
+    state.keys.masked_fill_(expired, -1)
+    state.ts.masked_fill_(expired, -float("inf"))
+    state.dirty.masked_fill_(expired, False)
+    return state, expired.sum(dtype=torch.int32)
 
 
 # --------------------------------------------------------------- migration
@@ -239,6 +340,34 @@ def export_mask(state: TACState, mask: np.ndarray) -> Exported:
     _flat(state.ts)[at] = -float("inf")
     _flat(state.dirty)[at] = 0
     return out
+
+
+def import_entries(state: TACState, keys, ts, vals=None,
+                   dirty=None) -> AdmitResult:
+    """Migration re-admit at the destination shard, IN PLACE: a batched
+    admit that keeps the exported timestamps (NOT the migration time — a
+    prefetched page whose hint ts lies in the future must stay protected
+    after the move, DESIGN.md §9)."""
+    return admit_batch(state, keys, ts, vals, dirty)
+
+
+def flush_dirty(state: TACState) -> Tuple[TACState, Exported]:
+    """Barrier-time dirty export (DESIGN.md §7): the device twin of
+    ``TimestampAwareCache.flush_dirty``.  Returns every DIRTY resident
+    row (keys, timestamps, values, flat slots — the write-back batch the
+    checkpoint persists) and the state with those dirty bits CLEARED IN
+    PLACE; unlike the migration drain (``export_mask``) the entries stay
+    resident.  The exported arrays are host copies taken before the
+    clear, so a later change to the state leaves them as they were."""
+    sel = _flat(state.dirty).bool() & (_flat(state.keys) >= 0)
+    at = sel.nonzero().squeeze(1)
+    D = state.vals.shape[-1]
+    exp = Exported(state, _host(_flat(state.keys)[at]),
+                   _host(_flat(state.ts)[at]),
+                   _host(state.vals.view(-1, D)[at]),
+                   np.ones((at.numel(),), bool), _host(at.int()))
+    _flat(state.dirty)[at] = 0
+    return state, exp
 
 
 class FusedStep(NamedTuple):

@@ -21,7 +21,7 @@ VERBATIM = [
     "streaming/shards.py", "streaming/synthetic.py", "streaming/joins.py",
     "streaming/sessions.py", "streaming/recovery.py", "streaming/chaos.py",
     "core/tac.py", "core/hints.py", "core/cms.py", "core/prefetch.py",
-    "core/policies.py", "core/hint_filter.py", "core/__init__.py",
+    "core/policies.py", "core/__init__.py",
     "obs/__init__.py", "obs/registry.py", "obs/quality.py", "obs/trace.py",
     "obs/timeseries.py", "obs/health.py", "obs/export.py",
     "serving/__init__.py", "serving/store.py", "serving/metrics.py",
@@ -61,6 +61,91 @@ REPLACED = {
     "runtime/supervisor.py": [
         ("import jax\nimport numpy as np\n", "import numpy as np\n"),
     ],
+    # classify_batch keeps its sketch on the filter's device
+    "core/hint_filter.py": [
+        ("sweep_every: int = 4096):",
+         "sweep_every: int = 4096,\n"
+         "                 device: str = \"cuda\"):"),
+        ("built lazily on first use\n        self._dev = None",
+         "built lazily on first use\n        # on ``device``\n"
+         "        self.device = device\n        self._dev = None"),
+        ("        Pallas kernel (interpret mode on CPU).  Maintains a SEPARATE\n"
+         "        counter/hash state from the host sketch — the two share\n"
+         "        semantics, not hash values — and applies the same aging rule\n"
+         "        (halve every ``aging_interval`` updates).  Returns a bool[B]\n"
+         "        hot mask.\"\"\"",
+         "        kernel on ``self.device`` (its plain version on the CPU).\n"
+         "        Maintains a SEPARATE counter/hash state from the host sketch"
+         " — the\n"
+         "        two share semantics, not hash values — and applies the same"
+         " aging\n"
+         "        rule (halve every ``aging_interval`` updates).  The counters"
+         " stay\n"
+         "        on the device between calls; a CUDA filter without a CUDA"
+         " device\n"
+         "        raises here.  Returns a bool[B] hot mask on the host (one"
+         " copy of\n"
+         "        B bytes from the device).\"\"\""),
+        ("        import numpy as np\n",
+         "        import numpy as np\n        import torch\n"),
+        ("            rng = np.random.RandomState(1)\n",
+         "            rng = np.random.RandomState(1)\n"
+         "            on = lambda x: torch.from_numpy(  # noqa: E731\n"
+         "                x.astype(np.int64)).to(self.device)\n"),
+        ("\"counters\": np.zeros((cms.d, cms.w), dtype=np.int32),\n"
+         "                \"a\": (rng.randint(1, 2 ** 31 - 1, size=cms.d)\n"
+         "                      .astype(np.uint32) | 1),\n"
+         "                \"b\": rng.randint(0, 2 ** 31 - 1,\n"
+         "                                 size=cms.d).astype(np.uint32),",
+         "\"counters\": torch.zeros((cms.d, cms.w), dtype=torch.int32,\n"
+         "                                        device=self.device),\n"
+         "                \"a\": on(rng.randint(1, 2 ** 31 - 1, size=cms.d)\n"
+         "                        .astype(np.uint32) | 1),\n"
+         "                \"b\": on(rng.randint(0, 2 ** 31 - 1,\n"
+         "                                    size=cms.d).astype(np.uint32)),"),
+        ("        keys = np.asarray(keys, dtype=np.int32)\n"
+         "        new_counters, hot = cms_update_and_classify(",
+         "        keys = torch.as_tensor(np.asarray(keys, dtype=np.int32),\n"
+         "                               device=dev[\"counters\"].device)\n"
+         "        counters, hot = cms_update_and_classify("),
+        ("max_count=cms.max_count,\n            interpret=True)\n"
+         "        counters = np.asarray(new_counters)\n",
+         "max_count=cms.max_count)\n"),
+        ("        return np.asarray(hot)", "        return hot.cpu().numpy()"),
+    ],
+}
+
+# examples copied onto the port, then edited only by these replacements
+# (after the two-line header that names the edit): the ``device`` of the
+# fused run, and the script's own name in its docstring
+EXAMPLE_COPIES = {
+    "quickstart_torch.py": ("quickstart.py", [
+        ("python examples/quickstart.py",
+         "python examples/quickstart_torch.py"),
+        ("the on-demand post-restore latency spike it avoids.\n\"\"\"",
+         "the on-demand post-restore latency spike it avoids.\n\n"
+         "On the PyTorch port, ``--device`` (default ``cuda``) places the\n"
+         "``--fused`` run's keyed state; its batches run the fused kernels "
+         "there.\n"
+         "The three host runs and the ``--fail-at`` tour never touch the "
+         "device,\n"
+         "and ``--device cpu`` prints what ``examples/quickstart.py`` "
+         "prints.\n\"\"\""),
+        ("          fused: bool = False) -> Engine:",
+         "          fused: bool = False, device: str = \"cuda\") -> Engine:"),
+        ("                                **fused_kw))",
+         "                                device=device, **fused_kw))"),
+        ("compiles to one jitted program per batch",
+         "runs as one kernel launch per batch"),
+        ("    args = ap.parse_args()\n",
+         "    ap.add_argument(\"--device\", default=\"cuda\",\n"
+         "                    help=\"where the --fused run's keyed state lives \"\n"
+         "                         \"(cuda or cpu)\")\n"
+         "    args = ap.parse_args()\n"),
+        ("m = build(policy, mode, fused=fused).run(",
+         "m = build(policy, mode, fused=fused,\n"
+         "                  device=args.device).run("),
+    ]),
 }
 
 # the port's twins of the reference's tests: the same file after the
@@ -129,8 +214,8 @@ def test_torch_examples_import_with_jax_and_repro_blocked():
     """``examples/*_torch.py`` run with ``jax`` and ``repro`` blocked
     (``--help`` parses their arguments and stops)."""
     names = [p.name for p in torch_examples()]
-    assert {"serve_lm_torch.py", "serve_stream_torch.py",
-            "train_lm_torch.py"} <= set(names)
+    assert {"quickstart_torch.py", "serve_lm_torch.py",
+            "serve_stream_torch.py", "train_lm_torch.py"} <= set(names)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     for path in torch_examples():
         runner = (
@@ -234,6 +319,21 @@ def test_replaced_copy_differs_only_in_listed_edits(rel):
     diff = "".join(difflib.unified_diff(ref.splitlines(True),
                                         port.splitlines(True), n=0))
     assert not diff, f"repro_torch/{rel} drifted beyond its edits:\n{diff}"
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_COPIES))
+def test_example_copy_differs_only_in_listed_edits(name):
+    ref_name, edits = EXAMPLE_COPIES[name]
+    ref = rewrite((ROOT / "examples" / ref_name).read_text())
+    for old, new in edits:
+        assert old in ref, f"edit {old!r} no longer applies to {ref_name}"
+        ref = ref.replace(old, new)
+    first, _, port = (ROOT / "examples" / name).read_text().split("\n", 2)
+    assert first.startswith(f"# Copy of examples/{ref_name} on repro_torch; "
+                            f"differs only")
+    diff = "".join(difflib.unified_diff(ref.splitlines(True),
+                                        port.splitlines(True), n=0))
+    assert not diff, f"examples/{name} drifted beyond its edits:\n{diff}"
 
 
 def test_shard_owner_map_copy_has_not_drifted():

@@ -490,24 +490,46 @@ def test_cms_classify_runs_where_its_inputs_lie():
 
 
 def test_hint_filter_classify_batch_matches_reference():
-    """The port's HintFilter.classify_batch (its kernel path imported
-    ``repro_torch.kernels.cms_sketch.ops``, which was missing) equals the
-    reference's on one key stream across aging boundaries."""
+    """The port's HintFilter.classify_batch on a CPU filter (its sketch
+    kept as a CPU tensor between calls, the plain version of the kernel)
+    equals the reference's on one key stream across aging boundaries."""
     from repro.core.hint_filter import HintFilter as JFilter
     from repro_torch.core.hint_filter import HintFilter as TFilter
     conf = dict(depth=4, width=512, threshold=6, aging_interval=300)
-    jf, tf = JFilter(mode="hot", cms_conf=conf), TFilter(mode="hot",
-                                                         cms_conf=conf)
+    jf = JFilter(mode="hot", cms_conf=conf)
+    tf = TFilter(mode="hot", cms_conf=conf, device="cpu")
     rng = np.random.RandomState(11)
     for i in range(12):
         keys = np.where(rng.rand(64) < 0.5, rng.randint(0, 8, 64),
                         rng.randint(0, 5000, 64)).astype(np.int32)
         jm, tm = jf.classify_batch(keys), tf.classify_batch(keys)
-        np.testing.assert_array_equal(np.asarray(tm), np.asarray(jm))
-        np.testing.assert_array_equal(tf._dev["counters"],
+        assert isinstance(tm, np.ndarray) and tm.dtype == bool
+        np.testing.assert_array_equal(tm, np.asarray(jm))
+        assert tf._dev["counters"].dtype == torch.int32
+        np.testing.assert_array_equal(tf._dev["counters"].numpy(),
                                       np.asarray(jf._dev["counters"]))
         assert tf._dev["since_aging"] == jf._dev["since_aging"]
     assert tm.any() and not tm.all()
+    tf.reset()
+    assert tf._dev is None and tf.device == "cpu"
+
+
+def test_hint_filter_defaults_to_the_card_and_never_runs_on_the_cpu():
+    """``HintFilter()`` keeps its sketch on ``cuda``; building one touches
+    no device (the engine builds filters on every run), and where CUDA is
+    absent the first ``classify_batch`` raises instead of running on the
+    CPU."""
+    from repro_torch.core.hint_filter import HintFilter as TFilter
+    filt = TFilter(mode="hot")
+    assert filt.device == "cuda" and filt._dev is None
+    keys = np.arange(16, dtype=np.int32)
+    if torch.cuda.is_available():
+        filt.classify_batch(keys)
+        assert filt._dev["counters"].device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        filt.classify_batch(keys)
+    assert filt._dev is None
 
 
 # ------------------------------------------------------------ flash attention

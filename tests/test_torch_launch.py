@@ -4,10 +4,13 @@ the parameter, optimizer, cache and batch specs of all ten architectures
 on both production meshes (shape-only meshes, as tests/test_launch.py
 uses), the models' ``cache_spec``/``input_specs``, the program analysis,
 the models under a one-rank mesh bit for bit, ``int8_allreduce`` on two
-ranks against the reference's under ``jax.vmap``, elastic resharding, and
-``examples/serve_stream_torch.py`` against ``examples/serve_stream.py``.
+ranks against the reference's under ``jax.vmap``, elastic resharding,
+``examples/serve_stream_torch.py`` against ``examples/serve_stream.py`` and
+``examples/quickstart_torch.py`` against ``examples/quickstart.py``.
 Whatever starts a process group runs in a process of its own."""
+import contextlib
 import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -534,3 +537,71 @@ def test_serve_stream_torch_prints_the_reference_tour(mode):
     assert all(o.returncode == 0 for o in outs), [o.stderr for o in outs]
     assert outs[1].stdout == outs[0].stdout
     assert f"[{mode}] ttft" in outs[1].stdout
+
+
+# ------------------------------------------------------ the quickstart
+@contextlib.contextmanager
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def load_example(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"example_{Path(name).stem}", ROOT / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+QUICKSTART_RUNS = [("lru", "sync", False), ("lru", "async", False),
+                   ("tac", "prefetch", False), ("tac", "prefetch", True)]
+
+
+@pytest.mark.parametrize("policy,mode,fused", QUICKSTART_RUNS)
+def test_quickstart_torch_runs_equal_the_reference(policy, mode, fused):
+    """``examples/quickstart_torch.py``'s ``build`` on the CPU (the fused
+    run's plane on ``device="cpu"``) against ``examples/quickstart.py``'s:
+    the same latencies, hit rate and batch fill over a shortened stream."""
+    ref, port = load_example("quickstart.py"), \
+        load_example("quickstart_torch.py")
+    run = dict(duration=1.0, warmup=0.5)
+    mr = ref.build(policy, mode, fused=fused).run(**run)
+    with one_thread():
+        mp = port.build(policy, mode, fused=fused, device="cpu").run(**run)
+    for key in ("p50", "p999", "stateful_hit_rate"):
+        assert mp.get(key) == mr.get(key), key
+    fill = mp.get("stateful_fused", {}).get("fill_ratio")
+    assert fill == mr.get("stateful_fused", {}).get("fill_ratio")
+    assert (fill is not None) == fused
+    assert mp["p50"] > 0
+
+
+def test_quickstart_torch_failure_tour_equals_the_reference():
+    """The ``--fail-at`` build (replayable source, barrier checkpoints, a
+    whole-job failure and a warmed recovery) on both packages over a
+    shortened run: equal checkpoint and recovery figures."""
+    from repro.streaming import recovery as jrec
+    from repro_torch.streaming import recovery as trec
+    out = []
+    for example, rec in (("quickstart.py", jrec),
+                         ("quickstart_torch.py", trec)):
+        eng = load_example(example).build("tac", "prefetch", replayable=True)
+        coord = rec.CheckpointCoordinator(eng, interval=0.5)
+        coord.start()
+        rec.inject_failure_at(eng, at=1.2, mode="warmed")
+        with one_thread():
+            m = eng.run(duration=1.5, warmup=0.5)
+        out.append(m)
+    mr, mp = out
+    assert mp["checkpoint"] == mr["checkpoint"]
+    assert mp["recovery"] == mr["recovery"]
+    for key in ("p50", "p999", "stateful_hit_rate"):
+        assert mp.get(key) == mr.get(key), key
+    assert mp["checkpoint"]["epochs_completed"] > 0
+    assert mp["recovery"]["failures"] == 1
+    assert mp["recovery"]["warmup_hints"] > 0

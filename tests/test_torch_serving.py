@@ -178,8 +178,7 @@ def test_set_dirty_matches_reference_with_aliased_misses(value):
 def test_export_mask_and_readmit_match_reference(select):
     """tests/test_sharding.py's export/import roundtrip on both packages:
     the drained entries keep their timestamps and dirty bits, and the
-    destination re-admits them with ``admit_batch`` (the reference's
-    ``import_entries``)."""
+    destination re-admits them with ``import_entries``."""
     arrays, _ = _np_state(4, 2, 2, 6, fill=0.8)
     j, t = _both(arrays)
     mask = arrays[0] % 2 == 1 if select == "odd" else arrays[0] < -1
@@ -195,8 +194,8 @@ def test_export_mask_and_readmit_match_reference(select):
     dst_j, dst_t = tac_jax.init(4, 2, 2), tac_torch.init(4, 2, 2, device="cpu")
     rres = tac_jax.import_entries(dst_j, rexp.keys, rexp.ts, rexp.vals,
                                   rexp.dirty)
-    pres = tac_torch.admit_batch(dst_t, pexp.keys, pexp.ts, pexp.vals,
-                                 pexp.dirty)
+    pres = tac_torch.import_entries(dst_t, pexp.keys, pexp.ts, pexp.vals,
+                                    pexp.dirty)
     np.testing.assert_array_equal(pres.slots.numpy(), np.asarray(rres.slots))
     _assert_state(rres.state, pres.state)
 
