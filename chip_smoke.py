@@ -15,8 +15,10 @@ BENCH_recovery.json's q5 configuration (checkpoints, a cold and a warmed
 crash and restore of the device plane, equal to the CPU's warmed run, no
 tensor in any snapshot record, card memory after two crashes within one
 plane of an unfailed run's) and the exactly-once count per key on the
-card against the golden run.  Then it times the plane over a
-deployment-size working set.  K2 (page
+card against the golden run.  The step kernel takes any batch: its
+rows reach B 16,384 and V 300, and q5 and YSB run fused at batches of
+1024 lanes on the card, equal to the CPU.  Then it times the plane over
+a deployment-size working set at batches of 256, 1024 and 4096.  K2 (page
 gather) is held bit for bit at the shapes it launches at, in fp32 and
 bf16, with duplicate and out-of-range slots, and timed back to back over
 disjoint slot sets of its pool beside ``index_select``; K4 (count-min
@@ -80,6 +82,7 @@ import os
 import pickle
 import re
 import runpy
+import shutil
 import statistics
 import subprocess
 import sys
@@ -224,7 +227,12 @@ EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
               ("page_gather", "fused N 1"): 0.0021135227027698706,
               ("page_gather", "fused N 256"): 0.002297279983758926,
               ("page_gather", "serve_lm zamba2-2.7b"): 0.0030500799417495727,
-              ("page_gather", "8 KB rows"): 0.0029710400104522704}
+              ("page_gather", "8 KB rows"): 0.0029710400104522704,
+              # K1's fused step with the 256-lane cap (PR 16's design: the
+              # tail a thread a lane, 256-bit lane masks)
+              ("tac_fused_step", "sum W 2048 B 256"): 0.008481280207633972,
+              ("tac_fused_step", "sum W 262144 B 256"):
+                  0.011991679668426514}
 ROTATE_LEAST = 100             # rotating_ms's fewest calls a round
 ROTATE_BATCH = 128             # its calls a spin, within the launch queue
 
@@ -540,8 +548,9 @@ def fused_case(W, B, V, batch, int_weights=True, seed=0):
     """A fused plane's directory (one bucket of W ways, about 3/4 resident,
     with timestamps, dirty bits, payloads and presence flags) and pool on
     the card, and a batch of B lanes, as tests/test_torch_tac.py builds
-    them.  ``mixed``: resident keys with a key four times, misses, fire
-    lanes, an invalid lane and three PAD_KEY padding lanes; ``hot``: every
+    them.  ``mixed``: resident keys with a key four times, a key at lanes
+    255 and 256 and one at 1023 and 1024 (where B reaches them), misses,
+    fire lanes, an invalid lane and three PAD_KEY padding lanes; ``hot``: every
     lane one resident key, fire lanes among them; ``empty``: mixed, with
     query keys of -1 against a directory with empty ways.  Returns (state,
     pages, lanes on the card, lanes as numpy arrays)."""
@@ -565,6 +574,9 @@ def fused_case(W, B, V, batch, int_weights=True, seed=0):
         q[1] = q[n // 2] = q[n - 1] = q[0]
         if batch == "empty":
             q[2::7] = -1
+        for a, b in ((255, 256), (1023, 1024)):   # a key across the old
+            if b < n:                             # cap and a tail tile's end
+                q[b] = q[a]
         q = np.concatenate([q, [FusedPlane.PAD_KEY] * 3]).astype(np.int32)
         valid = np.arange(B) < n
         valid[5] = False
@@ -620,11 +632,36 @@ def fused_step_no_compose(state, pages, keys, ts, weights, fire, valid,
     return hit, slots, new_v, present, tallies
 
 
-def fused_step_agrees(out, plane, ref, ref_plane, exact: bool):
+def fsum_tolerance(lanes, ref, pages, kind):
+    """A bound on |kernel - plain| for each lane's new values from float
+    weights, for batches past 256 lanes: the kernel sums a key's update
+    lanes in lane order, the plain version in a matrix product's order,
+    and each differs from the exact sum by at most gamma_n S (recursive
+    summation: n terms, the row's value one of them, gamma_n = n u / (1 -
+    n u), u = 2^-24; S the terms' magnitudes, the row's bounded by the
+    pool's largest).  n is the key's update lanes up to the lane, so the
+    bound grows with the longest key run.  Returns 2e-5 (1 + |plain|) +
+    2 gamma_n S, [B, V], float64."""
+    keys, _, w, fire, _ = lanes
+    hit = ref[0]
+    upd = torch.zeros_like(hit) if kind == "read" else hit & ~fire
+    B = keys.shape[0]
+    M = (keys[:, None] == keys[None, :]) & upd[None, :] & torch.ones(
+        (B, B), dtype=torch.bool, device=keys.device).tril()
+    n = M.sum(1, keepdim=True).double() + 1
+    S = M.double() @ w.double().abs() + float(pages.abs().max())
+    u = 2.0 ** -24
+    return TOL[torch.float32] * (1 + ref[2].double().abs()) \
+        + 2 * n * u / (1 - n * u) * S
+
+
+def fused_step_agrees(out, plane, ref, ref_plane, exact: bool, tol=None):
     """Every output and the directory and pool of a batch step equal the
     plain version's: bit for bit, or (``exact`` False: float weights, whose
     sums the plain version takes in another order) new values and pool
-    within tests/test_torch_tac.py's 2e-5.  Returns (agrees, max_abs_err)."""
+    within tests/test_torch_tac.py's 2e-5, or within ``tol`` (per new
+    value, ``fsum_tolerance``; the pool within its largest).  Returns
+    (agrees, max_abs_err)."""
     ok = all(torch.equal(a, b) for a, b in zip(out[:2] + out[3:],
                                                ref[:2] + ref[3:]))
     ok &= all(torch.equal(a, b) for a, b in zip(plane[0], ref_plane[0]))
@@ -632,9 +669,13 @@ def fused_step_agrees(out, plane, ref, ref_plane, exact: bool):
     if exact:
         ok &= torch.equal(out[2], ref[2]) and torch.equal(plane[1],
                                                           ref_plane[1])
-    else:
+    elif tol is None:
         ok &= allclose(out[2], ref[2], TOL[torch.float32]) and allclose(
             plane[1], ref_plane[1], TOL[torch.float32])
+    else:
+        ok &= bool(((out[2] - ref[2]).double().abs() <= tol).all()) and bool(
+            ((plane[1] - ref_plane[1]).double().abs()
+             <= (tol.max() if tol.numel() else 0.0)).all())
     return ok, err
 
 
@@ -647,26 +688,33 @@ def check_fused_step(W, B, V, kind, batch, int_weights=True, timed=False,
     bound: bytes (the W directory keys, the lanes, the rows, timestamps
     and dirty bits the batch reads and writes, the outputs) or operations
     (W table lookups, B inserts, and V compose steps for each pair of
-    lanes of one key, j <= i), at the fp32 scalar peak."""
+    lanes of one key, j <= i), at the fp32 scalar peak; ``bound_all_rows_ms``
+    counts every lane reading and writing a row.  Float weights past 256
+    lanes are held within ``fsum_tolerance``."""
     state, pages, lanes, lanes_np = fused_case(W, B, V, batch, int_weights)
     kplane = clone_plane(state, pages)
     out = tfk.fused_step(*kplane, *lanes, kind)
     rplane = clone_plane(state, pages)
     ref = tfk.fused_step_plain(*rplane, *lanes, kind)
+    tol = None if int_weights or B <= 256 else fsum_tolerance(lanes, ref,
+                                                              pages, kind)
     torch.cuda.synchronize()
-    ok, err = fused_step_agrees(out, kplane, ref, rplane, int_weights)
+    ok, err = fused_step_agrees(out, kplane, ref, rplane, int_weights, tol)
     if not ok:
         raise AssertionError(f"tac_fused_step differs at W {W}, B {B}, V "
                              f"{V}, {kind}, {batch}: {err}")
     row = dict(kernel="tac_fused_step", W=W, B=B, V=V, kind=kind,
                batch=batch, weights="int" if int_weights else "float",
                hits=int(ref[4][0]), misses=int(ref[4][1]),
-               max_abs_err=err)
+               max_abs_err=err,
+               tolerance=0.0 if int_weights else (
+                   TOL[torch.float32] if tol is None
+                   else float(tol.max()) if tol.numel() else 0.0))
     if fault:
         fplane = clone_plane(state, pages)
         bad = fused_step_no_compose(*fplane, *lanes, kind)
         passes, row["planted_fault_max_abs_err"] = fused_step_agrees(
-            bad, fplane, ref, rplane, int_weights)
+            bad, fplane, ref, rplane, int_weights, tol)
         if passes:
             raise AssertionError(f"tac_fused_step at W {W}, {kind}, {batch}:"
                                  f" the check would pass the step without "
@@ -685,6 +733,8 @@ def check_fused_step(W, B, V, kind, batch, int_weights=True, timed=False,
         _, counts = np.unique(q, return_counts=True)
         ops = W + B + V * int((counts * (counts + 1) // 2).sum())
         b_ms, b_by = bound(nbytes, ops=ops)
+        all_rows = (4 * W + B * (10 + 4 * V) + 4 * tfk.step_out_words(B, V)
+                    + 8 * B * (V + 1))
         fields = tfk.step_in_fields(B, V)
         packed = torch.from_numpy(tfk.fill(
             np.zeros(tfk.nbytes(fields), np.uint8), fields,
@@ -692,12 +742,16 @@ def check_fused_step(W, B, V, kind, batch, int_weights=True, timed=False,
         row.update(ms=device_ms(lambda: tfk.fused_step_packed(
                        *kplane, packed, B, kind), **LAUNCH_BOUND),
                    plain_ms=device_ms(lambda: tfk.fused_step_plain(
-                       *rplane, *lanes, kind)),
+                       *rplane, *lanes, kind),
+                       **(PLAIN_WIDE if B > 1024 else {})),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   bound_all_rows_ms=bound(all_rows)[0],
                    library="none: no single PyTorch call probes, composes "
                            "and writes back a batch",
-                   blocks=tfk._lib().tac_fused_step_blocks(W),
+                   blocks=tfk._lib().tac_fused_step_blocks(B, W),
                    build=build_facts("tac_fused", "fused_step"))
+        row.update(timed_extras("tac_fused_step", f"{kind} W {W} B {B}",
+                                row["ms"], b_ms))
     emit("kernel_check", **row)
     return row
 
@@ -752,12 +806,24 @@ def check_fused_admit(W, N, V, n_distinct, timed=False, seed=1):
     return row
 
 
+# fused batches past the step kernel's old 256-lane cap: across a warp's
+# edge, one tail tile, four tiles
+FUSED_WIDE = (257, 1024, 4096)
+# the plain step's timing past one tile: its B x B masks take 1.5-33 ms a
+# call there, so 3 rounds of 5 calls
+PLAIN_WIDE = dict(reps=5, rounds=3)
+
+
 def fused_kernel_phase():
     """K1 and K3 redesigned for the fused plane: ``tac_fused_step`` at the
     plane's widths (B 256, V 1) against directories of 2048 and 262,144
     ways, every kind and edge batch, float weights; smaller batches at
-    V 3; the planted fault at 2048 ways.  ``tac_fused_admit`` at the
-    chunk widths of ``_flush_admits``."""
+    V 3; the planted fault at 2048 ways.  Past the old caps: B 257, 1024
+    and 4096 at both directories, every kind and batch (timed: mixed at
+    1024 and 4096), float weights, the planted fault at B 1024; B 16,384;
+    V 300 at B 256 and V 16 at B 4096 (beyond the old shared-memory
+    limit).  ``tac_fused_admit`` at the chunk widths of
+    ``_flush_admits``."""
     main, err = {}, {"tac_fused_step": 0.0, "tac_fused_admit": 0.0}
 
     def note(r):
@@ -780,6 +846,23 @@ def fused_kernel_phase():
         note(check_fused_step(300, 64, 3, kind, "mixed"))
         note(check_fused_step(5000, 100, 3, kind, "hot", int_weights=False))
         note(check_fused_step(5000, 256, 3, kind, "empty"))
+    for ways in (W, DEPLOY_SLOTS):
+        for B in FUSED_WIDE:
+            for kind in tfk.KINDS:
+                for batch in ("mixed", "hot", "empty"):
+                    note(check_fused_step(
+                        ways, B, 1, kind, batch,
+                        timed=batch == "mixed" and B != 257,
+                        fault=(ways, B, batch) == (W, 1024, "mixed")
+                        and kind != "read"))
+                note(check_fused_step(ways, B, 1, kind, "mixed",
+                                      int_weights=False))
+    note(check_fused_step(W, 4096, 1, "sum", "hot", int_weights=False))
+    note(check_fused_step(DEPLOY_SLOTS, 16384, 1, "sum", "mixed",
+                          timed=True))
+    for kind in tfk.KINDS:
+        note(check_fused_step(W, 256, 300, kind, "mixed"))
+        note(check_fused_step(W, 4096, 16, kind, "mixed"))
     for N, n, V in ((1, 1, 1), (8, 5, 1), (16, 13, 3), (64, 64, 3),
                     (64, 40, 1)):
         note(check_fused_admit(W, N, V, n))
@@ -2031,13 +2114,13 @@ class CpuSide:
 
 def run_query(query: str, device: str, mode: str = "async",
               duration: float = E2E["duration"],
-              warmup: float = E2E["warmup"]):
+              warmup: float = E2E["warmup"], batch: int = E2E["batch"]):
     c = E2E
     if query == "ysb":
         eng = build_ysb("tac", mode, YSBConfig(rate=c["rate"], seed=11),
                         cache_entries=c["cache_entries"],
                         parallelism=c["parallelism"], source_parallelism=1,
-                        io_workers=8, fused=True, fused_batch=c["batch"],
+                        io_workers=8, fused=True, fused_batch=batch,
                         device=device)
     else:
         cfg = NexmarkConfig(rate=c["rate"], active_window=1.0, oo_bound=0.3,
@@ -2047,7 +2130,7 @@ def run_query(query: str, device: str, mode: str = "async",
                           parallelism=c["parallelism"],
                           source_parallelism=1, io_workers=4,
                           buffer_timeout=0.002, fused=True,
-                          fused_batch=c["batch"], device=device)
+                          fused_batch=batch, device=device)
     t0 = time.perf_counter()
     m = eng.run(duration=duration, warmup=warmup)
     if device == "cuda":
@@ -2084,23 +2167,25 @@ def step_a_batch(label: str, counts: dict, res: dict) -> None:
                              f"{res['fused_batches']} batches")
 
 
-def cpu_compare(query: str, mode: str) -> CpuSide:
+def cpu_compare(query: str, mode: str,
+                batch: int = E2E["batch"]) -> CpuSide:
     """The CPU side of ``card_equals_cpu``'s comparison of ``query`` in
-    ``mode``, started now."""
-    return CpuSide("run_query", query, "cpu", mode, **COMPARE)
+    ``mode`` at fused batch ``batch``, started now."""
+    return CpuSide("run_query", query, "cpu", mode, batch=batch, **COMPARE)
 
 
 def card_equals_cpu(total: dict, query: str, mode: str,
-                    cpu_side: CpuSide) -> dict:
-    """``query`` in ``mode`` on the card and, in ``cpu_side``
-    (``cpu_compare``), on the CPU over the same events (``COMPARE``: a
-    duration and a warm-up); the results must be equal.  The card run's
-    launches go to ``total``, the comparisons' own count, apart from the
-    phase's full runs.  Returns the comparison's facts for the phase's
-    line."""
+                    cpu_side: CpuSide, batch: int = E2E["batch"]) -> dict:
+    """``query`` in ``mode`` at fused batch ``batch`` on the card and, in
+    ``cpu_side`` (``cpu_compare``), on the CPU over the same events
+    (``COMPARE``: a duration and a warm-up); the results must be equal.
+    The card run's launches go to ``total``, the comparisons' own count,
+    apart from the phase's full runs.  Returns the comparison's facts for
+    the phase's line."""
     run = COMPARE
     (gpu, gpu_wall), counts = counted(total, f"{query} {mode} compare",
-                                      run_query, query, "cuda", mode, **run)
+                                      run_query, query, "cuda", mode,
+                                      batch=batch, **run)
     (cpu, cpu_wall), _ = cpu_side.result()
     if gpu != cpu or not gpu["n_outputs"]:
         raise AssertionError(f"{query} {mode}: cuda run {gpu} != cpu run "
@@ -2108,7 +2193,8 @@ def card_equals_cpu(total: dict, query: str, mode: str,
     step_a_batch(f"{query} {mode} compare", counts, gpu)
     return dict(equal=True, compared=dict(run, n_outputs=gpu["n_outputs"],
                                           fused_batches=gpu["fused_batches"],
-                                          cuda_wall_s=gpu_wall),
+                                          cuda_wall_s=gpu_wall,
+                                          launches=counts),
                 cpu_wall_s=cpu_wall)
 
 
@@ -2139,6 +2225,30 @@ def e2e_phase():
              step_launches_per_batch=counts["tac_fused_step"]
              / gpu["fused_batches"], **same, **gpu)
     return total, compare
+
+
+# a fused batch past the step kernel's old 256-lane cap
+WIDE_BATCH = 1024
+
+
+def wide_cpu_sides() -> dict:
+    """The CPU sides of ``wide_batch_phase``, started now (q5's takes about
+    a minute of the CPU: main starts them before the kernel checks)."""
+    return {q: cpu_compare(q, "async", WIDE_BATCH) for q in ("q5", "ysb")}
+
+
+def wide_batch_phase(sides=None):
+    """q5 and YSB fused at ``fused_batch`` 1024 on the card over the stream
+    of ``COMPARE``, each held equal to the CPU's run beside it
+    (``CpuSide``, from ``wide_cpu_sides``), one ``tac_fused_step`` launch a
+    batch of 1024 lanes.  Returns the card runs' launch counts."""
+    total = {k: 0 for k in launches()}
+    sides = sides or wide_cpu_sides()
+    for query in ("q5", "ysb"):
+        emit("e2e_wide", query=query, batch=WIDE_BATCH,
+             **card_equals_cpu(total, query, "async", sides[query],
+                               WIDE_BATCH))
+    return total
 
 
 def prefetch_phase():
@@ -2441,13 +2551,12 @@ def recovery_phase():
 
 
 # ------------------------------------------------------- deployment size
-def resident_plane(slots: int):
-    """A q5-like counting plane with ``slots`` keys resident, and the
-    time it took to fill."""
+def resident_plane(slots: int, batch: int = E2E["batch"]):
+    """A q5-like counting plane with ``slots`` keys resident and batches
+    of ``batch`` lanes, and the time it took to fill."""
     spec = count_spec()
     t0 = time.perf_counter()
-    plane = FusedPlane(slots * 96, 96, spec, batch=E2E["batch"],
-                       device="cuda")
+    plane = FusedPlane(slots * 96, 96, spec, batch=batch, device="cuda")
     for k in range(slots):
         plane.insert(k, 1, 0.0)
     plane._sync()
@@ -2460,10 +2569,14 @@ def lanes_for(spec, picks):
              for k in row] for row in picks]
 
 
-def plane_phase(slots: int, n_batches: int = 200):
-    B = E2E["batch"]
+# the plane's batch widths timed alone: the e2e runs' and past the step
+# kernel's old 256-lane cap
+PLANE_BATCHES = (E2E["batch"], 1024, 4096)
+
+
+def plane_phase(slots: int, B: int = E2E["batch"], n_batches: int = 200):
     torch.cuda.reset_peak_memory_stats()
-    plane, spec, fill_s = resident_plane(slots)
+    plane, spec, fill_s = resident_plane(slots, B)
     picks = np.random.default_rng(3).integers(0, slots,
                                               size=(n_batches + 1, B))
     batches = lanes_for(spec, picks)
@@ -2481,11 +2594,16 @@ def plane_phase(slots: int, n_batches: int = 200):
             in_gc["n"] += 1
 
     gc.callbacks.append(on_gc)
+    n0 = tfk.STEP_LAUNCHES
     t0 = time.perf_counter()
     for lanes in batches[1:]:
         res = plane.batch_step(lanes)
     wall = time.perf_counter() - t0
     gc.callbacks.remove(on_gc)
+    steps = tfk.STEP_LAUNCHES - n0
+    if steps != n_batches:
+        raise AssertionError(f"plane at batch {B}: {steps} tac_fused_step "
+                             f"launches for {n_batches} batches")
     if not res.hit.all():
         raise AssertionError("resident keys missed")
     # every key was counted once at fill, once per pick afterwards
@@ -2496,7 +2614,7 @@ def plane_phase(slots: int, n_batches: int = 200):
     if not np.array_equal(got[slot_of], want.astype(np.float32)):
         raise AssertionError("plane counts differ from the host tally")
     emit("plane", slots=slots, batch=B, batches=n_batches,
-         tuples_per_s=n_batches * B / wall, batch_ms=wall / n_batches * 1e3,
+         step_launches=steps, tuples_per_s=n_batches * B / wall, batch_ms=wall / n_batches * 1e3,
          gc_ms_per_batch=in_gc["s"] / n_batches * 1e3,
          gc_collections=in_gc["n"], host_objects=len(gc.get_objects()),
          fill_s=fill_s, mem_allocated_bytes=torch.cuda.memory_allocated(),
@@ -2707,32 +2825,72 @@ def serve_run(c, mode: str, device: str, seeds):
             [a.elapsed_time(b) for a, b in events])
 
 
-def same_store(a: TieredStore, b: TieredStore, tol: float) -> bool:
-    """Both stores' host and backing tiers hold the same keys and, page by
-    page, the same contents within ``tol``."""
+def store_pages(store: TieredStore, seeds) -> dict:
+    """Each tier's pages, {tier: {key: {pool: array}}}, a page still the
+    seeds' own (seeded, never written) as its place in them, (pool,
+    flat index), so that a store crosses processes without the seeds."""
+    out = {}
     for tier in ("host", "backing"):
-        da_, db_ = getattr(a, tier).data, getattr(b, tier).data
+        pages = {}
+        for key, blocks in getattr(store, tier).data.items():
+            pages[key] = {}
+            for pool, x in blocks.items():
+                seed = seeds[0 if pool == "k" else 1]
+                if isinstance(x, np.ndarray) and x.base is seed:
+                    x = (pool, (x.__array_interface__["data"][0]
+                                - seed.__array_interface__["data"][0])
+                         // x.nbytes)
+                elif isinstance(x, torch.Tensor):   # the page alone, not
+                    x = x.numpy().copy()            # the pool it views
+                pages[key][pool] = x
+        out[tier] = pages
+    return out
+
+
+def same_store(a: TieredStore, b: dict, seeds, tol: float) -> bool:
+    """Store ``a`` and the pages ``b`` of another (``store_pages``) hold the
+    same keys in each tier and, page by page, the same contents within
+    ``tol``."""
+    flat = [s.reshape(-1, *s.shape[2:]) for s in seeds]
+    for tier in ("host", "backing"):
+        da_, db_ = getattr(a, tier).data, b[tier]
         if set(da_) != set(db_):
             return False
         for key, blocks in da_.items():
             for pool, x in blocks.items():
                 y = db_[key][pool]
-                if x is not y and not np.allclose(np.asarray(x),
-                                                  np.asarray(y), atol=tol,
-                                                  rtol=tol):
+                if isinstance(y, tuple):
+                    y = flat[0 if y[0] == "k" else 1][y[1]]
+                if not np.allclose(np.asarray(x), np.asarray(y), atol=tol,
+                                   rtol=tol):
                     return False
     return True
 
 
-def serve_phase():
+def serve_cpu(mode: str):
+    """``serve_run`` of ``mode`` on the CPU at SERVE, for a ``CpuSide``:
+    (stats, attention outputs, ``store_pages``, wall s)."""
+    seeds = serve_seeds(SERVE)
+    stats, outs, store, wall, _ = serve_run(SERVE, mode, "cpu", seeds)
+    return stats, outs, store_pages(store, seeds), wall
+
+
+def serve_cpu_sides() -> dict:
+    """The CPU sides of ``serve_phase``, started now (together about half a
+    minute of the CPU: main starts them before the kernel checks)."""
+    return {mode: CpuSide("serve_cpu", mode) for mode in ("sync", "prefetch")}
+
+
+def serve_phase(sides=None):
     c = SERVE
     seeds = serve_seeds(c)
+    sides = sides or serve_cpu_sides()
     total = {k: 0 for k in launches()}
     for mode in ("sync", "prefetch"):
         reset_launches()
         gpu = serve_run(c, mode, "cuda", seeds)
         counts = launches()
-        cpu = serve_run(c, mode, "cpu", seeds)
+        cpu = sides[mode].result()[0]
         stats, outs = gpu[0], gpu[1]
         if stats != cpu[0]:
             raise AssertionError(f"serve {mode}: card stats {stats} != "
@@ -2740,7 +2898,7 @@ def serve_phase():
         if len(outs) != len(cpu[1]) or not all(
                 allclose(a, b, 2e-5) for a, b in zip(outs, cpu[1])):
             raise AssertionError(f"serve {mode}: attention outputs differ")
-        if not same_store(gpu[2], cpu[2], 2e-5):
+        if not same_store(gpu[2], cpu[2], seeds, 2e-5):
             raise AssertionError(f"serve {mode}: store contents differ")
         if not stats["n_tokens"] or min(counts[k] for k in SERVE_KERNELS) == 0:
             raise AssertionError(f"serve {mode}: no tokens or a kernel never "
@@ -4050,25 +4208,35 @@ DRYRUN_CELLS = (("gemma-7b", "train_4k", "single"),
                 ("deepseek-v2-236b", "decode_32k", "multi"))
 
 
-def dryrun_phase():
+def dryrun_start():
     """``python -m repro_torch.launch.dryrun`` for each cell of
     ``DRYRUN_CELLS``, each in a process of its own (its fake process group
-    must not meet this process's), all at once; each record must be
-    ``ok``.  An analysis on meta tensors with the H100's figures: it runs
-    nothing on the card."""
-    import tempfile
-    t0 = time.perf_counter()
+    must not meet this process's), all started now, on the CPU beside the
+    card's phases; ``dryrun_phase`` collects them.  An analysis on meta
+    tensors with the H100's figures: it runs nothing on the card."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    with tempfile.TemporaryDirectory() as out:
-        procs = [(cell, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
-            env=env, cwd=root, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)) for cell in DRYRUN_CELLS]
-        for cell, proc in procs:
+    out = tempfile.mkdtemp()
+    procs = []
+    for cell in DRYRUN_CELLS:
+        log = Path(out) / f"{'__'.join(cell)}.log"
+        with open(log, "w") as f:      # a file: no pipe fills while it waits
+            procs.append((cell, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
+                 out], env=env, cwd=root, stdout=f,
+                stderr=subprocess.STDOUT)))
+    CPU_SIDES.extend(proc for _, _, proc in procs)
+    return out, procs, time.perf_counter()
+
+
+def dryrun_phase(started=None):
+    """The dry-run cells of ``dryrun_start``: each record must be ``ok``."""
+    out, procs, t0 = started or dryrun_start()
+    try:
+        for cell, log, proc in procs:
             try:
-                _stdout, stderr = proc.communicate(timeout=600)
+                proc.wait(timeout=600)
             finally:
                 if proc.poll() is None:
                     proc.kill()
@@ -4078,13 +4246,15 @@ def dryrun_phase():
             if proc.returncode or not rec.get("ok"):
                 raise AssertionError(f"dryrun {cell}: exit {proc.returncode}"
                                      f", {rec.get('error')}, "
-                                     f"{stderr[-2000:]}")
+                                     f"{log.read_text()[-2000:]}")
             r, mem = rec["roofline"], rec["memory"]
             emit("dryrun", arch=cell[0], shape=cell[1], mesh=cell[2],
                  dominant=r["dominant"],
                  roofline_fraction=r["roofline_fraction"],
                  live_gib=mem["live_bytes"] / 2 ** 30,
                  wall_s=rec["wall_s"], record=rec)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
     emit("dryrun_total", wall_s=time.perf_counter() - t0)
 
 
@@ -4107,6 +4277,9 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
              for k, v in cuda_build.BUILD_LOG.items()}
     emit("build", seconds=build_s, ptxas=ptxas)
+    dryrun = dryrun_start()
+    wide_sides = wide_cpu_sides()
+    serve_sides = serve_cpu_sides()
     main_rows, errs = kernel_phase()
     for rows, e in (fused_kernel_phase(), lm_kernel_phase()):
         main_rows.update(rows)
@@ -4117,11 +4290,13 @@ def main() -> int:
     paths = dict(zip(("e2e", "e2e_compare"), e2e_phase()))
     paths.update(zip(("prefetch", "prefetch_compare"), prefetch_phase()))
     paths["recovery"] = recovery_phase()
+    paths["e2e_wide"] = wide_batch_phase(wide_sides)
     for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
-        plane_phase(slots)
+        for batch in PLANE_BATCHES:
+            plane_phase(slots, batch)
     for slots in (E2E["cache_entries"], DEPLOY_SLOTS):
         profile_phase(slots)
-    paths["serve"] = serve_phase()
+    paths["serve"] = serve_phase(serve_sides)
     paths["hints"] = hints_phase()
     paths["tac_ops"] = tac_ops_phase()
     paths["models"] = models_phase()
@@ -4129,7 +4304,7 @@ def main() -> int:
     paths.update(train_phase())
     paths.update(serve_examples_phase())
     paths["mesh"] = mesh_phase()
-    dryrun_phase()
+    dryrun_phase(dryrun)
     names = {"tac_probe": ("tac_probe.cu",
                            "src/repro/kernels/tac_probe/tac_probe.py:36"),
              "page_gather": ("page_gather.cu",

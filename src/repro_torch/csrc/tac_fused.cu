@@ -9,9 +9,9 @@
 // :fused_admit, which the TPU runs as one jitted program per operator
 // config.
 //
-// fused_step computes, for a batch of B <= kMaxB lanes against a directory
-// of ONE bucket of W ways and its pool pages [W + 1, 1, V + 1] (channel 0
-// the presence flag, the last row a zeroed scratch row):
+// fused_step computes, for a batch of B lanes (any B >= 0) against a
+// directory of ONE bucket of W ways and its pool pages [W + 1, 1, V + 1]
+// (channel 0 the presence flag, the last row a zeroed scratch row):
 //   - the probe: the first way whose key equals the lane's key, hit &=
 //     valid, the slot (the scratch row W on a miss);
 //   - the row at the probe's way (the scratch row where no way matched),
@@ -21,9 +21,11 @@
 //     flag or any such lane; new_vals zeroed where not present;
 //   - the timestamp refresh (the max over a key's hit lanes), the dirty bit
 //     (any update lane of the key) and the write-back of (present, new_v)
-//     by a key's LAST update lane; the scratch row zeroed (kind != read);
+//     by a key's LAST update lane in the whole batch; the scratch row
+//     zeroed (kind != read);
 //   - the (hits, misses) tallies over valid lanes.
-// Every per-lane result goes into one int32 buffer:
+// Every row is read before any row is written, as the reference gathers
+// before it scatters.  Every per-lane result goes into one int32 buffer:
 //   [hit B | slots B | present B | tallies 2 | new_vals f32 bits B*V].
 // fused_admit computes, for N host-chosen slots: the victim rows gathered
 // before the overwrite; the new rows (presence flag, values) scattered with
@@ -31,37 +33,52 @@
 // directory's key, timestamp and dirty bit written at the slots.
 //
 // Bound: bytes, and the launch.  The step must read the W directory keys
-// once (4 B each: 1 MB at W = 262,144, 0.31 us at 3.35 TB/s) and a few KB
-// of lanes and rows; its compares are W table lookups and, for a key that
-// repeats within the batch, the pairs of its lanes.  Both are far below
-// the cost of one launch, which is what the design minimises.
+// once (4 B each: 1 MB at W = 262,144, 0.31 us at 3.35 TB/s), the lanes,
+// and the rows it reads and writes; its compares are W table lookups and,
+// for a key that repeats within the batch, the pairs of its lanes.  At the
+// plane's batches both are far below the cost of one launch, which is what
+// the design minimises: one launch a batch, whatever B and V are.
 //
-// Design (step): one launch of blocks of 1024 threads, enough warps on an
-// SM to hide the lookups' shared-memory latency.  Every block builds the
-// same open-addressing table of the batch's distinct keys in shared memory
-// (a key's entry holds its first lane), then looks up each directory key
-// of its tile of kWaysPerBlock ways once: a thread loads its
-// kWaysPerThread keys (coalesced, all in flight at once) at entry, while
-// the table builds.  A match
-// takes the block's minimum way per key (shared-memory atomicMin).  When
-// the directory fits one tile (W <= 2048, the plane of the e2e runs) that
-// block goes straight on to the tail.  Otherwise each block folds its
-// minima into a global workspace indexed by the key's first lane
+// Design (step): one launch of blocks of 1024 threads, a block per (tile of
+// kWaysPerBlock ways, partition of kTile lanes).  Each block builds an
+// open-addressing table of its partition's distinct keys in shared memory
+// (a 64-bit entry, the key above the partition's first lane holding it,
+// so one atomicMin keeps the first lane), then looks up each directory key
+// of its tile of ways once: a thread loads its kWaysPerThread keys
+// (coalesced, all in flight at once) at entry, while the table builds.  A
+// match takes the block's minimum way per key (shared-memory atomicMin).
+// When one block covers the batch and the directory (B <= kTile, W <=
+// kWaysPerBlock: the plane of the e2e runs at batch 256) it goes straight
+// on to the tail.  Otherwise each block folds its minima into the global
+// workspace `ways`, indexed by the partition's first lane of the key
 // (atomicMin in L2), and the last block to finish (a __threadfence and an
-// atomic ticket) runs the tail, then resets the workspace and the ticket
-// for the next launch.  The tail has one thread a lane (the block's first
-// kMaxB threads); the lanes' weights were copied to shared memory at entry,
-// and the row and timestamp loads start as soon as the way is known.  A key's lanes are
-// a 256-bit mask (a __match_any_sync word a warp, kept by the key's first
-// lane), and the hit and update lanes two more (ballots), so a lane finds
-// its key's earlier and later update and hit lanes with a few word
-// operations and folds only its key's update lanes, in lane order.  After
-// a barrier (every row read before any is written) the key's last update
-// lane writes the row back; the timestamp and dirty bit, which no lane
-// reads, are written before it.  A query key of -1 matches the first empty
-// way, as the reference compares keys with no exception; nothing treats a
-// directory entry as "skip".  Tensor cores, TMA and wgmma have no part in
-// integer compares over bytes that sit in L2.
+// atomic ticket) runs the tail.  A partition of kTile lanes never fills
+// its table past half, whatever the keys are, and the probe's shared
+// memory does not grow with B.
+//
+// The tail, one block, its first T threads (a thread a lane of a tile; the
+// warps past a small batch leave, and the rest meet at a named barrier):
+// each lane's way and its key's first lane in the batch (the table's when
+// there is one partition; past that the least lane naming the way, an
+// atomicMin into the workspace `firsts` [W]); each key's last lane, last
+// hit and update lane and latest hit timestamp, atomicMax by key.  Then
+// the lanes in tiles of kTile, in lane order.  A lane alone with its key
+// folds only itself.  The lanes of keys with more lanes are packed in lane
+// order and sorted by (key's first lane, lane), a bitonic network
+// (exchanges within a warp by shuffles, across warps through shared
+// memory, entries of 32 bits below 2^22 lanes), so each key's lanes in the
+// tile form a run in lane order; a lane's fold is its key's carry from the
+// earlier tiles followed by the run's update lanes up to it, in order, so
+// the sum is the sequential one bit for bit.  The run's last lane carries
+// the fold and whether an update was seen to the next tile (the workspace
+// `scratch`, read only by a key that spans tiles).  The lane arrays sit in
+// dynamic shared memory when B <= kTile, in `scratch` beyond.  After the
+// last tile (every row read) the key's last update lane writes the row
+// back from its new_vals, its last hit lane the timestamp, and the
+// workspace is left clean for the next launch.  A query key of -1 matches
+// the first empty way, as the reference compares keys with no exception;
+// nothing treats a directory entry as "skip".  Tensor cores, TMA and
+// wgmma have no part in integer compares over bytes that sit in L2.
 //
 // Design (admit): one block; the gather of every victim row, a barrier,
 // then the writes, each by the last lane naming its slot (O(N^2 / 256)
@@ -74,22 +91,81 @@
 
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int kThreads = 1024;           // a step block
-constexpr int kMaxB = 256;                 // lanes: the tail's first threads
-constexpr int kLaneWarps = kMaxB / 32;
-constexpr int kTableBits = 9;
-constexpr int kTable = 1 << kTableBits;    // >= 2 kMaxB: load factor <= 1/2
+constexpr int kTile = kThreads;          // lanes: a probe partition, a tail tile
+constexpr int kMaxTable = 2 * kTile;     // a partition's table, at most half full
 constexpr int kWaysPerThread = 2;
 constexpr int kWaysPerBlock = kWaysPerThread * kThreads;
 constexpr int kAdmitThreads = 256;
-constexpr int kSmemDefault = 48 * 1024;    // a block's shared memory without
-constexpr int kSmemLimit = 227 * 1024;     // the opt-in, and with it
 constexpr int kNone = 0x7fffffff;
+constexpr u64 kEmpty = ~0ull;            // a free table entry
 constexpr int kSum = 0, kMax = 1, kRead = 2;
-static_assert(kTable >= 2 * kMaxB, "the key table must stay half empty");
+constexpr uint8_t kHitLane = 1, kUpdLane = 2, kRowFlag = 4;
 
-__device__ __forceinline__ int home(int32_t key) {
-  return (int)(((uint32_t)key * 2654435761u) >> (32 - kTableBits));
+__device__ __forceinline__ int home(int32_t key, int bits) {
+  return (int)(((uint32_t)key * 2654435761u) >> (32 - bits));
+}
+
+// floats as ints in the same order (for atomicMax), and back
+__device__ __forceinline__ int ordered(float x) {
+  const int b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int b) {
+  return __int_as_float(b >= 0 ? b : b ^ 0x7fffffff);
+}
+
+// The tail sorts a tile's lanes by entries (key's first lane << kShift |
+// tile lane): 32 bits while the first lane fits in 22 (B < 2^22), 64
+// beyond; kPad fills the network past the lanes.
+template <typename Key>
+struct Sort {
+  static constexpr int kShift = sizeof(Key) == 4 ? 10 : 32;
+  static constexpr Key kPad = ~Key(0);
+};
+static_assert(kTile <= 1 << 10, "a tile lane must fit in the entry's low bits");
+
+// The tail's lane arrays, each of B int32: a lane's way and its key's
+// first lane (-1 for no way), then by a key's first lane its last lane,
+// last hit lane, last update lane and its hit lanes' latest timestamp
+// (ordered); in dynamic shared memory while one tile holds the batch.
+enum { kWay, kFirst, kLast, kLastHit, kLastUpd, kLatest, kLaneArrays };
+
+__device__ __forceinline__ void reset_key(int32_t* lanes, int B, int f) {
+  lanes[kLast * B + f] = -1;
+  lanes[kLastHit * B + f] = -1;
+  lanes[kLastUpd * B + f] = -1;
+  lanes[kLatest * B + f] = ordered(-INFINITY);
+}
+
+// lane i of key f, valid or not, updating or not, at time ts
+__device__ __forceinline__ void note_lane(int32_t* lanes, int B, int f, int i,
+                                          bool valid, bool upd, float ts) {
+  atomicMax(lanes + kLast * B + f, i);
+  if (!valid) return;
+  atomicMax(lanes + kLastHit * B + f, i);
+  atomicMax(lanes + kLatest * B + f, ordered(ts));
+  if (upd) atomicMax(lanes + kLastUpd * B + f, i);
+}
+
+__device__ __forceinline__ int pow2_ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// a barrier of the tail's T threads (barrier 0 is __syncthreads)
+__device__ __forceinline__ void sync_tail(int T) {
+  asm volatile("bar.sync 1, %0;" ::"r"(T) : "memory");
+}
+
+// a bitonic compare-exchange: the lower place of a pair keeps the smaller
+// entry where the run ascends (`up`), the upper place the larger
+template <typename Key>
+__device__ __forceinline__ Key exchange(Key e, Key o, bool up, int upper) {
+  return (upper == 0) == up ? (o < e ? o : e) : (o > e ? o : e);
 }
 
 struct StepArgs {
@@ -103,183 +179,390 @@ struct StepArgs {
   uint8_t* dir_dirty;                      // [W]
   float* pages;                            // [W + 1, V + 1]
   int32_t* out;                            // [3 B + 2 + B V]
-  int32_t* ws;                             // [kMaxB + 1]: ways, ticket
+  int32_t* ways;      // [1 + B]: the ticket, then a way by a partition's
+  //                     first lane of a key (kNone); left so by every launch
+  int32_t* firsts;    // [W] when B > kTile: a way's first lane (kNone); so
+  int32_t* scratch;   // [B] each lane's partition first lane; when B >
+  //                     kTile also the lane arrays [6 B], seen [B] and the
+  //                     carried folds f32 [B, V]
   int B, W, V, kind;
 };
 
-// The lanes of warp w at or before lane t of the batch: all of an earlier
-// warp, lanes 0..t % 32 of t's own warp, none of a later one.
-__device__ __forceinline__ unsigned upto(int w, int t) {
-  const int wt = t >> 5;
-  return w < wt ? ~0u : w > wt ? 0u : (2u << (t & 31)) - 1u;
-}
+// the probe's key table and the tail's tile share the block's shared memory
+struct ProbeShared {
+  u64 key[kMaxTable];                      // key << 32 | first lane; kEmpty
+  int way[kMaxTable];                      // this block's first matching way
+};
+template <typename Key>
+struct TailShared {
+  Key sorted[2][kTile];                    // (key's first lane, tile lane):
+  //                                          the sort's exchange, two deep
+  float w[kTile];                          // sorted: an update lane's weight
+  uint8_t upd[kTile];                      // sorted: an update lane
+  int way[kTile];                          // by tile lane
+  float g0[kTile];                         // by tile lane: the row's value 0
+  float w0[kTile];                         // by tile lane: weight 0 (update)
+  float nv0[kTile];                        // by tile lane: new value 0
+  uint8_t flags[kTile];                    // by tile lane: kHitLane,
+  //                                          kUpdLane, kRowFlag
+};
+template <typename Key>
+union StepShared {
+  ProbeShared probe;
+  TailShared<Key> tail;
+};
 
-__global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
-  __shared__ int32_t s_key[kMaxB];
-  __shared__ int s_lane[kTable];           // a lane holding the key; -1 empty
-  __shared__ int s_first[kTable];          // the key's first lane
-  __shared__ int s_way[kTable];            // this block's first matching way
-  __shared__ unsigned s_lanes[kMaxB][kLaneWarps];  // by a key's first
-  //                                                  lane: its lanes
-  __shared__ unsigned s_hit[kLaneWarps], s_upd[kLaneWarps];  // ballots
-  __shared__ float s_ts[kMaxB];
-  __shared__ int s_is_last;
-  extern __shared__ float s_w[];           // [B, V] the lanes' weights
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+// two blocks an SM (32 registers a thread): the probe's grid grows with W
+// and B
+template <typename Key>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_step_kernel(StepArgs a) {
+  using K = Sort<Key>;
+  __shared__ StepShared<Key> sm;
+  __shared__ int s_is_last, s_tally[2], s_warp[kThreads / 32];
+  extern __shared__ int s_lanes[];         // [6 B] when B <= kTile
+  const int t = threadIdx.x;
   const int B = a.B, W = a.W, V = a.V;
-  const bool in_batch = t < B;
+  // ---- the probe: this block's partition of lanes, its tile of ways
+  const int p0 = blockIdx.y * kTile;
+  const bool in_part = t < B - p0;
+  int bits = 6;
+  while ((1 << bits) < 2 * min(B, kTile)) ++bits;
+  const int mask = (1 << bits) - 1;
   // this thread's directory keys, all in flight while the key table builds
   const int w0 = blockIdx.x * kWaysPerBlock + t;
   int32_t dk[kWaysPerThread];
 #pragma unroll
   for (int i = 0; i < kWaysPerThread; ++i)
     dk[i] = w0 + i * kThreads < W ? __ldg(a.dir_keys + w0 + i * kThreads) : 0;
-  // the lane's own inputs, loaded while the probe runs
-  bool valid = false, fire = false;
-  float ts = 0.f;
-  if (in_batch) {
-    valid = a.valid[t] != 0;
-    fire = a.fire[t] != 0;
-    ts = a.ts[t];
-    s_key[t] = a.keys[t];
+  const int32_t key = in_part ? a.keys[p0 + t] : 0;
+  for (int h = t; h <= mask; h += kThreads) {
+    sm.probe.key[h] = kEmpty;
+    sm.probe.way[h] = kNone;
   }
-  for (int e = t; e < B * V; e += kThreads) s_w[e] = a.weights[e];
-  for (int h = t; h < kTable; h += kThreads) {
-    s_lane[h] = -1;
-    s_first[h] = kNone;
-    s_way[h] = kNone;
-  }
+  if (B <= kTile && t < B) reset_key(s_lanes, B, t);  // the tail's, below
+  if (t < 2) s_tally[t] = 0;
   __syncthreads();
   int mine = 0;                            // this lane's table entry
-  if (in_batch) {
-    const int32_t k = s_key[t];
-    int h = home(k);
-    for (;;) {
-      const int prev = atomicCAS(&s_lane[h], -1, t);
-      if (prev == -1 || s_key[prev] == k) break;
-      h = (h + 1) & (kTable - 1);
+  if (in_part) {
+    const u64 e = (u64)(uint32_t)key << 32 | (uint32_t)(p0 + t);
+    int h = home(key, bits);
+    for (;; h = (h + 1) & mask) {
+      const u64 prev = atomicCAS(&sm.probe.key[h], kEmpty, e);
+      if (prev == kEmpty) break;
+      if ((uint32_t)(prev >> 32) == (uint32_t)key) {
+        if (prev > e) atomicMin(&sm.probe.key[h], e);
+        break;
+      }
     }
-    atomicMin(&s_first[h], t);
     mine = h;
   }
   __syncthreads();
-  // the probe: each directory key of this block's tile looked up once
+  // each directory key of this block's tile looked up once
 #pragma unroll
   for (int i = 0; i < kWaysPerThread; ++i) {
     if (w0 + i * kThreads >= W) break;
-    for (int h = home(dk[i]), l; (l = s_lane[h]) >= 0;
-         h = (h + 1) & (kTable - 1))
-      if (s_key[l] == dk[i]) {
-        atomicMin(&s_way[h], w0 + i * kThreads);
+    for (int h = home(dk[i], bits);; h = (h + 1) & mask) {
+      const u64 e = sm.probe.key[h];
+      if (e == kEmpty) break;
+      if ((uint32_t)(e >> 32) == (uint32_t)dk[i]) {
+        atomicMin(&sm.probe.way[h], w0 + i * kThreads);
         break;
       }
+    }
   }
   __syncthreads();
   // one block holds every way in its table; more fold theirs into the
   // workspace, and the last to finish runs the tail
-  const bool single = gridDim.x == 1;
+  const bool single = gridDim.x == 1 && gridDim.y == 1;
+  int32_t* const lane_part = a.scratch;    // [B] partition first lanes
   if (!single) {
-    for (int h = t; h < kTable; h += kThreads)
-      if (s_way[h] != kNone) atomicMin(&a.ws[s_first[h]], s_way[h]);
+    for (int h = t; h <= mask; h += kThreads)
+      if (sm.probe.way[h] != kNone)
+        atomicMin(&a.ways[1 + (uint32_t)sm.probe.key[h]], sm.probe.way[h]);
+    if (blockIdx.x == 0 && in_part)
+      lane_part[p0 + t] = (int)(uint32_t)sm.probe.key[mine];
     __threadfence();
     __syncthreads();
     if (t == 0)
-      s_is_last = atomicAdd(&a.ws[kMaxB], 1) == (int)gridDim.x - 1;
+      s_is_last = atomicAdd(&a.ways[0], 1)
+                  == (int)(gridDim.x * gridDim.y) - 1;
     __syncthreads();
     if (!s_is_last) return;
+    if (t == 0) a.ways[0] = 0;             // every block has its ticket
   }
 
-  // ---- the tail: one block, one thread a lane
-  const int first = in_batch ? s_first[mine] : 0;
-  const int way = !in_batch ? kNone
-                  : single ? s_way[mine] : __ldcg(&a.ws[first]);
-  const bool hit = valid && way < W;
-  const bool upd = hit && a.kind != kRead && !fire;
-  // the row at the probe's way, valid or not, as the reference gathers it,
-  // and the directory's timestamp: loads in flight while the masks build
-  const float* row = a.pages + (int64_t)(way < W ? way : W) * (V + 1);
-  float flag = 0.f, g0 = 0.f, cur_ts = 0.f;
-  if (in_batch) {
-    flag = row[0];
-    if (V > 0) g0 = row[1];
-    if (hit) cur_ts = a.dir_ts[way];
-    for (int j = 0; j < kLaneWarps; ++j) s_lanes[t][j] = 0u;
-    s_ts[t] = ts;
-  }
-  // a key's lanes in this warp (keys matched by their first lane)
-  const unsigned same = __match_any_sync(~0u, in_batch ? first : -1)
-                        & __ballot_sync(~0u, in_batch);
-  const unsigned hits = __ballot_sync(~0u, hit);
-  const unsigned upds = __ballot_sync(~0u, upd);
-  if (lane == 0 && warp < kLaneWarps) {
-    s_hit[warp] = hits;
-    s_upd[warp] = upds;
-  }
-  const int n_hit = __syncthreads_count(hit);
-  if (in_batch && lane == __ffs(same) - 1) s_lanes[first][warp] = same;
-  // every lane has read its way: the workspace is clean for the next launch
-  if (!single) {
-    if (in_batch) a.ws[t] = kNone;
-    if (t == 0) a.ws[kMaxB] = 0;
-  }
-  const int n_miss = __syncthreads_count(valid && !hit);
-  bool has_upd = false, later_upd = false, later_hit = false;
-  if (in_batch)
-    for (int j = 0; j < kLaneWarps; ++j) {
-      const unsigned key_j = s_lanes[first][j], le = upto(j, t);
-      has_upd |= (key_j & s_upd[j] & le) != 0u;
-      later_upd |= (key_j & s_upd[j] & ~le) != 0u;
-      later_hit |= (key_j & s_hit[j] & ~le) != 0u;
+  // ---- the tail: one block, its first T threads (a thread a lane of a
+  // tile, at least the tile's sorting network); the others leave
+  const int T = B >= kTile ? kThreads : max(32, pow2_ceil(B));
+  if (t >= T) return;
+  const bool small = B <= kTile;           // one partition, one tile
+  int32_t* const lanes = small ? s_lanes : a.scratch + B;
+  int32_t* const lane_way = lanes + kWay * B;
+  int32_t* const lane_first = lanes + kFirst * B;
+  int32_t* const key_seen = a.scratch + 7 * B;  // an update in an earlier tile
+  float* const carry = reinterpret_cast<float*>(a.scratch + 8 * B);  // [B, V]
+  const int t_last = B > 0 ? (B - 1) / kTile * kTile : 0;  // the last tile
+  // each lane's way and its key's first lane (one partition: the table's;
+  // more: the least lane naming the way, an atomicMin into `firsts`), each
+  // key's last lane, last hit and update lane and latest hit timestamp
+  // (past one partition in a second pass, once `firsts` is complete); the
+  // tallies (read after the last tile)
+  int n_hit = 0, n_miss = 0;
+  int my_part = 0;                         // this thread's lane in the last
+  for (int i = t; i < B; i += kThreads) {  // tile: its partition first lane
+    int first, way;
+    if (single) {                          // i == t
+      first = (int)(uint32_t)sm.probe.key[mine];
+      way = sm.probe.way[mine];
+    } else {
+      first = my_part = __ldcg(lane_part + i);
+      way = __ldcg(a.ways + 1 + first);
     }
-  const int slot = hit ? way : W;
-  float* new_vals = reinterpret_cast<float*>(a.out + 3 * B + 2);
-  float v0 = 0.f;                          // channel 0's new value
-  if (in_batch) {
-    const bool present = flag > 0.5f || has_upd;
-    for (int c = 0; c < V; ++c) {
-      // the key's update lanes up to this one, in lane order
-      float v = a.kind == kMax ? -INFINITY : 0.f;
-      for (int j = 0; j <= warp; ++j)
-        for (unsigned m = s_lanes[first][j] & s_upd[j] & upto(j, t); m;
-             m &= m - 1) {
-          const float x = s_w[(j * 32 + __ffs(m) - 1) * V + c];
+    lane_way[i] = way;
+    const bool valid = a.valid[i] != 0;
+    n_hit += valid && way < W;
+    n_miss += valid && way >= W;
+    if (!small) {
+      reset_key(lanes, B, i);
+      if (way < W) atomicMin(a.firsts + way, i);
+    } else if (way < W) {
+      lane_first[i] = first;
+      note_lane(lanes, B, first, i, valid, a.kind != kRead && !a.fire[i],
+                a.ts[i]);
+    } else {
+      lane_first[i] = -1;
+    }
+  }
+  n_hit = __reduce_add_sync(~0u, n_hit);
+  n_miss = __reduce_add_sync(~0u, n_miss);
+  if ((t & 31) == 0) {
+    atomicAdd(&s_tally[0], n_hit);
+    atomicAdd(&s_tally[1], n_miss);
+  }
+  sync_tail(T);
+  if (!small) {                            // the keys past one partition
+    for (int i = t; i < B; i += kThreads) {
+      const int way = lane_way[i];
+      if (way >= W) continue;
+      const int f = __ldcg(a.firsts + way);
+      lane_first[i] = f;
+      note_lane(lanes, B, f, i, a.valid[i] != 0,
+                a.kind != kRead && !a.fire[i], a.ts[i]);
+    }
+    sync_tail(T);
+  }
+
+  const volatile int32_t* const vlast = lanes + kLast * B;
+  const float ident = a.kind == kMax ? -INFINITY : 0.f;
+  float* const new_vals = reinterpret_cast<float*>(a.out + 3 * (int64_t)B + 2);
+  int last_way = W, last_first = -1;       // this thread's lane of the last
+  float last_ts = 0.f;                     // tile, for the write-back
+  for (int t0 = 0; t0 < B; t0 += kTile) {
+    const int nl = min(kTile, B - t0);
+    const bool more = t0 + kTile < B;      // a key's state goes on
+    // this thread's lane of the tile: its way, key, flags, row and first
+    // weight, loads in flight while the tile sorts
+    const int i = t0 + t;
+    int way = W, first = -1;
+    bool upd = false, multi = false;       // multi: the key has more lanes
+    uint8_t fl = 0;
+    float flag = 0.f, g0 = 0.f, w0 = 0.f, cur_ts = 0.f;
+    if (t < nl) {
+      way = lane_way[i];
+      const bool hit = a.valid[i] && way < W;
+      upd = hit && a.kind != kRead && !a.fire[i];
+      if (way < W) {
+        first = lane_first[i];
+        multi = vlast[first] != first;
+      }
+      fl = (hit ? kHitLane : 0) | (upd ? kUpdLane : 0);
+      // the row at the probe's way, valid or not, as the reference gathers
+      // it; no row is written before the last tile
+      const float* row = a.pages + (int64_t)(way < W ? way : W) * (V + 1);
+      flag = row[0];
+      if (V > 0) {
+        g0 = row[1];
+        if (upd) w0 = a.weights[(int64_t)i * V];
+      }
+      if (!more && hit) cur_ts = a.dir_ts[way];
+      a.out[i] = hit;
+      a.out[B + i] = hit ? way : W;
+    }
+    last_way = way;
+    last_first = first;
+    last_ts = cur_ts;
+    // the lanes of keys with more than one lane, packed in lane order
+    const unsigned ballot = __ballot_sync(~0u, multi);
+    if ((t & 31) == 0) s_warp[t >> 5] = __popc(ballot);
+    sync_tail(T);
+    int G = 0, at = __popc(ballot & ((1u << (t & 31)) - 1));
+    for (int w = 0; w < T / 32; ++w) {
+      const int n = s_warp[w];
+      G += n;
+      if (w < t >> 5) at += n;
+    }
+    if (multi) sm.tail.sorted[0][at] = (Key)first << K::kShift | (Key)t;
+    sync_tail(T);
+    // sort them by (key's first lane, lane), a key's lanes into a run: a
+    // bitonic network, its exchanges across warps through shared memory
+    // (all threads at the barriers), within a warp by shuffles; the warps
+    // past the packed lanes' power of two sit out
+    Key e = t < G ? sm.tail.sorted[0][t] : K::kPad;
+    const int S = max(32, pow2_ceil(G));
+    int buf = 0;
+    for (int k = 2; k <= S && G > 1; k <<= 1) {
+      const bool up = (t & k) == 0;
+      for (int j = k >> 1; j >= 32; j >>= 1) {
+        if (t < S) sm.tail.sorted[buf][t] = e;
+        sync_tail(T);
+        if (t < S) e = exchange(e, sm.tail.sorted[buf][t ^ j], up, t & j);
+        buf ^= 1;
+      }
+      if (t < S) {
+#pragma unroll
+        for (int j = 16; j > 0; j >>= 1)
+          if (j < k) e = exchange(e, __shfl_xor_sync(~0u, e, j), up, t & j);
+      }
+    }
+    const Key* const sorted = sm.tail.sorted[buf];
+    sm.tail.sorted[buf][t] = e;
+    if (multi) {
+      sm.tail.way[t] = way;
+      sm.tail.flags[t] = fl | (flag > 0.5f ? kRowFlag : 0);
+      sm.tail.g0[t] = g0;
+      sm.tail.w0[t] = w0;
+    }
+    sync_tail(T);
+    // a lane alone with its key (or with no way) folds only itself
+    if (t < nl && !multi) {
+      const bool row_flag = flag > 0.5f;
+      const bool present = row_flag || upd;
+      const float* row = a.pages + (int64_t)(way < W ? way : W) * (V + 1);
+      a.out[2 * B + i] = present;
+      for (int c = 0; c < V; ++c) {
+        float v = ident;
+        if (upd) {
+          const float x = c == 0 ? w0 : a.weights[(int64_t)i * V + c];
           v = a.kind == kMax ? fmaxf(v, x) : v + x;
         }
-      const float g = c == 0 ? g0 : row[1 + c];
-      v = a.kind == kMax ? fmaxf(flag > 0.5f ? g : -INFINITY, v)
-                         : (flag > 0.5f ? g : 0.f) + v;
-      v = present ? v : 0.f;
-      new_vals[(int64_t)t * V + c] = v;
-      if (c == 0) v0 = v;
+        const float g = c == 0 ? g0 : row[1 + c];
+        float nv = a.kind == kMax ? fmaxf(row_flag ? g : -INFINITY, v)
+                                  : (row_flag ? g : 0.f) + v;
+        nv = present ? nv : 0.f;
+        new_vals[(int64_t)i * V + c] = nv;
+        if (c == 0) sm.tail.nv0[t] = nv;
+      }
     }
-    a.out[t] = hit;
-    a.out[B + t] = slot;
-    a.out[2 * B + t] = present;
+    // position t of the sorted lanes takes its lane; its key's run in the
+    // tile is [s, t]
+    const bool real = t < G;
+    const uint32_t fk = (uint32_t)(e >> K::kShift);
+    const int lt = (int)(e & (kTile - 1));  // the lane's place in the tile
+    const int li = t0 + lt;
+    int s = t;
+    bool last = false;
+    if (real) {
+      const Key lo_key = (Key)fk << K::kShift;
+      int lo = 0, hi = t;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (sorted[mid] < lo_key) lo = mid + 1;
+        else hi = mid;
+      }
+      s = lo;
+      last = t + 1 == G || (uint32_t)(sorted[t + 1] >> K::kShift) != fk;
+    }
+    const bool earlier = real && fk < (uint32_t)t0;  // lanes in a tile
+    //                                                  before this one
+    uint8_t pfl = 0;
+    int pway = W;
+    float pg0 = 0.f;
+    if (real) {
+      pfl = sm.tail.flags[lt];
+      pway = sm.tail.way[lt];
+      pg0 = sm.tail.g0[lt];
+      sm.tail.w[t] = sm.tail.w0[lt];
+    }
+    sm.tail.upd[t] = (pfl & kUpdLane) != 0;
+    const bool seen = earlier && key_seen[fk] != 0;
+    float v = earlier && V > 0 ? carry[(int64_t)fk * V] : ident;
+    sync_tail(T);
+    // the key's update lanes up to this one, in lane order (channel 0)
+    bool has_upd = false;
+    if (real)
+      for (int q = s; q <= t; ++q)
+        if (sm.tail.upd[q]) {
+          has_upd = true;
+          const float x = sm.tail.w[q];
+          v = a.kind == kMax ? fmaxf(v, x) : v + x;
+        }
+    const bool row_flag = (pfl & kRowFlag) != 0;
+    const bool present = row_flag || seen || has_upd;
+    if (real) a.out[2 * B + li] = present;
+    if (last && more) key_seen[fk] = seen || has_upd;
+    const float* prow = a.pages + (int64_t)(pway < W ? pway : W) * (V + 1);
+    for (int c = 0; c < V; ++c) {
+      if (c > 0) {                         // channel c's weights, sorted
+        sync_tail(T);
+        if (real)
+          sm.tail.w[t] = (pfl & kUpdLane) ? a.weights[(int64_t)li * V + c]
+                                          : 0.f;
+        v = earlier ? carry[(int64_t)fk * V + c] : ident;
+        sync_tail(T);
+        if (real)
+          for (int q = s; q <= t; ++q)
+            if (sm.tail.upd[q]) {
+              const float x = sm.tail.w[q];
+              v = a.kind == kMax ? fmaxf(v, x) : v + x;
+            }
+      }
+      if (real) {
+        if (last && more) carry[(int64_t)fk * V + c] = v;
+        const float g = c == 0 ? pg0 : prow[1 + c];
+        float nv = a.kind == kMax ? fmaxf(row_flag ? g : -INFINITY, v)
+                                  : (row_flag ? g : 0.f) + v;
+        nv = present ? nv : 0.f;
+        new_vals[(int64_t)li * V + c] = nv;
+        if (c == 0) sm.tail.nv0[lt] = nv;
+      }
+    }
   }
+  sync_tail(T);                           // every row read before a write
   if (t == 0) {
-    a.out[3 * B] = n_hit;
-    a.out[3 * B + 1] = n_miss;
+    a.out[3 * B] = s_tally[0];
+    a.out[3 * B + 1] = s_tally[1];
   }
-  // the directory's timestamp (the max over the key's hit lanes) and dirty
-  // bit, by the key's last hit and last update lane; no lane reads them
-  if (hit && !later_hit) {
-    float m = -INFINITY;
-    for (int j = 0; j < kLaneWarps; ++j)
-      for (unsigned b = s_lanes[first][j] & s_hit[j]; b; b &= b - 1)
-        m = fmaxf(m, s_ts[j * 32 + __ffs(b) - 1]);
-    a.dir_ts[way] = fmaxf(cur_ts, m);
-  }
-  if (upd && !later_upd) a.dir_dirty[way] = 1;
-  __syncthreads();                         // every row read before any write
-  if (upd && !later_upd) {
-    float* dst = a.pages + (int64_t)way * (V + 1);
-    dst[0] = 1.f;
-    if (V > 0) dst[1] = v0;
-    for (int c = 1; c < V; ++c) dst[1 + c] = new_vals[(int64_t)t * V + c];
+  // a key's timestamp and dirty bit by its last hit and update lane, and
+  // its row from its last update lane's new values; the workspace left
+  // clean.  A thread's lane of the last tile is in its registers.
+  const volatile int32_t* const vhit = lanes + kLastHit * B;
+  const volatile int32_t* const vupd = lanes + kLastUpd * B;
+  const volatile int32_t* const vts = lanes + kLatest * B;
+  for (int i = t; i < B; i += kThreads) {
+    const bool mine_last = i >= t_last;
+    const int way = mine_last ? last_way : lane_way[i];
+    if (way < W) {
+      const int f = mine_last ? last_first : lane_first[i];
+      if (vhit[f] == i)
+        a.dir_ts[way] = fmaxf(mine_last ? last_ts : a.dir_ts[way],
+                              unordered(vts[f]));
+      if (vupd[f] == i) {
+        a.dir_dirty[way] = 1;
+        float* dst = a.pages + (int64_t)way * (V + 1);
+        dst[0] = 1.f;
+        if (V > 0)
+          dst[1] = mine_last ? sm.tail.nv0[i - t_last]
+                             : new_vals[(int64_t)i * V];
+        for (int c = 1; c < V; ++c) dst[1 + c] = new_vals[(int64_t)i * V + c];
+      }
+      if (!small) a.firsts[way] = kNone;
+    }
+    if (!single)
+      a.ways[1 + (mine_last ? my_part : __ldcg(lane_part + i))] = kNone;
   }
   if (a.kind != kRead)
-    for (int c = t; c <= V; c += kThreads)
-      a.pages[(int64_t)W * (V + 1) + c] = 0.f;
+    for (int c = t; c <= V; c += T) a.pages[(int64_t)W * (V + 1) + c] = 0.f;
 }
 
 struct AdmitArgs {
@@ -323,50 +606,57 @@ fused_admit_kernel(AdmitArgs a) {
     a.pages[(int64_t)a.W * R + c] = 0.f;
 }
 
+template <typename Key>
+int launch_step(const StepArgs& a, void* stream) {
+  // the tail's lane arrays, in shared memory while one tile holds the batch
+  const size_t smem = a.B <= kTile ? sizeof(int32_t) * kLaneArrays * a.B : 0;
+  static bool opted_in = false;            // beyond 48 KB with the static
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_step_kernel<Key>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(int32_t) * kLaneArrays * kTile));
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const dim3 grid(a.W > 0 ? (a.W + kWaysPerBlock - 1) / kWaysPerBlock : 1,
+                  a.B > 0 ? (a.B + kTile - 1) / kTile : 1);
+  fused_step_kernel<Key><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int tac_fused_max_b() { return kMaxB; }
+// Lanes of a probe partition and of a tail tile.
+int tac_fused_tile() { return kTile; }
 
-// Blocks of a step launch over W ways (the probe's tiles).
-int tac_fused_step_blocks(int W) {
-  return W > 0 ? (W + kWaysPerBlock - 1) / kWaysPerBlock : 1;
+// Blocks of a step launch over B lanes and W ways: the probe's (tiles of
+// ways) x (partitions of lanes).
+int tac_fused_step_blocks(int B, int W) {
+  const int tiles = W > 0 ? (W + kWaysPerBlock - 1) / kWaysPerBlock : 1;
+  const int parts = B > 0 ? (B + kTile - 1) / kTile : 1;
+  return tiles * parts;
 }
 
-// Returns a CUDA error code; cudaErrorInvalidValue for B outside
-// [0, kMaxB], an unknown kind, or B * V weights beyond a block's shared
-// memory (V up to about 200 at B = 256).  `ws` holds kMaxB + 1 int32: kNone in the
-// first kMaxB and 0 in the last before the first launch; every launch
-// leaves it so.
+// Returns a CUDA error code; cudaErrorInvalidValue for a negative size or
+// an unknown kind.  `ways` holds 1 + B int32: 0 then kNone; `firsts` W
+// int32 at kNone when B > kTile; every launch leaves both so.  `scratch`
+// holds B int32, and 8 B + B V when B > kTile; it needs no contents.
 int tac_fused_step(const void* keys, const void* ts, const void* weights,
                    const void* fire, const void* valid, const void* dir_keys,
                    void* dir_ts, void* dir_dirty, void* pages, void* out,
-                   void* ws, int B, int W, int V, int kind, void* stream) {
-  static size_t static_smem = 0;           // the kernel's own, read once
-  if (static_smem == 0) {
-    cudaFuncAttributes fa;
-    const cudaError_t err = cudaFuncGetAttributes(&fa, fused_step_kernel);
-    if (err != cudaSuccess) return (int)err;
-    static_smem = fa.sharedSizeBytes;
-  }
-  const size_t smem = sizeof(float) * (size_t)B * V;  // the lanes' weights
-  if (B < 0 || B > kMaxB || V < 0 || kind < kSum || kind > kRead
-      || static_smem + smem > (size_t)kSmemLimit)
+                   void* ways, void* firsts, void* scratch, int B, int W,
+                   int V, int kind, void* stream) {
+  if (B < 0 || W < 0 || V < 0 || kind < kSum || kind > kRead)
     return (int)cudaErrorInvalidValue;
-  if (static_smem + smem > (size_t)kSmemDefault) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   StepArgs a{(const int32_t*)keys, (const float*)ts, (const float*)weights,
              (const uint8_t*)fire, (const uint8_t*)valid,
              (const int32_t*)dir_keys, (float*)dir_ts, (uint8_t*)dir_dirty,
-             (float*)pages, (int32_t*)out, (int32_t*)ws, B, W, V, kind};
-  fused_step_kernel<<<tac_fused_step_blocks(W), kThreads, smem,
-                      (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+             (float*)pages, (int32_t*)out, (int32_t*)ways, (int32_t*)firsts,
+             (int32_t*)scratch, B, W, V, kind};
+  return B < 1 << 22 ? launch_step<uint32_t>(a, stream)
+                     : launch_step<u64>(a, stream);
 }
 
 int tac_fused_admit(const void* slots, const void* kids, const void* ts,

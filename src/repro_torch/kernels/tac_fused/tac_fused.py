@@ -186,20 +186,27 @@ def fused_admit_plain(state, pages, slots, keys, ts, rows, present, dirty):
 
 
 # ----------------------------------------------------------------- kernels
+# lanes of a probe partition and of a tail tile of the step kernel (its
+# kTile); a larger batch keeps its tail's arrays in the workspace
+STEP_TILE = 1024
+
 _WORKSPACE = {}     # (device index, stream) -> the step's int32 workspace
 
 
 def _lib():
     lib = cuda_build.load("tac_fused")
     if lib.tac_fused_step.argtypes is None:
-        lib.tac_fused_step.argtypes = [ctypes.c_void_p] * 11 \
+        lib.tac_fused_step.argtypes = [ctypes.c_void_p] * 13 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.tac_fused_admit.argtypes = [ctypes.c_void_p] * 11 \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         for fn in (lib.tac_fused_step, lib.tac_fused_admit,
-                   lib.tac_fused_max_b, lib.tac_fused_step_blocks):
+                   lib.tac_fused_tile, lib.tac_fused_step_blocks):
             fn.restype = ctypes.c_int
-        lib.tac_fused_step_blocks.argtypes = [ctypes.c_int]
+        lib.tac_fused_step_blocks.argtypes = [ctypes.c_int] * 2
+        if lib.tac_fused_tile() != STEP_TILE:
+            raise RuntimeError(f"tac_fused: the kernel's tile is "
+                               f"{lib.tac_fused_tile()}, not {STEP_TILE}")
     return lib
 
 
@@ -233,17 +240,35 @@ def _check_plane(state, pages, what: str) -> None:
         raise ValueError(f"{what}: tensors must be contiguous")
 
 
-def _workspace(dev: torch.device) -> torch.Tensor:
-    """The step kernel's workspace for the current stream: kMaxB ways at
-    INT32_MAX and a ticket at 0, which every launch leaves as it found."""
-    key = (dev.index, cuda_build.stream_ptr(dev))
-    ws = _WORKSPACE.get(key)
-    if ws is None:
-        ws = torch.full((_lib().tac_fused_max_b() + 1,), INT32_MAX,
-                        dtype=torch.int32, device=dev)
-        ws[-1] = 0
-        _WORKSPACE[key] = ws
-    return ws
+def step_workspace_words(B: int, W: int, V: int):
+    """int32 words of the step kernel's workspace at B lanes, W ways and V
+    channels: ``ways`` (a ticket and a way a lane, kept clean), ``firsts``
+    (a lane a way, kept clean; only past one tile) and ``scratch`` (each
+    lane's partition, and past one tile the tail's lane and key arrays and
+    the folds carried between tiles)."""
+    many = B > STEP_TILE
+    return 1 + B, W if many else 0, B + (7 * B + B * V if many else 0)
+
+
+def _workspace(dev: torch.device, stream: int, B: int, W: int, V: int):
+    """The step kernel's workspace for ``stream``, grown on demand:
+    ``(ways, firsts, scratch)``.  ``ways`` holds a ticket at 0 and
+    INT32_MAX, ``firsts`` INT32_MAX, which every launch leaves as it
+    found; ``scratch`` needs no contents."""
+    bufs = _WORKSPACE.setdefault((dev.index, stream), {})
+    for name, n in zip(("ways", "firsts", "scratch"),
+                       step_workspace_words(B, W, V)):
+        buf = bufs.get(name)
+        if buf is None or buf.numel() < n:
+            if name == "scratch":
+                buf = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+            else:
+                buf = torch.full((max(n, 1),), INT32_MAX, dtype=torch.int32,
+                                 device=dev)
+                if name == "ways":
+                    buf[0] = 0
+            bufs[name] = buf
+    return bufs["ways"], bufs["firsts"], bufs["scratch"]
 
 
 def _launch_step(state, pages, keys, ts, weights, fire, valid, out,
@@ -252,10 +277,6 @@ def _launch_step(state, pages, keys, ts, weights, fire, valid, out,
     B = keys.shape[0]
     W = state.keys.shape[1]
     V = pages.shape[-1] - 1
-    lib = _lib()
-    if B > lib.tac_fused_max_b():
-        raise ValueError(f"tac_fused_step: a batch of {B} lanes exceeds the "
-                         f"kernel's {lib.tac_fused_max_b()}")
     if kind not in KINDS:
         raise ValueError(f"tac_fused_step: kind {kind!r}")
     dev = pages.device
@@ -271,12 +292,14 @@ def _launch_step(state, pages, keys, ts, weights, fire, valid, out,
         raise ValueError("tac_fused_step: contiguous keys i32 [B], ts f32 "
                          "[B], weights f32 [B, V], fire and valid bool [B] "
                          "expected")
-    err = lib.tac_fused_step(
+    stream = cuda_build.stream_ptr(dev)
+    ways, firsts, scratch = _workspace(dev, stream, B, W, V)
+    err = _lib().tac_fused_step(
         keys.data_ptr(), ts.data_ptr(), weights.data_ptr(), fire.data_ptr(),
         valid.data_ptr(), state.keys.data_ptr(), state.ts.data_ptr(),
         state.dirty.data_ptr(), pages.data_ptr(), out.data_ptr(),
-        _workspace(dev).data_ptr(), B, W, V, KINDS.index(kind),
-        cuda_build.stream_ptr(dev))
+        ways.data_ptr(), firsts.data_ptr(), scratch.data_ptr(), B, W, V,
+        KINDS.index(kind), stream)
     cuda_build.check(err, "tac_fused_step")
     STEP_LAUNCHES += 1
 

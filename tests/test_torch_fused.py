@@ -391,3 +391,72 @@ def test_slice_matches_reference(query):
     assert port == ref
     assert port["n_outputs"] > 0
     assert port["stateful_fused"]["batches"] > 0
+
+
+# a fused batch past the step kernel's old 256-lane cap
+WIDE_BATCH = 1024
+
+
+def run_wide(pkg, query):
+    """q5 or YSB fused at batches of 1024 lanes (every step runs at the full
+    width, padded), at a rate and buffer timeout that fill batches with
+    tens to hundreds of lanes.  Returns the run's metrics, what the sinks
+    received, each stateful operator's state (its dirty entries flushed to
+    its backends) and the widest batch a plane took."""
+    _, engine, _, _, _ = mods(pkg)
+    kw = dict(device="cpu") if pkg == "repro_torch" else {}
+    if query == "ysb":
+        ysb = importlib.import_module(f"{pkg}.streaming.ysb")
+        eng = ysb.build_ysb("tac", "async",
+                            ysb.YSBConfig(rate=10000, seed=11),
+                            cache_entries=256, parallelism=2,
+                            source_parallelism=1, io_workers=8, fused=True,
+                            fused_batch=WIDE_BATCH, **kw)
+    else:
+        nx = importlib.import_module(f"{pkg}.streaming.nexmark")
+        cfg = nx.NexmarkConfig(rate=10000, active_window=1.0, oo_bound=0.3,
+                               seed=7)
+        eng = nx.build_query(query, "tac", "async", cfg, cache_entries=256,
+                             parallelism=2, source_parallelism=1,
+                             io_workers=4, buffer_timeout=0.05, fused=True,
+                             fused_batch=WIDE_BATCH, **kw)
+    got = []
+    widest = [0]
+    for op in eng.operators.values():
+        if isinstance(op, engine.SinkOp):
+            def process(sub, tup, name=op.name, orig=op.process):
+                got.append((name, sub, tup.ts, repr(tup.key),
+                            repr(tup.payload)))
+                return orig(sub, tup)
+            op.process = process
+        if isinstance(op, engine.StatefulOp):
+            for plane in op.caches:
+                def batch_step(lanes, orig=plane.batch_step):
+                    widest[0] = max(widest[0], len(lanes))
+                    return orig(lanes)
+                plane.batch_step = batch_step
+    m = eng.run(duration=1.2, warmup=0.3)
+    state = {}
+    for name, op in eng.operators.items():
+        if isinstance(op, engine.StatefulOp):
+            for sub, (cache, be) in enumerate(zip(op.caches, op.backends)):
+                for e in cache.flush_dirty():
+                    be.write(e.key, e.state, op.state_size)
+                state[(name, sub)] = sorted(
+                    (repr(k), repr(v)) for k, v in be.data.items())
+    return m, sorted(got), state, widest[0]
+
+
+@pytest.mark.parametrize("query", ["q5", "ysb"])
+def test_slice_at_a_wide_batch_matches_reference(query):
+    """``StatefulOp(fused_batch=1024)`` on the port's CPU plane against the
+    reference's: metrics (outputs, latency percentiles, hit rates, the
+    fused rollup and every counter), emits and final state are equal."""
+    port = run_wide("repro_torch", query)
+    ref = run_wide("repro", query)
+    assert port[0]["n_outputs"] > 0 and port[1]
+    assert port[0]["stateful_fused"]["batches"] > 0
+    assert port[0] == ref[0]
+    assert port[1] == ref[1]
+    assert port[2] == ref[2]
+    assert port[3] == ref[3] and port[3] > 64

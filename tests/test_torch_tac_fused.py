@@ -31,7 +31,9 @@ W = 24
 
 
 def _lanes(arrays, rng, B, V, batch, int_weights):
-    """``mixed``: resident keys with a key three times, misses, fire lanes,
+    """``mixed``: resident keys with a key three times, a key at lanes 255
+    and 256 and one at 1023 and 1024 (across the old 256-lane cap and the
+    step kernel's tail tiles, where B reaches them), misses, fire lanes,
     an invalid lane and PAD_KEY padding at the tail; ``hot``: all B lanes
     one resident key, fire lanes among them; ``empty``: mixed, with query
     keys of -1 against a directory with empty ways."""
@@ -47,6 +49,9 @@ def _lanes(arrays, rng, B, V, batch, int_weights):
         keys[1] = keys[n - 1] = keys[0]
         if batch == "empty":
             keys[2::5] = -1
+        for a, b in ((255, 256), (1023, 1024)):
+            if b < n:
+                keys[b] = keys[a]
         keys = np.concatenate([keys, [PAD_KEY] * 3]).astype(np.int32)
         valid = np.arange(B) < n
         valid[4] = False
@@ -73,6 +78,26 @@ def _packed_step(state, pages, lanes, kind):
 @pytest.mark.parametrize("kind", ["sum", "max", "read"])
 @pytest.mark.parametrize("int_weights", [True, False])
 def test_packed_step_matches_reference(batch, B, V, kind, int_weights):
+    _check_packed_step(batch, B, V, kind, int_weights)
+
+
+# batches past the step kernel's old 256-lane cap: one tail tile of 1024
+# lanes and four.  A hot batch's float sums run over B lanes of one key,
+# which the two packages' matrix products add in different orders: they
+# are held to the summation bound below instead of 2e-5.
+WIDE = [(batch, B, kind, int_weights) for B in (257, 1024, 4096)
+        for batch in ("mixed", "hot", "empty")
+        for kind in ("sum", "max", "read") for int_weights in (True, False)
+        if (batch, kind, int_weights) != ("hot", "sum", False)]
+
+
+@pytest.mark.parametrize("batch,B,kind,int_weights", WIDE)
+@pytest.mark.parametrize("V", [1, 3])
+def test_wide_packed_step_matches_reference(batch, B, V, kind, int_weights):
+    _check_packed_step(batch, B, V, kind, int_weights)
+
+
+def _check_packed_step(batch, B, V, kind, int_weights):
     arrays, rng = _state(W, V, seed=B + V)
     lanes = _lanes(arrays, rng, B, V, batch, int_weights)
     (js, jp), (ts_, tp) = _both(arrays)
@@ -257,3 +282,40 @@ def test_fusedplane_packed_path_matches_reference(kind, monkeypatch):
             np.testing.assert_array_equal(b, a)
     assert got[3:] == ref[3:]
     assert calls["step"] == 3 and calls["admit"] >= 2
+
+
+@pytest.mark.parametrize("B", [257, 1024, 4096])
+@pytest.mark.parametrize("V", [1, 3])
+def test_wide_hot_float_sums_within_the_summation_bound(B, V):
+    """A hot batch of float weights: every lane folds the key's update
+    lanes up to it, a run of up to B terms.  Both packages' new values and
+    pools lie within the bound of recursive summation, gamma_n S (n terms,
+    the row's value one of them, u = 2^-24, S the terms' magnitudes), of
+    the sums in float64; everything else is bit-equal."""
+    arrays, rng = _state(W, V, seed=B + V)
+    lanes = _lanes(arrays, rng, B, V, "hot", False)
+    (js, jp), (ts_, tp) = _both(arrays)
+    ref = tac_jax.fused_step(js, jp, *map(jnp.asarray, lanes), kind="sum")
+    hit, slots, present, tallies, new_vals = _packed_step(ts_, tp, lanes,
+                                                          "sum")
+    for name, got in (("hit", hit), ("slots", slots), ("present", present),
+                      ("tallies", tallies)):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    keys, _, w, fire, valid = lanes
+    upd = np.asarray(ref.hit) & ~fire
+    M = np.tril(np.ones((B, B), bool)) & upd[None, :]
+    row = arrays[4][np.asarray(ref.slots), 0]
+    g = np.where(row[:, :1] > 0.5, row[:, 1:], 0.0).astype(np.float64)
+    exact = g + M @ w.astype(np.float64)
+    n = M.sum(1, keepdims=True) + 1.0
+    u = 2.0 ** -24
+    bound = n * u / (1 - n * u) * (np.abs(g) + M @ np.abs(w).astype(
+        np.float64))
+    for got in (new_vals.numpy(), np.asarray(ref.new_vals)):
+        assert (np.abs(got - exact) <= bound).all()
+    last = int(np.flatnonzero(upd)[-1])
+    slot = int(slots[last])
+    for pool in (tp.numpy(), np.asarray(ref.pages)):
+        assert (np.abs(pool[slot, 0, 1:] - exact[last]) <= bound[last]).all()
+    _assert_state_equal(ref.state, ref.pages, ts_, tp)

@@ -6,12 +6,18 @@ CUDA card.
 
 Each variant is the committed ``csrc/tac_fused.cu`` with a textual edit:
 as built, or the step kernel stopped at one of its phases (at entry,
-after the key table, after the probe, before the tail, after the lane
-masks, before the write-back), or without the fence before the ticket.  All are built with nvcc at once into
-``build/fused_variants`` and launched back to back on the q5-like
-``mixed`` batch of ``chip_smoke.fused_case`` (B 256, V 1, kind ``sum``)
-against directories of 2048 and 262,144 ways; the admit kernel as built
-on a chunk of 64 records.  Each time is the median over rounds of CUDA
+after the key table, after the probe, before the tail, after the tail's
+pass over the lanes' ways, after its pass over the keys, after the first
+tile's sort, before the write-back), or without the fence before the
+ticket, or with one part of its tail changed (every lane with a way
+sorted, not only those of repeated keys) or skipped (the sort, the run
+walk, the write-back; their results are wrong, their times are the
+point).  All are built with nvcc at once into ``build/fused_variants``
+and launched back to back on the q5-like ``mixed`` batch of
+``chip_smoke.fused_case`` (B 256, 1024 and 4096, V 1, kind ``sum``)
+against directories of 2048 and 262,144 ways, each variant on a
+workspace of its own; the admit kernel as built on a chunk of 64
+records.  Each time is the median over rounds of CUDA
 events around 200 launches queued behind a spin kernel, so the host's
 launch cost is hidden.  Prints one JSON line a variant and shape; exits 1
 without a card.
@@ -19,6 +25,7 @@ without a card.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import statistics
 import subprocess
@@ -39,8 +46,15 @@ ENTRY = "  const int B = a.B, W = a.W, V = a.V;\n"
 TABLE = "    mine = h;\n  }\n  __syncthreads();\n"
 PROBE = "  // one block holds every way in its table"
 TAIL = "  // ---- the tail"
-MASKS = "  const int n_miss = __syncthreads_count(valid && !hit);\n"
-WRITE = "  __syncthreads();                         // every row read"
+LANES = "  if (!small) {                            // the keys past one"
+KEYS = "  const float ident = "
+SORT = "    const Key* const sorted = sm.tail.sorted[buf];"
+MULTI = "        multi = vlast[first] != first;\n"
+SORT_LOOP = "    for (int k = 2; k <= S && G > 1; k <<= 1) {"
+WALK = ("      for (int q = s; q <= t; ++q)\n        if (sm.tail.upd[q]) {\n"
+        "          has_upd = true;")
+POST = "  for (int i = t; i < B; i += kThreads) {\n    const bool mine_last"
+WRITE = "  sync_tail(T);                           // every row read"
 FENCE = "    __threadfence();\n"
 # name: edits of the source
 VARIANTS = {
@@ -49,9 +63,16 @@ VARIANTS = {
     "stop after the key table": [(TABLE, TABLE + STOP)],
     "stop after the probe": [(PROBE, STOP + PROBE)],
     "stop before the tail": [(TAIL, STOP + TAIL)],
-    "stop after the lane masks": [(MASKS, MASKS + STOP)],
+    "stop after the lane pass": [(LANES, STOP + LANES)],
+    "stop after the key pass": [(KEYS, STOP + KEYS)],
+    "stop after the first sort": [(SORT, STOP + SORT)],
     "stop before the write-back": [(WRITE, STOP + WRITE)],
     "no fence": [(FENCE, "")],
+    # the tail's parts, each skipped (results wrong, times right)
+    "sort every lane": [(MULTI, "        multi = true;\n")],
+    "no sort": [(SORT_LOOP, SORT_LOOP.replace("G > 1;", "G > 1 && B < 0;"))],
+    "no run walk": [(WALK, WALK.replace("q <= t;", "q <= t && B < 0;"))],
+    "no write-back": [(POST, POST.replace("i < B;", "i < B && B < 0;"))],
 }
 
 
@@ -79,7 +100,7 @@ def build():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}:\n{log}")
         lib = ctypes.CDLL(str(OUT / f"libv{i}.so"))
-        lib.tac_fused_step.argtypes = [ctypes.c_void_p] * 11 \
+        lib.tac_fused_step.argtypes = [ctypes.c_void_p] * 13 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.tac_fused_admit.argtypes = [ctypes.c_void_p] * 11 \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -113,8 +134,9 @@ def main() -> int:
     from repro_torch.kernels.tac_fused import tac_fused as tfk
     libs = build()
     stream = cuda_build.stream_ptr(torch.device("cuda"))
-    B, V = 256, 1
-    for W in (2048, cs.DEPLOY_SLOTS):
+    V = 1
+    for W, B in itertools.product((2048, cs.DEPLOY_SLOTS),
+                                  (256, 1024, 4096)):
         state, pages, lanes, _ = cs.fused_case(W, B, V, "mixed")
         out = torch.empty(tfk.step_out_words(B, V), dtype=torch.int32,
                           device="cuda")
@@ -122,10 +144,13 @@ def main() -> int:
             state.keys.data_ptr(), state.ts.data_ptr(),
             state.dirty.data_ptr(), pages.data_ptr(), out.data_ptr()]
         for name, lib in libs.items():
-            ws = torch.full((lib.tac_fused_max_b() + 1,), tfk.INT32_MAX,
-                            dtype=torch.int32, device="cuda")
-            ws[-1] = 0
-            args = ptrs + [ws.data_ptr(), B, W, V, 0, stream]
+            n_ways, n_firsts, n_scratch = tfk.step_workspace_words(B, W, V)
+            ws = [torch.full((max(n, 1),), tfk.INT32_MAX, dtype=torch.int32,
+                             device="cuda") for n in (n_ways, n_firsts)]
+            ws[0][0] = 0
+            ws.append(torch.empty(max(n_scratch, 1), dtype=torch.int32,
+                                  device="cuda"))
+            args = ptrs + [t.data_ptr() for t in ws] + [B, W, V, 0, stream]
             row = {"kernel": "tac_fused_step", "variant": name, "W": W,
                    "B": B, "ms": events_ms(lambda: lib.tac_fused_step(*args))}
             if name == "as built":
@@ -145,6 +170,8 @@ def main() -> int:
                 row["packed_host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
                 torch.cuda.synchronize()
             print(json.dumps(row), flush=True)
+        if B != 256:
+            continue
         N = 64
         rng = np.random.default_rng(1)
         recs = [rng.choice(W, N, replace=False).astype(np.int32),
