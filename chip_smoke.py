@@ -888,29 +888,34 @@ def decode_agrees(out, plain, tol: float) -> bool:
             and max_err(out, plain) <= tol * scale)
 
 
-def decode_bound(q, seq_lens, P: int, page: int):
-    """Least time for paged decode attention: K and V at every position
-    below seq_len, q, out, the table and the lengths each moved once, and
-    4 * H * d flops a position (QK and PV) at the peak for q's type."""
+def decode_bound(q, seq_lens, P: int, page: int, dv=None):
+    """Least time for paged decode attention: K (d wide) and V (``dv``
+    wide, d unless given) at every position below seq_len, q, out, the
+    table and the lengths each moved once, and 2 * H * (d + dv) flops a
+    position (QK and PV) at the peak for q's type."""
     B, H, d = q.shape
+    dv = dv or d
     it = q.element_size()
     tokens = int(seq_lens.clamp(max=P * page).sum())
-    nbytes = tokens * 2 * d * it + 2 * B * H * d * it + B * P * 4 + B * 4
-    return bound(nbytes, ops=4.0 * tokens * H * d, peak=peak_for(q.dtype))
+    nbytes = tokens * (d + dv) * it + B * H * (d + dv) * it + B * P * 4 \
+        + B * 4
+    return bound(nbytes, ops=2.0 * tokens * H * (d + dv),
+                 peak=peak_for(q.dtype))
 
 
 def decode_case(B, H, d, page, P, dtype, seed=0, n_slots=None, length=None,
-                lens=None):
+                lens=None, dv=None):
     """tests/test_kernels.py's construction: each sequence's pages are
     distinct random slots of a pool of B * P + 3 (or ``n_slots``) pages,
-    lengths random in [1, P * page] (or all ``length``).  Given ``lens``
-    (one a row), the table entries of pages at or past each length are -1,
-    as a probe miss leaves them."""
+    lengths random in [1, P * page] (or all ``length``); values ``dv``
+    wide (d unless given).  Given ``lens`` (one a row), the table entries
+    of pages at or past each length are -1, as a probe miss leaves them."""
     rng = np.random.default_rng(seed)
     n_slots = n_slots or B * P + 3
     rnd = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape, dtype=np.float32)).to(dtype).cuda()
-    q, kp, vp = rnd(B, H, d), rnd(n_slots, page, d), rnd(n_slots, page, d)
+    q, kp, vp = rnd(B, H, d), rnd(n_slots, page, d), \
+        rnd(n_slots, page, dv or d)
     pt = rng.permutation(n_slots)[:B * P].reshape(B, P).astype(np.int32)
     if lens is not None:
         lens = np.asarray(lens, np.int32)
@@ -980,25 +985,43 @@ def sdpa_yardstick(args, kv_heads: int, out):
     positions.  Returns (ms, max abs difference from ``out``)."""
     q, kp, vp, pt, lens = args
     rows, G, d = q.shape
+    dv = vp.shape[2]
     T = int(lens[0])
-    shape = (rows // kv_heads, kv_heads, -1, d)
-    k = kp[pt.long()].reshape(shape)[:, :, :T]
-    v = vp[pt.long()].reshape(shape)[:, :, :T]
+    shape = (rows // kv_heads, kv_heads, -1)
+    k = kp[pt.long()].reshape(*shape, d)[:, :, :T]
+    v = vp[pt.long()].reshape(*shape, dv)[:, :, :T]
     qs = q.reshape(rows // kv_heads, kv_heads, G, d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    err = max_err(sdpa(qs, k, v).reshape(rows, G, d), out)
+    err = max_err(sdpa(qs, k, v).reshape(rows, G, dv), out)
     ms = device_ms(lambda: sdpa(qs, k, v), reps=3, rounds=5)
     del k, v
     torch.cuda.empty_cache()
     return ms, err
 
 
+def decode_pass1(q, dv: int) -> str:
+    """The mangled-name stem of the pass-1 kernel that runs q [B, H, d]
+    with values ``dv`` wide (``da.instance``)."""
+    B, H, d = q.shape
+    route, DK, DV = da.instance(d, dv, q.dtype)
+    if route == "workers":
+        return f"decode_kernelIfLi{d}ELi{da.launch_plan(d, dv, H, q.dtype)[0]}E"
+    if route == "tensor_cores":
+        return (f"decode_bf16_kernelILi{DK}E" if DK <= 128
+                else f"decode_wide_kernelILi{DK}ELi{DV}E")
+    t = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
+    return f"decode_lanes_kernelI{t}Li{DK // 32}ELi{DV // 32}E"
+
+
 def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
-    """K5 against its plain version; timed rows also require the gate to
-    reject a planted fault (``decode_split_dropped``) and add the times,
-    the bound, the split count and the build facts."""
+    """K5 against its plain version, the kernel's launch counted; timed
+    rows also require the gate to reject a planted fault
+    (``decode_split_dropped``) and add the times, the bound, the split
+    count and the build facts."""
     q, kp, vp, pt, lens = args
+    before = da.LAUNCHES
     k = da.paged_decode_attention_kernel(*args)
+    launched = da.LAUNCHES - before
     n = q.shape[0] if plain_rows is None else plain_rows
     pargs = (q[:n], kp, vp, pt[:n], lens[:n])
     p = da.paged_decode_plain(*pargs)
@@ -1010,11 +1033,17 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
     if not (bool(torch.isfinite(k).all()) and decode_agrees(k[:n], p, tol)):
         raise AssertionError(f"decode_attention differs at {label}: "
                              f"{max_err(k[:n], p)}")
+    if launched != 1:
+        raise AssertionError(f"decode_attention at {label}: {launched} "
+                             f"kernel launches, not 1")
     B, H, d = q.shape
+    dv = vp.shape[2]
     P = pt.shape[1]
-    row = dict(kernel="decode_attention", shape=label, B=B, H=H, d=d,
+    row = dict(kernel="decode_attention", shape=label, B=B, H=H, d=d, dv=dv,
                page=kp.shape[1], P=P, n_slots=kp.shape[0],
-               dtype=str(q.dtype).split(".")[-1], splits=da.splits_for(q, P),
+               dtype=str(q.dtype).split(".")[-1],
+               instance=da.instance(d, dv, q.dtype),
+               splits=da.splits_for(q, P, dv), launches=launched,
                checked_rows=n, max_abs_err=max_err(k[:n], p),
                plain_max_abs=float(p.float().abs().max()))
     if timed:
@@ -1024,13 +1053,12 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
             raise AssertionError(f"decode_attention at {label}: the check "
                                  f"would pass an output that lost a split")
         del fault
-        b_ms, b_by = decode_bound(q, lens, P, kp.shape[1])
+        b_ms, b_by = decode_bound(q, lens, P, kp.shape[1], dv)
         big = kp.numel() * kp.element_size() > (1 << 30)
         reps, rounds = (3, 5) if big else (20, 7)
         ms = device_ms(lambda: da.attention_in_range(*args), reps, rounds)
-        heads, per_sm = da.launch_plan(d, H, q.dtype)
-        pass1 = (f"decode_bf16_kernelILi{d}E" if q.dtype == torch.bfloat16
-                 else f"decode_kernelIfLi{d}ELi{heads}E")
+        heads, per_sm = da.launch_plan(d, dv, H, q.dtype)
+        pass1 = decode_pass1(q, dv)
         tc = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
         row.update(ms=ms,
                    plain_ms=device_ms(lambda: da.paged_decode_plain(*pargs),
@@ -1042,8 +1070,11 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
                    build=build_facts("decode_attention", pass1,
                                      f"merge_kernelI{tc}E"))
         if kv_heads:
-            row["sdpa_contiguous_ms"], row["sdpa_max_abs_diff"] = \
-                sdpa_yardstick(args, kv_heads, k)
+            try:
+                row["sdpa_contiguous_ms"], row["sdpa_max_abs_diff"] = \
+                    sdpa_yardstick(args, kv_heads, k)
+            except RuntimeError as e:
+                row["sdpa_refused"] = str(e)[:200]
     emit("kernel_check", **row)
     return row
 
@@ -1218,12 +1249,19 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
     q = randn((B, S, H, d), dtype, g)
     k = randn((B, T, KV, d), dtype, g)
     v = randn((B, T, KV, dv), dtype, g)
+    before = fa.LAUNCHES
     out = fa.flash_attention_kernel(q, k, v, causal)
+    launched = fa.LAUNCHES - before
     plain = fa.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     agrees_or_raise("flash_attention", label, out, plain, TOL[dtype])
+    if launched != 1 or out.shape != plain.shape:
+        raise AssertionError(f"flash_attention at {label}: {launched} "
+                             f"kernel launches, out {tuple(out.shape)}")
+    pair = fa.cover_pair(d, dv)
     row = dict(kernel="flash_attention", shape=label, B=B, S=S, T=T, H=H,
                KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
+               instance=pair, launches=launched,
                max_abs_err=max_err(out, plain),
                plain_max_abs=float(plain.float().abs().max()))
     if fault:
@@ -1243,9 +1281,15 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = device_ms(lambda: fa.flash_attention_kernel(q, k, v, causal),
                        reps=5, rounds=5)
-        needle = (f"flash_bf16_kernelILi{d}ELi{dv}E"
+        needle = (f"flash_bf16_kernelILi{pair[0]}ELi{pair[1]}E"
                   if dtype == torch.bfloat16
-                  else f"flash_kernelIfLi{d}ELi{dv}E")
+                  else f"flash_kernelIfLi{pair[0]}ELi{pair[1]}E")
+        if pair != (d, dv):            # the covering pair alone, padded
+            padded = fa.pad_to_pair(q, k, v, pair)
+            row.update(covering_pair_ms=device_ms(lambda: fa._forward(
+                *padded, causal, False, 1 / math.sqrt(d)), reps=5, rounds=5),
+                zero_work_share=1 - (d + dv) / sum(pair))
+            del padded
         row.update(ms=ms,
                    plain_ms=device_ms(lambda: fa.flash_attention_plain(
                        q, k, v, causal), reps=3, rounds=3),
@@ -1253,7 +1297,7 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
                    library=f"scaled_dot_product_attention(is_causal="
                            f"{causal})",
                    **timed_extras("flash_attention", label, ms, b_ms),
-                   dynamic_smem_bytes=fa.smem_bytes(d, dv, dtype),
+                   dynamic_smem_bytes=fa.smem_bytes(*pair, dtype),
                    build=build_facts("flash_attention", needle))
         try:
             lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
@@ -1270,7 +1314,8 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
     return row
 
 
-def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
+def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0,
+                ref64=False):
     """K7 on the model layout from a seeded normal (dt softplus, A = -exp,
     as tests/test_kernels.py draws them); y and the final state against
     the plain version.  Timed rows with S a multiple of Q also require the
@@ -1278,7 +1323,10 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
     counts C B^T once per (b, chunk, group), 2 Q^2 N flops, and 2 Q^2 P +
     4 Q N P a (b h, chunk), at the peak for the operands' type.  bf16
     timed rows also give the launch plan, whose shared memory must equal
-    the CUDA source's."""
+    the CUDA source's.  With ``ref64`` the plain version runs in float64
+    (its fp32 sums at a long S and a chunk of 256 stray from the exact
+    result by more than the fp32 tolerance themselves); the fp32 plain
+    version's distance from it and from the kernel are reported."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = randn((B, S, H, P), dtype, g)
     dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, g))
@@ -1286,17 +1334,35 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
     Bm = randn((B, S, G, N), dtype, g)
     Cm = randn((B, S, G, N), dtype, g)
     args = (x, dt, A, Bm, Cm, Q)
+    before = ms.LAUNCHES
     y, st = ms.mamba2_scan_kernel(*args)
-    py, pst = ms.mamba2_scan_plain(*args)
+    launched = ms.LAUNCHES - before
+    extra = {}
+    if ref64:
+        p32 = ms.mamba2_scan_plain(*args)[0]
+        py, pst = ms.mamba2_scan_plain(
+            *(t.double() for t in args[:5]), Q)
+        extra = dict(reference="plain version in float64",
+                     plain_fp32_vs_fp64_errors=scan_errors(p32, py),
+                     kernel_vs_plain_fp32_errors=scan_errors(y, p32))
+        del p32
+    else:
+        py, pst = ms.mamba2_scan_plain(*args)
     torch.cuda.synchronize()
     agrees_or_raise("mamba2_scan", label, y, py, TOL[dtype], scan_agrees)
     agrees_or_raise("mamba2_scan state", label, st, pst, TOL[dtype],
                     scan_agrees)
+    if launched != 1:
+        raise AssertionError(f"mamba2_scan at {label}: {launched} kernel "
+                             f"launches, not 1")
+    Qk = ms.kernel_chunk(Q, N, dtype)
     row = dict(kernel="mamba2_scan", shape=label, B=B, S=S, H=H, G=G, N=N,
-               P=P, Q=Q, dtype=dtype_name(dtype),
+               P=P, Q=Q, kernel_chunk=Qk, launches=launched,
+               dtype=dtype_name(dtype),
                max_abs_err=max(max_err(y, py), max_err(st, pst)),
                plain_max_abs=float(py.float().abs().max()),
-               y_errors=scan_errors(y, py), state_errors=scan_errors(st, pst))
+               y_errors=scan_errors(y, py), state_errors=scan_errors(st, pst),
+               **extra)
     if timed and S % Q == 0:
         fault = mamba_state_dropped(*args)
         row["planted_fault_errors"] = scan_errors(fault, py)
@@ -1306,8 +1372,8 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
                                  f"chunk boundaries")
         del fault
     del py, pst
-    if timed:
-        flops, nbytes = costs.mamba_fwd(B, S, H, G, N, P, Q,
+    if timed:                          # the work at the kernel's chunk
+        flops, nbytes = costs.mamba_fwd(B, S, H, G, N, P, Qk,
                                         x.element_size())
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: ms.mamba2_scan_kernel(*args), reps=5,
@@ -1321,9 +1387,9 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
                    **timed_extras("mamba2_scan", label, t_ms, b_ms),
                    build=build_facts("mamba2_scan", "ssd_"))
         if dtype == torch.bfloat16:
-            pl = ms.plan(B, S, H, G, N, P, Q,
-                         *ms.card_slots(Q, N, P, x.device))
-            src_smem = ms.kernel_smem_bytes(Q, N, P, pl["heads"])
+            pl = ms.plan(B, S, H, G, N, P, Qk,
+                         *ms.card_slots(Qk, N, P, x.device))
+            src_smem = ms.kernel_smem_bytes(Qk, N, P, pl["heads"])
             if tuple(src_smem) != tuple(pl["smem"]):
                 raise AssertionError(f"mamba2_scan at {label}: the plan's "
                                      f"shared memory {pl['smem']} is not "
@@ -1335,14 +1401,15 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0):
 
 
 def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
-               seed=0):
+               seed=0, fault=False):
     """K8 on the model layout from a seeded draw (k * 0.3, w = sigmoid,
     u * 0.1, as tests/test_kernels.py draws them), from a nonzero state; y
     and the final state against the plain version, which steps through S
     one token at a time and so runs on the first ``plain_rows`` batch rows
-    only at the long shapes.  Timed rows also require the gate to reject a
-    planted fault (``rwkv_slice_dropped``) and give the column tile, whose
-    shared memory must equal the CUDA source's.  The bound counts 4 N^2
+    only at the long shapes.  Timed rows (and any with ``fault``) also
+    require the gate to reject a planted fault (``rwkv_slice_dropped``);
+    timed rows give the column tile of the instance that runs N
+    (``padded_n``), whose shared memory must equal the CUDA source's.  The bound counts 4 N^2
     flops a (b h, t) at the peak for the operands' type and each input and
     output once."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1352,7 +1419,12 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
     w = torch.sigmoid(randn((B, S, H, N), torch.float32, g)).to(dtype)
     u = randn((B * H, N), torch.float32, g, 0.1)
     s0 = randn((B, H, N, N), torch.float32, g, 0.1)
+    before = rs.LAUNCHES
     y, st = rs.rwkv6_scan_kernel(r, k, v, w, u, s0)
+    launched = rs.LAUNCHES - before
+    if launched != 1:
+        raise AssertionError(f"rwkv6_scan at {label}: {launched} kernel "
+                             f"launches, not 1")
     n = B if plain_rows is None else plain_rows
     pargs = (r[:n], k[:n], v[:n], w[:n], u[:n * H], s0[:n])
     py, pst = rs.rwkv6_scan_plain(*pargs)
@@ -1360,28 +1432,37 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
     agrees_or_raise("rwkv6_scan", label, y[:n], py, TOL[dtype], scan_agrees)
     agrees_or_raise("rwkv6_scan state", label, st[:n], pst, TOL[dtype],
                     scan_agrees)
+    Nk = rs.padded_n(N)
     row = dict(kernel="rwkv6_scan", shape=label, B=B, S=S, H=H, N=N,
+               instance_N=Nk, launches=launched,
                dtype=dtype_name(dtype), checked_rows=n,
                max_abs_err=max(max_err(y[:n], py), max_err(st[:n], pst)),
                plain_max_abs=float(py.float().abs().max()),
                y_errors=scan_errors(y[:n], py),
                state_errors=scan_errors(st[:n], pst))
-    if timed:
-        fault = rwkv_slice_dropped(*pargs)
-        row["planted_fault_errors"] = scan_errors(fault, py)
-        if scan_agrees(fault, py, TOL[dtype]):
+    if timed or fault:
+        bad = rwkv_slice_dropped(*pargs)
+        row["planted_fault_errors"] = scan_errors(bad, py)
+        if scan_agrees(bad, py, TOL[dtype]):
             raise AssertionError(f"rwkv6_scan at {label}: the check would "
                                  f"pass the scan that lost a row slice's "
                                  f"part of y")
-        del fault
+        del bad
+    if timed:
         flops, nbytes = costs.rwkv_fwd(B, S, H, N, r.element_size())
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: rs.rwkv6_scan_kernel(r, k, v, w, u, s0),
                          reps=5, rounds=5)
+        if Nk != N:                    # the instance alone, on padded inputs
+            padded = rs.pad_state_dim(r, k, v, w, u, s0, Nk)
+            row.update(instance_ms=device_ms(lambda: rs._forward(
+                *padded, False), reps=5, rounds=5),
+                zero_work_share=1 - (N / Nk) ** 2)
+            del padded
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        cols = rs.plan_columns(B * H, N, sms)
-        smem = rs.smem_bytes(N, cols, dtype)
-        if rs.kernel_smem_bytes(N, cols, dtype) != smem:
+        cols = rs.plan_columns(B * H, Nk, sms)
+        smem = rs.smem_bytes(Nk, cols, dtype)
+        if rs.kernel_smem_bytes(Nk, cols, dtype) != smem:
             raise AssertionError(f"rwkv6_scan at {label}: the plan's shared "
                                  f"memory {smem} is not the source's")
         row.update(ms=t_ms,
@@ -1392,8 +1473,8 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
                    library="none: no single PyTorch call computes the "
                            "RWKV6 recurrence",
                    **timed_extras("rwkv6_scan", label, t_ms, b_ms),
-                   cols=cols, blocks=B * H * (N // cols),
-                   threads=rs.threads(N, cols),
+                   cols=cols, blocks=B * H * (Nk // cols),
+                   threads=rs.threads(Nk, cols),
                    dynamic_smem_bytes=smem,
                    build=build_facts("rwkv6_scan",
                                      "wkv_kernelIfLi64E"
@@ -1414,7 +1495,11 @@ def lm_kernel_phase():
     (4 x 80 heads, S 2048, Q 128, N = P = 64, bf16), K8 at rwkv6-3b (4 x 40
     heads, S 2048, N 64, fp32 as the model feeds it).  K7 and K8 are also
     timed at S = 2000 (a last chunk of 80 at full width) and K8 at the
-    decode shape (one token from a nonzero state)."""
+    decode shape (one token from a nonzero state).  Shapes past the
+    kernels' instances: K6 at pairs it pads to the covering one (and timed
+    at Phi-3-mini's d 96), refusing one past 256; K7 at N 128 and chunks
+    past 128 (timed at mamba2-2.7b's prefill), refusing a gradient at N
+    128 before any launch; K8 at N it pads to the next instance."""
     main, errs = {}, {"flash_attention": 0.0, "mamba2_scan": 0.0,
                       "rwkv6_scan": 0.0}
 
@@ -1433,24 +1518,51 @@ def lm_kernel_phase():
             for d, dv in fa.PAIRS:              # every instantiated pair
                 note(check_flash(2, 96, 4, 2, d, dtype, causal,
                                  f"pair {d, dv}", dv=dv))
+            # pairs no config instantiates: the covering pair, padded
+            for d, dv in ((48, 40), (100, 60), (40, 40)):
+                note(check_flash(2, 96, 4, 2, d, dtype, causal,
+                                 f"padded {d, dv}", dv=dv))
         for d, dv in ((16, 16), (24, 16), (64, 64)):   # cross-attention
             note(check_flash(2, 96, 4, 4, d, dtype, False,
                              f"cross {d, dv} S 96 T 160", dv=dv, T=160))
+        note(check_flash(2, 96, 4, 4, 100, dtype, False,
+                         "padded cross (100, 60) S 96 T 160", dv=60, T=160))
         for S, P, N, Q in ((128, 16, 8, 32), (64, 32, 16, 64),
                            (256, 8, 4, 16), (62, 16, 8, 31),
-                           (60, 16, 16, 24)):
+                           (60, 16, 16, 24),
+                           # N 128 and chunks past 128: a last chunk of 88
+                           (600, 64, 128, 256), (300, 24, 100, 200),
+                           (192, 64, 128, 128)):
             note(check_mamba(1, S, 3, 1, N, P, Q, dtype, f"sweep {S, P, N, Q}"))
         note(check_mamba(2, 64, 4, 2, 16, 16, 32, dtype, "groups"))
-        for S, N in ((128, 8), (64, 16), (96, 32), (64, 64)):
-            note(check_rwkv(1, S, 3, N, dtype, f"sweep {S, N}"))
-    q = torch.zeros((1, 8, 2, 48), device="cuda")
-    try:                               # a pair the kernel is not built for
-        fa.flash_attention_kernel(q, q, torch.zeros((1, 8, 2, 40),
+        for S, N in ((128, 8), (64, 16), (96, 32), (64, 64),
+                     (100, 12), (64, 24), (96, 48)):   # padded to HEAD_DIMS
+            note(check_rwkv(1, S, 3, N, dtype, f"sweep {S, N}",
+                            fault=N == 48))
+    # N 128, chunk 256 in fp32 at mamba2-2.7b's widths, 8 of its heads
+    note(check_mamba(1, 2048, 8, 1, 128, 64, 256, torch.float32,
+                     "mamba2-2.7b widths fp32, 8 heads", ref64=True))
+    q = torch.zeros((1, 8, 2, 264), device="cuda")
+    try:                               # past every pair: still refused
+        fa.flash_attention_kernel(q, q, torch.zeros((1, 8, 2, 64),
                                                     device="cuda"))
     except ValueError:
         pass
     else:
-        raise AssertionError("flash_attention took (d, dv) = (48, 40)")
+        raise AssertionError("flash_attention took (d, dv) = (264, 64)")
+    x = torch.zeros((1, 8, 2, 64), device="cuda", requires_grad=True)
+    bc = torch.zeros((1, 8, 1, 128), device="cuda")
+    before = ms.LAUNCHES, ms.BWD_LAUNCHES
+    try:                               # no backward at N 128 yet
+        ms.mamba2_scan_kernel(x, torch.ones((1, 8, 2), device="cuda"),
+                              -torch.ones(2, device="cuda"), bc, bc, 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("mamba2_scan took a gradient at N 128")
+    if (ms.LAUNCHES, ms.BWD_LAUNCHES) != before:
+        raise AssertionError("mamba2_scan launched before refusing a "
+                             "gradient at N 128")
     main["flash_attention"] = note(check_flash(
         4, 2048, 32, 32, 80, torch.bfloat16, True, "zamba2-2.7b prefill",
         timed=True, fault=True))
@@ -1458,6 +1570,9 @@ def lm_kernel_phase():
                      "gemma-7b prefill", timed=True))
     note(check_flash(4, 2048, 128, 128, 192, torch.bfloat16, True,
                      "deepseek-v2-236b MLA prefill", timed=True, dv=128))
+    # Phi-3-mini's head dim 96 (hidden 3072 over 32 heads), on (128, 128)
+    note(check_flash(4, 2048, 32, 32, 96, torch.bfloat16, True,
+                     "phi-3-mini prefill (d 96)", timed=True, fault=True))
     main["mamba2_scan"] = note(check_mamba(
         4, 2048, 80, 1, 64, 64, 128, torch.bfloat16, "zamba2-2.7b prefill",
         timed=True))
@@ -1470,6 +1585,13 @@ def lm_kernel_phase():
                     timed=True, plain_rows=1))
     note(check_rwkv(4, 1, 40, 64, torch.float32, "rwkv6-3b decode",
                     timed=True))
+    # N 48 at rwkv6-3b's heads and tokens: the cost of the padding to 64
+    note(check_rwkv(4, 2048, 40, 48, torch.float32, "N 48 at rwkv6-3b's "
+                    "heads", timed=True, plain_rows=1))
+    # mamba2-2.7b's prefill: d_state 128, headdim 64, chunk 256 (run as
+    # chunks of 128), 80 heads of one group
+    note(check_mamba(4, 2048, 80, 1, 128, 64, 256, torch.bfloat16,
+                     "mamba2-2.7b prefill", timed=True))
     return main, errs
 
 
@@ -1602,6 +1724,67 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
     return row
+
+
+def check_grad_through_wrapper(name: str, label: str, fwd, plain_bwd,
+                               inputs, dout, tol: float, counters) -> dict:
+    """A kernel's gradient as a caller gets it at a shape the wrapper pads
+    (autograd through the padding, the kernel's ``autograd.Function`` and
+    the slice) against ``plain_bwd`` (autograd through the plain version)
+    within ``tol`` (``grads_rel``); the forward and the backward kernel
+    must each have launched once (``counters``: their modules and count
+    names)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    before = [getattr(m, c) for m, c in counters]
+    out = fwd(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    launched = [getattr(m, c) - b for (m, c), b in zip(counters, before)]
+    plain = plain_bwd(*inputs, dout)
+    torch.cuda.synchronize()
+    rel = grads_rel(grads, plain)
+    row = dict(kernel=name, shape=label, dtype=dtype_name(inputs[0].dtype),
+               rel_err=rel, tol=tol, launches=launched,
+               max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)))
+    if launched != [1] * len(counters) or not rel <= tol:
+        raise AssertionError(f"{name} gradient through the wrapper at "
+                             f"{label}: {row}")
+    emit("kernel_check", **row)
+    return row
+
+
+def flash_grad_row(B, S, H, KV, d, dv, dtype, causal, label, seed=0):
+    """K6's gradient at a pair the wrapper pads, against autograd through
+    the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = randn((B, S, H, d), dtype, g), randn((B, S, KV, d), dtype, g)
+    v = randn((B, S, KV, dv), dtype, g)
+    dout = randn((B, S, H, dv), dtype, g)
+    return check_grad_through_wrapper(
+        "flash_attention_bwd", label,
+        lambda *t: fa.flash_attention_kernel(*t, causal),
+        lambda q, k, v, do: fa.flash_attention_backward_plain(q, k, v, do,
+                                                              causal),
+        (q, k, v), dout, BWD_TOL[dtype],
+        [(fa, "LAUNCHES"), (fa, "BWD_LAUNCHES")])
+
+
+def rwkv_grad_row(B, S, H, N, label, seed=0):
+    """K8's gradient (fp32) at an N the wrapper pads, y's alone, against
+    autograd through the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, v = randn((B, S, H, N), torch.float32, g), \
+        randn((B, S, H, N), torch.float32, g)
+    k = randn((B, S, H, N), torch.float32, g, 0.3)
+    w = torch.sigmoid(randn((B, S, H, N), torch.float32, g))
+    u = randn((B * H, N), torch.float32, g, 0.1)
+    s0 = randn((B, H, N, N), torch.float32, g, 0.1)
+    dy = randn((B, S, H, N), torch.float32, g)
+    return check_grad_through_wrapper(
+        "rwkv6_scan_bwd", label,
+        lambda *t: rs.rwkv6_scan_kernel(*t)[0],
+        lambda *t: rs.rwkv6_scan_backward_plain(*t[:6], t[6]),
+        (r, k, v, w, u, s0), dy, BWD_TOL[torch.float32],
+        [(rs, "LAUNCHES"), (rs, "BWD_LAUNCHES")])
 
 
 def rwkv_bwd_undecayed(r, k, v, w, u, init, dy, dstate):
@@ -1869,6 +2052,9 @@ def scan_bwd_rows():
     # 62 whole stretches and a last one of 8 steps, at rwkv6's N
     r = check_rwkv_bwd(2, 1000, 3, 64, "ragged 1000 of 16")
     worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"], r["max_abs_err"])
+    # N 48 through the wrapper: padded to 64, the gradient sliced back
+    r = rwkv_grad_row(2, 100, 3, 48, "padded N 48")
+    worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"], r["max_abs_err"])
     q = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16, device="cuda",
                     requires_grad=True)
     try:                               # a type the backward does not take
@@ -1910,6 +2096,10 @@ def train_kernel_phase():
                     worst = max(worst, r["max_abs_err"])
             r = check_flash_bwd(1, 130, 8, 2, 64, dtype, causal, "G 4")
             worst = max(worst, r["max_abs_err"])
+        # (96, 96) through the wrapper: on (128, 128), padded and sliced
+        r = flash_grad_row(2, 100, 4, 2, 96, 96, dtype, True,
+                           "padded (96, 96)")
+        worst = max(worst, r["max_abs_err"])
     rows = {label: check_flash_bwd(c["B"], c["S"], c["H"], c["KV"], c["d"],
                                    torch.bfloat16, True, label, dv=c["dv"],
                                    timed=True,
@@ -1997,6 +2187,33 @@ def kernel_phase():
                      kv_heads=c["kv_heads"])
     torch.cuda.empty_cache()
     errs["decode_attention"] = max(errs["decode_attention"], r["max_abs_err"])
+    # widths past the square instances: (96, 96), (64, 32), rows that are
+    # not whole 16-byte chunks (100, 60), and the wide ones small, in both
+    # types; then gemma-7b's KV pages (d 256: 8 sequences x 16 KV heads, 1
+    # query head each) and deepseek-v2's paged MLA latent (keys 576 =
+    # kv_lora_rank 512 + rope 64, values 512, 128 query heads on one
+    # latent row) at 4096 tokens in pages of 64, bf16, timed
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, d, dv, page, P in ((3, 8, 96, 96, 16, 4),
+                                     (2, 4, 64, 32, 32, 2),
+                                     (2, 5, 100, 60, 8, 5),
+                                     (2, 3, 200, 64, 16, 3),
+                                     (2, 1, 256, 256, 16, 6),
+                                     (2, 20, 576, 512, 16, 4)):
+            r = check_decode(decode_case(B, H, d, page, P, dtype, dv=dv),
+                             f"width {d, dv} {B, H, page, P}")
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           r["max_abs_err"])
+    for label, shape, kv in (("gemma-7b decode", (128, 1, 256, 256), 16),
+                             ("deepseek-v2 MLA latent decode",
+                              (8, 128, 576, 512), 1)):
+        B, H, d, dv = shape
+        r = check_decode(decode_case(B, H, d, 64, 64, torch.bfloat16,
+                                     length=4096, dv=dv),
+                         label, timed=True, kv_heads=kv)
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       r["max_abs_err"])
+        torch.cuda.empty_cache()
     # count-min sketch: tests/test_kernels.py's sweep and saturation case,
     # the hint filter's default sketch (d 4, w 10,000) on a batch of 256
     # with repeated keys and warm counters, and B 16,384 (past the earlier
@@ -4276,7 +4493,8 @@ def main() -> int:
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in cuda_build.BUILD_LOG.items()}
-    emit("build", seconds=build_s, ptxas=ptxas)
+    emit("build", seconds=build_s, seconds_by_source=cuda_build.BUILD_SECONDS,
+         ptxas=ptxas)
     dryrun = dryrun_start()
     wide_sides = wide_cpu_sides()
     serve_sides = serve_cpu_sides()

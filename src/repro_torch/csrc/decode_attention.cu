@@ -7,8 +7,10 @@
 //
 // Computes, per sequence row b and query head h: attention of q[b, h, :]
 // over the first seq_lens[b] positions of the row's K/V history, stored as
-// pages k_pages[page_table[b, p]] and v_pages[page_table[b, p]] ([page, D]
-// each).  A score is the fp32 dot divided by sqrt(D) after the dot; the
+// pages k_pages[page_table[b, p]] ([page, d]) and v_pages[page_table[b, p]]
+// ([page, dv]); keys and values may differ in width (a paged MLA latent
+// cache: d 576, dv 512).  A score is the fp32 dot divided by sqrt(d) after
+// the dot (the wrapper passes 1/sqrt(d) as inv_scale); the
 // softmax is online with fp32 accumulation; out = acc / max(l, 1e-30), so a
 // row of length 0 gives zeros.  Pages at or past seq_len are never read
 // (their table entries may be -1).  One KV head is shared by all H query
@@ -32,6 +34,19 @@
 // past seq_len reads nothing and writes m = -1e30, l = 0, so a row of
 // length 0 still gives zeros.  No atomics: the result is the same from run
 // to run.
+//
+// Instances and routes (the wrapper's decode_attention.instance picks one;
+// every route reads the pool in place, at its own row widths d and dv):
+//   0  float32 at d = dv in {16, 32, 64, 128}: decode_kernel below;
+//   1  bfloat16 with rows of whole 16-byte chunks (d, dv multiples of 8):
+//      decode_bf16_kernel<D> for d, dv <= D in {16, 32, 64, 128}, and
+//      decode_wide_kernel<DK, DV> at (256, 256) and (576, 512), whose Q
+//      and accumulator do not fit registers at those widths;
+//   2  any other width up to (576, 512), either type: decode_lanes_kernel,
+//      a warp a token and a column of 32 a lane, scalar loads.
+// Columns of an instance past d (or dv) are zero in shared memory and
+// registers, never read from the pool; q is zero-padded to DK by the
+// wrapper for route 1 (a copy of q only).
 //
 // bfloat16 runs pass 1 on the tensor cores (decode_bf16_kernel: 16 heads a
 // block as the rows of mma.sync, K/V tiles staged by cp.async).  float32
@@ -74,6 +89,9 @@ struct Vec16<float> {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -239,7 +257,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 }
 
 // Pass 1 for bfloat16, on the tensor cores: one block of 4 warps per (row,
-// chunk of up to 16 query heads, split).  The split's tokens go through
+// chunk of up to 16 query heads, split), at any d, dv <= D that are
+// multiples of 8 (q zero-padded to D rows by the wrapper; K and V columns
+// past d and dv zero-filled, not read).  The split's tokens go through
 // shared memory in tiles of kTile, double-buffered with cp.async: a tile's
 // row offsets (page table, page, position) are computed one tile ahead,
 // one thread a token, and every 16-byte chunk of K and V is copied by
@@ -270,7 +290,8 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ out,
                    float* __restrict__ part_m, float* __restrict__ part_l,
                    float* __restrict__ part_acc, int H, int P, int page,
-                   int n_slots, int split_pages) {
+                   int n_slots, int split_pages, int d, int dv,
+                   float inv_scale) {
   static_assert(D % 16 == 0 && 4 * kHeads * D * 4 + 8 * kHeads * 4
                 <= 2 * 2 * kTile * (D + 8) * 2, "merge space");
   constexpr int DP = D + 8;            // padded row (16 bytes)
@@ -288,7 +309,7 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int gn = min(kHeads, H - h0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tig = lane % 4;
-  const float sl2 = 1.4426950408889634f / sqrtf((float)D);
+  const float sl2 = 1.4426950408889634f * inv_scale;
 
   // Q's A fragments: heads g and g + 8 (zero past the chunk's heads)
   uint32_t qa[D / 16][4];
@@ -311,7 +332,7 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile
                                       : 0;
 
-  auto offsets = [&](int tile) {       // a thread a token
+  auto offsets = [&](int tile) {       // a thread a token: its pool row
     if (threadIdx.x < kTile) {
       const int t = t_begin + tile * kTile + threadIdx.x;
       int64_t off = -1;
@@ -319,7 +340,7 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const int pi = t / page;
         const int slot = trow[pi];
         if (slot >= 0 && slot < n_slots)
-          off = ((int64_t)slot * page + (t - pi * page)) * D;
+          off = (int64_t)slot * page + (t - pi * page);
       }
       off_s[(tile & 1) * kTile + threadIdx.x] = off;
     }
@@ -329,11 +350,11 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = threadIdx.x; c < kTile * CPR; c += kThreads) {
       const int r = c / CPR, col = (c % CPR) * 8;
       const int64_t off = off_s[st * kTile + r];
-      const int64_t src = (off >= 0 ? off : 0) + col;
+      const bool kok = off >= 0 && col < d, vok = off >= 0 && col < dv;
       cp_async16(smem_addr(k_s + (st * kTile + r) * DP + col),
-                 k_pages + src, off >= 0);
+                 k_pages + (kok ? off * d + col : 0), kok);
       cp_async16(smem_addr(v_s + (st * kTile + r) * DP + col),
-                 v_pages + src, off >= 0);
+                 v_pages + (vok ? off * dv + col : 0), vok);
     }
     cp_async_commit();
   };
@@ -440,8 +461,8 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < gn * D; i += kThreads) {
-    const int hh = i / D, c = i % D;
+  for (int i = threadIdx.x; i < gn * dv; i += kThreads) {
+    const int hh = i / dv, c = i % dv;
     float M = -INFINITY;
     for (int w = 0; w < 4; ++w) M = fmaxf(M, m_s[w * kHeads + hh]);
     float L = 0.f, A = 0.f;
@@ -454,12 +475,411 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const int64_t rh = (int64_t)row * H + h0 + hh;
     if (out != nullptr) {
-      out[rh * D + c] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+      out[rh * dv + c] = __float2bfloat16(A / fmaxf(L, 1e-30f));
     } else {
-      part_acc[(rh * n_splits + split) * D + c] = A;
+      part_acc[(rh * n_splits + split) * dv + c] = A;
       if (c == 0) {                    // the max in natural-log units
         part_m[rh * n_splits + split] =
             M == -INFINITY ? kNegInf : M * 0.6931471805599453f;
+        part_l[rh * n_splits + split] = L;
+      }
+    }
+  }
+}
+
+// Pass 1 for bfloat16 at wide rows, on the tensor cores: (256, 256) and
+// MLA's latent (576, 512).  Q fragments of 16 heads at d 576 would take
+// 144 registers a thread and the [16, dv] accumulator 256, so here Q sits
+// in shared memory (read by ldmatrix each k-step) and the four warps split
+// the accumulator's columns instead of the tokens: warp w scores tokens
+// 8 w .. 8 w + 7 of each tile of kWideTile for all 16 heads (S = Q K^T on
+// mma.sync.m16n8k16), the tile's per-head maximum is taken across the
+// warps through shared memory, so that all warps keep one running max;
+// each warp writes its probabilities to shared memory as bf16 and then
+// adds P V for its DV / 4 value columns over all the tile's tokens.  The
+// running sum is kept per warp (of its tokens) and summed at the end.  K
+// and V tiles are double-buffered with cp.async as in decode_bf16_kernel.
+// Per block at (576, 512): Q 16 x 584, K 2 x 32 x 584, V 2 x 32 x 520 and
+// P 16 x 40 bf16, 162,048 bytes of shared memory with the offsets and
+// sums, so an SM holds one block; 78,080 bytes at (256, 256), two.
+constexpr int kWideTile = 32;        // tokens a tile, 8 a warp
+
+template <int DK, int DV>
+constexpr int wide_smem_bytes() {
+  // Q [16][DK + 8], two stages of K [32][DK + 8] and V [32][DV + 8], P
+  // [16][40] bf16; the row offsets of two tiles; [4][16] fp32 a warp's
+  // maxima, then its sums
+  return 2 * (kHeads * (DK + 8) + 2 * kWideTile * (DK + 8)
+              + 2 * kWideTile * (DV + 8) + kHeads * (kWideTile + 8))
+         + 2 * kWideTile * 8 + 4 * kHeads * 4;
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads)
+decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_pages,
+                   const __nv_bfloat16* __restrict__ v_pages,
+                   const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ seq_lens,
+                   __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int H, int P, int page,
+                   int n_slots, int split_pages, int d, int dv,
+                   float inv_scale) {
+  static_assert(DK % 32 == 0 && DV % 64 == 0, "widths");
+  constexpr int KP = DK + 8, VP = DV + 8;   // padded rows (16 bytes)
+  constexpr int PP = kWideTile + 8;
+  constexpr int CK = DK / 8, CV = DV / 8;   // 16-byte chunks a row
+  constexpr int NO = DV / 32;               // a warp's output n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kHeads * KP;            // [2][tile][KP]
+  __nv_bfloat16* v_s = k_s + 2 * kWideTile * KP;     // [2][tile][VP]
+  __nv_bfloat16* p_s = v_s + 2 * kWideTile * VP;     // [16][PP]
+  int64_t* off_s = reinterpret_cast<int64_t*>(p_s + kHeads * PP);
+  float* red_s = reinterpret_cast<float*>(off_s + 2 * kWideTile);  // [4][16]
+
+  const int row = blockIdx.x;
+  const int h0 = blockIdx.y * kHeads;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int gn = min(kHeads, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const float sl2 = 1.4426950408889634f * inv_scale;
+  const int col0 = warp * (DV / 4);         // this warp's value columns
+
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int t_begin = split * split_pages * page;
+  const int t_end = min(min(n_pages, (split + 1) * split_pages) * page, len);
+  const int n_tiles = t_end > t_begin
+      ? (t_end - t_begin + kWideTile - 1) / kWideTile : 0;
+
+  auto offsets = [&](int tile) {       // a thread a token: its pool row
+    if (threadIdx.x < kWideTile) {
+      const int t = t_begin + tile * kWideTile + threadIdx.x;
+      int64_t off = -1;
+      if (t < t_end) {
+        const int pi = t / page;
+        const int slot = trow[pi];
+        if (slot >= 0 && slot < n_slots)
+          off = (int64_t)slot * page + (t - pi * page);
+      }
+      off_s[(tile & 1) * kWideTile + threadIdx.x] = off;
+    }
+  };
+  auto issue = [&](int tile) {
+    const int st = tile & 1;
+    for (int c = threadIdx.x; c < kWideTile * CK; c += kThreads) {
+      const int r = c / CK, col = (c % CK) * 8;
+      const int64_t off = off_s[st * kWideTile + r];
+      const bool ok = off >= 0 && col < d;
+      cp_async16(smem_addr(k_s + (st * kWideTile + r) * KP + col),
+                 k_pages + (ok ? off * d + col : 0), ok);
+    }
+    for (int c = threadIdx.x; c < kWideTile * CV; c += kThreads) {
+      const int r = c / CV, col = (c % CV) * 8;
+      const int64_t off = off_s[st * kWideTile + r];
+      const bool ok = off >= 0 && col < dv;
+      cp_async16(smem_addr(v_s + (st * kWideTile + r) * VP + col),
+                 v_pages + (ok ? off * dv + col : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // heads g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the sums
+  // ldmatrix lane offsets: Q rows lane % 16, column half lane / 16; K rows
+  // (tokens) lane % 8, column eighth lane / 8 (two k-steps an x4); P rows
+  // lane % 16, column half lane / 16; V^T tokens lane % 8 + 8 ((lane / 8)
+  // % 2), column half lane / 16
+  const int q_off = (lane % 16) * KP + (lane / 16) * 8;
+  const int k_off = (warp * 8 + lane % 8) * KP + (lane / 8) * 8;
+  const int p_off = (lane % 16) * PP + (lane / 16) * 8;
+  const int v_off = (lane % 8 + 8 * ((lane / 8) % 2)) * VP + (lane / 16) * 8
+                    + col0;
+
+  if (n_tiles > 0) {
+    const __nv_bfloat16* qrow = q + ((int64_t)row * H + h0) * DK;
+    for (int c = threadIdx.x; c < kHeads * CK; c += kThreads) {
+      const int hh = c / CK, col = (c % CK) * 8;
+      cp_async16(smem_addr(q_s + hh * KP + col),
+                 qrow + (hh < gn ? hh * DK + col : 0), hh < gn);
+    }
+    offsets(0);
+    __syncthreads();
+    issue(0);                          // Q joins the first tile's group
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) offsets(tile + 1);
+    cp_async_wait<0>();
+    __syncthreads();                   // tile landed, next offsets visible
+    if (tile + 1 < n_tiles) issue(tile + 1);
+    const int st = tile & 1;
+    const __nv_bfloat16* kt = k_s + st * kWideTile * KP;
+    const __nv_bfloat16* vt = v_s + st * kWideTile * VP;
+    const int t0 = t_begin + tile * kWideTile + warp * 8;
+
+    // S: the 16 heads x this warp's 8 tokens
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = 0; kk < DK / 16; kk += 2) {
+      uint32_t a0[4], a1[4], bk[4];
+      ldsm_x4(bk, smem_addr(kt + k_off + kk * 16));
+      ldsm_x4(a0, smem_addr(q_s + q_off + kk * 16));
+      ldsm_x4(a1, smem_addr(q_s + q_off + kk * 16 + 16));
+      mma_bf16(s, a0, bk[0], bk[1]);
+      mma_bf16(s, a1, bk[2], bk[3]);
+    }
+    if (t0 + 8 > t_end) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (t0 + tig * 2 + (e & 1) >= t_end) s[e] = -INFINITY;
+    }
+    // the tile's maximum of each head over the four warps
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(s[2 * r], s[2 * r + 1]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (tig == 0) red_s[warp * kHeads + g + 8 * r] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int hh = g + 8 * r;
+      float mx = red_s[hh];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) mx = fmaxf(mx, red_s[w * kHeads + hh]);
+      const float m_new = fmaxf(m[r], mx * sl2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      const float p0 = exp2f(fmaf(s[2 * r], sl2, -m_use));
+      const float p1 = exp2f(fmaf(s[2 * r + 1], sl2, -m_use));
+      l[r] = l[r] * alpha + p0 + p1;
+      *reinterpret_cast<uint32_t*>(p_s + hh * PP + warp * 8 + tig * 2) =
+          pack_bf16(p0, p1);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+    __syncthreads();                   // P of all the tile's tokens
+    // O[:, this warp's columns] += P V
+#pragma unroll
+    for (int kk = 0; kk < kWideTile / 16; ++kk) {
+      uint32_t pa[4];
+      ldsm_x4(pa, smem_addr(p_s + p_off + kk * 16));
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, smem_addr(vt + kk * 16 * VP + v_off + j * 8));
+        mma_bf16(o[j], pa, bv[0], bv[1]);
+        mma_bf16(o[j + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // the sums: over the quad, then over the warps (all share the max)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (tig == 0) red_s[warp * kHeads + g + 8 * r] = l[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hh = g + 8 * r;
+    if (hh >= gn) continue;
+    const float L = red_s[hh] + red_s[kHeads + hh] + red_s[2 * kHeads + hh]
+                    + red_s[3 * kHeads + hh];
+    const int64_t rh = (int64_t)row * H + h0 + hh;
+    if (out != nullptr) {
+      const float inv = 1.f / fmaxf(L, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int c = col0 + j * 8 + tig * 2;
+        if (c < dv)
+          *reinterpret_cast<__nv_bfloat162*>(out + rh * dv + c) =
+              __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      }
+    } else {
+      float* acc = part_acc + (rh * n_splits + split) * dv;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int c = col0 + j * 8 + tig * 2;
+        if (c < dv) {
+          acc[c] = o[j][2 * r];
+          acc[c + 1] = o[j][2 * r + 1];
+        }
+      }
+      if (warp == 0 && tig == 0) {     // the max in natural-log units
+        part_m[rh * n_splits + split] =
+            m[r] == -INFINITY ? kNegInf : m[r] * 0.6931471805599453f;
+        part_l[rh * n_splits + split] = L;
+      }
+    }
+  }
+}
+
+// Pass 1 on the CUDA cores at any widths d <= 32 KC, dv <= 32 VC (route
+// 2: float32 outside decode_kernel's instances, bfloat16 rows that are not
+// whole 16-byte chunks): kLaneHeads query heads a block, each warp a token
+// at a time (kLaneUnroll tokens a step), lane l holding key columns l, l +
+// 32, ... and value columns alike, read as scalars in place (any width,
+// any alignment: neighbouring lanes read neighbouring elements); the
+// lanes' partial dots are summed with shuffles, each warp keeps its own
+// softmax state over its tokens, and the warps' states are merged through
+// shared memory.  A fallback for widths no model of the zoo uses: no
+// vector loads, no tensor cores.
+constexpr int kLaneHeads = 4;
+constexpr int kLaneUnroll = 2;
+
+template <typename T, int KC, int VC>
+__global__ void __launch_bounds__(kThreads)
+decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
+                    const int32_t* __restrict__ table,
+                    const int32_t* __restrict__ seq_lens, T* __restrict__ out,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int H, int P, int page,
+                    int n_slots, int split_pages, int d, int dv,
+                    float inv_scale) {
+  constexpr int G = kLaneHeads, U = kLaneUnroll, NW = kThreads / 32;
+  constexpr int STEP = NW * U;          // tokens a block step
+  __shared__ float q_s[G * 32 * KC];
+  __shared__ float m_s[NW * G];
+  __shared__ float l_s[NW * G];
+  __shared__ float acc_s[NW * G * 32 * VC];
+
+  const int row = blockIdx.x;
+  const int h0 = blockIdx.y * G;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int gn = min(G, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < G * 32 * KC; i += kThreads) {
+    const int hh = i / (32 * KC), c = i % (32 * KC);
+    q_s[i] = hh < gn && c < d
+        ? to_f32(q[((int64_t)row * H + h0 + hh) * d + c]) : 0.f;
+  }
+  __syncthreads();
+
+  float m[G], l[G], acc[G][VC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < VC; ++c) acc[g][c] = 0.f;
+  }
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int p_end = min(n_pages, (split + 1) * split_pages);
+  for (int pi = split * split_pages; pi < p_end; ++pi) {
+    const int slot = trow[pi];
+    if (slot < 0 || slot >= n_slots) continue;   // the wrapper raises first
+    const int n_valid = min(page, len - pi * page);
+    const int64_t tok0 = (int64_t)slot * page;
+    // block-uniform trip count: every lane reaches every shuffle
+    for (int base = 0; base < n_valid; base += STEP) {
+      float kx[U][KC], vx[U][VC];
+      bool ok[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + warp * U + u;
+        ok[u] = t < n_valid;
+        const T* kr = k_pages + (tok0 + t) * d;
+        const T* vr = v_pages + (tok0 + t) * dv;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int col = lane + 32 * c;
+          kx[u][c] = ok[u] && col < d ? to_f32(kr[col]) : 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < VC; ++c) {
+          const int col = lane + 32 * c;
+          vx[u][c] = ok[u] && col < dv ? to_f32(vr[col]) : 0.f;
+        }
+      }
+      float s[U][G];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float part = 0.f;
+#pragma unroll
+          for (int c = 0; c < KC; ++c)
+            part = fmaf(q_s[g * 32 * KC + lane + 32 * c], kx[u][c], part);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, off);
+          s[u][g] = part * inv_scale;
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mn = m[g];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (ok[u]) mn = fmaxf(mn, s[u][g]);
+        const float alpha = expf(m[g] - mn);
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[u][g] = ok[u] ? expf(s[u][g] - mn) : 0.f;
+          ps += s[u][g];
+        }
+        l[g] = l[g] * alpha + ps;
+        m[g] = mn;
+#pragma unroll
+        for (int c = 0; c < VC; ++c) {
+          float a = acc[g][c] * alpha;
+#pragma unroll
+          for (int u = 0; u < U; ++u) a = fmaf(s[u][g], vx[u][c], a);
+          acc[g][c] = a;
+        }
+      }
+    }
+  }
+
+  // merge the warps' (max, sum, accumulator) states
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      m_s[warp * G + g] = m[g];
+      l_s[warp * G + g] = l[g];
+    }
+#pragma unroll
+    for (int c = 0; c < VC; ++c)
+      acc_s[(warp * G + g) * 32 * VC + lane + 32 * c] = acc[g][c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < gn * dv; i += kThreads) {
+    const int g = i / dv, c = i % dv;
+    float M = kNegInf;
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, m_s[w * G + g]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float sc = expf(m_s[w * G + g] - M);
+      L = fmaf(l_s[w * G + g], sc, L);
+      A = fmaf(acc_s[(w * G + g) * 32 * VC + c], sc, A);
+    }
+    const int64_t rh = (int64_t)row * H + h0 + g;
+    if (out != nullptr) {
+      store(out + rh * dv + c, A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(rh * n_splits + split) * dv + c] = A;
+      if (c == 0) {
+        part_m[rh * n_splits + split] = M;
         part_l[rh * n_splits + split] = L;
       }
     }
@@ -490,7 +910,7 @@ merge_kernel(const float* __restrict__ part_m,
   }
 }
 
-// scratch [B, H, n_splits] max, then sum, then [B, H, n_splits, D] sums
+// scratch [B, H, n_splits] max, then sum, then [B, H, n_splits, dv] sums
 struct Parts {
   float *m, *l, *acc;
   Parts(float* scratch, int B, int H, int n_splits) {
@@ -502,12 +922,14 @@ struct Parts {
 };
 
 // the arguments of one launch; n_splits as the wrapper asked, then as the
-// ranges of ceil(P / n_splits) pages make it (none empty)
+// ranges of ceil(P / n_splits) pages make it (none empty); d and dv the
+// pool's row widths, inv_scale 1/sqrt(d)
 struct Args {
   const void *q, *k, *v, *table, *lens;
   void* out;
   float* scratch;
-  int B, H, P, page, n_slots, n_splits;
+  int B, H, P, page, n_slots, n_splits, d, dv;
+  float inv_scale;
   cudaStream_t stream;
   int split_pages() const { return (P + n_splits - 1) / n_splits; }
   int splits() const {
@@ -517,18 +939,18 @@ struct Args {
 
 // pass 2 after pass 1 when there is more than one split
 template <typename T>
-int merge(const Args& a, const Parts& parts, int D) {
+int merge(const Args& a, const Parts& parts) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits() == 1) return (int)err;
   merge_kernel<T><<<a.B * a.H, kThreads, 0, a.stream>>>(
-      parts.m, parts.l, parts.acc, (T*)a.out, D, a.splits());
+      parts.m, parts.l, parts.acc, (T*)a.out, a.dv, a.splits());
   return (int)cudaGetLastError();
 }
 
-// the two entry points' bodies for one (type, head dim): heads a block,
-// resident blocks per SM, and the launch
+// the entry points' bodies for one instance: heads a block, resident
+// blocks per SM, and the launch
 template <typename T, int D, int G>
-struct Workers {                       // float32 on the CUDA cores
+struct Workers {                       // route 0: float32 on the CUDA cores
   static int heads() { return G; }
   static int blocks_per_sm(int* n) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -542,28 +964,33 @@ struct Workers {                       // float32 on the CUDA cores
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int32_t*)a.table,
         (const int32_t*)a.lens, n > 1 ? nullptr : (T*)a.out, parts.m,
         parts.l, parts.acc, a.H, a.P, a.page, a.n_slots, a.split_pages());
-    return merge<T>(a, parts, D);
+    return merge<T>(a, parts);
   }
 };
 
+template <typename K>
+int configure(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// route 1: bfloat16 on the tensor cores, up to 128 in registers
 template <int D>
-struct TensorCores {                   // bfloat16 on the tensor cores
+struct TensorCores {
   static constexpr int kBytes = bf16_smem_bytes<D>();
   static int heads() { return kHeads; }
-  static int configure() {
-    static const int err = (int)cudaFuncSetAttribute(
-        decode_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kBytes);
+  static int configured() {
+    static const int err = configure(decode_bf16_kernel<D>, kBytes);
     return err;
   }
   static int blocks_per_sm(int* n) {
-    const int err = configure();
+    const int err = configured();
     if (err != 0) return err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n, decode_bf16_kernel<D>, kThreads, kBytes);
   }
   static int launch(const Args& a) {
-    const int err = configure();
+    const int err = configured();
     if (err != 0) return err;
     const int n = a.splits();
     const Parts parts(a.scratch, a.B, a.H, n);
@@ -573,28 +1000,99 @@ struct TensorCores {                   // bfloat16 on the tensor cores
         (const __nv_bfloat16*)a.v, (const int32_t*)a.table,
         (const int32_t*)a.lens, n > 1 ? nullptr : (__nv_bfloat16*)a.out,
         parts.m, parts.l, parts.acc, a.H, a.P, a.page, a.n_slots,
-        a.split_pages());
-    return merge<__nv_bfloat16>(a, parts, D);
+        a.split_pages(), a.d, a.dv, a.inv_scale);
+    return merge<__nv_bfloat16>(a, parts);
   }
 };
 
-// float32: up to 8 query heads a block, 4 when there are few
+// route 1 at wide rows: Q in shared memory, columns split over the warps
+template <int DK, int DV>
+struct Wide {
+  static constexpr int kBytes = wide_smem_bytes<DK, DV>();
+  static int heads() { return kHeads; }
+  static int configured() {
+    static const int err = configure(decode_wide_kernel<DK, DV>, kBytes);
+    return err;
+  }
+  static int blocks_per_sm(int* n) {
+    const int err = configured();
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_wide_kernel<DK, DV>, kThreads, kBytes);
+  }
+  static int launch(const Args& a) {
+    const int err = configured();
+    if (err != 0) return err;
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    decode_wide_kernel<DK, DV><<<dim3(a.B, (a.H + kHeads - 1) / kHeads, n),
+                                 kThreads, kBytes, a.stream>>>(
+        (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+        (const __nv_bfloat16*)a.v, (const int32_t*)a.table,
+        (const int32_t*)a.lens, n > 1 ? nullptr : (__nv_bfloat16*)a.out,
+        parts.m, parts.l, parts.acc, a.H, a.P, a.page, a.n_slots,
+        a.split_pages(), a.d, a.dv, a.inv_scale);
+    return merge<__nv_bfloat16>(a, parts);
+  }
+};
+
+template <typename T, int KC, int VC>
+struct Lanes {                         // route 2: any width, CUDA cores
+  static int heads() { return kLaneHeads; }
+  static int blocks_per_sm(int* n) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_lanes_kernel<T, KC, VC>, kThreads, 0);
+  }
+  static int launch(const Args& a) {
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    decode_lanes_kernel<T, KC, VC>
+        <<<dim3(a.B, (a.H + kLaneHeads - 1) / kLaneHeads, n), kThreads, 0,
+           a.stream>>>(
+            (const T*)a.q, (const T*)a.k, (const T*)a.v,
+            (const int32_t*)a.table, (const int32_t*)a.lens,
+            n > 1 ? nullptr : (T*)a.out, parts.m, parts.l, parts.acc, a.H,
+            a.P, a.page, a.n_slots, a.split_pages(), a.d, a.dv, a.inv_scale);
+    return merge<T>(a, parts);
+  }
+};
+
+// route 0, float32: up to 8 query heads a block, 4 when there are few
 template <int D, typename F>
-int dispatch_dim(int bf16, int H, const F& f) {
-  if (bf16) return f.template run<TensorCores<D>>();
+int dispatch_f32(int H, const F& f) {
   if (H > 4) return f.template run<Workers<float, D, 8>>();
   return f.template run<Workers<float, D, 4>>();
 }
 
+// the instances (route, DK, DV) that the wrapper's decode_attention.instance
+// picks
 template <typename F>
-int dispatch(int bf16, int D, int H, const F& f) {
-  switch (D) {
-    case 16: return dispatch_dim<16>(bf16, H, f);
-    case 32: return dispatch_dim<32>(bf16, H, f);
-    case 64: return dispatch_dim<64>(bf16, H, f);
-    case 128: return dispatch_dim<128>(bf16, H, f);
-    default: return (int)cudaErrorInvalidValue;
+int dispatch(int route, int bf16, int DK, int DV, int H, const F& f) {
+  if (route == 0 && !bf16 && DK == DV) {
+    switch (DK) {
+      case 16: return dispatch_f32<16>(H, f);
+      case 32: return dispatch_f32<32>(H, f);
+      case 64: return dispatch_f32<64>(H, f);
+      case 128: return dispatch_f32<128>(H, f);
+    }
   }
+  if (route == 1 && bf16) {
+    if (DK == DV) {
+      switch (DK) {
+        case 16: return f.template run<TensorCores<16>>();
+        case 32: return f.template run<TensorCores<32>>();
+        case 64: return f.template run<TensorCores<64>>();
+        case 128: return f.template run<TensorCores<128>>();
+        case 256: return f.template run<Wide<256, 256>>();
+      }
+    }
+    if (DK == 576 && DV == 512)
+      return f.template run<Wide<576, 512>>();
+  }
+  if (route == 2 && DK == 576 && DV == 512)
+    return bf16 ? f.template run<Lanes<__nv_bfloat16, 576 / 32, 512 / 32>>()
+                : f.template run<Lanes<float, 576 / 32, 512 / 32>>();
+  return (int)cudaErrorInvalidValue;
 }
 
 struct Launch {
@@ -617,29 +1115,39 @@ struct Plan {
 
 extern "C" {
 
-// q [B, H, D], k/v pages [n_slots, page, D] and out [B, H, D] of one type
+// q [B, H, d] (route 1: zero-padded to [B, H, DK]), k pages [n_slots,
+// page, d], v pages [n_slots, page, dv] and out [B, H, dv] of one type
 // (bf16 != 0: bfloat16, else float32), page_table [B, P] and seq_lens [B]
-// int32, all contiguous; scratch fp32 of (D + 2) * B * H * n_splits floats
-// when n_splits > 1 (unused otherwise).  Returns a CUDA error code;
-// cudaErrorInvalidValue for a head dim outside {16, 32, 64, 128}.
+// int32, all contiguous; scratch fp32 of (dv + 2) * B * H * n_splits
+// floats when n_splits > 1 (unused otherwise).  The instance is (route,
+// DK, DV): route 0 float32 at d = dv = DK = DV in {16, 32, 64, 128};
+// route 1 bfloat16 at d <= DK, dv <= DV, both multiples of 8, (DK, DV) in
+// {(16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (576, 512)};
+// route 2 either type at d <= DK = 576, dv <= DV = 512.
+// Scores are q.k * inv_scale.  Returns a CUDA error code;
+// cudaErrorInvalidValue for an instance that is not built or widths it
+// does not take.
 int decode_attention(const void* q, const void* k_pages, const void* v_pages,
                      const void* page_table, const void* seq_lens, void* out,
-                     void* scratch, int B, int H, int D, int P, int page,
-                     int n_slots, int n_splits, int bf16, void* stream) {
-  if (n_splits < 1 || (n_splits > 1 && n_splits > P))
+                     void* scratch, int B, int H, int d, int dv, int P,
+                     int page, int n_slots, int n_splits, int route, int DK,
+                     int DV, float inv_scale, int bf16, void* stream) {
+  if (n_splits < 1 || (n_splits > 1 && n_splits > P) || d < 1 || dv < 1
+      || d > DK || dv > DV || (route == 0 && (d != DK || dv != DV))
+      || (route == 1 && (d % 8 != 0 || dv % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   const Launch f{{q, k_pages, v_pages, page_table, seq_lens, out,
-                  (float*)scratch, B, H, P, page, n_slots, n_splits,
-                  (cudaStream_t)stream}};
-  return dispatch(bf16, D, H, f);
+                  (float*)scratch, B, H, P, page, n_slots, n_splits, d, dv,
+                  inv_scale, (cudaStream_t)stream}};
+  return dispatch(route, bf16, DK, DV, H, f);
 }
 
 // What the wrapper's split planner reads: the query heads a pass-1 block
-// takes and how many such blocks an SM holds at once.  Returns a CUDA
-// error code.
-int decode_attention_plan(int D, int H, int bf16, int* heads,
-                          int* blocks_per_sm) {
-  return dispatch(bf16, D, H, Plan{heads, blocks_per_sm});
+// of the instance (route, DK, DV) takes and how many such blocks an SM
+// holds at once.  Returns a CUDA error code.
+int decode_attention_plan(int route, int DK, int DV, int H, int bf16,
+                          int* heads, int* blocks_per_sm) {
+  return dispatch(route, bf16, DK, DV, H, Plan{heads, blocks_per_sm});
 }
 
 }  // extern "C"

@@ -7,7 +7,7 @@
 // sum and accumulator of one query block in VMEM scratch.
 //
 // Computes, for every batch row b, query head h and query position s:
-// softmax(q[b, s, h] . k[b, t, h / G] / sqrt(DK)) over the keys t (all T
+// softmax(q[b, s, h] . k[b, t, h / G] * scale) over the keys t (all T
 // of them, or t <= s when causal) applied to v[b, t, h / G], with G = H / KV
 // query heads per KV head.  Keys are DK wide and values DV wide (MLA's
 // decompressed heads take DK = nope + rope and DV = v_head).  Scores,
@@ -22,7 +22,11 @@
 // [B, S, H, DV], all contiguous (the models' own layout, so no transposes
 // around the call).  The Pallas layout [BH, S, d] is the case H = KV = 1.
 // The (DK, DV) pairs instantiated are FLASH_PAIRS below: every pair the
-// model zoo's configs reach.  For training, the caller may also ask for
+// model zoo's configs reach.  The scale is the caller's (1/sqrt(d) of its
+// own key width), so the wrapper can run any (d, dv) up to 256 on the
+// smallest pair that covers it, with q and k zero-padded to DK and v to
+// DV, and slice the output back: zero key columns leave q.k unchanged
+// and zero value columns only add output columns.  For training, the caller may also ask for
 // each row's log-sum-exp lse [B, H, S] (fp32, natural units), which the
 // backward (csrc/flash_attention_bwd.cu) uses to recompute the
 // probabilities; the output does not change.
@@ -47,7 +51,7 @@
 // thread) and S in registers.  The m16n8k16 products contract 16 key
 // columns a step, so a DK that is no multiple of 16 (8, 24) sits in
 // shared memory zero-filled up to the next one (DKP), which leaves q.k
-// unchanged; the scale stays 1/sqrt(DK).  P V tiles DV in steps of 8,
+// unchanged.  P V tiles DV in steps of 8,
 // the last one alone (ldmatrix x2) when DV / 8 is odd.  At (192, 128):
 // Q 64 x 200, K 2 x 64 x 200 and V 2 x 64 x 136 bf16 are 111.6 KB of
 // shared memory a block, O 64 and S 32 fp32 registers a thread.
@@ -88,7 +92,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out,
              float* __restrict__ lse, int S, int Tk, int H, int KV,
-             int causal) {
+             int causal, float scale) {
   static_assert(BQ % 16 == 0 && BK % 8 == 0, "tile shape");
   constexpr int DP = DK + 1;
   constexpr int VP = DV + 1;
@@ -120,8 +124,6 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
   const T* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
   T* ob = out + ((int64_t)b * S * H + h) * DV;
-  const float scale = 1.f / sqrtf((float)DK);
-
   for (int i = tid; i < BQ * DK; i += kThreads) {
     const int r = i / DK, c = i % DK;
     q_s[r * DP + c] = q0 + r < S ? to_f32(qb[(q0 + r) * q_stride + c]) : 0.f;
@@ -268,7 +270,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                  int S, int Tk, int H, int KV, int causal) {
+                  int S, int Tk, int H, int KV, int causal,
+                  float scale) {
   static_assert(DV % 8 == 0 && BK % 16 == 0, "tile shape");
   constexpr int DKP = pad16(DK);       // key columns, zero-filled past DK
   constexpr int DP = DKP + 8;          // padded Q/K row (16 bytes)
@@ -293,8 +296,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * DK;
   const __nv_bfloat16* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
   const __nv_bfloat16* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
-  // scores in log2 units: exp(x / sqrt(DK)) = exp2(x * sl2)
-  const float sl2 = 1.4426950408889634f / sqrtf((float)DK);
+  // scores in log2 units: exp(x * scale) = exp2(x * sl2)
+  const float sl2 = 1.4426950408889634f * scale;
 
   const int kv_end = causal ? min(Tk, q0 + kRows) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
@@ -473,7 +476,7 @@ int configure(K kernel, int bytes) {
 template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int S, int Tk, int H, int KV, int causal,
-           int bf16, cudaStream_t stream) {
+           float scale, int bf16, cudaStream_t stream) {
   const int bytes = smem_bytes<DK, DV>(bf16);
   if (bf16) {
     constexpr int BK = bf16_bk(DV);
@@ -484,7 +487,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
     flash_bf16_kernel<DK, DV, BK><<<grid, kThreads, bytes, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, S, Tk, H, KV,
-        causal);
+        causal, scale);
   } else {
     constexpr int BT = f32_tile(DK, DV);
     static const int configured =
@@ -493,7 +496,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
     const dim3 grid((S + BT - 1) / BT, B * H);
     flash_kernel<float, DK, DV, BT, BT><<<grid, kThreads, bytes, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
-        S, Tk, H, KV, causal);
+        S, Tk, H, KV, causal, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -506,17 +509,17 @@ extern "C" {
 // one type (bf16 != 0: bfloat16, else float32), contiguous and 16-byte
 // aligned; H a multiple of KV.  lse, when not null, receives each row's
 // fp32 log-sum-exp of the scaled scores, [B, H, S], for the backward
-// (csrc/flash_attention_bwd.cu); out is the same either way.  Returns a
-// CUDA error code; cudaErrorInvalidValue for a (DK, DV) outside
-// FLASH_PAIRS.
+// (csrc/flash_attention_bwd.cu); out is the same either way.  Scores are
+// q.k times `scale` (1/sqrt of the caller's key width).  Returns a CUDA
+// error code; cudaErrorInvalidValue for a (DK, DV) outside FLASH_PAIRS.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int S, int T, int H, int KV, int DK,
-                    int DV, int causal, int bf16, void* stream) {
+                    int DV, int causal, float scale, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_CASE(dk, dv)                                                \
   if (DK == dk && DV == dv)                                               \
     return launch<dk, dv>(q, k, v, out, (float*)lse, B, S, T, H, KV, causal, \
-                          bf16, st);
+                          scale, bf16, st);
   FLASH_PAIRS(FLASH_CASE)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -11,13 +11,14 @@
 // Computes, for q [B, S, H, DK], k [B, T, KV, DK], v [B, T, KV, DV], the
 // forward's output o [B, S, H, DV], its row log-sum-exp lse [B, H, S]
 // (fp32, natural units, written by the forward) and the output's gradient
-// dO [B, S, H, DV], with P = exp(q.k / sqrt(DK) - lse) over the keys a
+// dO [B, S, H, DV], with P = exp(q.k * scale - lse) over the keys a
 // query sees (t <= s when causal, the plain version's top-left mask, or
-// every key):
+// every key), scale the forward's (1/sqrt of the caller's key width, so
+// that zero-padded q, k and v run on a larger pair, as the forward):
 //   D  = rowsum(dO * o)                    fp32 [B, H, S]  (delta kernel)
 //   dV = P^T dO,  dS = P * (dO V^T - D)
-//   dK = dS^T q / sqrt(DK)                 (dK/dV kernel)
-//   dQ = dS k / sqrt(DK)                   (dQ kernel)
+//   dK = dS^T q * scale                    (dK/dV kernel)
+//   dQ = dS k * scale                      (dQ kernel)
 // Query head h reads KV head h / G (G = H / KV); dK and dV sum over the G
 // query heads of their KV head.  Every output element is written by one
 // block, which owns its sum: no atomics, so the result is deterministic.
@@ -166,7 +167,7 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int S, int Tk, int H, int KV,
-                    int causal) {
+                    int causal, float scale) {
   constexpr int BK = kF32Rows, BQ = kF32Step;
   constexpr int KP = DK + 1, VP = DV + 1, PP = BQ + 1;
   extern __shared__ float smem[];
@@ -189,7 +190,6 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t k_stride = (int64_t)KV * DK, v_stride = (int64_t)KV * DV;
   const float* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
   const float* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
-  const float scale = 1.f / sqrtf((float)DK);
 
   for (int i = tid; i < BK * DK; i += kThreads) {
     const int r = i / DK, c = i % DK;
@@ -273,7 +273,7 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
-                  int S, int Tk, int H, int KV, int causal) {
+                  int S, int Tk, int H, int KV, int causal, float scale) {
   constexpr int BQ = kF32Rows, BK = kF32Step;
   constexpr int KP = DK + 1, VP = DV + 1, PP = BK + 1;
   extern __shared__ float smem[];
@@ -296,7 +296,6 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* dob = dout + ((int64_t)b * S * H + h) * DV;
   const float* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
   const float* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
-  const float scale = 1.f / sqrtf((float)DK);
 
   for (int i = tid; i < BQ * DK; i += kThreads) {
     const int r = i / DK, c = i % DK;
@@ -483,7 +482,7 @@ bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int S, int Tk, int H, int KV,
-                     int causal) {
+                     int causal, float scale) {
   constexpr int WC = col_warps(DK, DV);
   constexpr int BK = 64 / WC;          // keys a block, 16 a warp row
   constexpr int DKP = pad16(DK), DVP = pad16(DV);
@@ -510,7 +509,7 @@ bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t k_stride = (int64_t)KV * DK, v_stride = (int64_t)KV * DV;
   const bf16* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
   const bf16* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
-  const float sl2 = kLog2e / sqrtf((float)DK);
+  const float sl2 = kLog2e * scale;
 
   load_tile<DK, DKP, BK, kThreads>(k_s, kb + k0 * k_stride, k_stride,
                                    Tk - k0);
@@ -590,7 +589,7 @@ bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const int n_keys = Tk - k0;          // rows of this block that exist
   store_frags<NK>(acc_k, dk + ((int64_t)b * Tk + k0) * k_stride + kvh * DK,
-                  k_stride, wr * 16, n_keys, ck0, 1.f / sqrtf((float)DK));
+                  k_stride, wr * 16, n_keys, ck0, scale);
   store_frags<NV>(acc_v, dv + ((int64_t)b * Tk + k0) * v_stride + kvh * DV,
                   v_stride, wr * 16, n_keys, cv0, 1.f);
 }
@@ -601,7 +600,7 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                   int S, int Tk, int H, int KV, int causal) {
+                   int S, int Tk, int H, int KV, int causal, float scale) {
   constexpr int WC = col_warps(DK, DV);
   constexpr int BQ = 64 / WC;          // queries a block, 16 a warp row
   constexpr int DKP = pad16(DK), DVP = pad16(DV);
@@ -630,7 +629,7 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* dob = dout + ((int64_t)b * S * H + h) * DV;
   const bf16* kb = k + ((int64_t)b * Tk * KV + kvh) * DK;
   const bf16* vb = v + ((int64_t)b * Tk * KV + kvh) * DV;
-  const float sl2 = kLog2e / sqrtf((float)DK);
+  const float sl2 = kLog2e * scale;
 
   load_tile<DK, DKP, BQ, kThreads>(q_s, qb + q0 * q_stride, q_stride,
                                    S - q0);
@@ -692,7 +691,7 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   store_frags<NQ>(acc, dq + ((int64_t)b * S + q0) * q_stride + h * DK,
-                  q_stride, wr * 16, S - q0, cq0, 1.f / sqrtf((float)DK));
+                  q_stride, wr * 16, S - q0, cq0, scale);
 }
 
 // ------------------------------------------- bf16 on wgmma (Hopper's design)
@@ -843,8 +842,10 @@ __device__ __forceinline__ bool inside(int q0, int k0, int S, int Tk,
 
 // What a block walks: its batch row, head (a KV head for dK/dV), first row
 // and steps; step s streams rows 64 * step_tile(s) of head step_head(s).
+// scale multiplies q.k (the forward's).
 struct Walk {
   int b, head, row0, n_steps, n_q, i0, G;
+  float scale;
   __device__ int step_head(int s, bool dq) const {
     return dq ? head / G : head * G + s / n_q;
   }
@@ -864,7 +865,7 @@ __device__ __forceinline__ void dq_rows_group(
   constexpr int NA = DK / 64, NB = DV / 64;
   const int i = threadIdx.x % 128, lane = threadIdx.x % 32;
   const int w = i / 32, g = lane / 4, t = lane % 4;
-  const float sl2 = kLog2e / sqrtf((float)DK);
+  const float sl2 = kLog2e * wk.scale;
   float acc[NA][32];
   zero(acc);
   float l2[2], dd[2];                  // this thread's rows' lse (log2), D
@@ -906,7 +907,7 @@ __device__ __forceinline__ void dq_rows_group(
     if (lane == 0) mbar_arrive(&empty[st]);
   }
   store_acc<NA>(acc, dq + (int64_t)wk.b * S * H * DK + wk.head * DK,
-                (int64_t)H * DK, r0, S, 0, 1.f / sqrtf((float)DK), i);
+                (int64_t)H * DK, r0, S, 0, wk.scale, i);
 }
 
 // Exchange mode, dK/dV: the first group computes S^T = K Q^T and P^T,
@@ -922,7 +923,7 @@ __device__ __forceinline__ void dkdv_xchg_group(
   const int i = threadIdx.x % 128, lane = threadIdx.x % 32;
   const int w = i / 32, g = lane / 4, t = lane % 4;
   const int k0 = wk.row0;
-  const float sl2 = kLog2e / sqrtf((float)DK);
+  const float sl2 = kLog2e * wk.scale;
   float acc[NC][32];                   // dV (first) or dK
   zero(acc);
   for (int s = 0; s < wk.n_steps; ++s) {
@@ -982,7 +983,7 @@ __device__ __forceinline__ void dkdv_xchg_group(
   const int64_t stride = (int64_t)KV * (FIRST ? DV : DK);
   store_acc<NC>(acc, out + (int64_t)wk.b * Tk * stride
                          + wk.head * (FIRST ? DV : DK),
-                stride, k0, Tk, 0, FIRST ? 1.f : 1.f / sqrtf((float)DK), i);
+                stride, k0, Tk, 0, FIRST ? 1.f : wk.scale, i);
 }
 
 // Exchange mode, dQ: the first group computes S = Q K^T and P, the second
@@ -998,7 +999,7 @@ __device__ __forceinline__ void dq_xchg_group(
   const int i = threadIdx.x % 128, lane = threadIdx.x % 32;
   const int w = i / 32, g = lane / 4, t = lane % 4;
   const int q0 = wk.row0, h = wk.head;
-  const float sl2 = kLog2e / sqrtf((float)DK);
+  const float sl2 = kLog2e * wk.scale;
   float l2[2], dd[2];                  // this thread's rows' lse (log2), D
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -1054,8 +1055,7 @@ __device__ __forceinline__ void dq_xchg_group(
   }
   if constexpr (NC > 0)
     store_acc<NC>(acc, dq + (int64_t)wk.b * S * H * DK + h * DK,
-                  (int64_t)H * DK, q0, S, 64 * COFF, 1.f / sqrtf((float)DK),
-                  i);
+                  (int64_t)H * DK, q0, S, 64 * COFF, wk.scale, i);
 }
 
 // The dK/dV (DQ false) or dQ (DQ true) kernel of the bf16 design for
@@ -1076,7 +1076,7 @@ bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ out0,
                  bf16* __restrict__ out1, int B, int S, int Tk, int H,
-                 int KV, int causal) {
+                 int KV, int causal, float scale) {
   using Plan = WgPlan<DK, DV, DQ>;
   constexpr int NA = DK / 64, NB = DV / 64;   // boxes of a tile's two parts
   constexpr int NST = Plan::kStages, R = Plan::kRowsPerBlock;
@@ -1093,6 +1093,7 @@ bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
   Walk wk;
   wk.G = H / KV;
+  wk.scale = scale;
   const int n_qt = (S + 63) / 64, n_kt = (Tk + 63) / 64;
   // (row tile, b * heads + head): heads in groups of kGroupHeads, so that
   // the blocks in flight stream few heads' tiles, which stay in the L2;
@@ -1221,7 +1222,7 @@ template <int DK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dq, void* dk, void* dv, int B, int S, int Tk, int H,
-                 int KV, int causal, cudaStream_t stream) {
+                 int KV, int causal, float scale, cudaStream_t stream) {
   constexpr int kv_bytes = WgPlan<DK, DV, false>::kSmem;
   constexpr int q_bytes = WgPlan<DK, DV, true>::kSmem;
   constexpr int kv_rows = WgPlan<DK, DV, false>::kRowsPerBlock;
@@ -1239,11 +1240,11 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   bwd_wgmma_kernel<DK, DV, false>
       <<<(Tk + kv_rows - 1) / kv_rows * B * KV, kWgThreads, kv_bytes,
          stream>>>(qm, km, vm, om, lse, delta, (bf16*)dk, (bf16*)dv, B, S,
-                   Tk, H, KV, causal);
+                   Tk, H, KV, causal, scale);
   bwd_wgmma_kernel<DK, DV, true>
       <<<(S + q_rows - 1) / q_rows * B * H, kWgThreads, q_bytes, stream>>>(
           qm, km, vm, om, lse, delta, (bf16*)dq, nullptr, B, S, Tk, H, KV,
-          causal);
+          causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1251,13 +1252,13 @@ template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk,
            void* dv, int B, int S, int Tk, int H, int KV, int causal,
-           int is_bf16, cudaStream_t stream) {
+           float scale, int is_bf16, cudaStream_t stream) {
   const int kv_bytes = smem_bytes<DK, DV>(is_bf16, 1);
   const int q_bytes = smem_bytes<DK, DV>(is_bf16, 0);
   if (is_bf16) {
     if constexpr (on_wgmma(DK, DV)) {
       return launch_wgmma<DK, DV>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                  S, Tk, H, KV, causal, stream);
+                                  S, Tk, H, KV, causal, scale, stream);
     } else {
       constexpr int R = 64 / col_warps(DK, DV);
       static const int configured =
@@ -1268,12 +1269,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
           <<<dim3((Tk + R - 1) / R, B * KV), kThreads, kv_bytes, stream>>>(
               (const bf16*)q, (const bf16*)k, (const bf16*)v,
               (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, S, Tk, H,
-              KV, causal);
+              KV, causal, scale);
       bwd_dq_bf16_kernel<DK, DV>
           <<<dim3((S + R - 1) / R, B * H), kThreads, q_bytes, stream>>>(
               (const bf16*)q, (const bf16*)k, (const bf16*)v,
               (const bf16*)dout, lse, delta, (bf16*)dq, S, Tk, H, KV,
-              causal);
+              causal, scale);
     }
   } else {
     static const int configured =
@@ -1284,12 +1285,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         <<<dim3((Tk + kF32Rows - 1) / kF32Rows, B * KV), kThreads, kv_bytes,
            stream>>>((const float*)q, (const float*)k, (const float*)v,
                      (const float*)dout, lse, delta, (float*)dk, (float*)dv,
-                     S, Tk, H, KV, causal);
+                     S, Tk, H, KV, causal, scale);
     bwd_dq_f32_kernel<DK, DV>
         <<<dim3((S + kF32Rows - 1) / kF32Rows, B * H), kThreads, q_bytes,
            stream>>>((const float*)q, (const float*)k, (const float*)v,
                      (const float*)dout, lse, delta, (float*)dq, S, Tk, H, KV,
-                     causal);
+                     causal, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -1318,19 +1319,19 @@ int flash_attention_bwd_delta(const void* o, const void* dout, void* delta,
 // dq [B, S, H, DK], dk [B, T, KV, DK], dv [B, T, KV, DV] in the inputs'
 // type from q, k, v, dO (the forward's layouts), the forward's lse and D
 // (fp32 [B, H, S]); all contiguous and 16-byte aligned, H a multiple of
-// KV.  Two launches: dK/dV, then dQ.  Returns a CUDA error code;
-// cudaErrorInvalidValue for a (DK, DV) outside FLASH_PAIRS.
+// KV; scale the forward's.  Two launches: dK/dV, then dQ.  Returns a CUDA
+// error code; cudaErrorInvalidValue for a (DK, DV) outside FLASH_PAIRS.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, void* dk, void* dv, int B, int S, int T,
-                        int H, int KV, int DK, int DV, int causal, int is_bf16,
-                        void* stream) {
+                        int H, int KV, int DK, int DV, int causal, float scale,
+                        int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_CASE(dk_, dv_)                                               \
   if (DK == dk_ && DV == dv_)                                              \
     return launch<dk_, dv_>(q, k, v, dout, (const float*)lse,              \
                             (const float*)delta, dq, dk, dv, B, S, T, H, KV, \
-                            causal, is_bf16, st);
+                            causal, scale, is_bf16, st);
   FLASH_PAIRS(FLASH_CASE)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -61,7 +61,11 @@
 // heads, 512 blocks at zamba2's prefill).  x and s_prev of the next head
 // are copied by cp.async while the current one is computed.  Q, N and P
 // are padded to multiples of 16 with zeros in shared memory, so every
-// Q <= 128 and N, P <= 64 runs.  Scratch from the wrapper: S_loc
+// Q <= 128, N <= 128 and P <= 64 runs.  At N 128 (mamba2-2.7b's d_state)
+// pass (c) takes 161,792 bytes at Q 128 and 16 heads, so an SM holds one
+// block of it (two at N 64); pass (a) still fits two.  A chunk above 128
+// never reaches the kernel: the wrapper runs it as chunks of 128, which
+// changes only the order of the sums.  Scratch from the wrapper: S_loc
 // [B, chunks, H, N, P] fp32, s_prev [B, chunks, H, 2 (hi, lo), N, P] bf16
 // and dec [B, chunks, H] fp32; at zamba2's prefill 83,886,080, 83,886,080
 // and 20,480 bytes.
@@ -72,7 +76,9 @@
 // Per chunk the block stages B, C, dtx and cum in shared memory, builds
 // the [Q, Q] decayed C B^T matrix, then each thread computes an
 // interleaved register tile of y and, after a barrier, of the state
-// update.  For training it also writes the state entering each
+// update (in tiles of 64 state rows, so N 128 takes two).  Its shared
+// memory bounds Q at 64 when N is above 64 (kF32Floats).  For training it
+// also writes the state entering each
 // chunk, s_prev [B, chunks, H, N, P] fp32 (the bf16 passes leave theirs
 // in the scratch), which the backward (csrc/mamba2_scan_bwd.cu) reads.
 #include <cuda_runtime.h>
@@ -85,7 +91,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxQ = 128;
-constexpr int kMaxNP = 64;
+constexpr int kMaxN = 128;             // state rows (d_state)
+constexpr int kMaxP = 64;              // state columns (head dim)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -95,6 +102,12 @@ __host__ __device__ constexpr int smem_floats(int Q, int N, int P) {
   // B, C [Q][N + 1]; dtx [Q][P]; M [Q][Q + 1]; state [N][P]; cum, dt [Q]
   return 2 * Q * (N + 1) + Q * P + Q * (Q + 1) + N * P + 2 * Q;
 }
+// the most the fp32 kernel is configured for: Q 128 at N 64, or Q 64 at
+// N 128 (the wrapper's chunk there; Q 128 would take 264,704 bytes)
+constexpr int kF32Floats =
+    smem_floats(kMaxQ, 64, kMaxP) > smem_floats(64, kMaxN, kMaxP)
+        ? smem_floats(kMaxQ, 64, kMaxP)
+        : smem_floats(64, kMaxN, kMaxP);
 
 template <typename T, bool SAVE>
 __global__ void __launch_bounds__(kThreads)
@@ -252,8 +265,10 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();                     // y read the state: update it now
     // st[n][p] = st[n][p] exp(cum[Q-1])
     //          + sum_j exp(cum[Q-1] - cum[j]) B[j][n] dtx[j][p]
-    // thread tile rows t16 + 16 u (u < 4), columns l16 + 16 w (w < 4)
-    {
+    // thread tile rows n0 + t16 + 16 u (u < 4) for each 64 rows n0,
+    // columns l16 + 16 w (w < 4); each element is read and written by
+    // its own thread only, so the update is in place
+    for (int n0 = 0; n0 < N; n0 += 64) {
       const float last = cum_s[Q - 1];
       float acc[4][4];
 #pragma unroll
@@ -265,7 +280,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         float bv[4], xv[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const int n = t16 + 16 * u;
+          const int n = n0 + t16 + 16 * u;
           bv[u] = n < N ? B_s[j * NP1 + n] * dec : 0.f;
         }
 #pragma unroll
@@ -281,7 +296,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const float chunk_dec = expf(last);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int n = t16 + 16 * u;
+        const int n = n0 + t16 + 16 * u;
         if (n >= N) continue;
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
@@ -509,8 +524,7 @@ int launch_f32_save(const void* x, const void* dt, const void* A,
                     int N, int P, int Q, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(Q, N, P);
   static const int configured = configure(
-      ssd_kernel<float, SAVE>,
-      (int)(sizeof(float) * smem_floats(kMaxQ, kMaxNP, kMaxNP)));
+      ssd_kernel<float, SAVE>, (int)(sizeof(float) * kF32Floats));
   if (configured != 0) return configured;
   ssd_kernel<float, SAVE><<<B * H, kThreads, bytes, stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
@@ -535,9 +549,9 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
 int configure_bf16() {
   static const int configured =
       configure(ssd_state_kernel<false>,
-                state_smem_bytes(kMaxQ, kMaxNP, kMaxNP, kMaxHeads))
+                state_smem_bytes(kMaxQ, kMaxN, kMaxP, kMaxHeads))
       | configure(ssd_output_kernel,
-                  output_smem_bytes(kMaxQ, kMaxNP, kMaxNP, kMaxHeads));
+                  output_smem_bytes(kMaxQ, kMaxN, kMaxP, kMaxHeads));
   return configured;
 }
 
@@ -586,14 +600,17 @@ extern "C" {
 // s_prev, which it fills in float32 [B, chunks, H, N, P] unless it is
 // null.
 // Returns a CUDA error code; cudaErrorInvalidValue outside 1 <= Q <= 128,
-// 1 <= N, P <= 64 and, for bfloat16, 1 <= heads <= 16.
+// 1 <= N <= 128, 1 <= P <= 64, for float32 a Q, N whose shared memory
+// passes kF32Floats (Q <= 64 at N above 64) and, for bfloat16, 1 <= heads
+// <= 16.
 int mamba2_scan(const void* x, const void* dt, const void* A, const void* Bm,
                 const void* Cm, const void* init, void* y, void* state,
                 void* s_loc, void* s_prev, void* dec, int B, int S, int H,
                 int G, int N, int P, int Q, int heads, int bf16,
                 void* stream) {
-  if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxNP || P < 1 || P > kMaxNP
-      || (bf16 && (heads < 1 || heads > kMaxHeads)))
+  if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || P < 1 || P > kMaxP
+      || (bf16 && (heads < 1 || heads > kMaxHeads))
+      || (!bf16 && smem_floats(Q, N, P) > kF32Floats))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)

@@ -233,7 +233,6 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int PT = Pp / 8, KT = Qp / 16;
-  const uint32_t b_addr = smem_addr(b_s + at_lane(lane, NL) + warp * 16);
   const int x_off = bt_lane(lane, PL);
 
   for (int hi = 0; hi < tl.nh; ++hi) {
@@ -247,7 +246,9 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (warp * 16 < Np) {              // warp w: state rows 16 w .. 16 w + 15
+    // warp w: state row tiles w, w + 4, ... (rows 16 w .. 16 w + 15, ...)
+    for (int rt = warp; rt * 16 < Np; rt += 4) {
+      const uint32_t b_addr = smem_addr(b_s + at_lane(lane, NL) + rt * 16);
       float acc[8][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -272,7 +273,7 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         if (j >= PT) continue;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int n = warp * 16 + g + 8 * r, p = j * 8 + 2 * t4;
+          const int n = rt * 16 + g + 8 * r, p = j * 8 + 2 * t4;
           if (n >= N || p >= P) continue;
           if (p + 1 < P && (P & 1) == 0) {
             *reinterpret_cast<float2*>(out + n * P + p) =

@@ -35,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG: Dict[str, str] = {}
+# wall seconds from the start of the last build_all to each source's end
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -67,15 +69,25 @@ def build_all(names=SOURCES) -> float:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        log = tmp.with_suffix(".log")     # a file: no pipe fills and stalls
+        with open(log, "w") as f:
+            procs.append((name, out, tmp, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+    running = {name for name, *_ in procs}
+    while running:                        # each source's own end time
+        for name, *_, proc in procs:
+            if name in running and proc.poll() is not None:
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                running.discard(name)
+        if running:
+            time.sleep(0.05)
     failed = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
+    for name, out, tmp, log, proc in procs:
+        BUILD_LOG[name] = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
+            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n"
+                          f"{BUILD_LOG[name]}")
             continue
         os.replace(tmp, out)
     if failed:

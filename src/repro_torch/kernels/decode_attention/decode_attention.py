@@ -10,11 +10,20 @@ miss).  One KV head is shared by all H query heads; callers with
 grouped-query attention fold the KV heads into the batch
 (q ``[B * KV, H / KV, d]``, one table row per sequence and KV head).
 
+Keys are d wide and values dv wide (``v_pages [n_slots, page, dv]``):
+a paged MLA latent cache has d 576 and dv 512.
+
 ``paged_decode_attention_kernel`` launches the kernel for CUDA tensors and
 runs ``paged_decode_plain`` for CPU tensors; it never falls back from one to
 the other.  On the card a launch cuts each row's page table into
 ``plan_splits`` contiguous ranges, one block each, and a second kernel
-merges the ranges' partial softmax states.
+merges the ranges' partial softmax states.  ``instance`` picks the built
+instance (route, DK, DV) that runs (d, dv) in a type: float32 at d = dv in
+``HEAD_DIMS`` on its own instance; bfloat16 rows of whole 16-byte chunks
+on the tensor cores (up to 128 in registers, (256, 256) and (576, 512)
+with Q in shared memory); every other width up to ``MAX_D``, ``MAX_DV``
+on the CUDA cores, a warp a token.  Every route reads the pool in place
+at its own widths; only q is zero-padded to DK on the tensor cores.
 """
 from __future__ import annotations
 
@@ -29,10 +38,35 @@ from repro_torch.kernels import cuda_build
 LAUNCHES = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's head dims (one build each)
+HEAD_DIMS = (16, 32, 64, 128)     # square instances (one build a type each)
+WIDE = ((256, 256), (576, 512))   # bf16 tensor-core instances past 128
+MAX_D, MAX_DV = 576, 512          # wider keys or values: no instance
+ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_WAVE_SHARE = 0.9            # least share of the last wave kept busy
-_PLANS = {}                       # (d, H > 4, dtype) -> launch_plan
+_PLANS = {}                       # (instance, H > 4, dtype) -> launch_plan
+
+
+def instance(d: int, dv: int, dtype) -> tuple:
+    """The built instance (route, DK, DV) that runs key width ``d`` and
+    value width ``dv`` in ``dtype``: "workers" for float32 at d = dv in
+    ``HEAD_DIMS`` (the instance as it was first built); "tensor_cores" for
+    bfloat16 whose rows are whole 16-byte chunks (d, dv multiples of 8),
+    at the smallest of ``HEAD_DIMS`` that holds both or else the first of
+    ``WIDE`` that does; "lanes" for every other width, one instance at
+    (``MAX_D``, ``MAX_DV``).  Raises past ``MAX_D``, ``MAX_DV``."""
+    if d < 1 or dv < 1 or d > MAX_D or dv > MAX_DV:
+        raise ValueError(f"decode_attention: the kernel takes key widths d "
+                         f"in [1, {MAX_D}] and value widths dv in [1, "
+                         f"{MAX_DV}], not d={d}, dv={dv}")
+    if dtype == torch.float32 and d == dv and d in HEAD_DIMS:
+        return ("workers", d, d)
+    covers = lambda p: d <= p[0] and dv <= p[1]  # noqa: E731
+    if dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0:
+        square = [(n, n) for n in HEAD_DIMS]
+        return ("tensor_cores",
+                *next(p for p in square + list(WIDE) if covers(p)))
+    return ("lanes", MAX_D, MAX_DV)
 
 
 def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
@@ -121,27 +155,30 @@ def _check_range(page_table, seq_lens, n_slots: int, page: int) -> None:
                          f"slot outside [0, {n_slots})")
 
 
-def launch_plan(d: int, H: int, dtype):
+def launch_plan(d: int, dv: int, H: int, dtype):
     """(query heads a pass-1 block takes, such blocks an SM holds at once)
-    for this head dim, head count and type, as the library reports them
-    (asked once each)."""
-    key = (d, H > 4, dtype)
+    for the instance that runs (d, dv) in this type, at this head count,
+    as the library reports them (asked once each)."""
+    inst = instance(d, dv, dtype)
+    key = (inst, H > 4, dtype)
     if key not in _PLANS:
         fn = cuda_build.load("decode_attention").decode_attention_plan
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         heads, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-        cuda_build.check(fn(d, H, _DTYPES[dtype], ctypes.byref(heads),
+        cuda_build.check(fn(ROUTES[inst[0]], inst[1], inst[2], H,
+                            _DTYPES[dtype], ctypes.byref(heads),
                             ctypes.byref(per_sm)), "decode_attention plan")
         _PLANS[key] = (heads.value, per_sm.value)
     return _PLANS[key]
 
 
-def splits_for(q, P: int) -> int:
-    """The split count a launch on ``q`` [B, H, d] over a table of ``P``
-    pages uses (``plan_splits`` on this card)."""
+def splits_for(q, P: int, dv=None) -> int:
+    """The split count a launch on ``q`` [B, H, d] (values ``dv`` wide, d
+    unless given) over a table of ``P`` pages uses (``plan_splits`` on
+    this card)."""
     B, H, d = q.shape
-    heads, per_sm = launch_plan(d, H, q.dtype)
+    heads, per_sm = launch_plan(d, dv or d, H, q.dtype)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return plan_splits(B * -(-H // heads), P, sms, per_sm)
 
@@ -161,32 +198,33 @@ def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
             or v_pages.dtype != q.dtype:
         raise TypeError(f"decode_attention: no kernel for q {q.dtype}, "
                         f"pages {k_pages.dtype}/{v_pages.dtype}")
-    if d not in HEAD_DIMS or dv != d:
-        raise ValueError(f"decode_attention: the kernel takes d = dv in "
-                         f"{HEAD_DIMS}, not d={d}, dv={dv}")
+    route, DK, DV = instance(d, dv, q.dtype)
     tensors = (q, k_pages, v_pages, page_table, seq_lens)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("decode_attention: q and pages must be 16-byte "
                          "aligned")
-    out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, dv), dtype=q.dtype, device=q.device)
     if B == 0 or H == 0:
         return out
     lib = cuda_build.load("decode_attention")
     fn = lib.decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     P = page_table.shape[1]
-    n_splits = splits_for(q, P)
-    scratch = torch.empty(((d + 2) * B * H * n_splits,) if n_splits > 1
+    n_splits = splits_for(q, P, dv)
+    scratch = torch.empty(((dv + 2) * B * H * n_splits,) if n_splits > 1
                           else (0,), dtype=torch.float32, device=q.device)
+    if route == "tensor_cores" and d != DK:     # a copy of q, not the pool
+        q = torch.nn.functional.pad(q, (0, DK - d))
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             scratch.data_ptr(), B, H, d, P, page, n_slots, n_splits,
-             _DTYPES[q.dtype], cuda_build.stream_ptr(q.device))
+             scratch.data_ptr(), B, H, d, dv, P, page, n_slots, n_splits,
+             ROUTES[route], DK, DV, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+             cuda_build.stream_ptr(q.device))
     cuda_build.check(err, "decode_attention")
     LAUNCHES += 1
     return out

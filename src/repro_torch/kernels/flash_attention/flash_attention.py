@@ -9,7 +9,14 @@ wrapper's repeat of the KV heads without the copy.  Scores, softmax and the
 value sum are fp32; the output ``[B, S, H, dv]`` has q's type.  The Pallas
 layout ``[BH, S, d]`` is the case H = KV = 1.  The kernel is instantiated
 for the ``(d, dv)`` pairs of ``PAIRS``: every pair the model zoo's configs
-reach.
+reach.  Any other pair with d and dv up to ``MAX_D`` runs on the smallest
+instantiated pair that covers it (``cover_pair``): q and k zero-padded to
+its DK, v to its DV (``pad_to_pair``), the scale still 1/sqrt(d) of the
+caller's d (a runtime argument of the kernels), and the output sliced
+back to dv.  Zero key columns leave every q.k as it was and zero value
+columns only add output columns, so the result is the caller's.  The
+padding and the slicing sit outside ``FlashAttention``, so the gradient
+runs on the covering pair's backward and flows back through them.
 
 ``flash_attention_kernel`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; it never falls back from one to
@@ -38,6 +45,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import costs, cuda_build, sharded
 
@@ -50,19 +58,20 @@ NEG_INF = -1e30
 # the kernel's (d, dv) pairs: FLASH_PAIRS in csrc/flash_attention.cu
 PAIRS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (80, 80),
          (128, 128), (192, 128), (256, 256))
+MAX_D = 256                      # d and dv past this: no pair covers them
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_plain(q, k, v, causal: bool = True):
+def flash_attention_plain(q, k, v, causal: bool = True, scale=None):
     """The Pallas kernel's function in plain PyTorch: fp32 scores times
-    1/sqrt(d), masked to -1e30 above the diagonal when causal, softmax in
-    fp32, the output in q's type."""
+    ``scale`` (1/sqrt(d) unless given), masked to -1e30 above the diagonal
+    when causal, softmax in fp32, the output in q's type."""
     B, S, H, d = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     qf = q.float().reshape(B, S, KV, G, d)
     s = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) \
-        * (1.0 / math.sqrt(d))
+        * (1.0 / math.sqrt(d) if scale is None else scale)
     if causal:
         mask = torch.arange(S, device=q.device)[:, None] \
             >= torch.arange(T, device=q.device)[None, :]
@@ -80,6 +89,30 @@ def flash_attention_backward_plain(q, k, v, dout, causal: bool = True):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = flash_attention_plain(*leaves, causal)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def cover_pair(d: int, dv: int) -> tuple:
+    """The instantiated pair a call at ``(d, dv)`` runs on: ``(d, dv)``
+    itself when it is one of ``PAIRS``, else the covering pair (DK >= d,
+    DV >= dv) with the fewest padded columns, DK + DV.  Raises past
+    ``MAX_D``."""
+    fits = [p for p in PAIRS if p[0] >= d and p[1] >= dv]
+    if d < 1 or dv < 1 or not fits:
+        raise ValueError(f"flash_attention: the kernel takes d, dv in "
+                         f"[1, {MAX_D}], not ({d}, {dv})")
+    return min(fits, key=lambda p: (p[0] + p[1], p))
+
+
+def pad_to_pair(q, k, v, pair):
+    """q and k zero-padded along their last dim to the pair's DK, v to its
+    DV (each returned as it is when it already has that width)."""
+    DK, DV = pair
+    d, dv = q.shape[3], v.shape[3]
+    if DK != d:
+        q, k = (F.pad(t, (0, DK - d)) for t in (q, k))
+    if DV != dv:
+        v = F.pad(v, (0, DV - dv))
+    return q, k, v
 
 
 def smem_bytes(d: int, dv: int, dtype) -> int:
@@ -177,9 +210,15 @@ def flash_attention_kernel(q, k, v, causal: bool = True):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
+    d, dv = q.shape[3], v.shape[3]
+    pair = cover_pair(d, dv)
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = pad_to_pair(q, k, v, pair)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, False)[0]
+        out = FlashAttention.apply(q, k, v, causal, scale)
+    else:
+        out = _forward(q, k, v, causal, False, scale)[0]
+    return out if pair[1] == dv else out[..., :dv].contiguous()
 
 
 def _on_mesh(q, k, v, causal: bool):
@@ -208,8 +247,9 @@ def _cuda_limits(q, k, v) -> None:
         raise TypeError(f"flash_attention: no kernel for q {q.dtype}, k/v "
                         f"{k.dtype}/{v.dtype}")
     if (d, dv) not in PAIRS:
-        raise ValueError(f"flash_attention: the kernel takes (d, dv) in "
-                         f"{PAIRS}, not ({d}, {dv})")
+        raise ValueError(f"flash_attention: the kernel is built for (d, dv) "
+                         f"in {PAIRS}, not ({d}, {dv}); the wrapper pads "
+                         f"to them (cover_pair)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: tensors must be contiguous")
     if k.shape[1] == 0:
@@ -218,8 +258,13 @@ def _cuda_limits(q, k, v) -> None:
         raise ValueError("flash_attention: tensors must be 16-byte aligned")
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool):
-    """The kernel's (out [B, S, H, dv], lse [B, H, S] fp32 or None)."""
+def _scale(q, scale) -> float:
+    return 1.0 / math.sqrt(q.shape[3]) if scale is None else float(scale)
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool, scale=None):
+    """The kernel's (out [B, S, H, dv], lse [B, H, S] fp32 or None), scores
+    times ``scale`` (1/sqrt(d) of q's width unless given)."""
     global LAUNCHES
     _cuda_limits(q, k, v)
     B, S, H, d = q.shape
@@ -234,22 +279,24 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
         return out, lse
     fn = cuda_build.load("flash_attention").flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              0 if lse is None else lse.data_ptr(), B, S, T, H, KV, d, dv,
-             int(causal), _DTYPES[q.dtype], cuda_build.stream_ptr(q.device))
+             int(causal), _scale(q, scale), _DTYPES[q.dtype],
+             cuda_build.stream_ptr(q.device))
     cuda_build.check(err, "flash_attention")
     LAUNCHES += 1
     return out, lse
 
 
-def backward_from_delta(q, k, v, lse, delta, dout, causal: bool = True):
+def backward_from_delta(q, k, v, lse, delta, dout, causal: bool = True,
+                        scale=None):
     """The backward's dK/dV and dQ kernels alone, given the row vector
-    ``delta`` [B, H, S] (D = rowsum(dO o), fp32).  Returns (dq, dk, dv) in
-    q's type.  Not counted: ``flash_attention_backward`` is the entry
-    point."""
+    ``delta`` [B, H, S] (D = rowsum(dO o), fp32) and the forward's
+    ``scale``.  Returns (dq, dk, dv) in q's type.  Not counted:
+    ``flash_attention_backward`` is the entry point."""
     _cuda_limits(q, k, v)
     B, S, H, d = q.shape
     T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -264,21 +311,24 @@ def backward_from_delta(q, k, v, lse, delta, dout, causal: bool = True):
         return dq, dk.zero_(), dvv.zero_()
     fn = cuda_build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dvv.data_ptr(), B, S, T, H, KV, d, dv, int(causal),
-             _DTYPES[q.dtype], cuda_build.stream_ptr(q.device))
+             _scale(q, scale), _DTYPES[q.dtype],
+             cuda_build.stream_ptr(q.device))
     cuda_build.check(err, "flash_attention_bwd")
     return dq, dk, dvv
 
 
-def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
+def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True,
+                             scale=None):
     """(dq, dk, dv) of the attention ``out`` = flash_attention(q, k, v)
-    for its gradient ``dout``, from the forward's ``lse``: three kernel
-    launches (D, dK/dV, dQ), counted once."""
+    for its gradient ``dout``, from the forward's ``lse`` and ``scale``
+    (1/sqrt(d) of q's width unless given): three kernel launches (D,
+    dK/dV, dQ), counted once."""
     global BWD_LAUNCHES
     B, S, H, _ = q.shape
     dv = v.shape[3]
@@ -300,7 +350,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
         err = fn(out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, S, H,
                  dv, _DTYPES[q.dtype], cuda_build.stream_ptr(q.device))
         cuda_build.check(err, "flash_attention_bwd_delta")
-    grads = backward_from_delta(q, k, v, lse, delta, dout, causal)
+    grads = backward_from_delta(q, k, v, lse, delta, dout, causal, scale)
     BWD_LAUNCHES += 1
     return grads
 
@@ -309,15 +359,16 @@ class FlashAttention(torch.autograd.Function):
     """The kernel with its backward kernels, for CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = _forward(q, k, v, causal, True)
+    def forward(ctx, q, k, v, causal, scale=None):
+        out, lse = _forward(q, k, v, causal, True, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, dout.to(q.dtype).contiguous(), ctx.causal)
-        return dq, dk, dv, None
+            q, k, v, out, lse, dout.to(q.dtype).contiguous(), ctx.causal,
+            ctx.scale)
+        return dq, dk, dv, None, None

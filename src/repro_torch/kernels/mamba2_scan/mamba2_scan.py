@@ -18,6 +18,12 @@ adds nothing.
 other.  In bf16 the kernel is three passes (chunk states, state passing,
 chunk outputs; see the source's note), counted as one launch; ``plan``
 sets their blocks and scratch.  fp32 runs one pass on the CUDA cores.
+The kernel takes N up to ``MAX_N`` and P up to ``MAX_P``; the wrapper
+takes any chunk and runs one above ``chunk_cap`` as chunks of the cap
+(``kernel_chunk``), which changes only the order of the sums.  That sits
+outside ``Mamba2Scan``, so the backward runs at the kernel's chunk; it
+takes N and P up to ``BWD_MAX_NP``, and the wrapper refuses a gradient
+past that before any launch.
 
 When a gradient is asked of CUDA tensors, the call goes through
 ``Mamba2Scan``, a ``torch.autograd.Function``: its forward launches the
@@ -50,8 +56,11 @@ from repro_torch.kernels import costs, cuda_build, sharded
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-MAX_CHUNK = 128
-MAX_NP = 64
+MAX_CHUNK = 128                  # the kernel's chunk (the wrapper's: any)
+MAX_N = 128                      # state rows N (d_state), forward
+MAX_P = 64                       # state columns P (head dim)
+MAX_N_F32 = 64                   # fp32 runs chunks of 64 above this N
+BWD_MAX_NP = 64                  # N and P of the backward (kMaxNP)
 MAX_HEADS = 16                   # heads a block of passes (a) and (c)
 WAVE_SHARE = 0.9                 # how full pass (c)'s last wave must be
 SMEM_LIMIT = 232_448             # dynamic shared memory a block may take
@@ -176,14 +185,16 @@ def bwd_plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
 
 
 def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
-    """The chunked SSD scan in plain PyTorch (fp32), the chunks vectorised
-    and the state carried over them in a loop.  Returns (y in x's type,
-    final state [B, H, N, P] fp32)."""
+    """The chunked SSD scan in plain PyTorch (fp32; fp64 for a float64 x),
+    the chunks vectorised and the state carried over them in a loop.
+    Returns (y in x's type, final state [B, H, N, P] in the working
+    type)."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     pad = (-S) % Q
-    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, dtf, Bf, Cf = (t.to(work) for t in (x, dt, Bm, Cm))
     if pad:
         xf, Bf, Cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, Bf, Cf))
         dtf = F.pad(dtf, (0, 0, 0, pad))
@@ -192,7 +203,7 @@ def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
     dt_ = dtf.reshape(B_, nc, Q, G, rep)
     B_m = Bf.reshape(B_, nc, Q, G, N)
     C_m = Cf.reshape(B_, nc, Q, G, N)
-    A_ = A.float().reshape(B_, 1, 1, G, rep)
+    A_ = A.to(work).reshape(B_, 1, 1, G, rep)
 
     cum = torch.cumsum(dt_ * A_, dim=2)                     # [B,nc,Q,G,rep]
     dtx = dt_[..., None] * x_                               # [B,nc,Q,G,rep,P]
@@ -208,9 +219,9 @@ def mamba2_scan_plain(x, dt, A, Bm, Cm, Q: int, init=None):
     S_loc = torch.einsum("bcjgrp,bcjgn->bcgrnp", dec_end[..., None] * dtx,
                          B_m)                               # [B,nc,G,rep,N,P]
     chunk_dec = torch.exp(cum[:, :, -1])                    # [B,nc,G,rep]
-    s = torch.zeros((B_, G, rep, N, P), dtype=torch.float32,
+    s = torch.zeros((B_, G, rep, N, P), dtype=work,
                     device=x.device) if init is None \
-        else init.float().reshape(B_, G, rep, N, P)
+        else init.to(work).reshape(B_, G, rep, N, P)
     prevs = []
     for c in range(nc):
         prevs.append(s)
@@ -291,18 +302,35 @@ def bwd_heads(x, Bm, Q: int) -> int:
                       *card_slots(Q, N, P, x.device, "mamba2_scan_bwd"))
 
 
+def chunk_cap(N: int, dtype) -> int:
+    """The largest chunk the kernel runs at state size N in ``dtype``:
+    ``MAX_CHUNK``, or 64 in fp32 above ``MAX_N_F32`` (whose shared memory
+    at chunk 128 and N 128 would pass the card's)."""
+    return 64 if dtype == torch.float32 and N > MAX_N_F32 else MAX_CHUNK
+
+
+def kernel_chunk(Q: int, N: int, dtype) -> int:
+    """The chunk the kernel runs for a caller's chunk ``Q``: Q itself up to
+    ``chunk_cap``, else the cap.  The scan's output and final state do not
+    depend on the chunk, only the order of its sums does, and a last
+    chunk padded with zeros adds nothing, so any chunk computes the
+    caller's function."""
+    return min(Q, chunk_cap(N, dtype))
+
+
 def kernel_limits(x, Bm, Cm, Q: int) -> None:
     """Raise on what the CUDA kernel does not take: a type other than fp32
-    or bf16 (x, Bm and Cm alike), a chunk above ``MAX_CHUNK`` or N, P above
-    ``MAX_NP``."""
+    or bf16 (x, Bm and Cm alike), N above ``MAX_N``, P above ``MAX_P`` or
+    a chunk above ``chunk_cap`` (the wrapper passes ``kernel_chunk``)."""
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"mamba2_scan: no kernel for x {x.dtype}, Bm/Cm "
                         f"{Bm.dtype}/{Cm.dtype}")
     N, P = Bm.shape[3], x.shape[3]
-    if Q > MAX_CHUNK or N > MAX_NP or P > MAX_NP:
-        raise ValueError(f"mamba2_scan: the kernel takes chunk <= "
-                         f"{MAX_CHUNK} and N, P <= {MAX_NP}, not {Q}, {N}, "
-                         f"{P}")
+    if N > MAX_N or P > MAX_P or Q > chunk_cap(N, x.dtype):
+        raise ValueError(f"mamba2_scan: the kernel takes N <= {MAX_N}, "
+                         f"P <= {MAX_P} and a chunk <= "
+                         f"{chunk_cap(N, x.dtype)} at this N, not N {N}, "
+                         f"P {P}, chunk {Q}")
 
 
 def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
@@ -317,9 +345,15 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     A = A.float().contiguous()
     if init is not None:
         init = init.float().contiguous()
+    Q = kernel_chunk(Q, Bm.shape[3], x.dtype)
+    kernel_limits(x, Bm, Cm, Q)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init)):
+        N, P = Bm.shape[3], x.shape[3]
+        if N > BWD_MAX_NP or P > BWD_MAX_NP:
+            raise ValueError(f"mamba2_scan: the backward kernel takes N, P "
+                             f"<= {BWD_MAX_NP}, not N {N}, P {P}")
         return Mamba2Scan.apply(x, dt, A, Bm, Cm, Q, init)
     return _forward(x, dt, A, Bm, Cm, Q, init, False)[:2]
 
@@ -400,6 +434,9 @@ def _bwd_check(x, dt, A, Bm, Cm, Q: int, dy, dstate) -> None:
     B_, S, H, P = x.shape
     N = Bm.shape[3]
     kernel_limits(x, Bm, Cm, Q)
+    if N > BWD_MAX_NP or P > BWD_MAX_NP:
+        raise ValueError(f"mamba2_scan_backward: the kernel takes N, P <= "
+                         f"{BWD_MAX_NP}, not N {N}, P {P}")
     if any(not t.is_contiguous() for t in (x, dt, A, Bm, Cm, dy)) \
             or dt.dtype != torch.float32 or A.dtype != torch.float32 \
             or dy.shape != x.shape or dy.dtype != x.dtype \

@@ -15,7 +15,13 @@ is the case H = 1.
 ``rwkv6_scan_plain`` for CPU tensors; it never falls back from one to the
 other.  The kernel cuts each head's state columns over blocks
 (``plan_columns``) and its rows over the lanes of a block
-(``rows_per_lane``); see the source's note.
+(``rows_per_lane``); see the source's note.  It is built for the state
+sizes of ``HEAD_DIMS``; any other N up to ``MAX_N`` runs the next one up
+on inputs zero-padded to it (``padded_n``, ``pad_state_dim``), and y and
+the state are sliced back.  Zero k and v columns leave the state's extra
+rows and columns zero whatever w holds, and zero r adds nothing to y, so
+the padding changes no output.  It sits outside ``RWKV6Scan``, so the
+backward takes the padded size too.
 
 When a gradient is asked of CUDA tensors, the call goes through
 ``RWKV6Scan``, a ``torch.autograd.Function``: its forward launches the
@@ -39,6 +45,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import costs, cuda_build, sharded
 
@@ -48,6 +55,7 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 HEAD_DIMS = (8, 16, 32, 64)          # the kernel's state sizes N
+MAX_N = HEAD_DIMS[-1]                # larger N the kernel does not take
 MIN_COLS = 8                         # state columns a block, at least
 COLS_PER_THREAD = 4
 STEPS = 32                           # time steps a staging buffer holds
@@ -182,16 +190,32 @@ def rwkv6_scan_backward_plain(r, k, v, w, u, init, dy, dstate=None):
         return torch.autograd.grad(outs, leaves, grads)
 
 
+def padded_n(N: int) -> int:
+    """The state size of the instance that runs N: the smallest of
+    ``HEAD_DIMS`` that holds it.  Raises past ``MAX_N``."""
+    for n in HEAD_DIMS:
+        if N <= n:
+            return n
+    raise ValueError(f"rwkv6_scan: the kernel takes N <= {MAX_N}, not {N}")
+
+
+def pad_state_dim(r, k, v, w, u, init, n: int):
+    """r, k, v, w [B, S, H, N] and u [B * H, N] zero-padded to N = ``n``,
+    init [B, H, N, N] (if given) to [B, H, n, n]."""
+    N = r.shape[3]
+    r, k, v, w, u = (F.pad(t, (0, n - N)) for t in (r, k, v, w, u))
+    if init is not None:
+        init = F.pad(init, (0, n - N, 0, n - N))
+    return r, k, v, w, u, init
+
+
 def kernel_limits(r, k, v, w) -> None:
     """Raise on what the CUDA kernel does not take: a type other than fp32
-    or bf16 (r, k, v and w alike), or N outside ``HEAD_DIMS``."""
+    or bf16 (r, k, v and w alike), or N above ``MAX_N``."""
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
         raise TypeError(f"rwkv6_scan: no kernel for r/k/v/w "
                         f"{[t.dtype for t in (r, k, v, w)]}")
-    N = r.shape[3]
-    if N not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan: the kernel takes N in {HEAD_DIMS}, "
-                         f"not {N}")
+    padded_n(r.shape[3])
 
 
 def rwkv6_scan_kernel(r, k, v, w, u, init=None):
@@ -202,6 +226,12 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     _check(r, k, v, w, u, init)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, init)
+    N = r.shape[3]
+    if N not in HEAD_DIMS:             # the next instance up, on zeros
+        kernel_limits(r, k, v, w)
+        y, state = rwkv6_scan_kernel(*pad_state_dim(r, k, v, w, u, init,
+                                                    padded_n(N)))
+        return y[..., :N].contiguous(), state[..., :N, :N].contiguous()
     u = u.float().contiguous()
     if init is not None:
         init = init.float().contiguous()

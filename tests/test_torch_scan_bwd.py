@@ -659,7 +659,11 @@ def test_backward_constants_match_the_sources():
     assert constexpr("kSave", "rwkv6_scan_bwd") == rs.SAVE_EVERY
     assert constexpr("kSub", "rwkv6_scan_bwd") == rs.BWD_SUB
     assert constexpr("kMaxQ", "mamba2_scan_bwd") == ms.MAX_CHUNK
-    assert constexpr("kMaxNP", "mamba2_scan_bwd") == ms.MAX_NP
+    # the backward's own state limit, below the forward's N (kMaxN)
+    assert constexpr("kMaxNP", "mamba2_scan_bwd") == ms.BWD_MAX_NP
+    assert constexpr("kMaxQ", "mamba2_scan") == ms.MAX_CHUNK
+    assert constexpr("kMaxN", "mamba2_scan") == ms.MAX_N > ms.BWD_MAX_NP
+    assert constexpr("kMaxP", "mamba2_scan") == ms.MAX_P
     assert constexpr("kMaxHeads", "mamba2_scan_bwd") == ms.MAX_HEADS
     text = (cuda_build.CSRC / "rwkv6_scan_bwd.cu").read_text()
     pieces = {int(n): (int(ra), int(ca)) for n, ra, ca in re.findall(

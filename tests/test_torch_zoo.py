@@ -96,7 +96,8 @@ def _config_pairs(cfg):
 def test_every_registry_head_dim_pair_is_instantiated(monkeypatch):
     """Every (d, dv) of the registry's full and smoke configs is among the
     kernel's instantiated pairs, and the wrapper's list is the CUDA
-    source's FLASH_PAIRS: nothing the kernel cannot take reaches the
+    source's FLASH_PAIRS: every pair the zoo reaches runs on an instance
+    of its own, unpadded (``cover_pair`` is the pair itself).
     card.  The smoke models' prefills are also run, recording every call
     of the kernel's wrapper."""
     src = (tfa_mod.cuda_build.CSRC / "flash_attention.cu").read_text()
@@ -109,6 +110,7 @@ def test_every_registry_head_dim_pair_is_instantiated(monkeypatch):
         want |= _config_pairs(get_config(arch)) | _config_pairs(
             t_smoke(arch))
     assert want <= set(tfa_mod.PAIRS)
+    assert all(tfa_mod.cover_pair(*p) == p for p in want)
     assert {(24, 16), (192, 128), (8, 8)} <= want
     seen = set()
     kernel = tfa_mod.flash_attention_kernel
@@ -128,12 +130,22 @@ def test_every_registry_head_dim_pair_is_instantiated(monkeypatch):
 
 
 def test_flash_attention_plain_version_takes_pairs_outside_the_kernel():
-    """On the CPU any (d, dv) runs the plain version; on the card the
-    wrapper refuses a pair outside ``PAIRS``, naming them."""
+    """On the CPU any (d, dv) runs the plain version; on the card a pair
+    outside ``PAIRS`` with d, dv <= 256 runs on the covering instance,
+    padded (meta tensors take the card's path without a card), and one
+    past 256 is refused, naming the limit."""
     q = torch.zeros((1, 4, 2, 48))
     out = tfa_mod.flash_attention_kernel(q, q, torch.zeros((1, 4, 2, 40)))
     assert out.shape == (1, 4, 2, 40)
     assert (48, 40) not in tfa_mod.PAIRS
+    assert tfa_mod.cover_pair(48, 40) == (64, 64)
+    qm = q.to("meta")
+    out = tfa_mod.flash_attention_kernel(qm, qm, torch.zeros(
+        (1, 4, 2, 40), device="meta"))
+    assert out.shape == (1, 4, 2, 40) and out.device.type == "meta"
+    big = torch.zeros((1, 4, 2, 264), device="meta")
+    with pytest.raises(ValueError, match="256"):
+        tfa_mod.flash_attention_kernel(big, big, big[..., :64])
 
 
 # ------------------------------------------------------------------------ MLA

@@ -56,8 +56,12 @@ def build(csrc: Path, label: str) -> ctypes.CDLL:
         if "registers" in ln or "spill" in ln or "Compiling" in ln]}),
         flush=True)
     lib = ctypes.CDLL(str(lib_path))
+    # a source whose kernels take the scale as an argument (after causal)
+    lib.takes_scale = "int causal, float scale" in (
+        csrc / "flash_attention_bwd.cu").read_text()
     lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 9 \
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_float] * lib.takes_scale \
+        + [ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_bwd.restype = ctypes.c_int
     return lib
 
@@ -118,7 +122,8 @@ def main() -> int:
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(),
                     *(t.data_ptr() for t in grads), B, S, S, H, KV, d, dv, 1,
-                    1, stream), "flash_attention_bwd variant")
+                    *[1 / math.sqrt(d)] * lib.takes_scale, 1, stream),
+                    "flash_attention_bwd variant")
                 return grads
             return call
 
