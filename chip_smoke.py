@@ -47,14 +47,16 @@ prefetch beating sync.  Last, training: K6's backward kernel is held
 against autograd through its plain version at every head-dim pair and
 timed at gemma-7b's, llava-next-mistral-7b's and deepseek-v2's MLA
 training shapes beside SDPA's backward, two runs bit-equal; so are the
-backward kernels of the SSD scan (fp32, bf16) and the RWKV6 scan (fp32)
-at every chunk and state size the zoo reaches, timed at zamba2-2.7b's
+backward kernels of the SSD scan (fp32, bf16, one tensor-core design)
+and the RWKV6 scan (fp32) at every chunk and state size the zoo reaches
+and the SSD scan's at d_state 128, timed at zamba2-2.7b's, mamba2-2.7b's
 and rwkv6-3b's training shapes, each gate rejecting a planted fault;
 gemma-7b at its published width, cut to 8 of its 28 layers, and
 zamba2-2.7b and rwkv6-3b at their published width and depth take AdamW
 steps of 4 x 2048 tokens through the port's data pipeline, train step
 and optimizer (losses falling, each arch's kernels launched forward and
-backward); each step at 2 layers in fp32 on the card equals the CPU's;
+backward), and so does zamba2-2.7b's config at d_state 128 (8 layers);
+each step at 2 layers in fp32 on the card equals the CPU's;
 and
 ``examples/train_lm_torch.py`` recovers from an injected failure under
 the supervisor and converges.  Then the examples: the serving examples,
@@ -365,9 +367,14 @@ def probe_case(nb, ways, D, B, dtype, seed=0):
                 seed)).to(dtype).to(dev))
 
 
-def check_probe(nb, ways, D, B, dtype, timed=False):
+def check_probe(nb, ways, D, B, dtype, timed=False, exact=False):
+    """K1 against its plain version; ``exact`` rows (one planted key a
+    bucket way, so a matched row is summed alone) must be bit-equal and
+    count one launch, and print the kernel's tiles of value columns."""
     args = probe_case(nb, ways, D, B, dtype)
+    before = tp.LAUNCHES
     kv, kh, kw = tp.tac_probe_kernel(*args)
+    launched = tp.LAUNCHES - before
     pv, ph, pw = tp.tac_probe_plain(*args)
     torch.cuda.synchronize()
     if not (torch.equal(kh, ph) and torch.equal(kw, pw)):
@@ -375,9 +382,14 @@ def check_probe(nb, ways, D, B, dtype, timed=False):
     err = max_err(kv, pv)
     if err > TOL[dtype] * (1 + float(pv.float().abs().max())):
         raise AssertionError(f"tac_probe values differ by {err}")
+    if exact and not (torch.equal(kv, pv) and launched == 1):
+        raise AssertionError(f"tac_probe at D {D} {dtype}: not bit-equal to "
+                             f"its plain version ({err}) or {launched} "
+                             f"launches")
     row = dict(kernel="tac_probe", nb=nb, ways=ways, D=D, B=B,
                dtype=str(dtype).split(".")[-1], hits=int(kh.sum()),
-               max_abs_err=err)
+               max_abs_err=err, launches=launched,
+               d_tiles=len(tp.d_tiles(D)))
     if timed:
         q, buckets, bkeys, bvals = args
         hits = int(kh.sum())
@@ -1498,8 +1510,8 @@ def lm_kernel_phase():
     decode shape (one token from a nonzero state).  Shapes past the
     kernels' instances: K6 at pairs it pads to the covering one (and timed
     at Phi-3-mini's d 96), refusing one past 256; K7 at N 128 and chunks
-    past 128 (timed at mamba2-2.7b's prefill), refusing a gradient at N
-    128 before any launch; K8 at N it pads to the next instance."""
+    past 128 (timed at mamba2-2.7b's prefill; its gradient at N 128 is
+    ``scan_bwd_rows``'); K8 at N it pads to the next instance."""
     main, errs = {}, {"flash_attention": 0.0, "mamba2_scan": 0.0,
                       "rwkv6_scan": 0.0}
 
@@ -1550,19 +1562,6 @@ def lm_kernel_phase():
         pass
     else:
         raise AssertionError("flash_attention took (d, dv) = (264, 64)")
-    x = torch.zeros((1, 8, 2, 64), device="cuda", requires_grad=True)
-    bc = torch.zeros((1, 8, 1, 128), device="cuda")
-    before = ms.LAUNCHES, ms.BWD_LAUNCHES
-    try:                               # no backward at N 128 yet
-        ms.mamba2_scan_kernel(x, torch.ones((1, 8, 2), device="cuda"),
-                              -torch.ones(2, device="cuda"), bc, bc, 8)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("mamba2_scan took a gradient at N 128")
-    if (ms.LAUNCHES, ms.BWD_LAUNCHES) != before:
-        raise AssertionError("mamba2_scan launched before refusing a "
-                             "gradient at N 128")
     main["flash_attention"] = note(check_flash(
         4, 2048, 32, 32, 80, torch.bfloat16, True, "zamba2-2.7b prefill",
         timed=True, fault=True))
@@ -1816,7 +1815,7 @@ def rwkv_bwd_undecayed(r, k, v, w, u, init, dy, dstate):
 
 
 def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
-                    fault=False, seed=0):
+                    fault=False, seed=0, extra=None):
     """K7's backward (``mamba2_scan_backward``: the state gradients at the
     chunks' ends, then each chunk's gradients) on seeded inputs from a
     nonzero initial state, with nonzero gradients of y and of the final
@@ -1827,12 +1826,16 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     gradients dropped between chunks (``backward_from_dstates`` given
     zeros but at the last chunk).  Timed rows add two runs bit-equal, the
     plain backward's time and the bound: flops 2 Q^2 (2 N + 2 P) + 8 Q N P
-    a (b h, chunk) and 2 Q^2 N a (b g, chunk) at the operands' peak;
+    a (b h, chunk) and 2 Q^2 N a (b g, chunk) at the operands' peak
+    (``costs.mamba_bwd``, at the chunk the row runs);
     bytes the gradient's own, each once: x, dt, A, Bm, Cm, init, dy and
     dstate in, their gradients out.  The chunk-entry states that this
     design saves are not the function's traffic and are reported apart
-    (``saved_state_bytes``).  bf16 rows print the plan's heads a block
-    and tiles a group (``bwd_plan``)."""
+    (``saved_state_bytes``); the forward that saves them is timed beside
+    it (``forward_with_states_ms``).  Rows print the plan's heads a block,
+    tiles a group and threads a block (``bwd_plan``), and the backward's
+    launches (one); fp32 rows print ``BOUNDARY_NOISE``'s K7 term beside
+    their distance from the plain backward (``rel_err``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = randn((B, S, H, P), dtype, g)
     dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, g))
@@ -1849,7 +1852,9 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
         raise AssertionError(f"mamba2_scan at {label}: saving the states "
                              f"changed the output")
     del y0, st0
+    before = ms.BWD_LAUNCHES
     grads = ms.mamba2_scan_backward(*args, s_prev, dy, dstate)
+    launched = ms.BWD_LAUNCHES - before
     plain = ms.mamba2_scan_backward_plain(*args, init, dy, dstate)
     torch.cuda.synchronize()
     rel = grads_rel(grads, plain)
@@ -1863,8 +1868,12 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
                             for a, b in zip(grads, plain)],
                max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
                plain_max_abs=max(float(b.float().abs().max())
-                                 for b in plain))
-    if not rel <= tol:
+                                 for b in plain), launches=launched,
+               threads=ms.bwd_threads(Q, N))
+    if dtype == torch.float32:         # the witness noise it stands for
+        row["boundary_noise"] = BOUNDARY_NOISE[1]
+    row.update(extra or {})
+    if not (rel <= tol and launched == 1):
         raise AssertionError(f"mamba2_scan_bwd differs at {label}: {row}")
     if fault:
         ds, _ = ms.backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
@@ -1889,7 +1898,8 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: ms.mamba2_scan_backward(
             *args, s_prev, dy, dstate), reps=3, rounds=5)
-        row.update(ms=t_ms,
+        row.update(ms=t_ms, forward_with_states_ms=device_ms(
+            lambda: ms._forward(*args, init, True), reps=3, rounds=5),
                    plain_ms=device_ms(lambda: ms.mamba2_scan_backward_plain(
                        *args, init, dy, dstate), reps=1, rounds=3),
                    bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
@@ -1904,10 +1914,12 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
                                                         dtype),
                    build=build_facts("mamba2_scan_bwd", "ssd_"))
         src_smem = ms.kernel_bwd_smem_bytes(Q, N, P, heads, dtype)
-        if tuple(src_smem) != tuple(row["dynamic_smem_bytes"]):
+        if tuple(src_smem) != tuple(row["dynamic_smem_bytes"]) \
+                or ms.kernel_bwd_threads(Q, N) != row["threads"]:
             raise AssertionError(f"mamba2_scan_bwd at {label}: the wrapper's "
                                  f"shared memory {row['dynamic_smem_bytes']}"
-                                 f" is not the source's {src_smem}")
+                                 f" or threads {row['threads']} are not the "
+                                 f"source's {src_smem}")
     del plain, grads
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
@@ -2022,22 +2034,45 @@ MAMBA_BWD_SHAPES = {"zamba2 chunk": (1, 384, 4, 1, 64, 64, 128),
                     # the bf16 plan cuts the group into 2 or 4 tiles of 4
                     # or 2 heads (one or two blocks an SM); last chunk 16
                     "head tiles, ragged 2000 of Q 32": (2, 2000, 8, 1, 32,
-                                                        32, 32)}
+                                                        32, 32),
+                    # mamba2's d_state 128 (two tiles of 64 state rows) at
+                    # the chunk each type runs there (kernel_chunk: 64 in
+                    # fp32): last chunks of 72 (8 in fp32) and 2, two
+                    # groups, and a second tile of 36 rows at N 100
+                    "N 128, ragged 200": (2, 200, 3, 1, 128, 64, 128),
+                    "N 128 groups": (2, 96, 4, 2, 128, 32, 32),
+                    "N 100, ragged 130": (1, 130, 6, 2, 100, 24, 64)}
 SCAN_BWD_TIMED = {"zamba2-2.7b train": (4, 2048, 80, 1, 64, 64, 128),
-                  "rwkv6-3b train": (4, 2048, 40, 64)}
+                  "rwkv6-3b train": (4, 2048, 40, 64),
+                  # mamba2-2.7b (state-spaces/mamba2-2.7b: d_state 128,
+                  # headdim 64, 80 heads of d_inner 5120, one group) at
+                  # the train phase's batch; the chunk the pair runs there
+                  # (kernel_chunk) and the other one, timed beside it
+                  "mamba2-2.7b train": (4, 2048, 80, 1, 128, 64, 128)}
 
 
 def scan_bwd_rows():
-    """K7's backward in fp32 and bf16 at ``MAMBA_BWD_SHAPES`` and K8's at
-    every N of ``HEAD_DIMS`` (S 100: a last stretch of 4 steps) and at S
-    1000 (many stretches, the last of 8 steps), then
-    both timed at ``SCAN_BWD_TIMED`` with their planted faults; K8 must
-    refuse a bf16 gradient on CUDA tensors.  Returns the timed rows and
-    the largest errors."""
+    """K7's backward in fp32 and bf16 at ``MAMBA_BWD_SHAPES`` (each at
+    the chunk its type runs, ``kernel_chunk``; N 128 among them) and K8's
+    at every N of ``HEAD_DIMS`` (S 100: a last stretch of 4 steps) and at
+    S 1000 (many stretches, the last of 8 steps), then both timed at
+    ``SCAN_BWD_TIMED`` with their planted faults (K7 also in fp32), K7 also
+    at mamba2-2.7b's
+    training shape at both chunks of N 128 (64 and 128; ``chunk_runs``
+    marks the one a gradient runs at); K8 must refuse a bf16 gradient on
+    CUDA tensors.  The fp32 K7 rows' worst distance from the plain
+    backward is printed beside ``BOUNDARY_NOISE``'s K7 term
+    (``k7_bwd_fp32``).  Returns the timed rows and the largest errors."""
     worst = {"mamba2_scan_bwd": 0.0, "rwkv6_scan_bwd": 0.0}
+    fp32_rel = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for label, shape in MAMBA_BWD_SHAPES.items():
-            r = check_mamba_bwd(*shape, dtype, label, fault=label == "groups")
+            B, S, H, G, N, P, Q = shape
+            shape = (B, S, H, G, N, P, ms.kernel_chunk(Q, N, dtype))
+            r = check_mamba_bwd(*shape, dtype, label,
+                                fault=label in ("groups", "N 128 groups"))
+            if dtype == torch.float32:
+                fp32_rel = max(fp32_rel, r["rel_err"])
             if dtype == torch.bfloat16 and label.startswith("head tiles") \
                     and not (r["heads"] > 1 and r["tiles"] > 1):
                 raise AssertionError(f"mamba2_scan_bwd at {label}: the plan "
@@ -2063,6 +2098,9 @@ def scan_bwd_rows():
         pass
     else:
         raise AssertionError("rwkv6_scan took a bf16 gradient")
+    # the fp32 design (the agreement checks' type) timed at the same shape
+    check_mamba_bwd(*SCAN_BWD_TIMED["zamba2-2.7b train"], torch.float32,
+                    "zamba2-2.7b train fp32", timed=True)
     rows = {"mamba2_scan_bwd": check_mamba_bwd(
         *SCAN_BWD_TIMED["zamba2-2.7b train"], torch.bfloat16,
         "zamba2-2.7b train", timed=True, fault=True),
@@ -2071,6 +2109,17 @@ def scan_bwd_rows():
         plain_rows=1, fault=True)}
     for k, r in rows.items():
         worst[k] = max(worst[k], r["max_abs_err"])
+    B, S, H, G, N, P, Q = SCAN_BWD_TIMED["mamba2-2.7b train"]
+    ran = ms.kernel_chunk(Q, N, torch.bfloat16)
+    for q in (ran, 64 if ran == 128 else 128):
+        r = check_mamba_bwd(B, S, H, G, N, P, q, torch.bfloat16,
+                            f"mamba2-2.7b train, chunk {q}", timed=True,
+                            fault=q == ran, extra=dict(chunk_runs=q == ran))
+        worst["mamba2_scan_bwd"] = max(worst["mamba2_scan_bwd"],
+                                       r["max_abs_err"])
+    emit("k7_bwd_fp32", worst_rel_err=fp32_rel,
+         boundary_noise=BOUNDARY_NOISE[1],
+         within_boundary_noise=fp32_rel <= BOUNDARY_NOISE[1])
     return rows, worst
 
 
@@ -2131,6 +2180,9 @@ def kernel_phase():
                                (32, 16, 32, 64)):
             r = check_probe(nb, ways, D, B, dtype)
             errs["tac_probe"] = max(errs["tac_probe"], r["max_abs_err"])
+        # value rows past the old cap of 1536 columns: tiles of 1024
+        for D in (1537, 4096):
+            check_probe(16, 8, D, 32, dtype, exact=True)
         for n_slots, page, d, N in ((9, 1, 2, 8), (16, 4, 32, 12),
                                     (64, 16, 8, 40)):
             for check in (check_gather, check_scatter):
@@ -3881,8 +3933,10 @@ TRAIN = dict(arch="gemma-7b", layers=8, batch=4, seq=2048, steps=20,
 # boundary_rel (grad_rel holds them with the boundaries as identities);
 # the relative noises on K7's output of the CPU's witness runs: one
 # rounding of fp32 (2^-24), and K7's fp32 backward's distance from its
-# plain version on the card (2.58e-5 of the largest gradient)
-BOUNDARY_NOISE = (2.0 ** -24, 2.6e-5)
+# plain version on the card: 5.82e-5 of the largest gradient (dA at the
+# "zamba2 chunk" row; the other gradients 1.7e-5 at most) with its inputs
+# split bf16 hi + lo, on an H100 80GB HBM3 at 700 W
+BOUNDARY_NOISE = (2.0 ** -24, 5.82e-5)
 # zamba2-2.7b (K6, K7) and rwkv6-3b (K8) the same way at their published
 # width and depth (configs/zamba2_2_7b.py: 54 layers, 2.44 B parameters,
 # 29 GB of state; configs/rwkv6_3b.py: 32 layers, 3.10 B, 37 GB), fewer
@@ -3891,6 +3945,13 @@ TRAIN_SSM = {"zamba2-2.7b": dict(TRAIN, arch="zamba2-2.7b", layers=None,
                                  steps=12, timed=6),
              "rwkv6-3b": dict(TRAIN, arch="rwkv6-3b", layers=None, steps=12,
                               timed=6)}
+# a Mamba2 at the published family's state size: zamba2-2.7b's config
+# (d_model 2560, headdim 64, expand 2, one group) with
+# state-spaces/mamba2-2.7b's d_state 128 and chunk 256, at published
+# width, 8 of 54 layers, 4 steps (warm-up 1: three at the peak rate)
+TRAIN_D128 = dict(TRAIN, arch="zamba2-2.7b", layers=8, steps=4, timed=2,
+                  warmup=1, ssm=dict(state_dim=128, chunk=256),
+                  kernels=("mamba2_scan", "mamba2_scan_bwd"))
 # the kernels each arch's training step must launch, forward and backward
 TRAIN_KERNELS = {"gemma-7b": ("flash_attention", "flash_attention_bwd"),
                  "zamba2-2.7b": ("flash_attention", "flash_attention_bwd",
@@ -3901,15 +3962,21 @@ TRAIN_KERNELS = {"gemma-7b": ("flash_attention", "flash_attention_bwd"),
 def train_full_width(c=TRAIN):
     """(a) the training step at full width: ``c``'s steps through
     ``build_training`` on the card (every layer when ``c["layers"]`` is
-    None).  Returns its JSON row and the launch counts of those steps (the
-    arch's train path)."""
+    None; ``c["ssm"]`` replaces fields of the config's SSM), each kernel
+    of ``c["kernels"]`` (the arch's ``TRAIN_KERNELS``) launched.  Returns
+    its JSON row and the launch counts of those steps (the arch's train
+    path)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    depth = {} if c["layers"] is None else dict(num_layers=c["layers"])
+    over = {} if c["layers"] is None else dict(num_layers=c["layers"])
+    if "ssm" in c:
+        over["ssm"] = dataclasses.replace(get_config(c["arch"]).ssm,
+                                          **c["ssm"])
+    kernels = c.get("kernels", TRAIN_KERNELS[c["arch"]])
     state, step_fn, _, cfg = build_training(
         c["arch"], smoke=False, batch=c["batch"], seq=c["seq"], lr=c["lr"],
         seed=c["seed"], device="cuda", warmup=c["warmup"], remat="block",
-        **depth)
+        **over)
     n_params = sum(t.numel() for t in tree_flatten(state[0])[0])
     losses, step_ms = [], []
     reset_launches()
@@ -3929,21 +3996,21 @@ def train_full_width(c=TRAIN):
     ms_step = statistics.median(step_ms[-c["timed"]:])
     prof = profile_step(lambda: step_fn(state, c["steps"]))
     layer = k7_layer_check(step_fn, state, c["steps"] + 1) \
-        if "mamba2_scan_bwd" in TRAIN_KERNELS[c["arch"]] else None
+        if "mamba2_scan_bwd" in kernels else None
     row = dict(arch=c["arch"], layers=cfg.num_layers, of_layers=get_config(
         c["arch"]).num_layers, d_model=cfg.d_model, params=n_params,
         batch=c["batch"], seq=c["seq"], dtype=cfg.dtype, remat=cfg.remat,
         lr_peak=c["lr"], warmup=c["warmup"], losses=losses,
         step_ms=ms_step, step_ms_all=step_ms,
         tokens_per_s=c["batch"] * c["seq"] / (ms_step / 1e3),
-        peak_gb=peak / 1e9, launches=counts,
-        kernel_launches={k: counts[k] for k in TRAIN_KERNELS[c["arch"]]},
+        peak_gb=peak / 1e9, launches=counts, ssm=c.get("ssm"),
+        kernel_launches={k: counts[k] for k in kernels},
         device_busy_share=prof["device_busy_share"], clocks=clocks,
         bwd_kernels=bwd_kernel_ms(prof), k7_layer=layer, profile=prof)
     del state
     torch.cuda.empty_cache()
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-            and all(counts[k] > 0 for k in TRAIN_KERNELS[c["arch"]])
+            and all(counts[k] > 0 for k in kernels)
             and row["peak_gb"] < c["peak_gb"]):
         raise AssertionError(f"train {c['arch']} at full width: {row}")
     return row, counts
@@ -4222,8 +4289,9 @@ def train_example():
 def train_phase():
     """Training on the card: (a) gemma-7b, zamba2-2.7b and rwkv6-3b at
     full width (each arch's train path), (b) each against the CPU in
-    fp32, (c) the example's supervised run with a failure.  Returns the
-    launch counts of each (a), by path."""
+    fp32, then a Mamba2 at d_state 128 (``TRAIN_D128``), (c) the
+    example's supervised run with a failure.  Returns the launch counts
+    of each (a), by path."""
     paths = {}
     for path, c in (("train", TRAIN),
                     ("train_zamba2", TRAIN_SSM["zamba2-2.7b"]),
@@ -4231,6 +4299,8 @@ def train_phase():
         row, paths[path] = train_full_width(c)
         emit("train", **row)
         emit("train_card_vs_cpu", **train_card_vs_cpu(c["arch"]))
+    row, paths["train_mamba2_d128"] = train_full_width(TRAIN_D128)
+    emit("train", **row)
     emit("train_example", **train_example())
     return paths
 

@@ -4,6 +4,9 @@
 // a block takes, each head's dt and cumulative decay within a chunk, the
 // bf16 hi + lo split of computed operands, ldmatrix lane offsets and the
 // chunk-state kernel (the forward's pass (a), the backward's kernel (a)).
+// An fp32 input reaches the backward's kernels split in two bf16 planes,
+// hi (its rounding) and lo (the rounding of the rest), interleaved a row
+// at a time: x [B, S, H, 2, P], B and C [B, S, G, 2, N].
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,9 +26,10 @@ __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
 // shared memory of passes (a) and (c): bf16 rows padded by 16 bytes so
 // that ldmatrix meets no bank conflict
 __host__ __device__ constexpr int state_smem_bytes(int Q, int N, int P,
-                                                   int heads) {
-  // B [Qp][Np + 8], x [2][Qp][Pp + 8] bf16; dt, cum, weights [heads][Qp]
-  return 2 * (pad16(Q) * (pad16(N) + 8) + 2 * pad16(Q) * (pad16(P) + 8))
+                                                   int heads, int R = 1) {
+  // B [R][Qp][Np + 8], x [2][R][Qp][Pp + 8] bf16 (R planes of an input:
+  // 2 for a split fp32 one); dt, cum, weights [heads][Qp]
+  return 2 * R * (pad16(Q) * (pad16(N) + 8) + 2 * pad16(Q) * (pad16(P) + 8))
          + 4 * 3 * heads * pad16(Q);
 }
 // rows x cols of a bf16 matrix (row stride ld) into shared memory (row
@@ -136,6 +140,14 @@ __device__ __forceinline__ void scale_split(uint32_t v, float2 s,
   const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
   split2(f.x * s.x, f.y * s.y, hi, lo);
 }
+// the pair held as packed hi and lo planes (a split fp32 input), summed in
+// fp32, times (s.x, s.y) and split again
+__device__ __forceinline__ void scale_split(uint32_t v, uint32_t l, float2 s,
+                                            uint32_t& hi, uint32_t& lo) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  const float2 e = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&l));
+  split2((f.x + e.x) * s.x, (f.y + e.y) * s.y, hi, lo);
+}
 
 // acc[j] (n-tiles j < PT <= 8) += a @ the [16][8 PT] bf16 tile at b (by
 // ldmatrix.trans from this lane's address).  mma.sync is volatile asm,
@@ -191,34 +203,51 @@ __device__ __forceinline__ int bt_lane(int lane, int ld) {
   return (lane % 8 + 8 * ((lane / 8) % 2)) * ld + 8 * (lane / 16);
 }
 
+// x's R planes of head h (hi, then lo when R is 2) into dst [R][Qp][PL]
+template <int R>
+__device__ __forceinline__ void stage_planes(bf16* dst, int dld, int rows_p,
+                                             const bf16* src, int64_t ld,
+                                             int n_valid, int cols,
+                                             int cols_p) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    stage(dst + r * rows_p * dld, dld, src + r * cols, ld, n_valid, rows_p,
+          cols, cols_p);
+}
+
 // The forward's pass (a), GRAD false: S_loc[b, c, h] = sum_j B[j]^T
 // exp(cum_last - cum[j]) dt[j] x[j].  The backward's kernel (a), GRAD true,
 // with C in B's place and dy in x's: the chunk's own part of the gradient
 // of the state entering it, sum_i C[i]^T exp(cum[i]) dy[i].  Both write
-// dec[b, c, h] = exp(cum_last)
-template <bool GRAD>
+// dec[b, c, h] = exp(cum_last).  F32 (the backward's fp32 inputs, split):
+// the scaled B^T is formed from hi + lo, and the lo plane of x adds the
+// third product
+template <bool GRAD, bool F32 = false>
 __global__ void __launch_bounds__(kTcThreads)
 ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const bf16* __restrict__ Bm,
                  float* __restrict__ s_loc, float* __restrict__ dec, int S,
                  int H, int G, int N, int P, int Q, int heads) {
+  constexpr int R = F32 ? 2 : 1;       // planes of an input
   const int Qp = pad16(Q), Np = pad16(N), Pp = pad16(P);
   const int NL = Np + 8, PL = Pp + 8;
   const int nc = (S + Q - 1) / Q;
   const Tile tl = tile_of(blockIdx.x, nc, G, H / G, heads);
   const int s0 = tl.c * Q, n_valid = min(Q, S - s0);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* b_s = reinterpret_cast<bf16*>(smem_raw);   // [Qp][NL]
-  bf16* x_s = b_s + Qp * NL;                        // [2][Qp][PL]
-  float* dt_s = reinterpret_cast<float*>(x_s + 2 * Qp * PL);  // [heads][Qp]
+  bf16* b_s = reinterpret_cast<bf16*>(smem_raw);   // [R][Qp][NL]
+  bf16* x_s = b_s + R * Qp * NL;                    // [2][R][Qp][PL]
+  float* dt_s = reinterpret_cast<float*>(x_s + 2 * R * Qp * PL);
   float* cum_s = dt_s + heads * Qp;                 // [heads][Qp]
   float* w_s = cum_s + heads * Qp;                  // [heads][Qp]
 
-  const int64_t xld = (int64_t)H * P;
+  const int64_t xld = (int64_t)H * P * R;
   const bf16* xb = x + ((int64_t)tl.b * S + s0) * xld;
-  stage(b_s, NL, Bm + (((int64_t)tl.b * S + s0) * G + tl.g) * N,
-        (int64_t)G * N, n_valid, Qp, N, Np);
-  stage(x_s, PL, xb + (int64_t)tl.h0 * P, xld, n_valid, Qp, P, Pp);
+  stage_planes<R>(b_s, NL, Qp,
+                  Bm + (((int64_t)tl.b * S + s0) * G + tl.g) * N * R,
+                  (int64_t)G * N * R, n_valid, N, Np);
+  stage_planes<R>(x_s, PL, Qp, xb + (int64_t)tl.h0 * P * R, xld, n_valid, P,
+                  Pp);
   cp_async_commit();
   chunk_cumsum(dt_s, cum_s, dt, A, tl, s0, n_valid, S, H, Qp);
   for (int e = threadIdx.x; e < tl.nh * Qp; e += blockDim.x) {
@@ -238,8 +267,9 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   for (int hi = 0; hi < tl.nh; ++hi) {
     const int st = hi & 1;
     if (hi + 1 < tl.nh) {
-      stage(x_s + (st ^ 1) * Qp * PL, PL, xb + (int64_t)(tl.h0 + hi + 1) * P,
-            xld, n_valid, Qp, P, Pp);
+      stage_planes<R>(x_s + (st ^ 1) * R * Qp * PL, PL, Qp,
+                      xb + (int64_t)(tl.h0 + hi + 1) * P * R, xld, n_valid,
+                      P, Pp);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -253,7 +283,7 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
       const float* wh = w_s + hi * Qp;
-      const bf16* xt = x_s + st * Qp * PL;
+      const bf16* xt = x_s + st * R * Qp * PL;
       for (int kt = 0; kt < KT; ++kt) {
         uint32_t a[4];
         ldsm_x4_t(a, b_addr + kt * 16 * NL * 2);
@@ -261,11 +291,22 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const float2 w1 =
             *reinterpret_cast<const float2*>(wh + kt * 16 + 8 + 2 * t4);
         uint32_t ah[4], al[4];
-        scale_split(a[0], w0, ah[0], al[0]);
-        scale_split(a[1], w0, ah[1], al[1]);
-        scale_split(a[2], w1, ah[2], al[2]);
-        scale_split(a[3], w1, ah[3], al[3]);
+        if constexpr (F32) {
+          uint32_t l[4];               // B's lo plane, the same entries
+          ldsm_x4_t(l, b_addr + (Qp + kt * 16) * NL * 2);
+          scale_split(a[0], l[0], w0, ah[0], al[0]);
+          scale_split(a[1], l[1], w0, ah[1], al[1]);
+          scale_split(a[2], l[2], w1, ah[2], al[2]);
+          scale_split(a[3], l[3], w1, ah[3], al[3]);
+        } else {
+          scale_split(a[0], w0, ah[0], al[0]);
+          scale_split(a[1], w0, ah[1], al[1]);
+          scale_split(a[2], w1, ah[2], al[2]);
+          scale_split(a[3], w1, ah[3], al[3]);
+        }
         mma_split(acc, ah, al, smem_addr(xt + kt * 16 * PL + x_off), PT);
+        if constexpr (F32)             // hi times x's lo plane
+          mma_row(acc, ah, smem_addr(xt + (Qp + kt * 16) * PL + x_off), PT);
       }
       float* out = s_loc + (unit + hi) * N * P;
 #pragma unroll

@@ -21,9 +21,8 @@ sets their blocks and scratch.  fp32 runs one pass on the CUDA cores.
 The kernel takes N up to ``MAX_N`` and P up to ``MAX_P``; the wrapper
 takes any chunk and runs one above ``chunk_cap`` as chunks of the cap
 (``kernel_chunk``), which changes only the order of the sums.  That sits
-outside ``Mamba2Scan``, so the backward runs at the kernel's chunk; it
-takes N and P up to ``BWD_MAX_NP``, and the wrapper refuses a gradient
-past that before any launch.
+outside ``Mamba2Scan``, so the backward runs at the kernel's chunk, at
+every N and P the forward takes.
 
 When a gradient is asked of CUDA tensors, the call goes through
 ``Mamba2Scan``, a ``torch.autograd.Function``: its forward launches the
@@ -31,9 +30,11 @@ same kernel and keeps the state entering each chunk (bf16: the passes'
 hi and lo scratch; fp32: an output of the one-pass kernel), and its
 backward launches ``csrc/mamba2_scan_bwd.cu`` (``mamba2_scan_backward``:
 the state gradients at the chunk boundaries, then each chunk's
-gradients; in bf16 on the tensor cores with a tile of heads a block,
-``bwd_plan``).  On the CPU autograd differentiates the plain version, which
-is also the plain backward (``mamba2_scan_backward_plain``).
+gradients; on the tensor cores with a tile of heads a block,
+``bwd_plan``, in both types: fp32 inputs are split into bf16 hi and lo
+planes first, ``split_planes``).  On the CPU autograd differentiates the
+plain version, which is also the plain backward
+(``mamba2_scan_backward_plain``).
 
 Given DTensors (under a mesh), the wrapper runs on the local shards
 (``kernels/sharded.py``): batch and heads may be split over the mesh,
@@ -60,12 +61,12 @@ MAX_CHUNK = 128                  # the kernel's chunk (the wrapper's: any)
 MAX_N = 128                      # state rows N (d_state), forward
 MAX_P = 64                       # state columns P (head dim)
 MAX_N_F32 = 64                   # fp32 runs chunks of 64 above this N
-BWD_MAX_NP = 64                  # N and P of the backward (kMaxNP)
+TILE_N = 64                      # state rows a group of the backward's warps
 MAX_HEADS = 16                   # heads a block of passes (a) and (c)
 WAVE_SHARE = 0.9                 # how full pass (c)'s last wave must be
 SMEM_LIMIT = 232_448             # dynamic shared memory a block may take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PER_SM = {}                     # (library, Q, N, P) -> blocks an SM
+_PER_SM = {}                     # (library, Q, N, P, dtype) -> blocks an SM
 
 
 def pad16(n: int) -> int:
@@ -131,42 +132,57 @@ def plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
                 scratch=scratch_bytes(B, S, H, N, P, Q))
 
 
+def n_tiles(N: int) -> int:
+    """Tiles of ``TILE_N`` state rows the backward's chunk kernels walk,
+    a group of warps each."""
+    return -(-N // TILE_N)
+
+
+def bwd_threads(Q: int, N: int) -> int:
+    """Threads a block of the backward's chunk kernels: 4 warps a tile of
+    N, or 2 a tile with two tiles when the chunk has at most 4 row tiles
+    of 16 (2 warps own them all)."""
+    return 2 * 2 * 32 if n_tiles(N) > 1 and pad16(Q) <= 64 \
+        else n_tiles(N) * 4 * 32
+
+
 def bwd_smem_bytes(Q: int, N: int, P: int, heads: int, dtype):
     """(kernel (a), the chunk kernels) dynamic shared memory of a backward
-    block, as ``csrc/mamba2_scan_bwd.cu`` lays it out.  bf16 (a) is the
-    forward's pass (a) (``smem_bytes``); (c1) and (c2) hold B or C, two
-    buffers of x and dy, s_prev or dS as hi and lo, bf16 rows padded by 8
-    elements, and five fp32 vectors of Qp and four floats.  fp32, all
-    fp32: (a) exp(cum) C [Q][N], dy [Q][P], dt and cum; (c) B and C
-    [Q][N + 1], dtx and dy [Q][P + 1], the state gradient (then s_prev)
-    [N][P + 1], M [Q][Q + 1] and 16 vectors of Q."""
-    if dtype == torch.bfloat16:
-        Qp, Np, Pp = pad16(Q), pad16(N), pad16(P)
-        return (smem_bytes(Q, N, P, heads)[0],
-                2 * (Qp * (Np + 8) + 4 * Qp * (Pp + 8) + 2 * Np * (Pp + 8))
-                + 4 * (5 * Qp + 4))
-    return (4 * (Q * N + Q * P + 2 * Q),
-            4 * (2 * Q * (N + 1) + 2 * Q * (P + 1) + N * (P + 1)
-                 + Q * (Q + 1) + 16 * Q))
+    block, as ``csrc/mamba2_scan_bwd.cu`` lays it out, bf16 rows padded by
+    8 elements, each input in R planes (2 for fp32's hi and lo).  (a) is
+    the forward's pass (a) (``smem_bytes``) on R planes; (c1) and (c2)
+    hold B or C, two buffers of x and dy, s_prev or dS as hi and lo, five
+    fp32 vectors of Qp and four floats, and with two tiles of N (c2)'s
+    exchange of d dtx [Qp][Pp] and two vectors of Qp."""
+    R = 2 if dtype == torch.float32 else 1
+    Qp, Np, Pp = pad16(Q), pad16(N), pad16(P)
+    a = 2 * R * (Qp * (Np + 8) + 2 * Qp * (Pp + 8)) + 4 * 3 * heads * Qp
+    c = 2 * (R * Qp * (Np + 8) + 4 * R * Qp * (Pp + 8) + 2 * Np * (Pp + 8)) \
+        + 4 * (5 * Qp + 4)
+    if n_tiles(N) > 1:
+        c += 4 * (Qp * Pp + 2 * Qp)
+    return a, c
 
 
 def bwd_scratch_bytes(B: int, S: int, H: int, G: int, N: int, P: int,
                       Q: int, dtype, heads: int = 1) -> dict:
-    """What the backward holds beside its inputs and gradients, all fp32
-    but the bf16 hi and lo halves: the state entering each chunk from the
-    forward (fp32, or hi and lo); the state gradient at each chunk's end
-    ds [B, chunks, H, N, P] (fp32; bf16: hi and lo, from the chunks' own
-    parts ds_loc, fp32) and the chunks' decays [B, chunks, H]; the parts
-    of dB and dC [B, S, G tiles, N] of each tile of ``heads`` heads (fp32:
-    a head a tile); W's row sums plus the inter term [B, chunks, H,
-    pad16(Q)] (bf16 only); the chunks' parts of dA [B, chunks, H]."""
+    """What the backward holds beside its inputs and gradients: the state
+    entering each chunk from the forward (fp32, or bf16 hi and lo); the
+    state gradient at each chunk's end ds [B, chunks, H, 2, N, P] as bf16
+    hi and lo, from the chunks' own parts ds_loc, fp32, and the chunks'
+    decays [B, chunks, H]; the parts of dB and dC [B, S, G tiles, N] of
+    each tile of ``heads`` heads; W's row sums plus the inter term [B,
+    chunks, H, N tiles, pad16(Q)]; the chunks' parts of dA [B, chunks,
+    H]; in fp32 the inputs split into bf16 hi and lo planes (x, Bm, Cm,
+    dy and the forward's states), as many bytes as they hold."""
     nc = -(-S // Q)
     state = 4 * B * nc * H * N * P
     tiles = -(-(H // G) // heads)
     out = dict(s_prev=state, ds=state, dec=4 * B * nc * H,
-               dBC_part=2 * 4 * B * S * G * tiles * N, dA_part=4 * B * nc * H)
-    if dtype == torch.bfloat16:
-        out.update(ds_loc=state, rsi=4 * B * nc * H * pad16(Q))
+               dBC_part=2 * 4 * B * S * G * tiles * N, dA_part=4 * B * nc * H,
+               ds_loc=state, rsi=4 * B * nc * H * n_tiles(N) * pad16(Q))
+    if dtype == torch.float32:
+        out["planes"] = 4 * (2 * B * S * H * P + 2 * B * S * G * N) + state
     return out
 
 
@@ -174,11 +190,13 @@ def bwd_plan(B: int, S: int, H: int, G: int, N: int, P: int, Q: int,
              sms: int, per_sm: int) -> dict:
     """The bf16 backward's launch at these shapes: heads a block of
     kernels (a), (c1) and (c2) (``plan_heads`` on the blocks of (c2) an
-    SM holds), tiles of a group, blocks, shared memory and scratch."""
+    SM holds), tiles of a group, blocks, threads, shared memory and
+    scratch."""
     nc = -(-S // Q)
     heads = plan_heads(B * nc * G, H // G, sms, per_sm)
     tiles = -(-(H // G) // heads)
     return dict(chunks=nc, heads=heads, tiles=tiles, blocks=B * nc * G * tiles,
+                threads=bwd_threads(Q, N),
                 smem=bwd_smem_bytes(Q, N, P, heads, torch.bfloat16),
                 scratch=bwd_scratch_bytes(B, S, H, G, N, P, Q, torch.bfloat16,
                                           heads))
@@ -272,34 +290,37 @@ def _check(x, dt, A, Bm, Cm, Q: int, init) -> None:
                          "init [B, H, N, P] and a chunk >= 1 expected")
 
 
-def card_slots(Q: int, N: int, P: int, device, lib: str = "mamba2_scan"):
+def card_slots(Q: int, N: int, P: int, device, lib: str = "mamba2_scan",
+               dtype=torch.bfloat16):
     """(SMs of the card, blocks an SM holds at these sizes), as the library
     reports them (asked once a size): of the forward's pass (c) for
-    ``lib`` "mamba2_scan", of the backward's kernel (c2) for
+    ``lib`` "mamba2_scan", of the backward's kernel (c2) in ``dtype`` for
     "mamba2_scan_bwd"."""
-    key = (lib, Q, N, P)
+    key = (lib, Q, N, P, dtype)
     if key not in _PER_SM:
         fn = getattr(cuda_build.load(lib), f"{lib}_blocks_per_sm")
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         n = ctypes.c_int(0)
-        cuda_build.check(fn(Q, N, P, ctypes.byref(n)),
-                         f"{lib} blocks per SM")
+        if lib == "mamba2_scan_bwd":
+            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            err = fn(Q, N, P, int(dtype == torch.float32), ctypes.byref(n))
+        else:
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            err = fn(Q, N, P, ctypes.byref(n))
+        cuda_build.check(err, f"{lib} blocks per SM")
         _PER_SM[key] = n.value
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms, _PER_SM[key]
 
 
 def bwd_heads(x, Bm, Q: int) -> int:
-    """Heads a block of the backward's tensor-core kernels take (bf16), 1
-    for fp32 (a block a head)."""
-    if x.dtype != torch.bfloat16:
-        return 1
+    """Heads a block of the backward's tensor-core kernels take."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc = -(-S // Q)
     return plan_heads(B_ * nc * G, H // G,
-                      *card_slots(Q, N, P, x.device, "mamba2_scan_bwd"))
+                      *card_slots(Q, N, P, x.device, "mamba2_scan_bwd",
+                                  x.dtype))
 
 
 def chunk_cap(N: int, dtype) -> int:
@@ -350,10 +371,6 @@ def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init)):
-        N, P = Bm.shape[3], x.shape[3]
-        if N > BWD_MAX_NP or P > BWD_MAX_NP:
-            raise ValueError(f"mamba2_scan: the backward kernel takes N, P "
-                             f"<= {BWD_MAX_NP}, not N {N}, P {P}")
         return Mamba2Scan.apply(x, dt, A, Bm, Cm, Q, init)
     return _forward(x, dt, A, Bm, Cm, Q, init, False)[:2]
 
@@ -434,9 +451,6 @@ def _bwd_check(x, dt, A, Bm, Cm, Q: int, dy, dstate) -> None:
     B_, S, H, P = x.shape
     N = Bm.shape[3]
     kernel_limits(x, Bm, Cm, Q)
-    if N > BWD_MAX_NP or P > BWD_MAX_NP:
-        raise ValueError(f"mamba2_scan_backward: the kernel takes N, P <= "
-                         f"{BWD_MAX_NP}, not N {N}, P {P}")
     if any(not t.is_contiguous() for t in (x, dt, A, Bm, Cm, dy)) \
             or dt.dtype != torch.float32 or A.dtype != torch.float32 \
             or dy.shape != x.shape or dy.dtype != x.dtype \
@@ -449,20 +463,41 @@ def _bwd_check(x, dt, A, Bm, Cm, Q: int, dy, dstate) -> None:
                          "dstate [B, H, N, P] expected")
 
 
+def split_planes(t, rows: int):
+    """An fp32 tensor of ``rows`` rows as the backward's split input: bf16
+    [rows, 2, width], each value's bf16 rounding hi and the rounding of the
+    rest lo (``csrc/mamba2_scan_bwd.cu``'s ``mamba2_scan_bwd_split``); a
+    bf16 tensor as it is."""
+    if t.dtype == torch.bfloat16:
+        return t
+    width = t.numel() // rows if rows else 0
+    out = torch.empty((rows, 2, width), dtype=torch.bfloat16,
+                      device=t.device)
+    fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_split
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    cuda_build.check(fn(t.data_ptr(), out.data_ptr(), rows, width,
+                        cuda_build.stream_ptr(t.device)),
+                     "mamba2_scan_bwd_split")
+    return out
+
+
 def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate, heads: int):
     """Kernels (a) and (b) of the backward, ``heads`` heads a block
-    (``bwd_heads``): the gradient of the state leaving each chunk, ds [B,
-    chunks, H, N, P] fp32 (bf16: its hi and lo halves [B, chunks, H, 2,
-    N, P]), and dinit [B, H, N, P] fp32.  Not counted:
-    ``mamba2_scan_backward`` is the entry point."""
+    (``bwd_heads``): the gradient of the state leaving each chunk as bf16
+    hi and lo halves, ds [B, chunks, H, 2, N, P], and dinit [B, H, N, P]
+    fp32.  Not counted: ``mamba2_scan_backward`` is the entry point."""
     B_, S, H, P = x.shape
     G, N = Cm.shape[2], Cm.shape[3]
     nc = -(-S // Q)
-    bf16 = x.dtype == torch.bfloat16
-    ds = torch.empty((B_, nc, H, 2, N, P) if bf16 else (B_, nc, H, N, P),
-                     dtype=x.dtype, device=x.device)
+    f32 = x.dtype == torch.float32
+    Cm2, dy2 = split_planes(Cm, B_ * S * G), split_planes(dy, B_ * S * H)
+    ds = torch.empty((B_, nc, H, 2, N, P), dtype=torch.bfloat16,
+                     device=x.device)
     ds_loc = torch.empty((B_, nc, H, N, P), dtype=torch.float32,
-                         device=x.device) if bf16 else None
+                         device=x.device)
     dec = torch.empty((B_, nc, H), dtype=torch.float32, device=x.device)
     dinit = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_dstates
@@ -470,11 +505,10 @@ def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate, heads: int):
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(dt.data_ptr(), A.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+    err = fn(dt.data_ptr(), A.data_ptr(), Cm2.data_ptr(), dy2.data_ptr(),
              0 if dstate is None else dstate.data_ptr(), ds.data_ptr(),
-             0 if ds_loc is None else ds_loc.data_ptr(), dec.data_ptr(),
-             dinit.data_ptr(), B_, S, H, G, N, P, Q, heads, int(bf16),
-             cuda_build.stream_ptr(x.device))
+             ds_loc.data_ptr(), dec.data_ptr(), dinit.data_ptr(), B_, S, H,
+             G, N, P, Q, heads, int(f32), cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan_bwd_dstates")
     return ds, dinit
 
@@ -482,18 +516,24 @@ def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate, heads: int):
 def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
                           heads: int):
     """The chunk kernels and (d) of the backward, ``heads`` heads a block:
-    (dx, ddt, dA, dB, dC) from the forward's ``s_prev`` and the state
+    (dx, ddt, dA, dB, dC) from the forward's ``s_prev`` (fp32 [B, chunks,
+    H, N, P], or bf16 hi and lo [B, chunks, H, 2, N, P]) and the state
     gradients ``ds`` at the chunks' ends.  Not counted:
     ``mamba2_scan_backward`` is the entry point."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc = -(-S // Q)
-    bf16 = x.dtype == torch.bfloat16
-    want = (B_, nc, H, 2, N, P) if bf16 else (B_, nc, H, N, P)
+    f32 = x.dtype == torch.float32
+    halves = (B_, nc, H, 2, N, P)
+    want = (B_, nc, H, N, P) if f32 else halves
     if s_prev.shape != want or s_prev.dtype != x.dtype \
-            or ds.shape != want or ds.dtype != x.dtype:
-        raise ValueError(f"mamba2_scan_backward: s_prev and ds {want} in "
-                         f"x's type expected")
+            or ds.shape != halves or ds.dtype != torch.bfloat16:
+        raise ValueError(f"mamba2_scan_backward: s_prev {want} in x's type "
+                         f"and ds {halves} bf16 expected")
+    x2, Bm2, Cm2, dy2, sp2 = (
+        split_planes(t, n) for t, n in (
+            (x, B_ * S * H), (Bm, B_ * S * G), (Cm, B_ * S * G),
+            (dy, B_ * S * H), (s_prev, B_ * nc * H)))
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
@@ -502,19 +542,19 @@ def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
     parts = [torch.empty((B_, S, G * tiles, N), dtype=torch.float32,
                          device=x.device) for _ in range(2)]
     dA_part = torch.empty((B_, nc, H), dtype=torch.float32, device=x.device)
-    rsi = torch.empty((B_, nc, H, pad16(Q)), dtype=torch.float32,
-                      device=x.device) if bf16 else None
+    rsi = torch.empty((B_, nc, H, n_tiles(N), pad16(Q)), dtype=torch.float32,
+                      device=x.device)
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_chunks
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-             Cm.data_ptr(), dy.data_ptr(), s_prev.data_ptr(), ds.data_ptr(),
+    err = fn(x2.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm2.data_ptr(),
+             Cm2.data_ptr(), dy2.data_ptr(), sp2.data_ptr(), ds.data_ptr(),
              dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
              dC.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-             dA_part.data_ptr(), 0 if rsi is None else rsi.data_ptr(), B_, S,
-             H, G, N, P, Q, heads, int(bf16), cuda_build.stream_ptr(x.device))
+             dA_part.data_ptr(), rsi.data_ptr(), B_, S, H, G, N, P, Q, heads,
+             int(f32), cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan_bwd_chunks")
     return dx, ddt, dA, dB, dC
 
@@ -584,5 +624,11 @@ def kernel_bwd_smem_bytes(Q: int, N: int, P: int, heads: int, dtype):
     the CUDA source computes it (for the card's checks against
     ``bwd_smem_bytes``)."""
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_smem_bytes
-    bf16 = int(dtype == torch.bfloat16)
-    return fn(Q, N, P, heads, bf16, 0), fn(Q, N, P, heads, bf16, 1)
+    f32 = int(dtype == torch.float32)
+    return fn(Q, N, P, heads, f32, 0), fn(Q, N, P, heads, f32, 1)
+
+
+def kernel_bwd_threads(Q: int, N: int) -> int:
+    """Threads a block of the backward's chunk kernels as the CUDA source
+    computes them (for the card's checks against ``bwd_threads``)."""
+    return cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_threads(Q, N)

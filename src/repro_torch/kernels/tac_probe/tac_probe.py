@@ -6,7 +6,8 @@ organised as (n_buckets x ways); a batch of state-access keys is probed in
 one launch: each query compares its bucket's ``ways`` keys and returns
 (value_row, hit, way).  ``tac_probe_kernel`` launches the kernel for CUDA
 tensors and runs ``tac_probe_plain`` for CPU tensors; it never falls back
-from one to the other.
+from one to the other.  The kernel takes any value width D: a block sums
+one tile of ``TILE_D`` columns of the matched rows (``d_tiles``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ from repro_torch.kernels import cuda_build
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: "tac_probe_f32", torch.bfloat16: "tac_probe_bf16"}
+TILE_D = 1024                    # value columns a block sums (kTileD)
+
+
+def d_tiles(D: int):
+    """The kernel's tiles of the value columns: (first column, width) of
+    each block of a query, ``TILE_D`` wide but the last."""
+    return [(d0, min(TILE_D, D - d0)) for d0 in range(0, D, TILE_D)]
 
 
 def tac_probe_plain(qkeys, buckets, bucket_keys, bucket_vals):
@@ -52,10 +60,6 @@ def _launch(qkeys, buckets, bucket_keys, bucket_vals):
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.tac_probe_max_d.restype = ctypes.c_int
-    if D > lib.tac_probe_max_d():
-        raise ValueError(f"tac_probe: D={D} exceeds the kernel's "
-                         f"{lib.tac_probe_max_d()}")
     dev = qkeys.device
     out = torch.empty((B, D), dtype=bucket_vals.dtype, device=dev)
     hit = torch.empty((B,), dtype=torch.int32, device=dev)

@@ -252,8 +252,10 @@ def test_mamba_sub_chunked_plain_equals_the_jax_kernel_at_the_callers_chunk(
 
 def test_mamba_card_path_at_n128_runs_the_kernels_chunk_on_meta_tensors():
     """Meta tensors take the wrapper's card path: N 128 at chunk 256 books
-    the kernel's chunk, 128 in bf16; a gradient at N 128 is refused before
-    anything is booked or launched (the backward takes N <= 64)."""
+    the kernel's chunk, 128 in bf16, forward and, through ``Mamba2Scan``,
+    backward (the backward takes N up to 128 since its chunk kernels walk
+    the state in tiles of 64); past the forward's N the wrapper still
+    refuses before anything is booked."""
     B, S, H, N, P = 1, 512, 4, 128, 64
     meta = dict(device="meta")
     x = torch.empty((B, S, H, P), dtype=BF16, **meta)
@@ -266,14 +268,19 @@ def test_mamba_card_path_at_n128_runs_the_kernels_chunk_on_meta_tensors():
         assert y.shape == x.shape and state.shape == (B, H, N, P)
         assert booked == [("mamba2_scan",
                            *costs.mamba_fwd(B, S, H, 1, N, P, 128, 2))]
-        with pytest.raises(ValueError, match="backward"):
-            ms.mamba2_scan_kernel(x.requires_grad_(), dt, A, bc, bc, 256)
-    assert len(booked) == 1
+        xg = x.clone().requires_grad_()
+        y, state = ms.mamba2_scan_kernel(xg, dt, A, bc, bc, 256)
+        (dx,) = torch.autograd.grad(y, xg, torch.empty_like(y))
+        assert dx.shape == x.shape and dx.device.type == "meta"
+    assert booked[1:] == [
+        ("mamba2_scan", *costs.mamba_fwd(B, S, H, 1, N, P, 128, 2)),
+        ("mamba2_scan_bwd", *costs.mamba_bwd(B, S, H, 1, N, P, 128, 2))]
     with pytest.raises(ValueError, match="N <= 128"):
-        ms.mamba2_scan_kernel(x.detach(), dt, A,
+        ms.mamba2_scan_kernel(x.requires_grad_(), dt, A,
                               torch.empty((B, S, 1, 129), dtype=BF16, **meta),
                               torch.empty((B, S, 1, 129), dtype=BF16, **meta),
                               256)
+    assert len(booked) == 3
 
 
 # --------------------------------------------------- K8 padded state size

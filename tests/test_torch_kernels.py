@@ -3,6 +3,7 @@ CPU path of each wrapper), against the reference package's Pallas kernels
 in interpret mode, on the same numpy inputs.  Ints and bools must be
 bit-equal; floats agree within the reference's ``_tol``."""
 import os
+from pathlib import Path
 import sys
 
 import jax.numpy as jnp
@@ -82,6 +83,69 @@ def test_tac_probe_wide_single_bucket(dtype):
     np.testing.assert_array_equal(pw.numpy(), np.asarray(rw))
     assert_close(to_np(pv), rv, dtype)
     assert int(ph.sum()) == 32
+
+
+def tac_probe_tiles_replay(qk, bkeys, bvals):
+    """csrc/tac_probe.cu's plan in numpy fp32: a block per (query, tile of
+    ``TILE_D`` value columns, ``d_tiles``); its 8 warps each stride over
+    the ways 32 at a time (warp w takes ways 32 w + 256 k + lane), sum the
+    tile's columns of their matched rows in way order, then the block sums
+    the warps' rows in order; hit and way (the first match) once a query.
+    Returns (values, hit, way) and the tiles' (first column, width)."""
+    B = qk.shape[0]
+    nb, ways = bkeys.shape
+    D = bvals.shape[-1]
+    tiles = ttp_mod.d_tiles(D)
+    out = np.zeros((B, D), np.float32)
+    hit, way = np.zeros(B, np.int32), np.full(B, -1, np.int32)
+    for b in range(B):
+        bucket = int(np.asarray(jtp.bucket_of(jnp.asarray(qk[b:b + 1]),
+                                              nb))[0])
+        matched = np.flatnonzero(bkeys[bucket] == qk[b])
+        for d0, w in tiles:
+            rows = np.zeros((8, w), np.float32)
+            for wm in matched:           # each warp in increasing way order
+                rows[(wm // 32) % 8] += bvals[bucket, wm, d0:d0 + w]
+            acc = np.zeros(w, np.float32)
+            for r in rows:
+                acc += r
+            out[b, d0:d0 + w] = acc
+        if len(matched):                 # the first tile's block writes
+            hit[b], way[b] = 1, matched.min()
+    return (out, hit, way), tiles
+
+
+@pytest.mark.parametrize("D", [1024, 1025, 1537, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tac_probe_tiles_of_d_replay_the_plain_version(D, dtype):
+    """Any value width: the kernel's tiles of ``TILE_D`` columns cover D
+    once, each block's fp32 rows and the warps' first matches (32 bytes)
+    within the 48 KB a block may take without opting in (one row of
+    1536, the old cap, took it all with nothing left for the first
+    matches), and the tiled sums, a key present twice in its
+    bucket included, equal the plain version and the JAX kernel."""
+    import re
+    src = (Path(ttp_mod.__file__).resolve().parents[2] / "csrc"
+           / "tac_probe.cu").read_text()
+    assert int(re.search(r"constexpr int kTileD = (\d+);", src).group(1)) \
+        == ttp_mod.TILE_D
+    qk, bkeys, bvals = _probe_inputs(8, 64, D, 16, seed=D)
+    bkeys[np.flatnonzero(bkeys[:, 0] == qk[0])[0], 40] = qk[0]
+    _, tdt = DTYPES[dtype]
+    bvals = torch.from_numpy(bvals).to(tdt).float().numpy()
+    (out, hit, way), tiles = tac_probe_tiles_replay(qk, bkeys, bvals)
+    cols = np.concatenate([np.arange(d0, d0 + w) for d0, w in tiles])
+    assert np.array_equal(cols, np.arange(D))
+    assert all(8 * 4 * w + 4 * 8 <= 48 * 1024 for _, w in tiles)
+    assert len(tiles) == -(-D // ttp_mod.TILE_D) > (D > ttp_mod.TILE_D)
+    (rv, rh, rw), (pv, ph, pw) = _probe_both(qk, bkeys, bvals, dtype)
+    np.testing.assert_array_equal(hit, ph.numpy())
+    np.testing.assert_array_equal(way, pw.numpy())
+    np.testing.assert_array_equal(hit, np.asarray(rh))
+    assert_close(torch.from_numpy(out).to(tdt).float().numpy(), rv, dtype)
+    assert_close(torch.from_numpy(out).to(tdt).float().numpy(), to_np(pv),
+                 dtype)
+    assert int(ph.sum()) > 0
 
 
 def test_tac_probe_counted_matches_reference():

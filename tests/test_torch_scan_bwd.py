@@ -444,33 +444,68 @@ def bf16_once(a):
         .numpy()
 
 
+def bf16_pair(a):
+    """a as the kernel's split operand: (its bf16 rounding hi, the bf16
+    rounding of the remainder lo)."""
+    hi = torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double()
+    lo = (torch.from_numpy(np.asarray(a, np.float64)) - hi).float() \
+        .bfloat16().double()
+    return hi.numpy(), lo.numpy()
+
+
+def ein(spec, a, b):
+    """einsum of a and b, each an array or a split (hi, lo) pair: the
+    products hi hi, hi lo and lo hi, as the kernel's three mma take them
+    (lo lo left out); an array is a pair with no lo."""
+    if not isinstance(a, tuple) and not isinstance(b, tuple):
+        return np.einsum(spec, a, b)
+    a = a if isinstance(a, tuple) else (a, 0.0 * a)
+    b = b if isinstance(b, tuple) else (b, 0.0 * b)
+    return np.einsum(spec, a[0], b[0]) + np.einsum(spec, a[0], b[1]) \
+        + np.einsum(spec, a[1], b[0])
+
+
+def whole(a):
+    """A split operand's value (hi + lo), as a scalar sum reads it."""
+    return a[0] + a[1] if isinstance(a, tuple) else a
+
+
 def mamba_bwd_replay(x, dt, A, Bm, Cm, Q, init, dy, dstate, heads=1,
                      state_pass=True, one_tile=False, round_ops=None,
-                     round_ml=None, out_type=None):
-    """csrc/mamba2_scan_bwd.cu's bf16 plan in float64, A per (b, h): the
+                     round_ml=None, out_type=None, pairs=None):
+    """csrc/mamba2_scan_bwd.cu's plan in float64, A per (b, h): the
     forward's state entering each chunk; (a) each chunk's own part of the
-    state gradient; (b) the walk from the last chunk; (c1) for each tile
-    of ``heads`` heads of a group, dC summed over the tile's heads (the
-    state part exp(cum) g s_prev^T and LG B) and, a head, W's row sums
-    plus the inter term (rsi, over the chunk padded to 16); (c2) dx, W's
-    column sums, V, x . d dtx and dB summed over the tile's heads, then
-    dcum, da, ddt and dA's part a head; (d) dB and dC as the sums of each
-    group's tiles in order, dA over the chunks.  ``round_ops`` (the
-    operands the kernel splits into bf16 hi and lo: C exp(cum) in (a), dS,
-    s_prev) and ``round_ml`` (M and LG) round what they are given, and
-    ``out_type`` the outputs in x's type.  The planted faults: with
-    ``state_pass`` False the state gradients between chunks are dropped,
-    with ``one_tile`` (d) takes a group's first tile only.  Returns the
-    gradients and the scratch's arrays."""
+    state gradient; (b) the walk from the last chunk; then each chunk with
+    the state's rows in tiles of ``ms.TILE_N`` (a group of warps each):
+    (c1) for each tile of ``heads`` heads of a group, dC summed over the
+    tile's heads (the state part exp(cum) g s_prev^T and LG B, a tile of
+    N at a time) and, a head and a tile of N, W's row sums plus the inter
+    term over the tile's rows (rsi, over the chunk padded to 16); (c2)
+    dx, W's column sums, V and d dtx summed over the tiles of N, x . d
+    dtx and dB summed over the tile's heads, then dcum (rsi summed over
+    the tiles of N), da, ddt and dA's part a head; (d) dB and dC as the
+    sums of each group's tiles in order, dA over the chunks.
+    ``round_ops`` (the operands the kernel splits into bf16 hi and lo: C
+    exp(cum) in (a), dS, s_prev) and ``round_ml`` (M and LG) round what
+    they are given, and ``out_type`` the outputs in x's type.  ``pairs``
+    (fp32): every operand of a product, inputs (x, Bm, Cm, dy, s_prev)
+    and computed ones, split into (hi, lo) and multiplied as three
+    products (``ein``).  The planted faults: with ``state_pass`` False the
+    state gradients between chunks are dropped, with ``one_tile`` (d)
+    takes a group's first tile only.  Returns the gradients and the
+    scratch's arrays."""
     ident = lambda a: a  # noqa: E731
     rop, rml = round_ops or ident, round_ml or ident
     out = out_type or ident
+    sp_ = pairs or ident                 # the split of a product's operand
     x, dt, A, Bm, Cm, init, dy, dstate = (np.asarray(a, np.float64) for a in (
         x, dt, A, Bm, Cm, init, dy, dstate))
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
     rep, nc = H // G, -(-S // Q)
     tiles = -(-rep // heads)
+    nts = [slice(n0, min(N, n0 + ms.TILE_N)) for n0 in range(0, N,
+                                                             ms.TILE_N)]
     pad = nc * Q - S
     zp = lambda a: np.concatenate(  # noqa: E731
         [a, np.zeros((B, pad) + a.shape[2:])], 1)
@@ -483,7 +518,7 @@ def mamba_bwd_replay(x, dt, A, Bm, Cm, Q, init, dy, dstate, heads=1,
     dA_part = np.zeros((B, nc, H))
     s_prev, ds_loc, ds = (np.zeros((B, nc, H, N, P)) for _ in range(3))
     dec = np.zeros((B, nc, H))
-    rsi = np.zeros((B, nc, H, ms.pad16(Q)))
+    rsi = np.zeros((B, nc, H, len(nts), ms.pad16(Q)))
     tri = np.tril(np.ones((Q, Q), bool))
 
     def chunk(c):
@@ -509,8 +544,8 @@ def mamba_bwd_replay(x, dt, A, Bm, Cm, Q, init, dy, dstate, heads=1,
             "bjh,bjhn,bjhp->bhnp", E * dt_[:, sl], Bh, x_[:, sl])
     for c in range(nc):                  # (a)
         sl, cum, Bh, Ch = chunk(c)
-        ds_loc[:, c] = np.einsum("bihn,bihp->bhnp",
-                                 rop(np.exp(cum)[..., None] * Ch), g_[:, sl])
+        ec = np.exp(cum)[..., None] * whole(sp_(Ch))
+        ds_loc[:, c] = ein("bihn,bihp->bhnp", sp_(rop(ec)), sp_(g_[:, sl]))
         dec[:, c] = np.exp(cum[:, -1])
     cur = dstate.copy()                  # (b)
     for c in reversed(range(nc)):
@@ -519,42 +554,57 @@ def mamba_bwd_replay(x, dt, A, Bm, Cm, Q, init, dy, dstate, heads=1,
     dinit = cur
     for c in range(nc):
         sl, cum, Bh, Ch = chunk(c)
-        g, x_c, dt_c = g_[:, sl], x_[:, sl], dt_[:, sl]
-        dS, sp = ds[:, c], s_prev[:, c]
+        g, x_c, dt_c = sp_(g_[:, sl]), sp_(x_[:, sl]), dt_[:, sl]
+        dS, sp = sp_(ds[:, c]), sp_(s_prev[:, c])
         L = np.where(tri[None, :, :, None],
                      np.exp(cum[:, :, None] - cum[:, None]), 0.0)  # [B,i,j,H]
-        M = np.einsum("bihn,bjhn->bijh", Ch, Bh) * L
-        GD = np.einsum("bihp,bjhp->bijh", g, x_c) * dt_c[:, None]
-        W, LG = M * GD, L * GD
+        GD = ein("bihp,bjhp->bijh", g, x_c) * dt_c[:, None]
+        LG = L * GD
         E = np.exp(cum[:, -1:] - cum)                       # [B, Q, H]
-        # (c1)
-        sg = np.einsum("bihp,bhnp->bihn", g, sp)             # g s_prev^T
-        dC_part[:, sl] = to_tiles(np.exp(cum)[..., None] * sg + np.einsum(
-            "bijh,bjhn->bihn", rml(LG), Bh))
-        rsi[:, c, :, :Q] = np.moveaxis(W.sum(2) + np.exp(cum)
-                                       * (Ch * sg).sum(-1), 1, 2)
-        # (c2)
-        xs = np.einsum("bjhp,bhnp->bjhn", x_c, dS)           # x dS^T
-        d_dtx = np.einsum("bijh,bihp->bjhp", rml(M), g) \
-            + E[..., None] * np.einsum("bjhn,bhnp->bjhp", Bh, dS)
+        d_dtx = np.zeros_like(x_[:, sl])
+        dC_c, dB_c = np.zeros(Ch.shape[:3] + (N,)), np.zeros(Ch.shape[:3]
+                                                             + (N,))
+        cs, V = 0.0, 0.0
+        for t, nt in enumerate(nts):     # a group of warps a tile of N
+            Bt, Ct = sp_(Bh[..., nt]), sp_(Ch[..., nt])
+            spt = tuple(a[:, :, nt] for a in sp) if pairs else sp[:, :, nt]
+            dSt = tuple(a[:, :, nt] for a in dS) if pairs else dS[:, :, nt]
+            M = ein("bihn,bjhn->bijh", Ct, Bt) * L
+            W = M * GD
+            # (c1), the tile's columns of dC and its part of rsi
+            sg = ein("bihp,bhnp->bihn", g, spt)              # g s_prev^T
+            dC_c[..., nt] = np.exp(cum)[..., None] * sg \
+                + ein("bijh,bjhn->bihn", sp_(rml(LG)), Bt)
+            rsi[:, c, :, t, :Q] = np.moveaxis(
+                W.sum(2) + np.exp(cum) * (whole(Ct) * sg).sum(-1), 1, 2)
+            # (c2), the tile's parts
+            xs = ein("bjhp,bhnp->bjhn", x_c, dSt)            # x dS^T
+            d_dtx += ein("bijh,bihp->bjhp", sp_(rml(M)), g) \
+                + E[..., None] * ein("bjhn,bhnp->bjhp", Bt, dSt)
+            dB_c[..., nt] = ein("bijh,bihn->bjhn", sp_(rml(LG)), Ct) \
+                + (E * dt_c)[..., None] * xs
+            cs = cs + W.sum(1)
+            V = V + E * dt_c * (whole(Bt) * xs).sum(-1)
+        dC_part[:, sl] = to_tiles(dC_c)
+        dB_part[:, sl] = to_tiles(dB_c)
         dx[:, sl] = dt_c[..., None] * d_dtx
-        dB_part[:, sl] = to_tiles(np.einsum("bijh,bihn->bjhn", rml(LG), Ch)
-                                  + (E * dt_c)[..., None] * xs)
-        V = E * dt_c * (Bh * xs).sum(-1)
-        dcum = np.moveaxis(rsi[:, c, :, :Q], 2, 1) - W.sum(1) - V
-        dcum[:, -1] += np.exp(cum[:, -1]) * (sp * dS).sum((-2, -1)) \
-            + V.sum(1)
+        dcum = np.moveaxis(rsi[:, c, :, :, :Q].sum(2), 2, 1) - cs - V
+        dcum[:, -1] += np.exp(cum[:, -1]) * (whole(sp) * whole(dS)).sum(
+            (-2, -1)) + V.sum(1)
         da = np.cumsum(dcum[:, ::-1], 1)[:, ::-1]
-        ddt[:, sl] = A[:, None] * da + (x_c * d_dtx).sum(-1)
+        ddt[:, sl] = A[:, None] * da + (whole(x_c) * d_dtx).sum(-1)
         dA_part[:, c] = (dt_c * da).sum(1)
     take = 1 if one_tile else tiles      # (d)
     dB = dB_part.reshape(B, nc * Q, G, tiles, N)[:, :, :, :take].sum(3)
     dC = dC_part.reshape(B, nc * Q, G, tiles, N)[:, :, :, :take].sum(3)
     grads = (out(dx[:, :S]), ddt[:, :S], dA_part.sum(1).reshape(B * H),
              out(dB[:, :S]), out(dC[:, :S]), dinit)
-    return grads, dict(s_prev=s_prev, ds=ds, dec=dec,
-                       dBC_part=np.stack([dB_part[:, :S], dC_part[:, :S]]),
-                       dA_part=dA_part, ds_loc=ds_loc, rsi=rsi)
+    scratch = dict(s_prev=s_prev, ds=ds, dec=dec,
+                   dBC_part=np.stack([dB_part[:, :S], dC_part[:, :S]]),
+                   dA_part=dA_part, ds_loc=ds_loc, rsi=rsi)
+    if pairs:                            # x, dy, Bm, Cm and s_prev split
+        scratch["planes"] = np.zeros(2 * x.size + 2 * Bm.size + s_prev.size)
+    return grads, scratch
 
 
 def mamba_replay_per_head(case, Q, **kw):
@@ -597,6 +647,44 @@ def test_mamba2_backward_plan_with_a_ragged_last_chunk(S, Q):
         x[:, :, 0], dt[:, :, 0], A, Bm[:, :, 0], Cm[:, :, 0])))
     assert_grads([g[0][:, :, 0], g[1][:, :, 0], g[2], g[3][:, :, 0],
                   g[4][:, :, 0]], vjp(jnp.asarray(dy[:, :, 0])))
+
+
+def padded_ref_vjp(case, Q):
+    """``jax.vjp`` of the reference's ``ssd_chunked`` on the case padded
+    with zeros to a multiple of ``Q`` (which it needs; a padded position
+    with dt = x = B = C = dy = 0 changes neither y nor the state), the
+    gradients cut back to S."""
+    x, dt, A, Bm, Cm, init, dy, dstate = case
+    S = x.shape[1]
+    pad = (-S) % Q
+    grow = lambda a: np.pad(  # noqa: E731
+        a, ((0, 0), (0, pad)) + ((0, 0),) * (a.ndim - 2))
+    g = mamba_ref_vjp(grow(x), grow(dt), A, grow(Bm), grow(Cm), init,
+                      grow(dy), dstate, Q)
+    return [np.asarray(a)[:, :S] if i in (0, 1, 3, 4) else a
+            for i, a in enumerate(g)]
+
+
+@pytest.mark.parametrize("B,S,H,G,N,P,Q", [
+    (1, 64, 4, 2, 128, 64, 32),      # two tiles of N, two groups
+    (1, 100, 4, 2, 128, 64, 32),     # and a last chunk of 4
+    (2, 48, 2, 1, 100, 16, 16),      # a second tile of 36 rows
+])
+def test_mamba2_backward_plan_walks_the_state_in_tiles_of_64(B, S, H, G, N,
+                                                             P, Q):
+    """N past 64 (mamba2's d_state 128): the chunk kernels walk the state's
+    rows in tiles of ``TILE_N``, each tile's warps forming its part of C
+    B^T, W, V, the inter term and d dtx; (c1) leaves rsi a tile of N and
+    (c2) sums them.  The replay, tiles of two heads, against ``jax.vjp``
+    of the reference (padded to whole chunks), and its scratch against
+    ``bwd_scratch_bytes``."""
+    heads = 2
+    case = mamba_case(B, S, H, G, N, P, seed=N + S)
+    grads, scratch = mamba_replay_per_head(case, Q, heads=heads)
+    assert_grads(grads, padded_ref_vjp(case, Q))
+    assert scratch["rsi"].shape[3] == ms.n_tiles(N) == 2
+    want = ms.bwd_scratch_bytes(B, S, H, G, N, P, Q, torch.bfloat16, heads)
+    assert {k: a.size * 4 for k, a in scratch.items()} == want
 
 
 def test_mamba2_backward_replay_without_the_state_pass_is_rejected():
@@ -648,6 +736,41 @@ def test_mamba2_backward_bf16_roundings_hold_the_gate():
     assert max(once) > max(split), (once, split)
 
 
+@pytest.mark.parametrize("B,S,H,G,N,P,Q", [
+    (1, 256, 4, 1, 64, 64, 128),     # zamba2's chunk and state
+    (1, 192, 2, 1, 128, 64, 64),     # mamba2's state, fp32's chunk there
+])
+def test_mamba2_backward_fp32_split_holds_the_gate(B, S, H, G, N, P, Q):
+    """The fp32 backward on the tensor cores, replayed: x, Bm, Cm, dy and
+    the forward's states split into bf16 hi + lo, as are the operands the
+    kernels compute (C exp(cum), dS, M, LG), and every product taken as
+    three products of halves (hi hi, hi lo, lo hi; ``ein``), sums in
+    float64; against float64 on the same fp32 inputs, each gradient's
+    error of its largest magnitude (dx, ddt, dA, dB, dC, dinit) within
+    the fp32 gate's 1e-4.  Margins: 5 for all but dA (the worst reads
+    1.6e-5); dA, B H sums over the whole sequence of terms that cancel,
+    reads 5.2e-5 at zamba2's chunk (a margin of 1.9) and 3.9e-7 at N 128.
+    A value split in two bf16 keeps 16 of its 24 bits, so about 2^-17 of
+    each input is lost before any product; the left-out lo lo product
+    moves none of these readings by more than 4e-6.  The inputs rounded
+    to bf16 once, as the bf16 design would take them, miss the gate."""
+    case = mamba_case(B, S, H, G, N, P, seed=13)
+    exact, _ = mamba_replay_per_head(case, Q)
+    got, scratch = mamba_replay_per_head(case, Q, pairs=bf16_pair)
+    errs = [np.abs(a - b).max() / np.abs(b).max()
+            for a, b in zip(got, exact)]
+    assert max(errs[:2] + errs[3:]) <= 1e-4 / 5, errs
+    assert errs[2] <= 1e-4 / 1.5, errs
+    once = list(case)
+    for i in (0, 3, 4, 6):               # x, Bm, Cm, dy rounded once
+        once[i] = bf16_once(once[i])
+    rounded, _ = mamba_replay_per_head(once, Q, pairs=bf16_pair)
+    assert max(np.abs(a - b).max() / np.abs(b).max()
+               for a, b in zip(rounded, exact)) > 1e-4
+    want = ms.bwd_scratch_bytes(B, S, H, G, N, P, Q, torch.float32)
+    assert {k: a.size * 4 for k, a in scratch.items()} == want
+
+
 # ------------------------------------------------------ the sources' plans
 def constexpr(name: str, source: str) -> int:
     text = (cuda_build.CSRC / f"{source}.cu").read_text()
@@ -659,11 +782,12 @@ def test_backward_constants_match_the_sources():
     assert constexpr("kSave", "rwkv6_scan_bwd") == rs.SAVE_EVERY
     assert constexpr("kSub", "rwkv6_scan_bwd") == rs.BWD_SUB
     assert constexpr("kMaxQ", "mamba2_scan_bwd") == ms.MAX_CHUNK
-    # the backward's own state limit, below the forward's N (kMaxN)
-    assert constexpr("kMaxNP", "mamba2_scan_bwd") == ms.BWD_MAX_NP
+    # the backward takes every state the forward takes
+    for src in ("mamba2_scan", "mamba2_scan_bwd"):
+        assert constexpr("kMaxN", src) == ms.MAX_N == 128
+        assert constexpr("kMaxP", src) == ms.MAX_P == 64
+    assert constexpr("kTileN", "mamba2_scan_bwd") == ms.TILE_N
     assert constexpr("kMaxQ", "mamba2_scan") == ms.MAX_CHUNK
-    assert constexpr("kMaxN", "mamba2_scan") == ms.MAX_N > ms.BWD_MAX_NP
-    assert constexpr("kMaxP", "mamba2_scan") == ms.MAX_P
     assert constexpr("kMaxHeads", "mamba2_scan_bwd") == ms.MAX_HEADS
     text = (cuda_build.CSRC / "rwkv6_scan_bwd.cu").read_text()
     pieces = {int(n): (int(ra), int(ca)) for n, ra, ca in re.findall(
@@ -685,18 +809,26 @@ def test_rwkv6_backward_block_fits_the_card(N):
         assert 2 * (rs.bwd_smem_bytes(N) + 1024) <= SM_SMEM
 
 
-@pytest.mark.parametrize("Q,N,P", [(128, 64, 64), (32, 16, 16), (16, 4, 8)])
+@pytest.mark.parametrize("Q,N,P", [(128, 64, 64), (32, 16, 16), (16, 4, 8),
+                                   (128, 128, 64), (64, 128, 64),
+                                   (64, 100, 24)])
 def test_mamba2_backward_blocks_fit_the_card(Q, N, P):
-    """Every block's shared memory within the card's limit in both types,
-    the largest at the kernel's largest chunk and state (zamba2-2.7b's);
-    there the bf16 chunk kernels fit two blocks an SM."""
+    """Every block's shared memory within the card's limit in both types
+    at every chunk the wrapper runs there (``chunk_cap``: fp32 runs chunks
+    of 64 past N 64); at zamba2-2.7b's chunk and state the bf16 chunk
+    kernels fit two blocks an SM, and at N 128 the block takes a second
+    group of warps (two warps a tile of N at chunks of 64)."""
     for dtype in (torch.float32, torch.bfloat16):
+        Qk = ms.kernel_chunk(Q, N, dtype)
         assert all(b <= ms.SMEM_LIMIT
-                   for b in ms.bwd_smem_bytes(Q, N, P, ms.MAX_HEADS, dtype))
+                   for b in ms.bwd_smem_bytes(Qk, N, P, ms.MAX_HEADS, dtype))
     bf16 = ms.bwd_smem_bytes(128, 64, 64, ms.MAX_HEADS, torch.bfloat16)
     assert 2 * (bf16[1] + 1024) <= SM_SMEM
-    assert ms.bwd_smem_bytes(128, 64, 64, 1, torch.float32)[1] \
-        <= ms.SMEM_LIMIT
+    assert ms.bwd_threads(Q, N) == (128 if N <= 64 or Q <= 64 else 256)
+    # fp32 at chunk 128 past N 64 would pass the limit: never run there
+    assert ms.bwd_smem_bytes(128, 128, 64, 1, torch.float32)[1] \
+        > ms.SMEM_LIMIT >= ms.bwd_smem_bytes(64, 128, 64, 1,
+                                              torch.float32)[1]
 
 
 def test_mamba2_backward_plan_at_zamba2s_training_shape():
@@ -706,4 +838,14 @@ def test_mamba2_backward_plan_at_zamba2s_training_shape():
     pl = ms.bwd_plan(4, 2048, 80, 1, 64, 64, 128, sms=132, per_sm=2)
     assert (pl["heads"], pl["tiles"], pl["blocks"]) == (10, 8, 512)
     assert pl["scratch"]["dBC_part"] == 2 * 4 * 4 * 2048 * 8 * 64
-    assert pl["smem"][1] == 113_168
+    assert (pl["smem"][1], pl["threads"]) == (113_168, 128)
+
+
+def test_mamba2_backward_plan_at_mamba2s_training_shape():
+    """mamba2-2.7b's d_state 128 at the same batch and chunk: a block of 8
+    warps (two groups, a tile of 64 state rows each) holds one block an
+    SM, so tiles of 14 heads (0.97 of the last wave), 384 blocks."""
+    pl = ms.bwd_plan(4, 2048, 80, 1, 128, 64, 128, sms=132, per_sm=1)
+    assert (pl["heads"], pl["tiles"], pl["blocks"]) == (14, 6, 384)
+    assert (pl["smem"][1], pl["threads"]) == (181_776, 256)
+    assert pl["scratch"]["rsi"] == 4 * 4 * 16 * 80 * 2 * 128

@@ -271,9 +271,12 @@ def _fp32_functions(monkeypatch, arch):
             monkeypatch.setattr(mod, "bf16_grad", _identity)
 
 
-def _train_case(arch, dtype):
+def _train_case(arch, dtype, ssm=None):
     jcfg = get_smoke_config(arch).replace(dtype=dtype)
     tcfg = t_smoke(arch).replace(dtype=dtype)
+    if ssm:                         # SSM fields replaced on both sides
+        jcfg = jcfg.replace(ssm=dataclasses.replace(jcfg.ssm, **ssm))
+        tcfg = tcfg.replace(ssm=dataclasses.replace(tcfg.ssm, **ssm))
     if arch in MOE_ARCHS:           # no capacity drops (test_torch_zoo.py)
         jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe,
                                                     capacity_factor=16.0))
@@ -305,6 +308,25 @@ def test_train_loss_and_grads_match_reference(arch, monkeypatch):
             _, tmet = tm.train_loss(tp, tb)
         assert float(tmet["moe_aux"]) == pytest.approx(
             float(jmet["moe_aux"]), rel=1e-5)
+
+
+def test_zamba2_at_mamba2s_state_size_matches_reference(monkeypatch):
+    """The smoke zamba2 at the published Mamba2 family's d_state 128 (the
+    state size the card's backward takes since its chunk kernels walk the
+    state in tiles of 64), ``state_dim`` replaced on both sides of
+    ``params_from_jax``: fp32, the loss within 1e-5 relative and each
+    gradient leaf within 1e-4 of its norm, as
+    ``test_train_loss_and_grads_match_reference`` holds the smoke
+    models."""
+    _fp32_functions(monkeypatch, "zamba2-2.7b")
+    jm, jp, jb, tm, tp, tb = _train_case("zamba2-2.7b", "float32",
+                                         ssm=dict(state_dim=128))
+    assert tm.cfg.ssm.state_dim == 128
+    (jloss, _), jg = jax.jit(jax.value_and_grad(
+        jm.train_loss, has_aux=True))(jp, jb)
+    tloss, tg = tsteps.loss_and_grads(tm, tp, tb)
+    assert abs(float(tloss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    assert_trees_close(tg, jg, 1e-4)
 
 
 def test_zamba2_bf16_grads_match_reference_loosely():
