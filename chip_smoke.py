@@ -51,6 +51,11 @@ backward kernels of the SSD scan (fp32, bf16, one tensor-core design)
 and the RWKV6 scan (fp32) at every chunk and state size the zoo reaches
 and the SSD scan's at d_state 128, timed at zamba2-2.7b's, mamba2-2.7b's
 and rwkv6-3b's training shapes, each gate rejecting a planted fault;
+then every width past the kernels' instances (``wide_phase``: K7 at
+head dims 128 and 96 and states of 256 and 160 rows, K8 at states of 128
+and 96, K6 at (d, dv) past 256, K5 at keys past 576 or values past 512),
+forward and backward against the plain versions, and each lifted axis
+timed at a zoo family's total width;
 gemma-7b at its published width, cut to 8 of its 28 layers, and
 zamba2-2.7b and rwkv6-3b at their published width and depth take AdamW
 steps of 4 x 2048 tokens through the port's data pipeline, train step
@@ -60,8 +65,9 @@ each step at 2 layers in fp32 on the card equals the CPU's;
 and
 ``examples/train_lm_torch.py`` recovers from an injected failure under
 the supervisor and converges.  Then the examples: the serving examples,
-and ``examples/quickstart_torch.py --fused`` (the paper's fraud-detection
-pipeline) printing on the card what it prints on the CPU; gemma-7b's
+``examples/quickstart_torch.py --fused`` (the paper's fraud-detection
+pipeline) and the engine's ``tools/obs_report_torch.py --fused`` printing
+on the card what they print on the CPU; gemma-7b's
 steps on a one-rank NCCL mesh; and two dry-run cells.
 Each phase prints one JSON line; any failure raises and ends the run with a
 non-zero exit.  The last three lines are the kernels summary, the card's
@@ -1022,6 +1028,8 @@ def decode_pass1(q, dv: int) -> str:
         return (f"decode_bf16_kernelILi{DK}E" if DK <= 128
                 else f"decode_wide_kernelILi{DK}ELi{DV}E")
     t = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
+    if route == "walk":
+        return f"decode_walk_kernelI{t}E"
     return f"decode_lanes_kernelI{t}Li{DK // 32}ELi{DV // 32}E"
 
 
@@ -1273,7 +1281,7 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
     pair = fa.cover_pair(d, dv)
     row = dict(kernel="flash_attention", shape=label, B=B, S=S, T=T, H=H,
                KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
-               instance=pair, launches=launched,
+               instance=pair or "wide", launches=launched,
                max_abs_err=max_err(out, plain),
                plain_max_abs=float(plain.float().abs().max()))
     if fault:
@@ -1293,10 +1301,19 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = device_ms(lambda: fa.flash_attention_kernel(q, k, v, causal),
                        reps=5, rounds=5)
-        needle = (f"flash_bf16_kernelILi{pair[0]}ELi{pair[1]}E"
-                  if dtype == torch.bfloat16
-                  else f"flash_kernelIfLi{pair[0]}ELi{pair[1]}E")
-        if pair != (d, dv):            # the covering pair alone, padded
+        if pair is None:               # the wide kernel: its own source
+            source, needle = "flash_attention_wide", "wide_fwd_kernel"
+            smem = fa.wide_smem_bytes(dv)
+            row.update(score_work=-(-dv // fa.WIDE_GROUP),
+                       sdpa_backends=sdpa_backends(
+                           q, k, v, causal, KV != H))
+        else:
+            source = "flash_attention"
+            needle = (f"flash_bf16_kernelILi{pair[0]}ELi{pair[1]}E"
+                      if dtype == torch.bfloat16
+                      else f"flash_kernelIfLi{pair[0]}ELi{pair[1]}E")
+            smem = fa.smem_bytes(*pair, dtype)
+        if pair not in (None, (d, dv)):   # the covering pair alone, padded
             padded = fa.pad_to_pair(q, k, v, pair)
             row.update(covering_pair_ms=device_ms(lambda: fa._forward(
                 *padded, causal, False, 1 / math.sqrt(d)), reps=5, rounds=5),
@@ -1309,8 +1326,8 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
                    library=f"scaled_dot_product_attention(is_causal="
                            f"{causal})",
                    **timed_extras("flash_attention", label, ms, b_ms),
-                   dynamic_smem_bytes=fa.smem_bytes(*pair, dtype),
-                   build=build_facts("flash_attention", needle))
+                   dynamic_smem_bytes=smem,
+                   build=build_facts(source, needle))
         try:
             lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
         except RuntimeError as e:
@@ -1364,12 +1381,15 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0,
     agrees_or_raise("mamba2_scan", label, y, py, TOL[dtype], scan_agrees)
     agrees_or_raise("mamba2_scan state", label, st, pst, TOL[dtype],
                     scan_agrees)
-    if launched != 1:
+    rows, cols = ms.split_plan(N, P)
+    if launched != len(rows) * len(cols):
         raise AssertionError(f"mamba2_scan at {label}: {launched} kernel "
-                             f"launches, not 1")
+                             f"launches, not one a group of {rows, cols}")
     Qk = ms.kernel_chunk(Q, N, dtype)
+    Ng, Pg = ms.group_n(N), cols[0][1]   # the widest group a launch takes
     row = dict(kernel="mamba2_scan", shape=label, B=B, S=S, H=H, G=G, N=N,
                P=P, Q=Q, kernel_chunk=Qk, launches=launched,
+               groups=[rows, cols],
                dtype=dtype_name(dtype),
                max_abs_err=max(max_err(y, py), max_err(st, pst)),
                plain_max_abs=float(py.float().abs().max()),
@@ -1399,9 +1419,9 @@ def check_mamba(B, S, H, G, N, P, Q, dtype, label, timed=False, seed=0,
                    **timed_extras("mamba2_scan", label, t_ms, b_ms),
                    build=build_facts("mamba2_scan", "ssd_"))
         if dtype == torch.bfloat16:
-            pl = ms.plan(B, S, H, G, N, P, Qk,
-                         *ms.card_slots(Qk, N, P, x.device))
-            src_smem = ms.kernel_smem_bytes(Qk, N, P, pl["heads"])
+            pl = ms.plan(B, S, H, G, Ng, Pg, Qk,
+                         *ms.card_slots(Qk, Ng, Pg, x.device))
+            src_smem = ms.kernel_smem_bytes(Qk, Ng, Pg, pl["heads"])
             if tuple(src_smem) != tuple(pl["smem"]):
                 raise AssertionError(f"mamba2_scan at {label}: the plan's "
                                      f"shared memory {pl['smem']} is not "
@@ -1445,8 +1465,10 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
     agrees_or_raise("rwkv6_scan state", label, st[:n], pst, TOL[dtype],
                     scan_agrees)
     Nk = rs.padded_n(N)
+    nb = Nk // rs.BLOCK_N if N > rs.BLOCK_N else 1   # blocks a way
     row = dict(kernel="rwkv6_scan", shape=label, B=B, S=S, H=H, N=N,
-               instance_N=Nk, launches=launched,
+               instance_N=min(Nk, rs.BLOCK_N), blocks_a_way=nb,
+               launches=launched,
                dtype=dtype_name(dtype), checked_rows=n,
                max_abs_err=max(max_err(y[:n], py), max_err(st[:n], pst)),
                plain_max_abs=float(py.float().abs().max()),
@@ -1465,16 +1487,26 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
         b_ms, b_by = bound(nbytes, ops=flops, peak=peak_for(dtype))
         t_ms = device_ms(lambda: rs.rwkv6_scan_kernel(r, k, v, w, u, s0),
                          reps=5, rounds=5)
-        if Nk != N:                    # the instance alone, on padded inputs
+        if nb > 1:                     # the instance alone, on the blocks
+            padded = rs.stack_blocks(*rs.pad_state_dim(
+                *(t.float() for t in (r, k, v, w, u, s0)), Nk), nb)
+            row.update(instance_ms=device_ms(lambda: rs._forward(
+                *padded, False), reps=5, rounds=5),
+                zero_work_share=1 - (N / Nk) ** 2)
+            del padded
+        elif Nk != N:                  # the instance alone, on padded inputs
             padded = rs.pad_state_dim(r, k, v, w, u, s0, Nk)
             row.update(instance_ms=device_ms(lambda: rs._forward(
                 *padded, False), reps=5, rounds=5),
                 zero_work_share=1 - (N / Nk) ** 2)
             del padded
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        cols = rs.plan_columns(B * H, Nk, sms)
-        smem = rs.smem_bytes(Nk, cols, dtype)
-        if rs.kernel_smem_bytes(Nk, cols, dtype) != smem:
+        inst = min(Nk, rs.BLOCK_N)
+        if nb > 1:                     # the blocks run the fp32 instance
+            dtype = torch.float32
+        cols = rs.plan_columns(B * H * nb * nb, inst, sms)
+        smem = rs.smem_bytes(inst, cols, dtype)
+        if rs.kernel_smem_bytes(inst, cols, dtype) != smem:
             raise AssertionError(f"rwkv6_scan at {label}: the plan's shared "
                                  f"memory {smem} is not the source's")
         row.update(ms=t_ms,
@@ -1485,8 +1517,8 @@ def check_rwkv(B, S, H, N, dtype, label, timed=False, plain_rows=None,
                    library="none: no single PyTorch call computes the "
                            "RWKV6 recurrence",
                    **timed_extras("rwkv6_scan", label, t_ms, b_ms),
-                   cols=cols, blocks=B * H * (Nk // cols),
-                   threads=rs.threads(Nk, cols),
+                   cols=cols, blocks=B * H * nb * nb * (inst // cols),
+                   threads=rs.threads(inst, cols),
                    dynamic_smem_bytes=smem,
                    build=build_facts("rwkv6_scan",
                                      "wkv_kernelIfLi64E"
@@ -1554,14 +1586,9 @@ def lm_kernel_phase():
     # N 128, chunk 256 in fp32 at mamba2-2.7b's widths, 8 of its heads
     note(check_mamba(1, 2048, 8, 1, 128, 64, 256, torch.float32,
                      "mamba2-2.7b widths fp32, 8 heads", ref64=True))
-    q = torch.zeros((1, 8, 2, 264), device="cuda")
-    try:                               # past every pair: still refused
-        fa.flash_attention_kernel(q, q, torch.zeros((1, 8, 2, 64),
-                                                    device="cuda"))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("flash_attention took (d, dv) = (264, 64)")
+    # past every pair: the wide kernel (``wide_phase`` has its rows)
+    note(check_flash(1, 40, 2, 2, 264, torch.float32, True, "wide (264, 64)",
+                     dv=64))
     main["flash_attention"] = note(check_flash(
         4, 2048, 32, 32, 80, torch.bfloat16, True, "zamba2-2.7b prefill",
         timed=True, fault=True))
@@ -1648,9 +1675,11 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
     torch.cuda.synchronize()
     rel = grads_rel(grads, plain)
     tol = BWD_TOL[dtype]
+    wide = fa.is_wide(d, dv)
     row = dict(kernel="flash_attention_bwd", shape=label, B=B, S=S, T=T,
                H=H, KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
-               design=fa.bwd_design(d, dv, dtype), rel_err=rel, tol=tol,
+               design="wide" if wide else fa.bwd_design(d, dv, dtype),
+               rel_err=rel, tol=tol,
                max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
                plain_max_abs=max(float(b.float().abs().max())
                                  for b in plain))
@@ -1687,8 +1716,8 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
             raise AssertionError(f"flash_attention_bwd at {label}: two runs "
                                  f"differ")
         del again
-        smem = [fa.bwd_smem_bytes(d, dv, dtype, True),
-                fa.bwd_smem_bytes(d, dv, dtype, False)]
+        smem = [0, 0] if wide else [fa.bwd_smem_bytes(d, dv, dtype, True),
+                                    fa.bwd_smem_bytes(d, dv, dtype, False)]
         if row["design"] == "wgmma":
             plans = [fa.wgmma_plan(d, dv, dq) for dq in (False, True)]
             row["plans"] = [p._asdict() for p in plans]
@@ -1717,8 +1746,9 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
                        o_lib, leaves, do_lib, retain_graph=True),
                        reps=3, rounds=5),
                    dynamic_smem_bytes=smem,
-                   build=build_facts("flash_attention_bwd",
-                                     f"ILi{d}ELi{dv}E"))
+                   build=build_facts("flash_attention_wide", "wide_d")
+                   if wide else build_facts("flash_attention_bwd",
+                                            f"ILi{d}ELi{dv}E"))
         del o_lib, leaves
     emit("kernel_check", **row)
     torch.cuda.empty_cache()
@@ -1726,7 +1756,8 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
 
 
 def check_grad_through_wrapper(name: str, label: str, fwd, plain_bwd,
-                               inputs, dout, tol: float, counters) -> dict:
+                               inputs, dout, tol: float, counters,
+                               expect=None) -> dict:
     """A kernel's gradient as a caller gets it at a shape the wrapper pads
     (autograd through the padding, the kernel's ``autograd.Function`` and
     the slice) against ``plain_bwd`` (autograd through the plain version)
@@ -1744,7 +1775,7 @@ def check_grad_through_wrapper(name: str, label: str, fwd, plain_bwd,
     row = dict(kernel=name, shape=label, dtype=dtype_name(inputs[0].dtype),
                rel_err=rel, tol=tol, launches=launched,
                max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)))
-    if launched != [1] * len(counters) or not rel <= tol:
+    if launched != (expect or [1] * len(counters)) or not rel <= tol:
         raise AssertionError(f"{name} gradient through the wrapper at "
                              f"{label}: {row}")
     emit("kernel_check", **row)
@@ -1859,7 +1890,11 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
     torch.cuda.synchronize()
     rel = grads_rel(grads, plain)
     tol = BWD_TOL[dtype]
-    heads = ms.bwd_heads(x, Bm, Q)
+    groups = ms.split_plan(N, P)
+    n_groups = len(groups[0]) * len(groups[1])
+    Ng, Pg = ms.group_n(N), groups[1][0][1]   # a launch's widest group
+    dd = torch.float32 if ms.fp32_design(N, dtype) else dtype   # its design
+    heads = ms.bwd_heads(x[..., :Pg].to(dd), Bm[..., :Ng].to(dd), Q)
     row = dict(kernel="mamba2_scan_bwd", shape=label, B=B, S=S, H=H, G=G,
                N=N, P=P, Q=Q, dtype=dtype_name(dtype), heads=heads,
                tiles=-(-(H // G) // heads), rel_err=rel, tol=tol,
@@ -1869,11 +1904,12 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
                max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
                plain_max_abs=max(float(b.float().abs().max())
                                  for b in plain), launches=launched,
-               threads=ms.bwd_threads(Q, N))
+               groups=groups, design=dtype_name(dd),
+               threads=ms.bwd_threads(Q, Ng))
     if dtype == torch.float32:         # the witness noise it stands for
         row["boundary_noise"] = BOUNDARY_NOISE[1]
     row.update(extra or {})
-    if not (rel <= tol and launched == 1):
+    if not (rel <= tol and launched == n_groups):
         raise AssertionError(f"mamba2_scan_bwd differs at {label}: {row}")
     if fault:
         ds, _ = ms.backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
@@ -1908,14 +1944,14 @@ def check_mamba_bwd(B, S, H, G, N, P, Q, dtype, label, timed=False,
                    library_ms=None,
                    library="none: no single PyTorch call computes the "
                            "gradient of a chunked SSD scan",
-                   scratch_bytes=ms.bwd_scratch_bytes(B, S, H, G, N, P, Q,
-                                                      dtype, heads),
-                   dynamic_smem_bytes=ms.bwd_smem_bytes(Q, N, P, heads,
-                                                        dtype),
+                   scratch_bytes=ms.bwd_scratch_bytes(B, S, H, G, Ng, Pg,
+                                                      Q, dd, heads),
+                   dynamic_smem_bytes=ms.bwd_smem_bytes(Q, Ng, Pg, heads,
+                                                        dd),
                    build=build_facts("mamba2_scan_bwd", "ssd_"))
-        src_smem = ms.kernel_bwd_smem_bytes(Q, N, P, heads, dtype)
+        src_smem = ms.kernel_bwd_smem_bytes(Q, Ng, Pg, heads, dd)
         if tuple(src_smem) != tuple(row["dynamic_smem_bytes"]) \
-                or ms.kernel_bwd_threads(Q, N) != row["threads"]:
+                or ms.kernel_bwd_threads(Q, Ng) != row["threads"]:
             raise AssertionError(f"mamba2_scan_bwd at {label}: the wrapper's "
                                  f"shared memory {row['dynamic_smem_bytes']}"
                                  f" or threads {row['threads']} are not the "
@@ -2159,6 +2195,198 @@ def train_kernel_phase():
     main["flash_attention_bwd"] = rows["gemma-7b train"]
     errs["flash_attention_bwd"] = worst
     return main, errs
+
+
+def sdpa_backends(q, k, v, causal: bool, gqa: bool) -> dict:
+    """``scaled_dot_product_attention`` on q, k, v ([B, S, H, d] layouts)
+    under each of its backends alone: its device ms, or why it refused."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = {}
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(b):
+                sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+                torch.cuda.synchronize()
+                out[b.name] = device_ms(lambda: sdpa(
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa),
+                    reps=3, rounds=3)
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            out[b.name] = f"refused: {str(e)[:120]}"
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_rwkv_wide_bwd(B, S, H, N, label, timed=False, plain_rows=None,
+                        seed=0):
+    """K8's gradient at N past ``rs.BLOCK_N`` as a caller gets it
+    (``RWKV6Blocks``: the forward and backward kernels on the stacked
+    blocks, one launch each), fp32, from a nonzero state, with gradients
+    of y and of the final state, against autograd through the plain
+    version on the first ``plain_rows`` rows within ``BWD_TOL``.  Timed
+    rows add the backward's time (autograd's backward of the recorded
+    forward: the kernel on the blocks and their sums), the plain
+    backward's on those rows and the bound of the gradient's own work at
+    N (``costs.rwkv_bwd``)."""
+    dtype = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = randn((B, S, H, N), dtype, g)
+    k = randn((B, S, H, N), dtype, g, 0.3)
+    v = randn((B, S, H, N), dtype, g)
+    w = torch.sigmoid(randn((B, S, H, N), dtype, g))
+    u = randn((B * H, N), dtype, g, 0.1)
+    s0 = randn((B, H, N, N), dtype, g, 0.1)
+    dy = randn((B, S, H, N), dtype, g)
+    dstate = randn((B, H, N, N), dtype, g, 0.3)
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0)]
+    before = (rs.LAUNCHES, rs.BWD_LAUNCHES)
+    y, st = rs.rwkv6_scan_kernel(*leaves)
+    grads = torch.autograd.grad((y, st), leaves, (dy, dstate),
+                                retain_graph=timed)
+    launched = [rs.LAUNCHES - before[0], rs.BWD_LAUNCHES - before[1]]
+    n = B if plain_rows is None else plain_rows
+    pargs = (r[:n], k[:n], v[:n], w[:n], u[:n * H], s0[:n], dy[:n],
+             dstate[:n])
+    plain = rs.rwkv6_scan_backward_plain(*pargs)
+    rows = [t[:n] for t in grads[:4]] + [grads[4][:n * H], grads[5][:n]]
+    torch.cuda.synchronize()
+    rel = grads_rel(rows, plain)
+    tol = BWD_TOL[dtype]
+    row = dict(kernel="rwkv6_scan_bwd", shape=label, B=B, S=S, H=H, N=N,
+               dtype=dtype_name(dtype), blocks_a_way=rs.padded_n(N)
+               // rs.BLOCK_N, checked_rows=n, rel_err=rel, tol=tol,
+               launches=launched,
+               max_abs_err=max(max_err(a, b) for a, b in zip(rows, plain)),
+               plain_max_abs=max(float(b.float().abs().max())
+                                 for b in plain))
+    if launched != [1, 1] or not rel <= tol:
+        raise AssertionError(f"rwkv6_scan_bwd differs at {label}: {row}")
+    if timed:
+        flops, nbytes = costs.rwkv_bwd(B, S, H, N, rs.SAVE_EVERY)
+        b_ms, b_by = bound(nbytes, ops=flops)
+        t_ms = device_ms(lambda: torch.autograd.grad(
+            (y, st), leaves, (dy, dstate), retain_graph=True),
+            reps=3, rounds=5)
+        row.update(ms=t_ms,
+                   plain_ms=device_ms(lambda: rs.rwkv6_scan_backward_plain(
+                       *pargs), reps=1, rounds=3),
+                   plain_ms_rows=n, bound_ms=b_ms, bound_by=b_by,
+                   **timed_extras("rwkv6_scan_bwd", label, t_ms, b_ms),
+                   library_ms=None,
+                   library="none: no single PyTorch call computes the "
+                           "gradient of the RWKV6 recurrence")
+    del plain, grads
+    emit("kernel_check", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+# the lifted widths (K5-K8 past the instances the zoo's widths run), at
+# small shapes, fp32 and bf16: K7 P 128 and 96, N 256 and 160; K8 N 128
+# and 96; K6 these (d, dv) causal and not; K5 these (d, dv)
+WIDE_K7 = {"P 128": (1, 200, 3, 1, 64, 128, 64),
+           "P 96": (1, 200, 3, 1, 64, 96, 64),
+           "N 256": (1, 200, 3, 1, 256, 32, 64),
+           "N 160": (1, 200, 3, 1, 160, 32, 64)}
+WIDE_K8 = (128, 96)
+WIDE_K6 = ((320, 320), (512, 512), (288, 512), (512, 128))
+WIDE_K5 = ((640, 512), (576, 640), (1024, 1024))
+# one timed row a lifted axis, at a zoo family's own total width with
+# that axis alone changed: mamba2-2.7b's d_inner 5120 as 40 heads of P
+# 128 (N 128) and its 80 heads of P 64 at N 256; rwkv6-3b's 2560 as 20
+# heads of N 128; K6 (512, 512) at 8 heads; K5 (1024, 1024) at 8 rows x
+# 16 heads over 4096 tokens
+WIDE_TIMED = {"mamba2-2.7b P 128": (4, 2048, 40, 1, 128, 128, 128),
+              "mamba2-2.7b N 256": (4, 2048, 80, 1, 256, 64, 128),
+              "rwkv6-3b N 128": (4, 2048, 20, 128),
+              "(512, 512) x 8 heads": (4, 2048, 8, 8, 512),
+              "(1024, 1024) decode": (8, 16, 1024, 16, 256)}
+
+
+def wide_phase():
+    """The widths past the kernels' instances, forward and backward
+    (``WIDE_K5``-``WIDE_K8``), each row against its plain version with its
+    launches counted, then one timed row a lifted axis (``WIDE_TIMED``),
+    each printing its seconds; the build's seconds of the sources that
+    hold the new instances lead.  Returns the largest error of each
+    kernel.
+
+    Alone on the card: ``python3 -c 'import chip_smoke as c;
+    c.cuda_build.build_all(); c.wide_phase()'``."""
+    emit("wide_build", seconds_by_source={
+        k: cuda_build.BUILD_SECONDS.get(k) for k in (
+            "decode_attention", "flash_attention_wide", "mamba2_scan",
+            "mamba2_scan_bwd")},
+        new_instances={
+            "decode_attention": build_facts("decode_attention",
+                                            "decode_walk_kernel"),
+            "flash_attention_wide": build_facts("flash_attention_wide",
+                                                "wide_")})
+    errs = {}
+
+    def note(r):
+        errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0), r["max_abs_err"])
+        t = time.perf_counter() - t0
+        emit("wide_row", kernel=r["kernel"], shape=r["shape"], seconds=t)
+        return r
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (B, S, H, G, N, P, Q) in WIDE_K7.items():
+            t0 = time.perf_counter()
+            note(check_mamba(B, S, H, G, N, P, Q, dtype, f"wide {label}"))
+            t0 = time.perf_counter()
+            note(check_mamba_bwd(B, S, H, G, N, P,
+                                 ms.kernel_chunk(Q, N, dtype), dtype,
+                                 f"wide {label}"))
+        for N in WIDE_K8:
+            t0 = time.perf_counter()
+            note(check_rwkv(1, 100, 3, N, dtype, f"wide N {N}"))
+        for causal in (True, False):
+            for d, dv in WIDE_K6:
+                t0 = time.perf_counter()
+                note(check_flash(1, 100, 4, 2, d, dtype, causal,
+                                 f"wide {d, dv}", dv=dv))
+                t0 = time.perf_counter()
+                note(check_flash_bwd(1, 100, 4, 2, d, dtype, causal,
+                                     f"wide {d, dv}", dv=dv))
+        for d, dv in WIDE_K5:
+            t0 = time.perf_counter()
+            note(check_decode(decode_case(3, 5, d, 16, 5, dtype, dv=dv),
+                              f"wide {d, dv}"))
+    for N in WIDE_K8:                  # the gradient is fp32 only
+        t0 = time.perf_counter()
+        note(check_rwkv_wide_bwd(2, 100, 3, N, f"wide N {N}"))
+    for label in ("mamba2-2.7b P 128", "mamba2-2.7b N 256"):
+        B, S, H, G, N, P, Q = WIDE_TIMED[label]
+        t0 = time.perf_counter()
+        note(check_mamba(B, S, H, G, N, P, Q, torch.bfloat16, label,
+                         timed=True))
+        t0 = time.perf_counter()
+        note(check_mamba_bwd(B, S, H, G, N, P,
+                             ms.kernel_chunk(Q, N, torch.bfloat16),
+                             torch.bfloat16, label, timed=True))
+    B, S, H, N = WIDE_TIMED["rwkv6-3b N 128"]
+    t0 = time.perf_counter()
+    note(check_rwkv(B, S, H, N, torch.float32, "rwkv6-3b N 128", timed=True,
+                    plain_rows=1))
+    t0 = time.perf_counter()
+    note(check_rwkv_wide_bwd(B, S, H, N, "rwkv6-3b N 128", timed=True,
+                             plain_rows=1))
+    B, S, H, KV, d = WIDE_TIMED["(512, 512) x 8 heads"]
+    t0 = time.perf_counter()
+    note(check_flash(B, S, H, KV, d, torch.bfloat16, True,
+                     "(512, 512) x 8 heads", timed=True))
+    t0 = time.perf_counter()
+    note(check_flash_bwd(B, S, H, KV, d, torch.bfloat16, True,
+                         "(512, 512) x 8 heads", timed=True))
+    B, H, d, page, P = WIDE_TIMED["(1024, 1024) decode"]
+    t0 = time.perf_counter()
+    note(check_decode(decode_case(B, H, d, page, P, torch.bfloat16,
+                                  length=P * page, dv=d),
+                      "(1024, 1024) decode", timed=True))
+    return errs
 
 
 def serve_shape_case():
@@ -3723,14 +3951,19 @@ def layer_rels(calls):
     return rels
 
 
-def card_vs_cpu(arch: str):
+def card_vs_cpu(arch: str, repeat: bool = False):
     """Full width, cut depth: the card's prefill (kernels) against the
     port's CPU prefill (plain versions) on the same weights, in fp32 and in
     bf16 (the fp32 weights rounded): rel of the logits and of the worst
     cache leaf.  In bf16 also each layer of WITNESS run again on the CPU
     from the card's inputs to it, and the card's and the CPU's bf16 logits
     against the CPU's fp32 ones (how far bf16 rounding alone moves the
-    model)."""
+    model).  The fp32 CPU prefill, which the 1e-3 gate reads, runs on one
+    thread (``on_cpu_threads``): its sums' order is then the code's alone,
+    not how many threads the CPU's libraries take or how they split a
+    product, which other processes' load or a first call in the process
+    can change.  With ``repeat`` it runs twice and the row gives the two
+    runs' distance (``cpu_repeat_rel``, 0 when they are bit-equal)."""
     res, fp32_logits = {}, None
     for dtype in ("float32", "bfloat16"):
         cfg, model = lm_model(arch, LM["cut"][arch], dtype)
@@ -3745,8 +3978,17 @@ def card_vs_cpu(arch: str):
             del model
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            c_lg, c_cache = cpu_model.prefill(batch)
+            if dtype == "float32":
+                c_lg, c_cache = on_cpu_threads(cpu_model.prefill, batch)
+            else:
+                c_lg, c_cache = cpu_model.prefill(batch)
             cpu_s = time.perf_counter() - t0
+            if repeat and dtype == "float32":
+                again = on_cpu_threads(cpu_model.prefill, batch)
+                cpu_repeat = max(rel_err(a, b) for a, b in zip(
+                    tree_flatten((c_lg, c_cache))[0],
+                    tree_flatten(again)[0]) if a.is_floating_point())
+                del again
         rels = {"logits": rel_err(lg.cpu(), c_lg)}
         leaves, _ = tree_flatten(cache)
         c_leaves, _ = tree_flatten(c_cache)
@@ -3757,6 +3999,9 @@ def card_vs_cpu(arch: str):
                 raise AssertionError(f"{arch}: cache leaf {i} differs")
         res[dtype] = dict(cpu_prefill_s=cpu_s, rel_logits=rels["logits"],
                           rel_worst_leaf=max(rels.values()))
+        if repeat and dtype == "float32":
+            res[dtype].update(cpu_repeat_rel=cpu_repeat,
+                              cpu_threads=1)
         if dtype == "float32":
             fp32_logits = c_lg
         else:
@@ -3803,7 +4048,8 @@ def models_phase():
         rel = consistency(model, model.cfg, LM["consistency"])
         del model
         torch.cuda.empty_cache()
-        cut = card_vs_cpu(arch)
+        # the phase's first CPU fp32 prefill, repeated
+        cut = card_vs_cpu(arch, repeat=arch == LM["archs"][0])
         bf = cut["bfloat16"]
         if not (rel < LM["fp32_limit"]
                 and cut["float32"]["rel_worst_leaf"] < LM["fp32_limit"]
@@ -4315,25 +4561,31 @@ SERVE_EXAMPLE_KERNELS = ("tac_probe", "page_gather", "page_scatter",
                          "flash_attention", "mamba2_scan", "rwkv6_scan")
 
 
-def run_example(name: str, args) -> str:
-    """``examples/<name>`` run as a script with ``args``; its stdout."""
+def run_example(name: str, args, where: Path = EXAMPLES) -> str:
+    """``examples/<name>`` (or ``<where>/<name>``) run as a script with
+    ``args``; its stdout.  A script that ends by ``sys.exit`` must exit
+    0."""
     out, argv = io.StringIO(), sys.argv
-    sys.argv = [str(EXAMPLES / name)] + list(args)
+    sys.argv = [str(where / name)] + list(args)
     try:
         with contextlib.redirect_stdout(out):
-            runpy.run_path(str(EXAMPLES / name), run_name="__main__")
+            runpy.run_path(str(where / name), run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"{name} {args} exited {e.code}") from e
     finally:
         sys.argv = argv
     return out.getvalue()
 
 
-def serve_examples_phase():
+def serve_examples_phase(obs_side=None):
     """The serving examples at their default sizes on the card:
     ``serve_stream_torch.py`` prints what its ``--device cpu`` run prints,
     and ``serve_lm_torch.py`` (``launch/serve.py``'s ``main``) launches
     K1-K3 and K6-K8; then the quickstart (``quickstart_run``).  Returns
     the launch counts of the serving examples and of the quickstart's
-    card run, by path."""
+    card run, by path; then the engine's report (``obs_report_run``, its
+    CPU side ``obs_side`` if started already)."""
     total = {k: 0 for k in launches()}
     t0 = time.perf_counter()
     reset_launches()
@@ -4364,7 +4616,50 @@ def serve_examples_phase():
                              f"{total}")
     emit("serve_examples_total", launches=total,
          wall_s=time.perf_counter() - t0)
-    return {"serve_examples": total, "quickstart": quickstart_run()}
+    return {"serve_examples": total, "quickstart": quickstart_run(),
+            "obs_report": obs_report_run(obs_side)}
+
+
+TOOLS = Path(__file__).resolve().parent / "tools"
+OBS_REPORT_ARGS = ["--fused", "--duration", "2", "--warmup", "1"]
+
+
+def obs_report_cpu_side():
+    """``obs_report_run``'s CPU side, started now in a process of its
+    own."""
+    return CpuSide("run_example", "obs_report_torch.py",
+                   OBS_REPORT_ARGS + ["--device", "cpu"], TOOLS)
+
+
+def obs_report_run(cpu_side=None):
+    """``tools/obs_report_torch.py --fused --device cuda`` (the reference
+    engine's observability report on the port, its q5 smoke pipeline on
+    the fused plane) prints what its ``--device cpu`` run prints, line for
+    line: the same simulated-time stage table, hint quality, evictions
+    and fused rollup; both fused kernels launch.  Returns the card run's
+    launch counts."""
+    cpu_side = cpu_side or obs_report_cpu_side()
+    t0 = time.perf_counter()
+    reset_launches()
+    card = run_example("obs_report_torch.py",
+                       OBS_REPORT_ARGS + ["--device", "cuda"], TOOLS)
+    counts = launches()
+    card_s = time.perf_counter() - t0
+    cpu, cpu_s = cpu_side.result()
+    lines = card.strip().splitlines()
+    if lines != cpu.strip().splitlines() \
+            or not any("critical-path stages" in ln for ln in lines) \
+            or not any("batch-fill" in ln for ln in lines):
+        raise AssertionError(f"obs_report_torch: the card printed {card!r}, "
+                             f"the CPU {cpu!r}")
+    if min(counts[k] for k in FUSED_KERNELS) == 0:
+        raise AssertionError(f"obs_report_torch: a fused kernel never "
+                             f"launched: {counts}")
+    emit("obs_report", tool="tools/obs_report_torch.py",
+         args=OBS_REPORT_ARGS + ["--device", "cuda"], equal_to_cpu=True,
+         printed=lines, launches=counts, cuda_wall_s=card_s,
+         cpu_wall_s=cpu_s)
+    return counts
 
 
 def quickstart_run():
@@ -4568,6 +4863,7 @@ def main() -> int:
     dryrun = dryrun_start()
     wide_sides = wide_cpu_sides()
     serve_sides = serve_cpu_sides()
+    obs_side = obs_report_cpu_side()
     main_rows, errs = kernel_phase()
     for rows, e in (fused_kernel_phase(), lm_kernel_phase()):
         main_rows.update(rows)
@@ -4575,6 +4871,8 @@ def main() -> int:
     rows, e = train_kernel_phase()
     main_rows.update(rows)
     errs.update(e)
+    for k, e in wide_phase().items():    # the widths past the instances
+        errs[k] = max(errs.get(k, 0.0), e)
     paths = dict(zip(("e2e", "e2e_compare"), e2e_phase()))
     paths.update(zip(("prefetch", "prefetch_compare"), prefetch_phase()))
     paths["recovery"] = recovery_phase()
@@ -4590,7 +4888,7 @@ def main() -> int:
     paths["models"] = models_phase()
     paths["serve_lm"] = serve_lm_phase()
     paths.update(train_phase())
-    paths.update(serve_examples_phase())
+    paths.update(serve_examples_phase(obs_side))
     paths["mesh"] = mesh_phase()
     dryrun_phase(dryrun)
     names = {"tac_probe": ("tac_probe.cu",

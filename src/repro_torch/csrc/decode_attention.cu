@@ -886,6 +886,174 @@ decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+// Pass 1 past the lanes kernel's widths (route 3: d past 576 or dv past
+// 512, either type), on the CUDA cores: decode_lanes_kernel's scheme, a
+// warp a token and lane l holding columns l, l + 32, ..., with two
+// changes.  The key width is walked at run time, 32 columns a step, q
+// read in place (each lane its columns of the block's kLaneHeads heads,
+// from the L1) instead of from registers; so any d runs.  The value
+// columns are cut into groups of kWalkCols, a block each (grid y: head
+// chunk x value group), whose accumulators stay in registers as the
+// lanes kernel's; each group's block recomputes the scores, so values
+// dv wide cost ceil(dv / kWalkCols) times the q.k work.  Group 0 writes
+// the split's max and sum (every group computes the same ones).
+constexpr int kWalkCols = 512;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                   const T* __restrict__ v_pages,
+                   const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int H, int P, int page,
+                   int n_slots, int split_pages, int d, int dv,
+                   float inv_scale) {
+  constexpr int G = kLaneHeads, U = kLaneUnroll, NW = kThreads / 32;
+  constexpr int STEP = NW * U;          // tokens a block step
+  constexpr int VC = kWalkCols / 32;
+  __shared__ float m_s[NW * G];
+  __shared__ float l_s[NW * G];
+  __shared__ float acc_s[NW * G * 32 * VC];
+
+  const int groups = (dv + kWalkCols - 1) / kWalkCols;
+  const int row = blockIdx.x;
+  const int h0 = blockIdx.y / groups * G;
+  const int v0 = blockIdx.y % groups * kWalkCols;
+  const int cols = min(kWalkCols, dv - v0);
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int gn = min(G, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* qh[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)           // heads past H read head h0
+    qh[g] = q + ((int64_t)row * H + h0 + (g < gn ? g : 0)) * d;
+
+  float m[G], l[G], acc[G][VC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < VC; ++c) acc[g][c] = 0.f;
+  }
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int p_end = min(n_pages, (split + 1) * split_pages);
+  for (int pi = split * split_pages; pi < p_end; ++pi) {
+    const int slot = trow[pi];
+    if (slot < 0 || slot >= n_slots) continue;   // the wrapper raises first
+    const int n_valid = min(page, len - pi * page);
+    const int64_t tok0 = (int64_t)slot * page;
+    // block-uniform trip count: every lane reaches every shuffle
+    for (int base = 0; base < n_valid; base += STEP) {
+      bool ok[U];
+      const T* kr[U];
+      float s[U][G];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + warp * U + u;
+        ok[u] = t < n_valid;
+        kr[u] = k_pages + (tok0 + (ok[u] ? t : 0)) * d;
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[u][g] = 0.f;
+      }
+      for (int c0 = 0; c0 < d; c0 += 32) {
+        const int col = c0 + lane;
+        if (col >= d) continue;
+        float qv[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) qv[g] = to_f32(qh[g][col]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float kv = ok[u] ? to_f32(kr[u][col]) : 0.f;
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[u][g] = fmaf(qv[g], kv, s[u][g]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float part = s[u][g];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, off);
+          s[u][g] = part * inv_scale;
+        }
+      float vx[U][VC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const T* vr = v_pages + (tok0 + base + warp * U + u) * dv + v0;
+#pragma unroll
+        for (int c = 0; c < VC; ++c) {
+          const int col = lane + 32 * c;
+          vx[u][c] = ok[u] && col < cols ? to_f32(vr[col]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mn = m[g];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (ok[u]) mn = fmaxf(mn, s[u][g]);
+        const float alpha = expf(m[g] - mn);
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[u][g] = ok[u] ? expf(s[u][g] - mn) : 0.f;
+          ps += s[u][g];
+        }
+        l[g] = l[g] * alpha + ps;
+        m[g] = mn;
+#pragma unroll
+        for (int c = 0; c < VC; ++c) {
+          float a = acc[g][c] * alpha;
+#pragma unroll
+          for (int u = 0; u < U; ++u) a = fmaf(s[u][g], vx[u][c], a);
+          acc[g][c] = a;
+        }
+      }
+    }
+  }
+
+  // merge the warps' (max, sum, accumulator) states
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      m_s[warp * G + g] = m[g];
+      l_s[warp * G + g] = l[g];
+    }
+#pragma unroll
+    for (int c = 0; c < VC; ++c)
+      acc_s[(warp * G + g) * 32 * VC + lane + 32 * c] = acc[g][c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < gn * cols; i += kThreads) {
+    const int g = i / cols, c = i % cols;
+    float M = kNegInf;
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, m_s[w * G + g]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float sc = expf(m_s[w * G + g] - M);
+      L = fmaf(l_s[w * G + g], sc, L);
+      A = fmaf(acc_s[(w * G + g) * 32 * VC + c], sc, A);
+    }
+    const int64_t rh = (int64_t)row * H + h0 + g;
+    if (out != nullptr) {
+      store(out + rh * dv + v0 + c, A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(rh * n_splits + split) * dv + v0 + c] = A;
+      if (c == 0 && v0 == 0) {
+        part_m[rh * n_splits + split] = M;
+        part_l[rh * n_splits + split] = L;
+      }
+    }
+  }
+}
+
 // Pass 2: one block per (row, head), a thread per column; the splits are
 // combined in order, so the sum is the same from run to run
 template <typename T>
@@ -1057,6 +1225,28 @@ struct Lanes {                         // route 2: any width, CUDA cores
   }
 };
 
+template <typename T>
+struct Walk {                          // route 3: past the lanes' widths
+  static int heads() { return kLaneHeads; }
+  static int blocks_per_sm(int* n) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_walk_kernel<T>, kThreads, 0);
+  }
+  static int launch(const Args& a) {
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    const int groups = (a.dv + kWalkCols - 1) / kWalkCols;
+    decode_walk_kernel<T>
+        <<<dim3(a.B, (a.H + kLaneHeads - 1) / kLaneHeads * groups, n),
+           kThreads, 0, a.stream>>>(
+            (const T*)a.q, (const T*)a.k, (const T*)a.v,
+            (const int32_t*)a.table, (const int32_t*)a.lens,
+            n > 1 ? nullptr : (T*)a.out, parts.m, parts.l, parts.acc, a.H,
+            a.P, a.page, a.n_slots, a.split_pages(), a.d, a.dv, a.inv_scale);
+    return merge<T>(a, parts);
+  }
+};
+
 // route 0, float32: up to 8 query heads a block, 4 when there are few
 template <int D, typename F>
 int dispatch_f32(int H, const F& f) {
@@ -1092,6 +1282,9 @@ int dispatch(int route, int bf16, int DK, int DV, int H, const F& f) {
   if (route == 2 && DK == 576 && DV == 512)
     return bf16 ? f.template run<Lanes<__nv_bfloat16, 576 / 32, 512 / 32>>()
                 : f.template run<Lanes<float, 576 / 32, 512 / 32>>();
+  if (route == 3)
+    return bf16 ? f.template run<Walk<__nv_bfloat16>>()
+                : f.template run<Walk<float>>();
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1123,7 +1316,8 @@ extern "C" {
 // DK, DV): route 0 float32 at d = dv = DK = DV in {16, 32, 64, 128};
 // route 1 bfloat16 at d <= DK, dv <= DV, both multiples of 8, (DK, DV) in
 // {(16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (576, 512)};
-// route 2 either type at d <= DK = 576, dv <= DV = 512.
+// route 2 either type at d <= DK = 576, dv <= DV = 512; route 3 either
+// type at any d <= DK, dv <= DV (the wrapper passes its d and dv).
 // Scores are q.k * inv_scale.  Returns a CUDA error code;
 // cudaErrorInvalidValue for an instance that is not built or widths it
 // does not take.

@@ -65,7 +65,13 @@
 // pass (c) takes 161,792 bytes at Q 128 and 16 heads, so an SM holds one
 // block of it (two at N 64); pass (a) still fits two.  A chunk above 128
 // never reaches the kernel: the wrapper runs it as chunks of 128, which
-// changes only the order of the sums.  Scratch from the wrapper: S_loc
+// changes only the order of the sums.  Nor does a wider state: the state
+// is separable on both axes (column p of h and y depends only on x[.., p];
+// row n of h only on B[n], and y sums over the rows), so the wrapper runs
+// P past 64 as groups of columns (y and the state concatenated) and N past
+// 128 as groups of rows, whose y it sums in fp32: pass (c) then writes y
+// in fp32 (ssd_output_kernel<float>) and the wrapper rounds the sum once
+// (see mamba2_scan.py).  Scratch from the wrapper: S_loc
 // [B, chunks, H, N, P] fp32, s_prev [B, chunks, H, 2 (hi, lo), N, P] bf16
 // and dec [B, chunks, H] fp32; at zamba2's prefill 83,886,080, 83,886,080
 // and 20,480 bytes.
@@ -91,8 +97,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxQ = 128;
-constexpr int kMaxN = 128;             // state rows (d_state)
-constexpr int kMaxP = 64;              // state columns (head dim)
+constexpr int kMaxN = 128;             // state rows (d_state) a launch
+constexpr int kMaxP = 64;              // state columns (head dim) a launch
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -358,11 +364,14 @@ ssd_pass_kernel(const float* __restrict__ s_loc, const float* __restrict__ dec,
 // the tiles (r, kt <= r) of C B^T on them: w + 1 and RT - w of them, the
 // same count for every warp (nf), walked as one flat list f so that each
 // tile's fragments sit in registers at a fixed index
+// y of type YT: bf16, or fp32 when the wrapper sums groups of state rows
+// (each group's y a part of the whole, rounded once after the sum)
+template <typename YT>
 __global__ void __launch_bounds__(kTcThreads)
 ssd_output_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const bf16* __restrict__ Bm,
                   const bf16* __restrict__ Cm, const bf16* __restrict__ s_prev,
-                  bf16* __restrict__ y, int S, int H, int G, int N, int P,
+                  YT* __restrict__ y, int S, int H, int G, int N, int P,
                   int Q, int heads) {
   constexpr int kMaxTiles = kMaxQ / 16 + 1;      // tiles a warp, at most
   const int Qp = pad16(Q), Np = pad16(N), Pp = pad16(P);
@@ -436,7 +445,7 @@ ssd_output_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     const float* dth = dt_s + hi * Qp;
     const bf16* xt = st ? buf1 : buf0;
     const bf16* spt = xt + Qp * PL;    // hi [Np][PL], then lo
-    bf16* yh = y + ((int64_t)tl.b * S + s0) * xld + (int64_t)(tl.h0 + hi) * P;
+    YT* yh = y + ((int64_t)tl.b * S + s0) * xld + (int64_t)(tl.h0 + hi) * P;
     float acc[8][4];
 #pragma unroll
     for (int f = 0; f < kMaxTiles; ++f) {
@@ -491,12 +500,15 @@ ssd_output_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       for (int half = 0; half < 2; ++half) {
         const int i = half ? i1 : i0;
         if (i >= n_valid) continue;
-        bf16* yr = yh + i * xld;
+        YT* yr = yh + i * xld;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int p = j * 8 + 2 * t4;
           if (j >= PT || p >= P) continue;
-          if (p + 1 < P && (P & 1) == 0)
+          if constexpr (sizeof(YT) == 4) {
+            yr[p] = acc[j][2 * half];
+            if (p + 1 < P) yr[p + 1] = acc[j][2 * half + 1];
+          } else if (p + 1 < P && (P & 1) == 0)
             *reinterpret_cast<__nv_bfloat162*>(yr + p) = __floats2bfloat162_rn(
                 acc[j][2 * half], acc[j][2 * half + 1]);
           else {
@@ -550,7 +562,9 @@ int configure_bf16() {
   static const int configured =
       configure(ssd_state_kernel<false>,
                 state_smem_bytes(kMaxQ, kMaxN, kMaxP, kMaxHeads))
-      | configure(ssd_output_kernel,
+      | configure(ssd_output_kernel<bf16>,
+                  output_smem_bytes(kMaxQ, kMaxN, kMaxP, kMaxHeads))
+      | configure(ssd_output_kernel<float>,
                   output_smem_bytes(kMaxQ, kMaxN, kMaxP, kMaxHeads));
   return configured;
 }
@@ -558,7 +572,8 @@ int configure_bf16() {
 int launch_bf16(const void* x, const void* dt, const void* A, const void* Bm,
                 const void* Cm, const void* init, void* y, void* state,
                 void* s_loc, void* s_prev, void* dec, int B, int S, int H,
-                int G, int N, int P, int Q, int heads, cudaStream_t stream) {
+                int G, int N, int P, int Q, int heads, int y_f32,
+                cudaStream_t stream) {
   const int configured = configure_bf16();
   if (configured != 0) return configured;
   const int nc = (S + Q - 1) / Q, rep = H / G;
@@ -578,11 +593,17 @@ int launch_bf16(const void* x, const void* dt, const void* A, const void* Bm,
       (bf16*)s_prev, (float*)state, nc, H, NP);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || blocks == 0) return (int)err;
-  ssd_output_kernel<<<blocks, kTcThreads, output_smem_bytes(Q, N, P, heads),
-                      stream>>>(
-      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,
-      (const bf16*)Cm, (const bf16*)s_prev, (bf16*)y, S, H, G, N, P, Q,
-      heads);
+  const int bytes = output_smem_bytes(Q, N, P, heads);
+  if (y_f32)
+    ssd_output_kernel<float><<<blocks, kTcThreads, bytes, stream>>>(
+        (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,
+        (const bf16*)Cm, (const bf16*)s_prev, (float*)y, S, H, G, N, P, Q,
+        heads);
+  else
+    ssd_output_kernel<bf16><<<blocks, kTcThreads, bytes, stream>>>(
+        (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,
+        (const bf16*)Cm, (const bf16*)s_prev, (bf16*)y, S, H, G, N, P, Q,
+        heads);
   return (int)cudaGetLastError();
 }
 
@@ -599,14 +620,17 @@ extern "C" {
 // heads a block of passes (a) and (c) takes; float32 ignores all but
 // s_prev, which it fills in float32 [B, chunks, H, N, P] unless it is
 // null.
+// With y_f32 != 0 a bfloat16 launch writes y in float32 (the wrapper's
+// part of a sum over groups of state rows).
 // Returns a CUDA error code; cudaErrorInvalidValue outside 1 <= Q <= 128,
-// 1 <= N <= 128, 1 <= P <= 64, for float32 a Q, N whose shared memory
+// 1 <= N <= 128, 1 <= P <= 64 (a launch's group: the wrapper cuts a wider
+// state into groups), for float32 a Q, N whose shared memory
 // passes kF32Floats (Q <= 64 at N above 64) and, for bfloat16, 1 <= heads
 // <= 16.
 int mamba2_scan(const void* x, const void* dt, const void* A, const void* Bm,
                 const void* Cm, const void* init, void* y, void* state,
                 void* s_loc, void* s_prev, void* dec, int B, int S, int H,
-                int G, int N, int P, int Q, int heads, int bf16,
+                int G, int N, int P, int Q, int heads, int bf16, int y_f32,
                 void* stream) {
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || P < 1 || P > kMaxP
       || (bf16 && (heads < 1 || heads > kMaxHeads))
@@ -615,7 +639,7 @@ int mamba2_scan(const void* x, const void* dt, const void* A, const void* Bm,
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return launch_bf16(x, dt, A, Bm, Cm, init, y, state, s_loc, s_prev, dec,
-                       B, S, H, G, N, P, Q, heads, st);
+                       B, S, H, G, N, P, Q, heads, y_f32, st);
   return launch_f32(x, dt, A, Bm, Cm, init, y, state, s_prev, B, S, H, G, N,
                     P, Q, st);
 }
@@ -628,7 +652,7 @@ int mamba2_scan_blocks_per_sm(int Q, int N, int P, int* blocks) {
   const int configured = configure_bf16();
   if (configured != 0) return configured;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ssd_output_kernel, kTcThreads,
+      blocks, ssd_output_kernel<bf16>, kTcThreads,
       output_smem_bytes(Q, N, P, kMaxHeads));
 }
 

@@ -123,6 +123,15 @@
 // chunks' ends [B, chunks, H, 2, N, P] bf16, the decays, W's row sums
 // plus the inter term [B, chunks, H, N tiles, Qp] fp32, dB and dC a tile
 // of heads [B, S, G tiles, N] fp32 and dA a chunk.
+//
+// Wider states (N past 128, P past 64) never reach these kernels: the
+// wrapper runs them as groups of state rows and columns, as the forward,
+// and sums the groups' parts in fp32: dB and dC over column groups, for
+// which a bfloat16 launch can write them in float32 (ssd_bwd_reduce<float>
+// after the bf16 chunk kernels), and dx over row groups, which a bf16
+// input takes through the fp32 design on its exact fp32 values and on the
+// bf16 forward's s_prev as the fp32 sum of its halves (mamba2_scan.py).
+// Each sum is rounded to bf16 once.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -133,8 +142,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxQ = 128;
-constexpr int kMaxN = 128;             // state rows (d_state), as the forward
-constexpr int kMaxP = 64;              // state columns (head dim)
+constexpr int kMaxN = 128;             // state rows (d_state) a launch
+constexpr int kMaxP = 64;              // state columns (head dim) a launch
 constexpr int kTileN = 64;             // state rows a group of warps takes
 constexpr int kMaxHeads = 16;          // heads a block of (a), (c1), (c2)
 
@@ -1077,7 +1086,9 @@ int dstates(const void* dt, const void* A, const void* Cm, const void* dy,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NW>
+// DBC, the type of dB and dC: T, or float for a bf16 launch whose dB and
+// dC the wrapper sums over groups of state columns
+template <typename T, int NW, typename DBC = T>
 int chunks(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, const void* dy, const void* s_prev,
            const void* ds, void* dx, void* ddt, void* dA, void* dB, void* dC,
@@ -1104,10 +1115,11 @@ int chunks(const void* x, const void* dt, const void* A, const void* Bm,
   if (err != cudaSuccess) return (int)err;
   const int rep = H / G;
   const int64_t n_bc = (int64_t)B * S * G * N;
-  ssd_bwd_reduce<T><<<grid_for(n_bc > (int64_t)B * H ? n_bc : (int64_t)B * H),
-                      kThreads, 0, stream>>>(
+  ssd_bwd_reduce<DBC><<<grid_for(n_bc > (int64_t)B * H ? n_bc
+                                                         : (int64_t)B * H),
+                        kThreads, 0, stream>>>(
       (const float*)dB_part, (const float*)dC_part, (const float*)dA_part,
-      (T*)dB, (T*)dC, (float*)dA, n_bc, (S + Q - 1) / Q, B, H, G, N,
+      (DBC*)dB, (DBC*)dC, (float*)dA, n_bc, (S + Q - 1) / Q, B, H, G, N,
       (rep + heads - 1) / heads);
   return (int)cudaGetLastError();
 }
@@ -1164,20 +1176,24 @@ int mamba2_scan_bwd_dstates(const void* dt, const void* A, const void* Cm,
 // H, 2, N, P] bf16 hi and lo and ds from mamba2_scan_bwd_dstates; scratch,
 // float32: dB_part, dC_part [B, S, G tiles, N] (tiles = ceil(H / G /
 // heads)), dA_part [B, chunks, H] and rsi [B, chunks, H, ceil(N / 64),
-// pad16(Q)].  Kernels (c1), (c2) and (d).  Returns a CUDA error code, as
-// above.
+// pad16(Q)].  Kernels (c1), (c2) and (d).  With dbc_f32 != 0 a bfloat16
+// launch writes dB and dC in float32 (the wrapper's parts of sums over
+// groups of state columns).  Returns a CUDA error code, as above.
 int mamba2_scan_bwd_chunks(const void* x, const void* dt, const void* A,
                            const void* Bm, const void* Cm, const void* dy,
                            const void* s_prev, const void* ds, void* dx,
                            void* ddt, void* dA, void* dB, void* dC,
                            void* dB_part, void* dC_part, void* dA_part,
                            void* rsi, int B, int S, int H, int G, int N,
-                           int P, int Q, int heads, int f32, void* stream) {
+                           int P, int Q, int heads, int f32, int dbc_f32,
+                           void* stream) {
   if (!valid(B, S, H, G, N, P, Q, heads, f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto run = n_tiles(N) > 1 ? (f32 ? chunks<float, 2> : chunks<bf16, 2>)
-                            : (f32 ? chunks<float, 1> : chunks<bf16, 1>);
+  const bool two = n_tiles(N) > 1;
+  auto run = f32 ? (two ? chunks<float, 2> : chunks<float, 1>)
+             : dbc_f32 ? (two ? chunks<bf16, 2, float> : chunks<bf16, 1, float>)
+                       : (two ? chunks<bf16, 2> : chunks<bf16, 1>);
   return run(x, dt, A, Bm, Cm, dy, s_prev, ds, dx, ddt, dA, dB, dC, dB_part,
              dC_part, dA_part, rsi, B, S, H, G, N, P, Q, heads, st);
 }

@@ -28,6 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = ROOT / "build" / "repro_torch"
 SOURCES = ("tac_probe", "page_gather", "tac_fused", "decode_attention",
            "cms_sketch", "flash_attention", "flash_attention_bwd",
+           "flash_attention_wide",
            "mamba2_scan", "mamba2_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

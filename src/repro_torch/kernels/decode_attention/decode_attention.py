@@ -21,9 +21,14 @@ merges the ranges' partial softmax states.  ``instance`` picks the built
 instance (route, DK, DV) that runs (d, dv) in a type: float32 at d = dv in
 ``HEAD_DIMS`` on its own instance; bfloat16 rows of whole 16-byte chunks
 on the tensor cores (up to 128 in registers, (256, 256) and (576, 512)
-with Q in shared memory); every other width up to ``MAX_D``, ``MAX_DV``
-on the CUDA cores, a warp a token.  Every route reads the pool in place
-at its own widths; only q is zero-padded to DK on the tensor cores.
+with Q in shared memory); every other width up to ``LANES_D``,
+``LANES_DV`` on the CUDA cores, a warp a token, the widths in registers
+("lanes"); any wider key or value width on the CUDA cores too ("walk"):
+the key width walked 32 columns a step with q read in place, the value
+columns in groups of ``WALK_COLS``, a block each (each group recomputes
+the scores: ceil(dv / ``WALK_COLS``) times the q.k work).  Every route
+reads the pool in place at its own widths; only q is zero-padded to DK on
+the tensor cores.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ LAUNCHES = 0
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)     # square instances (one build a type each)
 WIDE = ((256, 256), (576, 512))   # bf16 tensor-core instances past 128
-MAX_D, MAX_DV = 576, 512          # wider keys or values: no instance
-ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2}
+LANES_D, LANES_DV = 576, 512      # the lanes instance; wider: the walk
+WALK_COLS = 512                   # value columns a block of the walk
+ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2, "walk": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_WAVE_SHARE = 0.9            # least share of the last wave kept busy
 _PLANS = {}                       # (instance, H > 4, dtype) -> launch_plan
@@ -53,12 +59,14 @@ def instance(d: int, dv: int, dtype) -> tuple:
     ``HEAD_DIMS`` (the instance as it was first built); "tensor_cores" for
     bfloat16 whose rows are whole 16-byte chunks (d, dv multiples of 8),
     at the smallest of ``HEAD_DIMS`` that holds both or else the first of
-    ``WIDE`` that does; "lanes" for every other width, one instance at
-    (``MAX_D``, ``MAX_DV``).  Raises past ``MAX_D``, ``MAX_DV``."""
-    if d < 1 or dv < 1 or d > MAX_D or dv > MAX_DV:
-        raise ValueError(f"decode_attention: the kernel takes key widths d "
-                         f"in [1, {MAX_D}] and value widths dv in [1, "
-                         f"{MAX_DV}], not d={d}, dv={dv}")
+    ``WIDE`` that does; "lanes" for every other width up to (``LANES_D``,
+    ``LANES_DV``), one instance at those; "walk" past them, at the
+    caller's (d, dv).  Raises for a width below 1."""
+    if d < 1 or dv < 1:
+        raise ValueError(f"decode_attention: key and value widths >= 1, "
+                         f"not d={d}, dv={dv}")
+    if d > LANES_D or dv > LANES_DV:
+        return ("walk", d, dv)
     if dtype == torch.float32 and d == dv and d in HEAD_DIMS:
         return ("workers", d, d)
     covers = lambda p: d <= p[0] and dv <= p[1]  # noqa: E731
@@ -66,7 +74,7 @@ def instance(d: int, dv: int, dtype) -> tuple:
         square = [(n, n) for n in HEAD_DIMS]
         return ("tensor_cores",
                 *next(p for p in square + list(WIDE) if covers(p)))
-    return ("lanes", MAX_D, MAX_DV)
+    return ("lanes", LANES_D, LANES_DV)
 
 
 def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
@@ -178,9 +186,12 @@ def splits_for(q, P: int, dv=None) -> int:
     unless given) over a table of ``P`` pages uses (``plan_splits`` on
     this card)."""
     B, H, d = q.shape
-    heads, per_sm = launch_plan(d, dv or d, H, q.dtype)
+    dv = dv or d
+    heads, per_sm = launch_plan(d, dv, H, q.dtype)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return plan_splits(B * -(-H // heads), P, sms, per_sm)
+    groups = -(-dv // WALK_COLS) \
+        if instance(d, dv, q.dtype)[0] == "walk" else 1
+    return plan_splits(B * -(-H // heads) * groups, P, sms, per_sm)
 
 
 def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):

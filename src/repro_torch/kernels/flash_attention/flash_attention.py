@@ -16,7 +16,14 @@ caller's d (a runtime argument of the kernels), and the output sliced
 back to dv.  Zero key columns leave every q.k as it was and zero value
 columns only add output columns, so the result is the caller's.  The
 padding and the slicing sit outside ``FlashAttention``, so the gradient
-runs on the covering pair's backward and flows back through them.
+runs on the covering pair's backward and flows back through them.  A pair
+that no instance covers (d or dv past ``MAX_D``: ``cover_pair`` gives
+None) runs on ``csrc/flash_attention_wide.cu``, whose forward and
+backward walk both widths at run time on the CUDA cores (the softmax is
+of the whole score, so the key width is walked, not split); its forward
+recomputes the scores for each group of ``WIDE_GROUP`` value columns
+(ceil(dv / ``WIDE_GROUP``) times the q.k work) and its backward writes
+fp32 gradients that the wrapper rounds to the inputs' type once.
 
 ``flash_attention_kernel`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; it never falls back from one to
@@ -58,7 +65,8 @@ NEG_INF = -1e30
 # the kernel's (d, dv) pairs: FLASH_PAIRS in csrc/flash_attention.cu
 PAIRS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (80, 80),
          (128, 128), (192, 128), (256, 256))
-MAX_D = 256                      # d and dv past this: no pair covers them
+MAX_D = 256                      # d and dv past this: the wide kernel
+WIDE_GROUP = 512                 # value columns a block of the wide forward
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -91,16 +99,17 @@ def flash_attention_backward_plain(q, k, v, dout, causal: bool = True):
         return torch.autograd.grad(out, leaves, dout)
 
 
-def cover_pair(d: int, dv: int) -> tuple:
+def cover_pair(d: int, dv: int):
     """The instantiated pair a call at ``(d, dv)`` runs on: ``(d, dv)``
     itself when it is one of ``PAIRS``, else the covering pair (DK >= d,
-    DV >= dv) with the fewest padded columns, DK + DV.  Raises past
-    ``MAX_D``."""
+    DV >= dv) with the fewest padded columns, DK + DV; None past
+    ``MAX_D``, where the wide kernel runs (d, dv) as it is.  Raises for
+    a width below 1."""
+    if d < 1 or dv < 1:
+        raise ValueError(f"flash_attention: widths d, dv >= 1, not "
+                         f"({d}, {dv})")
     fits = [p for p in PAIRS if p[0] >= d and p[1] >= dv]
-    if d < 1 or dv < 1 or not fits:
-        raise ValueError(f"flash_attention: the kernel takes d, dv in "
-                         f"[1, {MAX_D}], not ({d}, {dv})")
-    return min(fits, key=lambda p: (p[0] + p[1], p))
+    return min(fits, key=lambda p: (p[0] + p[1], p)) if fits else None
 
 
 def pad_to_pair(q, k, v, pair):
@@ -211,7 +220,7 @@ def flash_attention_kernel(q, k, v, causal: bool = True):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     d, dv = q.shape[3], v.shape[3]
-    pair = cover_pair(d, dv)
+    pair = cover_pair(d, dv) or (d, dv)
     scale = 1.0 / math.sqrt(d)
     q, k, v = pad_to_pair(q, k, v, pair)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -240,13 +249,18 @@ def _cost(q, k, v, causal: bool, fn=costs.flash_fwd):
               q.element_size())
 
 
+def is_wide(d: int, dv: int) -> bool:
+    """Whether ``(d, dv)`` runs on the wide kernel: no pair covers it."""
+    return cover_pair(d, dv) is None
+
+
 def _cuda_limits(q, k, v) -> None:
     """Raise on what the CUDA kernels do not take."""
     d, dv = q.shape[3], v.shape[3]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: no kernel for q {q.dtype}, k/v "
                         f"{k.dtype}/{v.dtype}")
-    if (d, dv) not in PAIRS:
+    if (d, dv) not in PAIRS and not is_wide(d, dv):
         raise ValueError(f"flash_attention: the kernel is built for (d, dv) "
                          f"in {PAIRS}, not ({d}, {dv}); the wrapper pads "
                          f"to them (cover_pair)")
@@ -277,6 +291,19 @@ def _forward(q, k, v, causal: bool, with_lse: bool, scale=None):
     if q.device.type == "meta":
         costs.book("flash_attention", _cost(q, k, v, causal))
         return out, lse
+    if is_wide(d, dv):
+        fn = cuda_build.load("flash_attention_wide").flash_attention_wide
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 0 if lse is None else lse.data_ptr(), B, S, T, H, KV, d,
+                 dv, int(causal), _scale(q, scale), _DTYPES[q.dtype],
+                 cuda_build.stream_ptr(q.device))
+        cuda_build.check(err, "flash_attention_wide")
+        LAUNCHES += 1
+        return out, lse
     fn = cuda_build.load("flash_attention").flash_attention
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
@@ -306,6 +333,8 @@ def backward_from_delta(q, k, v, lse, delta, dout, causal: bool = True,
             or delta.dtype != torch.float32:
         raise ValueError("flash_attention_backward: dout [B, S, H, dv] in "
                          "q's type and fp32 lse, delta [B, H, S] expected")
+    if is_wide(d, dv):
+        return _wide_backward(q, k, v, lse, delta, dout, causal, scale)
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk.zero_(), dvv.zero_()
@@ -321,6 +350,39 @@ def backward_from_delta(q, k, v, lse, delta, dout, causal: bool = True,
              cuda_build.stream_ptr(q.device))
     cuda_build.check(err, "flash_attention_bwd")
     return dq, dk, dvv
+
+
+def _wide_backward(q, k, v, lse, delta, dout, causal: bool, scale):
+    """``backward_from_delta`` on the wide kernel: its fp32 gradients,
+    each rounded to the input's type once."""
+    B, S, H, d = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=q.device)
+             for t in (q, k, v)]
+    if S == 0:
+        return tuple(g.zero_().to(q.dtype) for g in grads)
+    fn = cuda_build.load("flash_attention_wide").flash_attention_wide_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             *(g.data_ptr() for g in grads), B, S, T, H, KV, d, dv,
+             int(causal), _scale(q, scale), _DTYPES[q.dtype],
+             cuda_build.stream_ptr(q.device))
+    cuda_build.check(err, "flash_attention_wide_bwd")
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def wide_smem_bytes(dv: int) -> int:
+    """The wide forward's dynamic shared memory a block at value width
+    ``dv``, as the source computes it."""
+    fn = cuda_build.load("flash_attention_wide") \
+        .flash_attention_wide_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(dv)
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True,

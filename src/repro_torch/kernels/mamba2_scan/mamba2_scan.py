@@ -18,11 +18,27 @@ adds nothing.
 other.  In bf16 the kernel is three passes (chunk states, state passing,
 chunk outputs; see the source's note), counted as one launch; ``plan``
 sets their blocks and scratch.  fp32 runs one pass on the CUDA cores.
-The kernel takes N up to ``MAX_N`` and P up to ``MAX_P``; the wrapper
+A launch takes N up to ``GROUP_N`` and P up to ``GROUP_P``; the wrapper
 takes any chunk and runs one above ``chunk_cap`` as chunks of the cap
 (``kernel_chunk``), which changes only the order of the sums.  That sits
-outside ``Mamba2Scan``, so the backward runs at the kernel's chunk, at
-every N and P the forward takes.
+outside ``Mamba2Scan``, so the backward runs at the kernel's chunk.
+
+Any N and P run: the state h [N, P] is separable on both axes (column p
+of h and y depends only on x[..., p]; row n of h only on B[n], and
+y = sum_n C[n] h[n, :] sums over the rows), so ``_forward`` and
+``mamba2_scan_backward`` cut a wider state into near-equal groups
+(``split_plan``), a launch each: over column groups y, the final state
+and dx are concatenated and dB, dC, ddt and dA summed; over row groups
+y, dx, ddt and dA are summed and dB, dC and dinit concatenated.  The sums
+are in fp32 and rounded to the input's type once: over column groups a
+bf16 backward writes dB and dC in fp32; over row groups a bf16 forward
+writes y in fp32 and the backward runs the fp32 design on the inputs'
+exact fp32 values and the sum of the saved state's halves
+(``fp32_design``), whose dx is fp32, both at that design's chunk.  A
+wider state is the same
+function at the same cost, booked once (``costs.mamba_fwd`` at the
+caller's N and P); only the inputs a group re-reads (x and dy over row
+groups, B, C over column groups) are extra bytes.
 
 When a gradient is asked of CUDA tensors, the call goes through
 ``Mamba2Scan``, a ``torch.autograd.Function``: its forward launches the
@@ -58,8 +74,8 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 MAX_CHUNK = 128                  # the kernel's chunk (the wrapper's: any)
-MAX_N = 128                      # state rows N (d_state), forward
-MAX_P = 64                       # state columns P (head dim)
+GROUP_N = 128                    # state rows N (d_state) a launch
+GROUP_P = 64                     # state columns P (head dim) a launch
 MAX_N_F32 = 64                   # fp32 runs chunks of 64 above this N
 TILE_N = 64                      # state rows a group of the backward's warps
 MAX_HEADS = 16                   # heads a block of passes (a) and (c)
@@ -323,11 +339,48 @@ def bwd_heads(x, Bm, Q: int) -> int:
                                   x.dtype))
 
 
+def groups(n: int, cap: int) -> list:
+    """[(start, stop)]: ``n`` cut into the fewest near-equal groups of at
+    most ``cap`` (the first ``n % groups`` one longer)."""
+    if n < 1:
+        raise ValueError(f"mamba2_scan: a state size >= 1, not {n}")
+    k = -(-n // cap)
+    base, extra = divmod(n, k)
+    out, at = [], 0
+    for i in range(k):
+        size = base + (i < extra)
+        out.append((at, at + size))
+        at += size
+    return out
+
+
+def split_plan(N: int, P: int):
+    """(row groups, column groups) of a state [N, P]: each (row group,
+    column group) pair is one launch of the kernel."""
+    return groups(N, GROUP_N), groups(P, GROUP_P)
+
+
+def group_n(N: int) -> int:
+    """The state rows of the widest row group a launch takes."""
+    return max(b - a for a, b in groups(N, GROUP_N))
+
+
+def fp32_design(N: int, dtype) -> bool:
+    """Whether the scan's backward at state size N in ``dtype`` runs the
+    fp32 design: for fp32, and for bf16 past one row group (N >
+    ``GROUP_N``), whose dx is a sum over the groups, which the fp32
+    design gives in fp32 from the bf16 inputs' exact fp32 values.  The
+    chunk follows it (``chunk_cap``), in the forward too."""
+    return dtype == torch.float32 or N > GROUP_N
+
+
 def chunk_cap(N: int, dtype) -> int:
     """The largest chunk the kernel runs at state size N in ``dtype``:
-    ``MAX_CHUNK``, or 64 in fp32 above ``MAX_N_F32`` (whose shared memory
-    at chunk 128 and N 128 would pass the card's)."""
-    return 64 if dtype == torch.float32 and N > MAX_N_F32 else MAX_CHUNK
+    ``MAX_CHUNK``, or 64 on the fp32 design when a row group passes
+    ``MAX_N_F32`` (whose shared memory at chunk 128 and N 128 would pass
+    the card's)."""
+    return 64 if fp32_design(N, dtype) and group_n(N) > MAX_N_F32 \
+        else MAX_CHUNK
 
 
 def kernel_chunk(Q: int, N: int, dtype) -> int:
@@ -341,17 +394,16 @@ def kernel_chunk(Q: int, N: int, dtype) -> int:
 
 def kernel_limits(x, Bm, Cm, Q: int) -> None:
     """Raise on what the CUDA kernel does not take: a type other than fp32
-    or bf16 (x, Bm and Cm alike), N above ``MAX_N``, P above ``MAX_P`` or
-    a chunk above ``chunk_cap`` (the wrapper passes ``kernel_chunk``)."""
+    or bf16 (x, Bm and Cm alike) or a chunk above ``chunk_cap`` (the
+    wrapper passes ``kernel_chunk``).  Every N and P runs, a wide state
+    as groups (``split_plan``)."""
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"mamba2_scan: no kernel for x {x.dtype}, Bm/Cm "
                         f"{Bm.dtype}/{Cm.dtype}")
-    N, P = Bm.shape[3], x.shape[3]
-    if N > MAX_N or P > MAX_P or Q > chunk_cap(N, x.dtype):
-        raise ValueError(f"mamba2_scan: the kernel takes N <= {MAX_N}, "
-                         f"P <= {MAX_P} and a chunk <= "
-                         f"{chunk_cap(N, x.dtype)} at this N, not N {N}, "
-                         f"P {P}, chunk {Q}")
+    N = Bm.shape[3]
+    if Q > chunk_cap(N, x.dtype):
+        raise ValueError(f"mamba2_scan: the kernel takes a chunk <= "
+                         f"{chunk_cap(N, x.dtype)} at N {N}, not {Q}")
 
 
 def mamba2_scan_kernel(x, dt, A, Bm, Cm, Q: int, init=None):
@@ -399,22 +451,68 @@ def _on_mesh(x, dt, A, Bm, Cm, Q: int, init):
 def _forward(x, dt, A, Bm, Cm, Q: int, init, with_states: bool):
     """The kernel's (y, final state, the state entering each chunk or
     None): fp32 [B, chunks, H, N, P], or bf16 hi and lo [B, chunks, H, 2,
-    N, P] (the bf16 passes' own scratch, kept).  dt, A and init fp32."""
-    global LAUNCHES
+    N, P] (the bf16 passes' own scratch, kept).  dt, A and init fp32.  A
+    state past one launch runs as the groups of ``split_plan``."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     kernel_limits(x, Bm, Cm, Q)
     if not (x.is_contiguous() and Bm.is_contiguous() and Cm.is_contiguous()):
         raise ValueError("mamba2_scan: tensors must be contiguous")
-    y = torch.empty_like(x)
-    state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
-    bf16 = x.dtype == torch.bfloat16
     nc = -(-S // Q)
     if x.device.type == "meta":
         costs.book("mamba2_scan", costs.mamba_fwd(B_, S, H, G, N, P, Q,
                                                   x.element_size()))
-        return y, state, torch.empty((B_, nc, H, N, P), dtype=torch.float32,
-                                     device="meta") if with_states else None
+        return (torch.empty_like(x),
+                torch.empty((B_, H, N, P), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((B_, nc, H, N, P), dtype=torch.float32,
+                            device="meta") if with_states else None)
+    rows, cols = split_plan(N, P)
+    if len(rows) * len(cols) == 1:
+        return _launch(x, dt, A, Bm, Cm, Q, init, with_states)
+    summed = len(rows) > 1           # y a sum over row groups, in fp32
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
+        if summed else torch.empty_like(x)
+    state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
+    s_prev = None
+    for n0, n1 in rows:
+        Bg, Cg = (_cols(t, n0, n1, N) for t in (Bm, Cm))
+        for p0, p1 in cols:
+            yg, sg, spg = _launch(
+                _cols(x, p0, p1, P), dt, A, Bg, Cg, Q,
+                None if init is None else init[:, :, n0:n1, p0:p1]
+                .contiguous(), with_states, y_f32=summed)
+            if summed:
+                y[..., p0:p1] += yg
+            else:
+                y[..., p0:p1] = yg
+            state[:, :, n0:n1, p0:p1] = sg
+            if with_states:
+                if s_prev is None:
+                    s_prev = spg.new_empty((*spg.shape[:-2], N, P))
+                s_prev[..., n0:n1, p0:p1] = spg
+    return y.to(x.dtype), state, s_prev
+
+
+def _cols(t, a: int, b: int, width: int):
+    """The last dim's columns [a, b) of ``t``, contiguous (``t`` itself
+    when they are all of them)."""
+    return t if (a, b) == (0, width) else t[..., a:b].contiguous()
+
+
+def _launch(x, dt, A, Bm, Cm, Q: int, init, with_states: bool,
+            y_f32: bool = False):
+    """One launch of the kernel on a state of at most ``GROUP_N`` rows
+    and ``GROUP_P`` columns: ``_forward``'s outputs, y in fp32 with
+    ``y_f32``."""
+    global LAUNCHES
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        if y_f32 else torch.empty_like(x)
+    state = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    nc = -(-S // Q)
     heads, scratch = 0, (None, None, None)
     if bf16:
         pl = plan(B_, S, H, G, N, P, Q, *card_slots(Q, N, P, x.device))
@@ -433,14 +531,14 @@ def _forward(x, dt, A, Bm, Cm, Q: int, init, with_states: bool):
         return y, state, s_prev
     fn = cuda_build.load("mamba2_scan").mamba2_scan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), 0 if init is None else init.data_ptr(),
              y.data_ptr(), state.data_ptr(),
              *(0 if t is None else t.data_ptr() for t in scratch),
-             B_, S, H, G, N, P, Q, heads, int(bf16),
+             B_, S, H, G, N, P, Q, heads, int(bf16), int(y_f32 and bf16),
              cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan")
     LAUNCHES += 1
@@ -514,12 +612,13 @@ def backward_dstates(x, dt, A, Cm, Q: int, dy, dstate, heads: int):
 
 
 def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
-                          heads: int):
+                          heads: int, out_f32: bool = False):
     """The chunk kernels and (d) of the backward, ``heads`` heads a block:
     (dx, ddt, dA, dB, dC) from the forward's ``s_prev`` (fp32 [B, chunks,
     H, N, P], or bf16 hi and lo [B, chunks, H, 2, N, P]) and the state
-    gradients ``ds`` at the chunks' ends.  Not counted:
-    ``mamba2_scan_backward`` is the entry point."""
+    gradients ``ds`` at the chunks' ends; a bf16 launch's dB and dC in
+    fp32 with ``out_f32``.  Not counted: ``mamba2_scan_backward`` is the
+    entry point."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc = -(-S // Q)
@@ -534,10 +633,12 @@ def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
         split_planes(t, n) for t, n in (
             (x, B_ * S * H), (Bm, B_ * S * G), (Cm, B_ * S * G),
             (dy, B_ * S * H), (s_prev, B_ * nc * H)))
+    out = torch.float32 if out_f32 else x.dtype
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
-    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dB, dC = (torch.empty(t.shape, dtype=out, device=x.device)
+              for t in (Bm, Cm))
     tiles = -(-(H // G) // heads)
     parts = [torch.empty((B_, S, G * tiles, N), dtype=torch.float32,
                          device=x.device) for _ in range(2)]
@@ -546,7 +647,7 @@ def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
                       device=x.device)
     fn = cuda_build.load("mamba2_scan_bwd").mamba2_scan_bwd_chunks
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(x2.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm2.data_ptr(),
@@ -554,7 +655,8 @@ def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
              dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
              dC.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
              dA_part.data_ptr(), rsi.data_ptr(), B_, S, H, G, N, P, Q, heads,
-             int(f32), cuda_build.stream_ptr(x.device))
+             int(f32), int(out_f32 and not f32),
+             cuda_build.stream_ptr(x.device))
     cuda_build.check(err, "mamba2_scan_bwd_chunks")
     return dx, ddt, dA, dB, dC
 
@@ -562,22 +664,56 @@ def backward_from_dstates(x, dt, A, Bm, Cm, Q: int, s_prev, dy, ds,
 def mamba2_scan_backward(x, dt, A, Bm, Cm, Q: int, s_prev, dy, dstate=None):
     """(dx, ddt, dA, dB, dC, dinit) of the scan for the gradients ``dy`` of
     y and ``dstate`` (or none) of the final state, from the forward's
-    ``s_prev``: the backward's kernels, counted once."""
+    ``s_prev``: the backward's kernels, counted once a group of
+    ``split_plan``, the groups' parts summed in fp32."""
     global BWD_LAUNCHES
     _bwd_check(x, dt, A, Bm, Cm, Q, dy, dstate)
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     if x.device.type == "meta":
-        B_, S, H, P = x.shape
-        G, N = Bm.shape[2], Bm.shape[3]
         costs.book("mamba2_scan_bwd", costs.mamba_bwd(B_, S, H, G, N, P, Q,
                                                       x.element_size()))
         return (*(torch.empty_like(t) for t in (x, dt, A, Bm, Cm)),
                 torch.empty((B_, H, N, P), dtype=torch.float32,
                             device="meta"))
-    heads = bwd_heads(x, Bm, Q)
-    ds, dinit = backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
-    grads = backward_from_dstates(x, dt, A, Bm, Cm, Q, s_prev, dy, ds, heads)
-    BWD_LAUNCHES += 1
-    return (*grads, dinit)
+    rows, cols = split_plan(N, P)
+    if len(rows) * len(cols) == 1:
+        heads = bwd_heads(x, Bm, Q)
+        ds, dinit = backward_dstates(x, dt, A, Cm, Q, dy, dstate, heads)
+        grads = backward_from_dstates(x, dt, A, Bm, Cm, Q, s_prev, dy, ds,
+                                      heads)
+        BWD_LAUNCHES += 1
+        return (*grads, dinit)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dB, dC = (torch.zeros(t.shape, **f32) for t in (x, Bm, Cm))
+    ddt, dA = torch.zeros_like(dt), torch.zeros_like(A)
+    dinit = torch.empty((B_, H, N, P), **f32)
+    # past one row group the backward runs the fp32 design
+    # (``fp32_design``) on the inputs' exact fp32 values and on the bf16
+    # forward's saved state as the fp32 sum of its halves
+    xw, Bw, Cw, dyw = (x, Bm, Cm, dy)
+    if len(rows) > 1 and x.dtype == torch.bfloat16:
+        xw, Bw, Cw, dyw = (t.float() for t in (x, Bm, Cm, dy))
+        s_prev = s_prev[:, :, :, 0].float() + s_prev[:, :, :, 1].float()
+    for n0, n1 in rows:
+        Bg, Cg = (_cols(t, n0, n1, N) for t in (Bw, Cw))
+        for p0, p1 in cols:
+            xg, dyg = (_cols(t, p0, p1, P) for t in (xw, dyw))
+            spg = s_prev[..., n0:n1, p0:p1].contiguous()
+            dsg = None if dstate is None \
+                else dstate[:, :, n0:n1, p0:p1].contiguous()
+            heads = bwd_heads(xg, Bg, Q)
+            ds, dig = backward_dstates(xg, dt, A, Cg, Q, dyg, dsg, heads)
+            gx, gdt, gA, gB, gC = backward_from_dstates(
+                xg, dt, A, Bg, Cg, Q, spg, dyg, ds, heads, out_f32=True)
+            BWD_LAUNCHES += 1
+            dx[..., p0:p1] += gx
+            ddt += gdt
+            dA += gA
+            dB[..., n0:n1] += gB
+            dC[..., n0:n1] += gC
+            dinit[:, :, n0:n1, p0:p1] = dig
+    return (dx.to(x.dtype), ddt, dA, dB.to(x.dtype), dC.to(x.dtype), dinit)
 
 
 class Mamba2Scan(torch.autograd.Function):

@@ -16,12 +16,25 @@ is the case H = 1.
 other.  The kernel cuts each head's state columns over blocks
 (``plan_columns``) and its rows over the lanes of a block
 (``rows_per_lane``); see the source's note.  It is built for the state
-sizes of ``HEAD_DIMS``; any other N up to ``MAX_N`` runs the next one up
+sizes of ``HEAD_DIMS``; any other N up to ``BLOCK_N`` runs the next one up
 on inputs zero-padded to it (``padded_n``, ``pad_state_dim``), and y and
 the state are sliced back.  Zero k and v columns leave the state's extra
 rows and columns zero whatever w holds, and zero r adds nothing to y, so
 the padding changes no output.  It sits outside ``RWKV6Scan``, so the
 backward takes the padded size too.
+
+A state past ``BLOCK_N`` runs as blocks of the ``BLOCK_N`` instance: block
+(I, J) of S [N, N] depends only on r_I, k_I, w_I, u_I, v_J and init[I, J]
+(the recurrence is row-wise in w and k, column-wise in v), so it is
+exactly the square instance's scan of those, and y_J = sum_I y_{I,J}.
+``stack_blocks`` lays the nb^2 blocks of N padded to nb * ``BLOCK_N``
+(``padded_n``) on the head axis, one launch runs them all, and
+``unstack`` sums y over I in fp32 (a bf16 input runs the fp32 instance
+on its exact fp32 values, so y is rounded to bf16 once) and puts the
+state's blocks back.  ``RWKV6Blocks`` is the gradient: the backward
+kernel on the stacked blocks, dr, dk, dw and du summed over J and dv over
+I.  The blocks re-read r, k, w nb times and v nb times; the work booked
+is the scan's own at N (``costs.rwkv_fwd``).
 
 When a gradient is asked of CUDA tensors, the call goes through
 ``RWKV6Scan``, a ``torch.autograd.Function``: its forward launches the
@@ -55,7 +68,7 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 HEAD_DIMS = (8, 16, 32, 64)          # the kernel's state sizes N
-MAX_N = HEAD_DIMS[-1]                # larger N the kernel does not take
+BLOCK_N = HEAD_DIMS[-1]              # a larger N runs as blocks of this
 MIN_COLS = 8                         # state columns a block, at least
 COLS_PER_THREAD = 4
 STEPS = 32                           # time steps a staging buffer holds
@@ -191,12 +204,84 @@ def rwkv6_scan_backward_plain(r, k, v, w, u, init, dy, dstate=None):
 
 
 def padded_n(N: int) -> int:
-    """The state size of the instance that runs N: the smallest of
-    ``HEAD_DIMS`` that holds it.  Raises past ``MAX_N``."""
+    """The state size N runs at: the smallest of ``HEAD_DIMS`` that holds
+    it, or past ``BLOCK_N`` the next multiple of ``BLOCK_N`` (its blocks,
+    ``stack_blocks``).  Raises below 1."""
+    if N < 1:
+        raise ValueError(f"rwkv6_scan: a state size N >= 1, not {N}")
     for n in HEAD_DIMS:
         if N <= n:
             return n
-    raise ValueError(f"rwkv6_scan: the kernel takes N <= {MAX_N}, not {N}")
+    return -(-N // BLOCK_N) * BLOCK_N
+
+
+def stack_blocks(r, k, v, w, u, init, nb: int):
+    """The blocks (I, J) of a state of nb * ``BLOCK_N`` rows and columns
+    as heads of the ``BLOCK_N`` scan, head (h, I, J) at h nb^2 + I nb + J:
+    r, k, w of row block I, v of column block J [B, S, H nb^2,
+    BLOCK_N], u of I [B H nb^2, BLOCK_N] and init's block (I, J) [B, H
+    nb^2, BLOCK_N, BLOCK_N] (or None).  Inputs already padded."""
+    B, S, H, _ = r.shape
+    n = BLOCK_N
+
+    def rows(t):                      # [.., nb, n] -> block I at (I, J)
+        t = t.reshape(*t.shape[:-1], nb, 1, n)
+        return t.expand(*t.shape[:-3], nb, nb, n)
+
+    def cols(t):                      # block J at (I, J)
+        t = t.reshape(*t.shape[:-1], 1, nb, n)
+        return t.expand(*t.shape[:-3], nb, nb, n)
+
+    heads = lambda t: t.reshape(B, S, H * nb * nb, n).contiguous()  # noqa
+    out = [heads(rows(r)), heads(rows(k)), heads(cols(v)), heads(rows(w)),
+           rows(u).reshape(B * H * nb * nb, n).contiguous()]
+    out.append(None if init is None else init.reshape(B, H, nb, n, nb, n)
+               .permute(0, 1, 2, 4, 3, 5)
+               .reshape(B, H * nb * nb, n, n).contiguous())
+    return out
+
+
+def stack_cotangents(dy, dstate, nb: int):
+    """The cotangents of the whole scan's y [B, S, H, N] and final state
+    [B, H, N, N] (or None) as the stacked blocks' (``stack_blocks``),
+    padded to nb * ``BLOCK_N``, fp32: each block (I, J) gets dy_J (y_J
+    sums the blocks over I) and dstate's block (I, J)."""
+    B, S, H, N = dy.shape
+    n, Np = BLOCK_N, nb * BLOCK_N
+    dy = F.pad(dy.float(), (0, Np - N)).reshape(B, S, H, 1, nb, n) \
+        .expand(B, S, H, nb, nb, n).reshape(B, S, H * nb * nb, n) \
+        .contiguous()
+    if dstate is not None:
+        dstate = F.pad(dstate.float(), (0, Np - N, 0, Np - N)) \
+            .reshape(B, H, nb, n, nb, n).permute(0, 1, 2, 4, 3, 5) \
+            .reshape(B, H * nb * nb, n, n).contiguous()
+    return dy, dstate
+
+
+def unstack(y, state, B: int, S: int, H: int, nb: int):
+    """The blocks' (y [B, S, H nb^2, BLOCK_N], final state [B, H nb^2,
+    BLOCK_N, BLOCK_N]) as the whole scan's: y_J the sum over I (in y's
+    type), the state's blocks in place."""
+    n = BLOCK_N
+    y = y.reshape(B, S, H, nb, nb, n).sum(dim=3).reshape(B, S, H, nb * n)
+    state = state.reshape(B, H, nb, nb, n, n).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(B, H, nb * n, nb * n)
+    return y, state
+
+
+def unstack_grads(dr, dk, dv, dw, du, dinit, B: int, S: int, H: int,
+                  nb: int):
+    """The stacked blocks' gradients as the whole scan's: dr, dk, dw and
+    du summed over the column blocks J, dv over the row blocks I, dinit's
+    blocks in place."""
+    n = BLOCK_N
+    per = lambda t: t.reshape(B, S, H, nb, nb, n)  # noqa: E731
+    sum_j = lambda t: per(t).sum(dim=4).reshape(B, S, H, nb * n)  # noqa
+    dv = per(dv).sum(dim=3).reshape(B, S, H, nb * n)
+    du = du.reshape(B * H, nb, nb, n).sum(dim=2).reshape(B * H, nb * n)
+    dinit = dinit.reshape(B, H, nb, nb, n, n).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(B, H, nb * n, nb * n)
+    return sum_j(dr), sum_j(dk), dv, sum_j(dw), du, dinit
 
 
 def pad_state_dim(r, k, v, w, u, init, n: int):
@@ -211,11 +296,22 @@ def pad_state_dim(r, k, v, w, u, init, n: int):
 
 def kernel_limits(r, k, v, w) -> None:
     """Raise on what the CUDA kernel does not take: a type other than fp32
-    or bf16 (r, k, v and w alike), or N above ``MAX_N``."""
+    or bf16 (r, k, v and w alike), or N below 1."""
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
         raise TypeError(f"rwkv6_scan: no kernel for r/k/v/w "
                         f"{[t.dtype for t in (r, k, v, w)]}")
     padded_n(r.shape[3])
+
+
+def _grad_wanted(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _fp32_for_grad(r, k, v, w) -> None:
+    if any(t.dtype != torch.float32 for t in (r, k, v, w)):
+        raise TypeError(f"rwkv6_scan: the backward kernel takes float32 "
+                        f"r/k/v/w only, not {[t.dtype for t in (r, k, v, w)]}")
 
 
 def rwkv6_scan_kernel(r, k, v, w, u, init=None):
@@ -227,6 +323,12 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, init)
     N = r.shape[3]
+    if N > BLOCK_N:                    # blocks of the BLOCK_N instance
+        kernel_limits(r, k, v, w)
+        if _grad_wanted(r, k, v, w, u, init):
+            _fp32_for_grad(r, k, v, w)
+            return RWKV6Blocks.apply(r, k, v, w, u, init)
+        return _blocks_forward(r, k, v, w, u, init)[:2]
     if N not in HEAD_DIMS:             # the next instance up, on zeros
         kernel_limits(r, k, v, w)
         y, state = rwkv6_scan_kernel(*pad_state_dim(r, k, v, w, u, init,
@@ -235,14 +337,68 @@ def rwkv6_scan_kernel(r, k, v, w, u, init=None):
     u = u.float().contiguous()
     if init is not None:
         init = init.float().contiguous()
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (r, k, v, w, u, init)):
-        if any(t.dtype != torch.float32 for t in (r, k, v, w)):
-            raise TypeError(f"rwkv6_scan: the backward kernel takes float32 "
-                            f"r/k/v/w only, not "
-                            f"{[t.dtype for t in (r, k, v, w)]}")
+    if _grad_wanted(r, k, v, w, u, init):
+        _fp32_for_grad(r, k, v, w)
         return RWKV6Scan.apply(r, k, v, w, u, init)
     return _forward(r, k, v, w, u, init, False)[:2]
+
+
+def _blocks_forward(r, k, v, w, u, init, with_states: bool = False):
+    """The scan at N past ``BLOCK_N`` as one launch on its blocks
+    (``stack_blocks``): (y in r's type, final state fp32, the stacked
+    inputs and the saved states when ``with_states``, else None).  On meta
+    tensors it books the scan's own cost at N."""
+    B, S, H, N = r.shape
+    if r.device.type == "meta":
+        costs.book("rwkv6_scan", costs.rwkv_fwd(B, S, H, N,
+                                                r.element_size()))
+        return (torch.empty_like(r),
+                torch.empty((B, H, N, N), dtype=torch.float32,
+                            device="meta"), None)
+    Np = padded_n(N)
+    nb = Np // BLOCK_N
+    fp32 = [t.float() for t in (r, k, v, w, u)] \
+        + [None if init is None else init.float()]
+    stacked = stack_blocks(*pad_state_dim(*fp32, Np), nb)
+    y, state, states = _forward(*stacked, with_states)
+    y, state = unstack(y, state, B, S, H, nb)
+    return (y[..., :N].to(r.dtype), state[..., :N, :N].contiguous(),
+            (stacked, states) if with_states else None)
+
+
+class RWKV6Blocks(torch.autograd.Function):
+    """The scan at N past ``BLOCK_N`` on the card with its gradient: the
+    forward and backward kernels on the stacked blocks, fp32."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, init):
+        y, state, saved = _blocks_forward(r, k, v, w, u, init, True)
+        ctx.shape = r.shape
+        ctx.has_init = init is not None
+        ctx.save_for_backward(*(() if saved is None
+                                else (*saved[0][:5], saved[1])))
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        B, S, H, N = ctx.shape
+        if not ctx.saved_tensors:       # meta: the backward's own cost
+            costs.book("rwkv6_scan_bwd",
+                       costs.rwkv_bwd(B, S, H, N, SAVE_EVERY))
+            e = torch.empty((B, S, H, N), device="meta")
+            return (e, e, e, e, torch.empty((B * H, N), device="meta"),
+                    torch.empty((B, H, N, N), device="meta")
+                    if ctx.has_init else None)
+        *stacked, states = ctx.saved_tensors
+        nb = padded_n(N) // BLOCK_N
+        if dy is None:
+            dy = torch.zeros((B, S, H, N), device=states.device)
+        grads = unstack_grads(*rwkv6_scan_backward(
+            *stacked, states, *stack_cotangents(dy, dstate, nb)), B, S, H, nb)
+        dr, dk, dv, dw = (g[..., :N] for g in grads[:4])
+        return (dr, dk, dv, dw, grads[4][:, :N],
+                grads[5][:, :, :N, :N] if ctx.has_init else None)
 
 
 def _on_mesh(r, k, v, w, u, init):

@@ -148,6 +148,38 @@ EXAMPLE_COPIES = {
     ]),
 }
 
+# the reference's engine tools copied onto the port, edited only by these
+# replacements (after the shebang and the header that names the edit)
+TOOL_COPIES = {
+    "obs_report_torch.py": ("obs_report.py", [
+        ("    PYTHONPATH=src python tools/obs_report.py\n"
+         "    PYTHONPATH=src python tools/obs_report.py --timeline --since "
+         "1.0\n"
+         "    PYTHONPATH=src python tools/obs_report.py --snapshot run.jsonl "
+         "--grep prefetch\n",
+         "    PYTHONPATH=src python tools/obs_report_torch.py\n"
+         "    PYTHONPATH=src python tools/obs_report_torch.py --timeline "
+         "--since 1.0\n"
+         "    PYTHONPATH=src python tools/obs_report_torch.py --snapshot "
+         "run.jsonl --grep prefetch\n"
+         "\n"
+         "On the PyTorch port, ``--device`` (default ``cuda``) places the "
+         "``--fused``\n"
+         "run's keyed state, whose batches run the fused kernels there; "
+         "``--device\n"
+         "cpu`` prints what ``tools/obs_report.py`` prints.\n"),
+        ("              hint_ts=\"deadline\", fused=args.fused)",
+         "              hint_ts=\"deadline\", fused=args.fused,\n"
+         "              device=args.device)"),
+        ("    ap.add_argument(\"--export\", metavar=\"FILE.jsonl\",",
+         "    ap.add_argument(\"--device\", default=\"cuda\",\n"
+         "                    help=\"where the --fused run's keyed state lives \"\n"
+         "                         \"(cuda or cpu)\")\n"
+         "    ap.add_argument(\"--export\", metavar=\"FILE.jsonl\","),
+    ]),
+    "chaos_torch.py": ("chaos.py", []),
+}
+
 # the port's twins of the reference's tests: the same file after the
 # rewrite, under a one-line header
 TWINS = ["joins", "sessions", "recovery", "chaos"]
@@ -210,14 +242,20 @@ def torch_examples():
     return sorted((ROOT / "examples").glob("*_torch.py"))
 
 
+def torch_tools():
+    return sorted((ROOT / "tools").glob("*_torch.py"))
+
+
 def test_torch_examples_import_with_jax_and_repro_blocked():
-    """``examples/*_torch.py`` run with ``jax`` and ``repro`` blocked
-    (``--help`` parses their arguments and stops)."""
+    """``examples/*_torch.py`` and ``tools/*_torch.py`` run with ``jax``
+    and ``repro`` blocked (``--help`` parses their arguments and
+    stops)."""
     names = [p.name for p in torch_examples()]
     assert {"quickstart_torch.py", "serve_lm_torch.py",
             "serve_stream_torch.py", "train_lm_torch.py"} <= set(names)
+    assert [p.name for p in torch_tools()] == sorted(TOOL_COPIES)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    for path in torch_examples():
+    for path in torch_examples() + torch_tools():
         runner = (
             "import runpy, sys\n"
             "class Block:\n"
@@ -241,7 +279,7 @@ def test_torch_examples_import_with_jax_and_repro_blocked():
 
 def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
-        + torch_examples()
+        + torch_examples() + torch_tools()
     assert len(files) > 20
     bad = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
            for p in files for m in FORBIDDEN.finditer(p.read_text())]
@@ -334,6 +372,26 @@ def test_example_copy_differs_only_in_listed_edits(name):
     diff = "".join(difflib.unified_diff(ref.splitlines(True),
                                         port.splitlines(True), n=0))
     assert not diff, f"examples/{name} drifted beyond its edits:\n{diff}"
+
+
+@pytest.mark.parametrize("name", sorted(TOOL_COPIES))
+def test_tool_copy_differs_only_in_listed_edits(name):
+    """``tools/<name>`` is the reference's tool after the rewrite and its
+    listed edits, under its shebang and a header that names the edit."""
+    ref_name, edits = TOOL_COPIES[name]
+    ref = rewrite((ROOT / "tools" / ref_name).read_text())
+    for old, new in edits:
+        assert old in ref, f"edit {old!r} no longer applies to {ref_name}"
+        ref = ref.replace(old, new)
+    shebang, _, ref = ref.partition("\n")
+    lines = (ROOT / "tools" / name).read_text().split("\n")
+    assert lines[0] == shebang
+    assert lines[1].startswith(f"# Copy of tools/{ref_name} on repro_torch; "
+                               f"differs only")
+    port = "\n".join(lines[3 if lines[2].startswith("# ") else 2:])
+    diff = "".join(difflib.unified_diff(ref.splitlines(True),
+                                        port.splitlines(True), n=0))
+    assert not diff, f"tools/{name} drifted beyond its edits:\n{diff}"
 
 
 def test_shard_owner_map_copy_has_not_drifted():

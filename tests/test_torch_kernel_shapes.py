@@ -1,16 +1,21 @@
 """The arithmetic the K5-K8 wrappers do around their kernels so that every
 shape the JAX kernels take runs on the card: K5's choice of instance, K6's
 covering pair and padding with the caller's scale, K7's chunk, K8's padded
-state size.  A run on the card shows only that the kernel agrees with the
-plain version; these show, on the CPU, that the padding and the chunking
-themselves change nothing: the plain version on the padded inputs (or at
-the kernel's chunk), sliced back, equals the plain version as the caller
-called it, and the JAX kernel.  Meta tensors take the wrappers' card path
-without a card."""
+state size; and past the instances, every width: K5's walk of any key and
+value width, K6's wide kernel (d walked in slabs, value columns in
+groups), K7's state in groups of rows and columns, K8's state in blocks
+of its N 64 instance.  A run on the card shows only that the kernel
+agrees with the plain version; these show, on the CPU, that the padding,
+the chunking, the splits and the slabs themselves change nothing: the
+plain version on the padded inputs (or at the kernel's chunk, or over
+the groups and blocks, or a replay of the slabs in float64), sliced back,
+equals the plain version as the caller called it, and the JAX kernel.
+Meta tensors take the wrappers' card path without a card."""
 import math
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,11 +71,90 @@ def test_decode_instance_covers_the_widths(d, dv, dtype, want):
 
 
 @pytest.mark.parametrize("d,dv", [(577, 512), (576, 513), (0, 16),
-                                  (1024, 64)])
+                                  (1024, 64), (16, 0), (1024, 1024),
+                                  (640, 512), (576, 640), (1, 2048)])
 def test_decode_instance_refuses_past_its_limit(d, dv):
+    """K5's limit is now a width of at least 1, the one it refuses; past
+    the lanes instance's (576, 512), where it refused until PR 29, every
+    width runs on the walk at the caller's own widths (no padding), in
+    either type."""
     for dtype in (F32, BF16):
-        with pytest.raises(ValueError, match="576"):
-            da.instance(d, dv, dtype)
+        if d < 1 or dv < 1:
+            with pytest.raises(ValueError, match=">= 1"):
+                da.instance(d, dv, dtype)
+        else:
+            assert da.instance(d, dv, dtype) == ("walk", d, dv)
+
+
+def decode_walk_replay(q, kp, vp, pt, lens, n_splits: int):
+    """The walk route's arithmetic in float64 (``csrc/decode_attention.cu``
+    route 3 and the merge): each split's contiguous range of pages, for
+    each group of ``WALK_COLS`` value columns its own (max, sum, sum of p
+    v) over the split's tokens (scores over the whole key width, the
+    same in every group), then the splits merged in order."""
+    B, H, d = q.shape
+    page, dv = kp.shape[1], vp.shape[2]
+    P = pt.shape[1]
+    per = -(-P // n_splits)
+    out = np.zeros((B, H, dv))
+    q, kp, vp = (a.astype(np.float64) for a in (q, kp, vp))
+    for b in range(B):
+        n_pages = min(P, -(-int(lens[b]) // page)) if lens[b] > 0 else 0
+        parts = []
+        for sp in range(0, P, per):
+            toks = [(pt[b, pi], t) for pi in range(sp, min(sp + per,
+                                                           n_pages))
+                    for t in range(min(page, int(lens[b]) - pi * page))]
+            m = np.full(H, -1e30)
+            l, acc = np.zeros(H), np.zeros((H, dv))
+            for v0 in range(0, dv, da.WALK_COLS):
+                cols = slice(v0, min(dv, v0 + da.WALK_COLS))
+                mg, lg, ag = np.full(H, -1e30), np.zeros(H), \
+                    np.zeros((H, cols.stop - v0))
+                for slot, t in toks:
+                    s = q[b] @ kp[slot, t] / math.sqrt(d)
+                    mn = np.maximum(mg, s)
+                    alpha, p = np.exp(mg - mn), np.exp(s - mn)
+                    lg = lg * alpha + p
+                    ag = ag * alpha[:, None] + p[:, None] * vp[slot, t, cols]
+                    mg = mn
+                acc[:, cols] = ag
+                m, l = mg, lg          # every group's are the same
+            parts.append((m, l, acc))
+        M = np.max([pm for pm, _, _ in parts], axis=0)
+        L = sum(pl * np.exp(pm - M) for pm, pl, _ in parts)
+        A = sum(pa * np.exp(pm - M)[:, None] for pm, _, pa in parts)
+        out[b] = A / np.maximum(L, 1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("d,dv,n_splits", [(640, 512, 2), (576, 640, 1),
+                                           (1024, 1024, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_walk_replay_equals_the_jax_kernel(d, dv, n_splits, dtype):
+    """The walk's splits and value groups, replayed in float64, against
+    the Pallas kernel in interpret mode and the port's plain version at
+    widths past the lanes instance, within the reference's tolerances."""
+    from repro.kernels.decode_attention.ops import \
+        paged_decode_attention as j_decode
+    q, kp, vp, pt, lens = (t.numpy() for t in _decode_case(2, 3, d, dv, 4,
+                                                            3, seed=d))
+    lens = np.maximum(lens, 1).astype(np.int32)
+    tdt = {"float32": F32, "bfloat16": BF16}[dtype]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    q, kp, vp = (np.array(jnp.asarray(a).astype(jdt), np.float32)
+                 for a in (q, kp, vp))     # the type's values, exactly
+    ref = np.asarray(j_decode(*(jnp.asarray(a).astype(jdt)
+                                for a in (q, kp, vp)),
+                              jnp.asarray(pt), jnp.asarray(lens)),
+                     np.float32)
+    got = decode_walk_replay(q, kp, vp, pt, lens, n_splits)
+    assert_close(got.astype(np.float32), ref, dtype)
+    plain = da.paged_decode_plain(*(torch.from_numpy(a).to(tdt)
+                                    for a in (q, kp, vp)),
+                                  torch.from_numpy(pt),
+                                  torch.from_numpy(lens))
+    assert_close(to_np(plain), ref, dtype)
 
 
 def _decode_case(B, H, d, dv, page, P, seed=0):
@@ -117,10 +201,185 @@ def test_flash_cover_pair_is_the_least_padded_instance(d, dv, want):
     assert sum(pair) == min(map(sum, fits))
 
 
-@pytest.mark.parametrize("d,dv", [(257, 64), (64, 257), (0, 8)])
+@pytest.mark.parametrize("d,dv", [(257, 64), (64, 257), (0, 8), (8, 0),
+                                  (320, 320), (512, 512), (288, 512),
+                                  (512, 128), (1024, 1024), (1, 1024)])
 def test_flash_cover_pair_refuses_past_256(d, dv):
-    with pytest.raises(ValueError, match="256"):
-        fa.cover_pair(d, dv)
+    """No pair covers a width past 256, where the wrapper refused until PR
+    29: ``cover_pair`` gives None and the wide kernel runs the caller's
+    (d, dv) unpadded.  A width below 1 is still refused."""
+    if d < 1 or dv < 1:
+        with pytest.raises(ValueError, match=">= 1"):
+            fa.cover_pair(d, dv)
+        return
+    assert fa.cover_pair(d, dv) is None and fa.is_wide(d, dv)
+    assert not fa.is_wide(min(d, 256), min(dv, 256))
+
+
+def wide_fwd_replay(q, k, v, causal):
+    """``csrc/flash_attention_wide.cu``'s forward in float64: a block of
+    32 query rows a (batch row, head, group of ``WIDE_GROUP`` value
+    columns), key tiles of 64 up to the diagonal, each tile's scores
+    summed over slabs of 32 key-width columns, the online softmax, then
+    P V over the group's columns.  Returns (out, lse [B, H, S])."""
+    B, S, H, d = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    G, scale = H // KV, 1 / math.sqrt(d)
+    q, k, v = (a.astype(np.float64) for a in (q, k, v))
+    out, lse = np.zeros((B, S, H, dv)), np.zeros((B, H, S))
+    for b in range(B):
+        for h in range(H):
+            for q0 in range(0, S, 32):
+                Q = q[b, q0:q0 + 32, h]
+                pos = q0 + np.arange(len(Q))
+                for v0 in range(0, dv, fa.WIDE_GROUP):
+                    V = v[b, :, h // G, v0:v0 + fa.WIDE_GROUP]
+                    m = np.full(len(Q), -1e30)
+                    l, O = np.zeros(len(Q)), np.zeros((len(Q), V.shape[1]))
+                    end = min(T, q0 + 32) if causal else T
+                    for k0 in range(0, end, 64):
+                        K = k[b, k0:min(k0 + 64, T), h // G]
+                        s = sum(Q[:, c:c + 32] @ K[:, c:c + 32].T
+                                for c in range(0, d, 32))
+                        keys = k0 + np.arange(len(K))
+                        ok = (keys[None, :] <= pos[:, None]) | (not causal)
+                        s = np.where(ok, s * scale, -np.inf)
+                        mn = np.maximum(m, s.max(axis=1))
+                        p = np.where(ok, np.exp(s - mn[:, None]), 0.0)
+                        alpha = np.exp(m - mn)
+                        l = l * alpha + p.sum(axis=1)
+                        O = O * alpha[:, None] + p @ V[k0:k0 + len(K)]
+                        m = mn
+                    out[b, q0:q0 + 32, h, v0:v0 + V.shape[1]] = O / l[:, None]
+                    lse[b, h, q0:q0 + 32] = m + np.log(l)
+    return out, lse
+
+
+@pytest.mark.parametrize("d,dv", [(288, 512), (520, 600), (257, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_replay_equals_the_jax_kernel(d, dv, causal):
+    """The wide forward's tiles, slabs and value groups (two at dv 600),
+    replayed in float64, against the Pallas kernel in interpret mode and
+    the port's plain version, within the fp32 tolerance; lse against the
+    scores' logsumexp."""
+    from repro.kernels.flash_attention.ops import \
+        flash_attention as j_flash
+    q, k, v = (t.numpy() for t in _flash_inputs(1, 64, 64, 4, 2, d, dv,
+                                                 seed=d + dv))
+    ref = np.asarray(j_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                             causal=causal, bq=32, bk=32))
+    got, lse = wide_fwd_replay(q, k, v, causal)
+    assert_close(got.astype(np.float32), ref)
+    plain = fa.flash_attention_plain(*(torch.from_numpy(a)
+                                       for a in (q, k, v)), causal)
+    assert_close(plain.numpy(), ref)
+    s = np.einsum("bshd,bthd->bhst", q.astype(np.float64),
+                  np.repeat(k, 2, axis=2).astype(np.float64)) / math.sqrt(d)
+    if causal:
+        s = np.where(np.tril(np.ones((64, 64), bool)), s, -np.inf)
+    np.testing.assert_allclose(lse, np.logaddexp.reduce(s, axis=-1),
+                               rtol=1e-10, atol=1e-10)
+
+
+def wide_bwd_replay(q, k, v, do, causal):
+    """``csrc/flash_attention_wide.cu``'s backward in float64: dK/dV
+    blocks of 32 keys walking the G query heads and their query tiles of
+    32 from the first that sees the keys, dQ blocks of 32 query rows
+    walking the key tiles to the diagonal; each 32 x 32 tile forms S
+    (key width in slabs of 32), P from lse, dP (value width in slabs of
+    32), dS = P (dP - D), and adds into the block's own rows 64 columns
+    at a time.  lse and D as the forward and the D kernel give them."""
+    B, S, H, d = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    G, scale = H // KV, 1 / math.sqrt(d)
+    q, k, v, do = (a.astype(np.float64) for a in (q, k, v, do))
+    o, lse = wide_fwd_replay(q, k, v, causal)
+    D = np.einsum("bshd,bshd->bhs", do, o)
+    dq, dk, dvv = np.zeros(q.shape), np.zeros(k.shape), np.zeros(v.shape)
+
+    def tile(b, h, q0, k0):
+        Q, dO = q[b, q0:q0 + 32, h], do[b, q0:q0 + 32, h]
+        K, V = k[b, k0:k0 + 32, h // G], v[b, k0:k0 + 32, h // G]
+        s = sum(Q[:, c:c + 32] @ K[:, c:c + 32].T for c in range(0, d, 32))
+        dp = sum(dO[:, c:c + 32] @ V[:, c:c + 32].T
+                 for c in range(0, dv, 32))
+        pos, keys = q0 + np.arange(len(Q)), k0 + np.arange(len(K))
+        ok = (keys[None, :] <= pos[:, None]) | (not causal)
+        p = np.where(ok, np.exp(s * scale - lse[b, h, pos][:, None]), 0.0)
+        return Q, dO, K, p, p * (dp - D[b, h, pos][:, None])
+
+    for b in range(B):
+        for kvh in range(KV):
+            for k0 in range(0, T, 32):
+                for h in range(kvh * G, kvh * G + G):
+                    for q0 in range(k0 if causal else 0, S, 32):
+                        Q, dO, _, p, ds = tile(b, h, q0, k0)
+                        for c in range(0, dv, 64):
+                            dvv[b, k0:k0 + 32, kvh, c:c + 64] += \
+                                p.T @ dO[:, c:c + 64]
+                        for c in range(0, d, 64):
+                            dk[b, k0:k0 + 32, kvh, c:c + 64] += \
+                                scale * (ds.T @ Q[:, c:c + 64])
+        for h in range(H):
+            for q0 in range(0, S, 32):
+                for k0 in range(0, min(T, q0 + 32) if causal else T, 32):
+                    _, _, K, _, ds = tile(b, h, q0, k0)
+                    for c in range(0, d, 64):
+                        dq[b, q0:q0 + 32, h, c:c + 64] += \
+                            scale * (ds @ K[:, c:c + 64])
+    return dq, dk, dvv
+
+
+@pytest.mark.parametrize("d,dv,S", [(288, 512, 70), (320, 96, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_backward_replay_equals_the_reference_gradient(d, dv, S,
+                                                                  causal):
+    """The wide backward's blocks, tiles and slabs (ragged S, 2 query
+    heads a KV head), replayed in float64, against ``jax.vjp`` of the
+    Pallas kernel's oracle and the port's plain backward."""
+    from repro.kernels.flash_attention.ref import attention_ref
+    rng = np.random.RandomState(d + S)
+    q, k, v, do = (rng.randn(*sh).astype(np.float32) for sh in (
+        (1, S, 4, d), (1, S, 2, d), (1, S, 2, dv), (1, S, 4, dv)))
+
+    def ref_attention(q, k, v):
+        qf, kf, vf = (jnp.repeat(a.transpose(0, 2, 1, 3), r, axis=1)
+                      .reshape(4, S, -1) for a, r in ((q, 1), (k, 2), (v, 2)))
+        o = attention_ref(qf, kf, vf, causal=causal)
+        return o.reshape(1, 4, S, -1).transpose(0, 2, 1, 3)
+    _, vjp = jax.vjp(ref_attention, *(jnp.asarray(a) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(do))
+    got = wide_bwd_replay(q, k, v, do, causal)
+    plain = fa.flash_attention_backward_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, do)), causal)
+    for a, b, c, name in zip(got, ref, plain, ("dq", "dk", "dv")):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-4 * np.abs(b).max(), err_msg=name)
+        np.testing.assert_allclose(c.numpy(), b, rtol=1e-4,
+                                   atol=1e-4 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("d,dv", [(512, 512), (288, 512), (1024, 64)])
+def test_flash_wide_card_path_books_the_functions_cost_on_meta(d, dv):
+    """Meta tensors take the wrapper's card path past 256: no padding,
+    the caller's width returned, the forward and (through
+    ``FlashAttention``) the backward booked at the caller's (d, dv)."""
+    B, S, H = 2, 64, 4
+    q, k = (torch.empty((B, S, H, d), device="meta") for _ in range(2))
+    v = torch.empty((B, S, H, dv), device="meta")
+    booked = []
+    with costs.listening(lambda name, fl, by: booked.append((name, fl, by))):
+        out = fa.flash_attention_kernel(q, k, v, True)
+        assert out.shape == (B, S, H, dv) and out.device.type == "meta"
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention_kernel(*leaves, True)
+        grads = torch.autograd.grad(out, leaves, torch.empty_like(out))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    fwd = costs.flash_fwd(B, S, S, H, H, d, dv, True, 4)
+    assert booked == [("flash_attention", *fwd), ("flash_attention", *fwd),
+                      ("flash_attention_bwd",
+                       *costs.flash_bwd(B, S, S, H, H, d, dv, True, 4))]
 
 
 def _flash_inputs(B, S, T, H, KV, d, dv, seed=0, dtype=F32):
@@ -185,7 +444,9 @@ def test_flash_card_path_pads_books_and_slices_on_meta_tensors():
 @pytest.mark.parametrize("Q,N,dtype,want", [
     (128, 64, BF16, 128), (31, 64, F32, 31), (256, 128, BF16, 128),
     (256, 128, F32, 64), (100, 100, F32, 64), (100, 64, F32, 100),
-    (200, 16, F32, 128), (64, 128, F32, 64), (1000, 8, BF16, 128)])
+    (200, 16, F32, 128), (64, 128, F32, 64), (1000, 8, BF16, 128),
+    # past one row group bf16 runs the fp32 design, at its chunk there
+    (256, 256, BF16, 64), (128, 160, BF16, 64), (256, 256, F32, 64)])
 def test_mamba_kernel_chunk(Q, N, dtype, want):
     """The chunk the kernel runs: the caller's up to the cap, 128 (64 in
     fp32 past N 64, where chunk 128's shared memory would pass the
@@ -254,8 +515,9 @@ def test_mamba_card_path_at_n128_runs_the_kernels_chunk_on_meta_tensors():
     """Meta tensors take the wrapper's card path: N 128 at chunk 256 books
     the kernel's chunk, 128 in bf16, forward and, through ``Mamba2Scan``,
     backward (the backward takes N up to 128 since its chunk kernels walk
-    the state in tiles of 64); past the forward's N the wrapper still
-    refuses before anything is booked."""
+    the state in tiles of 64); past N 128 the wrapper takes the state as
+    groups and books the function's own cost once, forward and
+    backward."""
     B, S, H, N, P = 1, 512, 4, 128, 64
     meta = dict(device="meta")
     x = torch.empty((B, S, H, P), dtype=BF16, **meta)
@@ -275,12 +537,115 @@ def test_mamba_card_path_at_n128_runs_the_kernels_chunk_on_meta_tensors():
     assert booked[1:] == [
         ("mamba2_scan", *costs.mamba_fwd(B, S, H, 1, N, P, 128, 2)),
         ("mamba2_scan_bwd", *costs.mamba_bwd(B, S, H, 1, N, P, 128, 2))]
-    with pytest.raises(ValueError, match="N <= 128"):
-        ms.mamba2_scan_kernel(x.requires_grad_(), dt, A,
-                              torch.empty((B, S, 1, 129), dtype=BF16, **meta),
-                              torch.empty((B, S, 1, 129), dtype=BF16, **meta),
-                              256)
-    assert len(booked) == 3
+    wide = torch.empty((B, S, 1, 129), dtype=BF16, **meta)
+    with costs.listening(lambda name, fl, by: booked.append((name, fl, by))):
+        xg = x.clone().requires_grad_()
+        y, state = ms.mamba2_scan_kernel(xg, dt, A, wide, wide, 256)
+        torch.autograd.grad(y, xg, torch.empty_like(y))
+    assert state.shape == (B, H, 129, P)
+    # past one row group bf16 runs the fp32 design, at its chunk of 64
+    assert ms.fp32_design(129, BF16) and ms.kernel_chunk(256, 129, BF16) == 64
+    assert booked[3:] == [
+        ("mamba2_scan", *costs.mamba_fwd(B, S, H, 1, 129, P, 64, 2)),
+        ("mamba2_scan_bwd", *costs.mamba_bwd(B, S, H, 1, 129, P, 64, 2))]
+
+
+# ------------------------------------------------------ K7 state groups
+@pytest.mark.parametrize("N,P,rows,cols", [
+    (64, 64, [(0, 64)], [(0, 64)]),
+    (128, 64, [(0, 128)], [(0, 64)]),
+    (256, 128, [(0, 128), (128, 256)], [(0, 64), (64, 128)]),
+    (160, 96, [(0, 80), (80, 160)], [(0, 48), (48, 96)]),
+    (129, 65, [(0, 65), (65, 129)], [(0, 33), (33, 65)]),
+    (1024, 1024, [(i, i + 128) for i in range(0, 1024, 128)],
+     [(i, i + 64) for i in range(0, 1024, 64)])])
+def test_mamba_split_plan(N, P, rows, cols):
+    """A state past one launch's (``GROUP_N`` rows, ``GROUP_P`` columns)
+    is cut into the fewest near-equal groups; the zoo's widths stay one
+    group, so they run the launch they ran before."""
+    assert ms.split_plan(N, P) == (rows, cols)
+    assert all(b - a <= ms.GROUP_N for a, b in rows)
+    assert all(b - a <= ms.GROUP_P for a, b in cols)
+
+
+def mamba_groups_plain(x, dt, A, Bm, Cm, Q, init=None):
+    """What ``_forward`` does on the card, on the plain version: a launch
+    a (row group, column group) of ``split_plan`` on the group's columns of
+    x, rows of B and C and block of init, y in fp32 (a bf16 launch past
+    one row group writes it so), concatenated over column groups and
+    summed over row groups, rounded to x's type once; the state's blocks
+    in place."""
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    rows, cols = ms.split_plan(N, P)
+    y = torch.zeros(x.shape, dtype=torch.float32)
+    state = torch.zeros((B, H, N, P))
+    for n0, n1 in rows:
+        for p0, p1 in cols:
+            yg, sg = ms.mamba2_scan_plain(
+                x[..., p0:p1].float(), dt, A, Bm[..., n0:n1].float(),
+                Cm[..., n0:n1].float(), Q,
+                None if init is None else init[:, :, n0:n1, p0:p1])
+            y[..., p0:p1] += yg
+            state[:, :, n0:n1, p0:p1] = sg
+    return y.to(x.dtype), state
+
+
+@pytest.mark.parametrize("N,P", [(64, 128), (64, 96), (256, 16),
+                                 (160, 16), (129, 65)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_state_groups_equal_the_jax_kernel(N, P, dtype):
+    """K7 past N 128 or P 64, as the card runs it (``mamba_groups_plain``,
+    ragged groups too), against the Pallas kernel in interpret mode at the
+    caller's width within the reference's tolerances, fp32 beside the
+    float64 oracle as the chunk test does; the final state against the
+    reference model's ``ssd_chunked`` at the caller's width."""
+    tdt = {"float32": F32, "bfloat16": BF16}[dtype]
+    S, Q = 64, 32
+    x, dt, A, Bm, Cm = _mamba_model_inputs(1, S, 2, 1, N, P, seed=N + P)
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)]
+    args = [t.to(tdt) if i in (0, 3, 4) else t for i, t in enumerate(args)]
+    y, state = mamba_groups_plain(*args, Q)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jx, jB, jC = (a[0].transpose(1, 0, 2)
+                  for a in (x, Bm.repeat(2, axis=2), Cm.repeat(2, axis=2)))
+    jdtv = dt[0].T
+    ref = j_mamba(jnp.asarray(jx).astype(jdt), jnp.asarray(jdtv),
+                  jnp.asarray(A), jnp.asarray(jB).astype(jdt),
+                  jnp.asarray(jC).astype(jdt), chunk=Q)
+    ref = np.asarray(ref, np.float32).transpose(1, 0, 2)[None]
+    if dtype == "float32":
+        exact = mamba2_scan_ref64(jx, jdtv, A, jB, jC)[0]
+        assert_close_beside_the_reference(
+            y.numpy(), ref, exact.transpose(1, 0, 2)[None], dtype)
+    else:
+        assert_close(to_np(y), ref, dtype)
+    _, ref_state = ssd_chunked(*(jnp.asarray(to_np(args[i])).astype(jdt)
+                                 if i in (0, 3, 4) else jnp.asarray(to_np(
+                                     args[i])) for i in range(5)), Q)
+    assert_close(state.numpy(), ref_state, dtype)
+
+
+def test_mamba_wide_state_books_the_functions_cost_once_on_meta():
+    """P 128 and N 256 on meta tensors: the wrapper's card path (the
+    groups of ``split_plan``, four launches on the card, bf16 on the fp32
+    design at its chunk of 64) books the scan's own cost at the caller's N
+    and P once, forward and backward."""
+    B, S, H, N, P = 1, 256, 2, 256, 128
+    meta = dict(device="meta")
+    x = torch.empty((B, S, H, P), dtype=BF16, **meta, requires_grad=True)
+    dt, A = torch.empty((B, S, H), **meta), torch.empty((B * H,), **meta)
+    bc = torch.empty((B, S, 1, N), dtype=BF16, **meta)
+    booked = []
+    with costs.listening(lambda name, fl, by: booked.append((name, fl, by))):
+        y, state = ms.mamba2_scan_kernel(x, dt, A, bc, bc, 128)
+        (dx,) = torch.autograd.grad(y, x, torch.empty_like(y))
+    assert y.shape == x.shape == dx.shape and state.shape == (B, H, N, P)
+    assert booked == [
+        ("mamba2_scan", *costs.mamba_fwd(B, S, H, 1, N, P, 64, 2)),
+        ("mamba2_scan_bwd", *costs.mamba_bwd(B, S, H, 1, N, P, 64, 2))]
+    rows, cols = ms.split_plan(N, P)
+    assert len(rows) * len(cols) == 4
 
 
 # --------------------------------------------------- K8 padded state size
@@ -291,8 +656,19 @@ def test_rwkv_padded_n(N, want):
 
 
 def test_rwkv_padded_n_refuses_past_64():
-    with pytest.raises(ValueError, match="N <= 64"):
-        rs.padded_n(65)
+    """Past 64, where it refused until PR 29, N runs as blocks of the N 64
+    instance (65 on two a way); N 0 is refused."""
+    assert rs.padded_n(65) == 128
+    with pytest.raises(ValueError, match=">= 1"):
+        rs.padded_n(0)
+
+
+@pytest.mark.parametrize("N,want", [(65, 128), (96, 128), (128, 128),
+                                    (129, 192), (1024, 1024)])
+def test_rwkv_padded_n_past_64_is_whole_blocks(N, want):
+    """Past the largest instance N runs as blocks of it: padded to whole
+    blocks of ``BLOCK_N``."""
+    assert rs.padded_n(N) == want and want % rs.BLOCK_N == 0
 
 
 def _rwkv_model_inputs(B, S, H, N, seed=0):
@@ -335,6 +711,65 @@ def test_rwkv_gradient_through_the_padding_is_the_callers():
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert_close(a.numpy(), b.numpy())
+
+
+def rwkv_blocks_plain(r, k, v, w, u, init=None):
+    """What the card runs past ``BLOCK_N``, on the plain version: the
+    inputs in fp32, padded to whole blocks, stacked (``stack_blocks``),
+    the scan of the stacked heads, y summed over the row blocks and
+    rounded to r's type once, the state's blocks in place."""
+    B, S, H, N = r.shape
+    Np = rs.padded_n(N)
+    fp32 = [t.float() for t in (r, k, v, w, u)] \
+        + [None if init is None else init.float()]
+    stacked = rs.stack_blocks(*rs.pad_state_dim(*fp32, Np), Np // rs.BLOCK_N)
+    y, state = rs.rwkv6_scan_plain(*stacked)
+    y, state = rs.unstack(y, state, B, S, H, Np // rs.BLOCK_N)
+    return y[..., :N].to(r.dtype), state[..., :N, :N]
+
+
+@pytest.mark.parametrize("N", [128, 96, 65])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_blocks_equal_the_jax_kernel(N, dtype):
+    """K8 past N 64 as blocks of the N 64 scan (``rwkv_blocks_plain``),
+    against the Pallas kernel in interpret mode within the reference's
+    tolerances, and against the plain version at the caller's N from a
+    nonzero state (y and the final state)."""
+    from repro.kernels.rwkv6_scan.ops import rwkv6_scan as j_rwkv
+    tdt = {"float32": F32, "bfloat16": BF16}[dtype]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    r, k, v, w, u, s0 = _rwkv_model_inputs(1, 24, 2, N, seed=N)
+    args = [t.to(tdt) for t in (r, k, v, w)] + [u]
+    y, _ = rwkv_blocks_plain(*args)
+    jargs = [jnp.asarray(to_np(t)[0].transpose(1, 0, 2)).astype(jdt)
+             for t in args[:4]] + [jnp.asarray(u.numpy())]
+    ref = np.asarray(j_rwkv(*jargs, chunk=8), np.float32)
+    assert_close(to_np(y), ref.transpose(1, 0, 2)[None], dtype)
+    y, state = rwkv_blocks_plain(*args, s0)
+    want_y, want_state = rs.rwkv6_scan_plain(*args, s0)
+    assert_close(to_np(y), to_np(want_y), dtype)
+    assert_close(state.numpy(), want_state.numpy())
+
+
+def test_rwkv_blocks_book_the_functions_cost_once_on_meta():
+    """N 128 on meta tensors: one launch on the card on the stacked blocks,
+    the scan's own cost at N 128 booked once, forward and (through
+    ``RWKV6Blocks``) backward."""
+    B, S, H, N = 2, 16, 3, 128
+    r = torch.empty((B, S, H, N), device="meta", requires_grad=True)
+    u = torch.empty((B * H, N), device="meta")
+    init = torch.empty((B, H, N, N), device="meta", requires_grad=True)
+    booked = []
+    with costs.listening(lambda name, fl, by: booked.append((name, fl, by))):
+        y, state = rs.rwkv6_scan_kernel(r, r, r, r, u, init)
+        grads = torch.autograd.grad((y, state), (r, init),
+                                    (torch.empty_like(y),
+                                     torch.empty_like(state)))
+    assert y.shape == (B, S, H, N) and state.shape == (B, H, N, N)
+    assert [g.shape for g in grads] == [r.shape, init.shape]
+    assert booked == [("rwkv6_scan", *costs.rwkv_fwd(B, S, H, N, 4)),
+                      ("rwkv6_scan_bwd",
+                       *costs.rwkv_bwd(B, S, H, N, rs.SAVE_EVERY))]
 
 
 def test_rwkv_card_path_pads_and_slices_on_meta_tensors():

@@ -1028,9 +1028,10 @@ def test_scan_and_attention_wrappers_check_inputs_and_count_no_plain_runs():
                                torch.zeros((1, 8, 1, 4)), 4)
     trs_mod.rwkv6_scan_kernel(*[torch.zeros((1, 8, 2, 4))] * 4,
                               torch.zeros((2, 4)))
-    # what the CUDA kernels take, checked before a launch: K7 N up to 128
-    # (mamba2-2.7b's d_state), P up to 64, the kernel's chunk up to 128
-    # (64 in fp32 past N 64; the wrapper passes kernel_chunk, any chunk)
+    # what the CUDA kernels take, checked before a launch: K7 any N and P
+    # (past N 128 or P 64 as groups of a launch each), the kernel's chunk
+    # up to 128 (64 in fp32 when a row group passes N 64; the wrapper
+    # passes kernel_chunk, any chunk)
     x, bc = torch.zeros((1, 8, 2, 64)), torch.zeros((1, 8, 1, 64))
     b128 = torch.zeros((1, 8, 1, 128))
     tms_mod.kernel_limits(x, bc, bc, 128)
@@ -1042,16 +1043,23 @@ def test_scan_and_attention_wrappers_check_inputs_and_count_no_plain_runs():
         tms_mod.kernel_limits(x.half(), bc.half(), bc.half(), 64)
     with pytest.raises(TypeError):                  # Bm in another type
         tms_mod.kernel_limits(x.bfloat16(), bc, bc.bfloat16(), 64)
-    for bad in ((x, bc, bc, 129), (torch.zeros((1, 8, 2, 65)), bc, bc, 64),
-                (x, torch.zeros((1, 8, 1, 129)), torch.zeros((1, 8, 1, 129)),
-                 64), (x, b128, b128, 128)):
-        with pytest.raises(ValueError, match="N <= 128"):   # past the limits
+    b1024 = torch.zeros((1, 8, 1, 1024))
+    for wide in ((torch.zeros((1, 8, 2, 65)), bc, bc, 64),
+                 (x, torch.zeros((1, 8, 1, 129)), torch.zeros((1, 8, 1, 129)),
+                  64), (torch.zeros((1, 8, 2, 1024)), b1024, b1024, 64),
+                 (x.bfloat16(), b1024.bfloat16(), b1024.bfloat16(), 64)):
+        tms_mod.kernel_limits(*wide)                # taken, as groups
+    # (bf16 past one row group runs the fp32 design, at its chunk of 64)
+    for bad in ((x, bc, bc, 129), (x, b128, b128, 128),
+                (x, b1024, b1024, 128),
+                (x.bfloat16(), b1024.bfloat16(), b1024.bfloat16(), 128)):
+        with pytest.raises(ValueError, match="chunk <= "):   # past the chunk
             tms_mod.kernel_limits(*bad)
     assert tms_mod.kernel_chunk(256, 128, torch.bfloat16) == 128
-    for n in trs_mod.HEAD_DIMS + (12, 24, 48):     # any N up to 64
+    for n in trs_mod.HEAD_DIMS + (12, 24, 48, 65, 128, 1024):   # any N
         trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, n))] * 4)
-    with pytest.raises(ValueError, match="N <= 64"):   # past the largest
-        trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, 65))] * 4)
+    with pytest.raises(ValueError, match=">= 1"):   # an empty state
+        trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, 0))] * 4)
     with pytest.raises(TypeError):                  # w in another type
         trs_mod.kernel_limits(*[torch.zeros((1, 4, 2, 64))] * 3,
                               torch.zeros((1, 4, 2, 64)).bfloat16())

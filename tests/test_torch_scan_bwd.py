@@ -772,6 +772,69 @@ def test_mamba2_backward_fp32_split_holds_the_gate(B, S, H, G, N, P, Q):
 
 
 # ------------------------------------------------------ the sources' plans
+# ------------------------------------------------- wide states, CPU plans
+@pytest.mark.parametrize("B,S,H,G,N,P,Q", [
+    (1, 64, 2, 1, 16, 96, 32),       # P 96: two column groups of 48
+    (1, 64, 2, 1, 16, 128, 16),      # P 128: two of 64
+    (1, 48, 2, 2, 160, 8, 16),       # N 160: two row groups of 80
+    (1, 48, 2, 1, 256, 8, 16),       # N 256: two of 128
+    (1, 48, 2, 1, 129, 65, 16)])     # both, ragged: 65 + 64 rows, 33 + 32
+def test_mamba2_group_plan_replays_the_reference_gradient(B, S, H, G, N, P,
+                                                          Q):
+    """``mamba2_scan_backward`` past one launch's state, on the plain
+    backward: each (row group, column group) of ``split_plan`` its own
+    gradient on its slices of x, dy, B, C, init and dstate; dx summed
+    over row groups and placed by column group, ddt and dA summed over
+    all, dB and dC summed over column groups and placed by row group,
+    dinit placed; against ``jax.vjp`` of ``ssd_chunked`` at the caller's
+    width."""
+    x, dt, A, Bm, Cm, init, dy, dstate = mamba_case(B, S, H, G, N, P,
+                                                    seed=N + P)
+    rows, cols = ms.split_plan(N, P)
+    assert len(rows) * len(cols) > 1
+    dx, dB, dC = np.zeros(x.shape), np.zeros(Bm.shape), np.zeros(Cm.shape)
+    ddt, dA = np.zeros(dt.shape), np.zeros(A.shape)
+    dinit = np.zeros(init.shape)
+    for n0, n1 in rows:
+        for p0, p1 in cols:
+            g = mamba_port_plain(x[..., p0:p1], dt, A, Bm[..., n0:n1],
+                                 Cm[..., n0:n1], init[:, :, n0:n1, p0:p1],
+                                 dy[..., p0:p1],
+                                 dstate[:, :, n0:n1, p0:p1], Q)
+            g = [a.double().numpy() for a in g]
+            dx[..., p0:p1] += g[0]
+            ddt += g[1]
+            dA += g[2]
+            dB[..., n0:n1] += g[3]
+            dC[..., n0:n1] += g[4]
+            dinit[:, :, n0:n1, p0:p1] = g[5]
+    assert_grads((dx, ddt, dA, dB, dC, dinit),
+                 mamba_ref_vjp(x, dt, A, Bm, Cm, init, dy, dstate, Q))
+
+
+@pytest.mark.parametrize("B,S,H,N,Q", [(1, 40, 2, 128, 8), (1, 33, 2, 96, 11),
+                                       (2, 24, 1, 65, 8)])
+def test_rwkv6_block_plan_replays_the_reference_gradient(B, S, H, N, Q):
+    """``RWKV6Blocks``'s backward on the plain backward: the inputs and
+    both cotangents padded to whole blocks and stacked (``stack_blocks``,
+    ``stack_cotangents``: dy_J for every row block I), the N 64 scan's
+    gradient on the stacked heads, then ``unstack_grads`` (dr, dk, dw, du
+    summed over J, dv over I, dinit's blocks in place) sliced back; against
+    ``jax.vjp`` of ``_rwkv6_chunked`` at the caller's N (N 96 and 65: the
+    padding too)."""
+    r, k, v, w, u, init, dy, dstate = rwkv_case(B, S, H, N, seed=N)
+    Np = rs.padded_n(N)
+    nb = Np // rs.BLOCK_N
+    ins = rs.pad_state_dim(*(t(a) for a in (r, k, v, w, per_row(u, B),
+                                            init)), Np)
+    stacked = rs.stack_blocks(*ins, nb)
+    g = rs.unstack_grads(*rs.rwkv6_scan_backward_plain(
+        *stacked, *rs.stack_cotangents(t(dy), t(dstate), nb)), B, S, H, nb)
+    g = [a[..., :N] for a in g[:4]] + [
+        g[4][:, :N].reshape(B, H, N).sum(0), g[5][:, :, :N, :N]]
+    assert_grads(g, rwkv_ref_vjp(r, k, v, w, u, init, dy, dstate, Q))
+
+
 def constexpr(name: str, source: str) -> int:
     text = (cuda_build.CSRC / f"{source}.cu").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
@@ -782,10 +845,11 @@ def test_backward_constants_match_the_sources():
     assert constexpr("kSave", "rwkv6_scan_bwd") == rs.SAVE_EVERY
     assert constexpr("kSub", "rwkv6_scan_bwd") == rs.BWD_SUB
     assert constexpr("kMaxQ", "mamba2_scan_bwd") == ms.MAX_CHUNK
-    # the backward takes every state the forward takes
+    # the backward takes every state the forward takes, a launch a group
+    # of at most 128 rows and 64 columns (the wrapper's split_plan)
     for src in ("mamba2_scan", "mamba2_scan_bwd"):
-        assert constexpr("kMaxN", src) == ms.MAX_N == 128
-        assert constexpr("kMaxP", src) == ms.MAX_P == 64
+        assert constexpr("kMaxN", src) == ms.GROUP_N == 128
+        assert constexpr("kMaxP", src) == ms.GROUP_P == 64
     assert constexpr("kTileN", "mamba2_scan_bwd") == ms.TILE_N
     assert constexpr("kMaxQ", "mamba2_scan") == ms.MAX_CHUNK
     assert constexpr("kMaxHeads", "mamba2_scan_bwd") == ms.MAX_HEADS

@@ -132,8 +132,9 @@ def test_every_registry_head_dim_pair_is_instantiated(monkeypatch):
 def test_flash_attention_plain_version_takes_pairs_outside_the_kernel():
     """On the CPU any (d, dv) runs the plain version; on the card a pair
     outside ``PAIRS`` with d, dv <= 256 runs on the covering instance,
-    padded (meta tensors take the card's path without a card), and one
-    past 256 is refused, naming the limit."""
+    padded (meta tensors take the card's path without a card), one past
+    256 on the wide kernel, unpadded, and only a width below 1 is
+    refused."""
     q = torch.zeros((1, 4, 2, 48))
     out = tfa_mod.flash_attention_kernel(q, q, torch.zeros((1, 4, 2, 40)))
     assert out.shape == (1, 4, 2, 40)
@@ -144,8 +145,12 @@ def test_flash_attention_plain_version_takes_pairs_outside_the_kernel():
         (1, 4, 2, 40), device="meta"))
     assert out.shape == (1, 4, 2, 40) and out.device.type == "meta"
     big = torch.zeros((1, 4, 2, 264), device="meta")
-    with pytest.raises(ValueError, match="256"):
-        tfa_mod.flash_attention_kernel(big, big, big[..., :64])
+    out = tfa_mod.flash_attention_kernel(big, big, torch.zeros(
+        (1, 4, 2, 64), device="meta"))
+    assert out.shape == (1, 4, 2, 64) and tfa_mod.cover_pair(264, 64) is None
+    empty = torch.zeros((1, 4, 2, 0), device="meta")
+    with pytest.raises(ValueError, match=">= 1"):
+        tfa_mod.flash_attention_kernel(empty, empty, empty)
 
 
 # ------------------------------------------------------------------------ MLA
