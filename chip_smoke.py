@@ -55,7 +55,8 @@ then every width past the kernels' instances (``wide_phase``: K7 at
 head dims 128 and 96 and states of 256 and 160 rows, K8 at states of 128
 and 96, K6 at (d, dv) past 256, K5 at keys past 576 or values past 512),
 forward and backward against the plain versions, and each lifted axis
-timed at a zoo family's total width;
+timed at a zoo family's total width (K6's bf16 wgmma route also at
+DeepSeek-V2's absorbed MLA width, each plan held to its source's);
 gemma-7b at its published width, cut to 8 of its 28 layers, and
 zamba2-2.7b and rwkv6-3b at their published width and depth take AdamW
 steps of 4 x 2048 tokens through the port's data pipeline, train step
@@ -207,6 +208,11 @@ DECODE_32K = dict(seqs=128, kv_heads=8, q_heads=40, head_dim=128,
 # K8 one thread per state column), NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md's kernel table), printed beside the new ones
 EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
+              # K6 past 256 on the CUDA cores in fp32 for both types
+              # (the wide kernel's first design; its wide_phase row)
+              ("flash_attention", "(512, 512) x 8 heads"): 25.38165740966797,
+              ("flash_attention_bwd", "(512, 512) x 8 heads"):
+                  91.21710205078125,
               ("flash_attention", "gemma-7b prefill"): 17.322079467773438,
               ("decode_attention", "serve"): 0.8877887725830078,
               ("decode_attention", "decode_32k"): 11.61456044514974,
@@ -1284,6 +1290,8 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
                instance=pair or "wide", launches=launched,
                max_abs_err=max_err(out, plain),
                plain_max_abs=float(plain.float().abs().max()))
+    if pair is None:
+        row.update(wide_route(q, k, v, dtype))
     if fault:
         bad = flash_rescale_dropped(q, k, v, causal)
         row["planted_fault_max_abs_err"] = max_err(bad, plain)
@@ -1302,11 +1310,19 @@ def check_flash(B, S, H, KV, d, dtype, causal, label, timed=False, seed=0,
         ms = device_ms(lambda: fa.flash_attention_kernel(q, k, v, causal),
                        reps=5, rounds=5)
         if pair is None:               # the wide kernel: its own source
-            source, needle = "flash_attention_wide", "wide_fwd_kernel"
-            smem = fa.wide_smem_bytes(dv)
-            row.update(score_work=-(-dv // fa.WIDE_GROUP),
+            source = "flash_attention_wide"
+            needle = ("wide_fwd_wgmma" if dtype == torch.bfloat16
+                      else "wide_fwd_kernel")
+            smem = fa.wide_smem_bytes(*fa.wide_pair(d, dv, dtype), "fwd",
+                                      dtype)
+            again = fa.flash_attention_kernel(q, k, v, causal)
+            row.update(bit_equal_rerun=bool(torch.equal(out, again)),
                        sdpa_backends=sdpa_backends(
                            q, k, v, causal, KV != H))
+            if not row["bit_equal_rerun"]:
+                raise AssertionError(f"flash_attention at {label}: two runs "
+                                     f"differ")
+            del again
         else:
             source = "flash_attention"
             needle = (f"flash_bf16_kernelILi{pair[0]}ELi{pair[1]}E"
@@ -1670,7 +1686,9 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
     if not torch.equal(out, fa._forward(q, k, v, causal, False)[0]):
         raise AssertionError(f"flash_attention at {label}: asking for lse "
                              f"changed the output")
+    before = fa.BWD_LAUNCHES
     grads = fa.flash_attention_backward(q, k, v, out, lse, dout, causal)
+    launched = fa.BWD_LAUNCHES - before
     plain = fa.flash_attention_backward_plain(q, k, v, dout, causal)
     torch.cuda.synchronize()
     rel = grads_rel(grads, plain)
@@ -1679,11 +1697,13 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
     row = dict(kernel="flash_attention_bwd", shape=label, B=B, S=S, T=T,
                H=H, KV=KV, d=d, dv=dv, causal=causal, dtype=dtype_name(dtype),
                design="wide" if wide else fa.bwd_design(d, dv, dtype),
-               rel_err=rel, tol=tol,
+               launches=launched, rel_err=rel, tol=tol,
                max_abs_err=max(max_err(a, b) for a, b in zip(grads, plain)),
                plain_max_abs=max(float(b.float().abs().max())
                                  for b in plain))
-    if not rel <= tol:
+    if wide:
+        row.update(wide_route(q, k, v, dtype))
+    if not rel <= tol or launched != 1:
         raise AssertionError(f"flash_attention_bwd differs at {label}: "
                              f"{row}")
     if not timed:
@@ -1716,8 +1736,13 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
             raise AssertionError(f"flash_attention_bwd at {label}: two runs "
                                  f"differ")
         del again
-        smem = [0, 0] if wide else [fa.bwd_smem_bytes(d, dv, dtype, True),
-                                    fa.bwd_smem_bytes(d, dv, dtype, False)]
+        smem = [fa.wide_smem_bytes(d, dv, kind, dtype)
+                for kind in ("dkdv", "dq")] if wide \
+            else [fa.bwd_smem_bytes(d, dv, dtype, True),
+                  fa.bwd_smem_bytes(d, dv, dtype, False)]
+        if wide:
+            row["sdpa_backends"] = sdpa_backends(q, k, v, causal, KV != H,
+                                                 dout)
         if row["design"] == "wgmma":
             plans = [fa.wgmma_plan(d, dv, dq) for dq in (False, True)]
             row["plans"] = [p._asdict() for p in plans]
@@ -1746,7 +1771,9 @@ def check_flash_bwd(B, S, H, KV, d, dtype, causal, label, dv=None, T=None,
                        o_lib, leaves, do_lib, retain_graph=True),
                        reps=3, rounds=5),
                    dynamic_smem_bytes=smem,
-                   build=build_facts("flash_attention_wide", "wide_d")
+                   build=build_facts("flash_attention_wide",
+                                     "wide_bwd_wgmma" if dtype == torch.bfloat16
+                                     else "wide_d")
                    if wide else build_facts("flash_attention_bwd",
                                             f"ILi{d}ELi{dv}E"))
         del o_lib, leaves
@@ -2197,9 +2224,11 @@ def train_kernel_phase():
     return main, errs
 
 
-def sdpa_backends(q, k, v, causal: bool, gqa: bool) -> dict:
+def sdpa_backends(q, k, v, causal: bool, gqa: bool, dout=None) -> dict:
     """``scaled_dot_product_attention`` on q, k, v ([B, S, H, d] layouts)
-    under each of its backends alone: its device ms, or why it refused."""
+    under each of its backends alone: its device ms, or why it refused;
+    given ``dout``, its backward's (the forward once, then the backward
+    alone, timed)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2208,15 +2237,53 @@ def sdpa_backends(q, k, v, causal: bool, gqa: bool) -> dict:
               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel(b):
-                sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
-                torch.cuda.synchronize()
-                out[b.name] = device_ms(lambda: sdpa(
-                    qt, kt, vt, is_causal=causal, enable_gqa=gqa),
-                    reps=3, rounds=3)
+                if dout is None:
+                    sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+                    torch.cuda.synchronize()
+                    out[b.name] = device_ms(lambda: sdpa(
+                        qt, kt, vt, is_causal=causal, enable_gqa=gqa),
+                        reps=3, rounds=3)
+                else:
+                    leaves = [t.detach().requires_grad_()
+                              for t in (qt, kt, vt)]
+                    o = sdpa(*leaves, is_causal=causal, enable_gqa=gqa)
+                    do = dout.transpose(1, 2)
+                    out[b.name] = device_ms(lambda: torch.autograd.grad(
+                        o, leaves, do, retain_graph=True), reps=2, rounds=3)
+                    del o, leaves
         except (RuntimeError, torch.OutOfMemoryError) as e:
             out[b.name] = f"refused: {str(e)[:120]}"
         torch.cuda.empty_cache()
     return out
+
+
+def wide_route(q, k, v, dtype) -> dict:
+    """What K6's wide route runs at q, k, v's widths in ``dtype``: bf16
+    the wgmma kernels at ``wide_pair``'s widths (zero-padded where the
+    caller's are no multiple of 8, the copy's ms given), each kernel's
+    plan (``wide_plan``), which must equal the source's own, and the score
+    work; fp32 the CUDA-core kernels, which form the scores once a group
+    of ``WIDE_GROUP`` value columns."""
+    d, dv = q.shape[3], v.shape[3]
+    if dtype != torch.bfloat16:
+        return dict(design="wide_cuda_cores",
+                    score_work=dict(forward=-(-dv // fa.WIDE_GROUP)))
+    pair = fa.wide_pair(d, dv, dtype)
+    plans = {kind: fa.wide_plan(*pair, kind) for kind in fa.WIDE_KINDS}
+    for kind, plan in plans.items():
+        src = fa.wide_source_plan(*pair, kind)
+        if src != plan or fa.wide_smem_bytes(*pair, kind, dtype) \
+                != plan.smem_bytes:
+            raise AssertionError(f"flash_attention_wide at {pair}: the "
+                                 f"source's {kind} plan {src} is not "
+                                 f"wide_plan's {plan}")
+    row = dict(design="wide_wgmma", runs_at=list(pair),
+               plans={kind: p._asdict() for kind, p in plans.items()},
+               score_work=fa.wide_score_work(*pair))
+    if pair != (d, dv):
+        row["pad_ms"] = device_ms(lambda: fa.pad_to_pair(q, k, v, pair),
+                                  reps=3, rounds=3)
+    return row
 
 
 def check_rwkv_wide_bwd(B, S, H, N, label, timed=False, plain_rows=None,
@@ -2285,23 +2352,29 @@ def check_rwkv_wide_bwd(B, S, H, N, label, timed=False, plain_rows=None,
 
 # the lifted widths (K5-K8 past the instances the zoo's widths run), at
 # small shapes, fp32 and bf16: K7 P 128 and 96, N 256 and 160; K8 N 128
-# and 96; K6 these (d, dv) causal and not; K5 these (d, dv)
+# and 96; K6 these (d, dv) causal and not ((300, 100): bf16 zero-padded
+# to whole 16-byte rows, the gradient through the wrapper); K5 these
+# (d, dv)
 WIDE_K7 = {"P 128": (1, 200, 3, 1, 64, 128, 64),
            "P 96": (1, 200, 3, 1, 64, 96, 64),
            "N 256": (1, 200, 3, 1, 256, 32, 64),
            "N 160": (1, 200, 3, 1, 160, 32, 64)}
 WIDE_K8 = (128, 96)
-WIDE_K6 = ((320, 320), (512, 512), (288, 512), (512, 128))
+WIDE_K6 = ((320, 320), (512, 512), (288, 512), (512, 128), (576, 512),
+           (300, 100))
 WIDE_K5 = ((640, 512), (576, 640), (1024, 1024))
 # one timed row a lifted axis, at a zoo family's own total width with
 # that axis alone changed: mamba2-2.7b's d_inner 5120 as 40 heads of P
 # 128 (N 128) and its 80 heads of P 64 at N 256; rwkv6-3b's 2560 as 20
-# heads of N 128; K6 (512, 512) at 8 heads; K5 (1024, 1024) at 8 rows x
-# 16 heads over 4096 tokens
+# heads of N 128; K6 (512, 512) at 8 heads, and (576, 512) at 16 query
+# heads over one KV head (deepseek-v2's absorbed MLA: kv_lora_rank 512 +
+# rope 64 against the latent); K5 (1024, 1024) at 8 rows x 16 heads over
+# 4096 tokens
 WIDE_TIMED = {"mamba2-2.7b P 128": (4, 2048, 40, 1, 128, 128, 128),
               "mamba2-2.7b N 256": (4, 2048, 80, 1, 256, 64, 128),
               "rwkv6-3b N 128": (4, 2048, 20, 128),
-              "(512, 512) x 8 heads": (4, 2048, 8, 8, 512),
+              "(512, 512) x 8 heads": (4, 2048, 8, 8, 512, 512),
+              "(576, 512) MLA x 16 heads": (4, 2048, 16, 1, 576, 512),
               "(1024, 1024) decode": (8, 16, 1024, 16, 256)}
 
 
@@ -2323,7 +2396,11 @@ def wide_phase():
             "decode_attention": build_facts("decode_attention",
                                             "decode_walk_kernel"),
             "flash_attention_wide": build_facts("flash_attention_wide",
-                                                "wide_")})
+                                                "wide_")},
+        # ptxas's warnings, and its notes of a wgmma pipeline serialised
+        warnings=[ln for ln in cuda_build.BUILD_LOG.get(
+            "flash_attention_wide", "").splitlines()
+            if "arning" in ln or "Performance Loss" in ln][:20])
     errs = {}
 
     def note(r):
@@ -2349,8 +2426,13 @@ def wide_phase():
                 note(check_flash(1, 100, 4, 2, d, dtype, causal,
                                  f"wide {d, dv}", dv=dv))
                 t0 = time.perf_counter()
-                note(check_flash_bwd(1, 100, 4, 2, d, dtype, causal,
-                                     f"wide {d, dv}", dv=dv))
+                if fa.wide_pair(d, dv, dtype) != (d, dv):
+                    # bf16 at widths TMA cannot map: through the padding
+                    note(flash_grad_row(1, 100, 4, 2, d, dv, dtype, causal,
+                                        f"wide {d, dv}"))
+                else:
+                    note(check_flash_bwd(1, 100, 4, 2, d, dtype, causal,
+                                         f"wide {d, dv}", dv=dv))
         for d, dv in WIDE_K5:
             t0 = time.perf_counter()
             note(check_decode(decode_case(3, 5, d, 16, 5, dtype, dv=dv),
@@ -2374,13 +2456,14 @@ def wide_phase():
     t0 = time.perf_counter()
     note(check_rwkv_wide_bwd(B, S, H, N, "rwkv6-3b N 128", timed=True,
                              plain_rows=1))
-    B, S, H, KV, d = WIDE_TIMED["(512, 512) x 8 heads"]
-    t0 = time.perf_counter()
-    note(check_flash(B, S, H, KV, d, torch.bfloat16, True,
-                     "(512, 512) x 8 heads", timed=True))
-    t0 = time.perf_counter()
-    note(check_flash_bwd(B, S, H, KV, d, torch.bfloat16, True,
-                         "(512, 512) x 8 heads", timed=True))
+    for label in ("(512, 512) x 8 heads", "(576, 512) MLA x 16 heads"):
+        B, S, H, KV, d, dv = WIDE_TIMED[label]
+        t0 = time.perf_counter()
+        note(check_flash(B, S, H, KV, d, torch.bfloat16, True, label,
+                         timed=True, fault=True, dv=dv))
+        t0 = time.perf_counter()
+        note(check_flash_bwd(B, S, H, KV, d, torch.bfloat16, True, label,
+                             dv=dv, timed=True, fault=True))
     B, H, d, page, P = WIDE_TIMED["(1024, 1024) decode"]
     t0 = time.perf_counter()
     note(check_decode(decode_case(B, H, d, page, P, torch.bfloat16,

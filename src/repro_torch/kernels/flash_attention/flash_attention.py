@@ -18,12 +18,17 @@ columns only add output columns, so the result is the caller's.  The
 padding and the slicing sit outside ``FlashAttention``, so the gradient
 runs on the covering pair's backward and flows back through them.  A pair
 that no instance covers (d or dv past ``MAX_D``: ``cover_pair`` gives
-None) runs on ``csrc/flash_attention_wide.cu``, whose forward and
-backward walk both widths at run time on the CUDA cores (the softmax is
-of the whole score, so the key width is walked, not split); its forward
-recomputes the scores for each group of ``WIDE_GROUP`` value columns
-(ceil(dv / ``WIDE_GROUP``) times the q.k work) and its backward writes
-fp32 gradients that the wrapper rounds to the inputs' type once.
+None) runs on ``csrc/flash_attention_wide.cu``.  In bfloat16 that is
+Hopper's design (wgmma and TMA on 64-column boxes, ``wide_plan`` gives
+each kernel's blocks, ring and shared memory): the forward forms the
+scores once for each piece of at most 512 value columns, the backward
+splits dK, dV and dQ into pieces a warpgroup's registers hold and writes
+fp32 gradients that the wrapper rounds to the inputs' type once.  TMA maps
+rows of whole 16-byte chunks only, so a bf16 width that is no multiple of
+8 is zero-padded to the next one (``wide_pair``), as a covering pair is.
+In float32 it is the agreement route on the CUDA cores: both widths
+walked at run time, the scores recomputed for each group of
+``WIDE_GROUP`` value columns.
 
 ``flash_attention_kernel`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; it never falls back from one to
@@ -66,7 +71,7 @@ NEG_INF = -1e30
 PAIRS = ((8, 8), (16, 16), (24, 16), (32, 32), (64, 64), (80, 80),
          (128, 128), (192, 128), (256, 256))
 MAX_D = 256                      # d and dv past this: the wide kernel
-WIDE_GROUP = 512                 # value columns a block of the wide forward
+WIDE_GROUP = 512                 # value columns a fp32 wide forward block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -220,7 +225,7 @@ def flash_attention_kernel(q, k, v, causal: bool = True):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     d, dv = q.shape[3], v.shape[3]
-    pair = cover_pair(d, dv) or (d, dv)
+    pair = cover_pair(d, dv) or wide_pair(d, dv, q.dtype)
     scale = 1.0 / math.sqrt(d)
     q, k, v = pad_to_pair(q, k, v, pair)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -254,6 +259,114 @@ def is_wide(d: int, dv: int) -> bool:
     return cover_pair(d, dv) is None
 
 
+def wide_pair(d: int, dv: int, dtype) -> tuple:
+    """The widths the wide kernel runs a call at ``(d, dv)`` on: bf16's
+    rounded up to whole 16-byte rows (multiples of 8) for TMA, zero-padded
+    by ``pad_to_pair``; fp32's as they are."""
+    if dtype != torch.bfloat16:
+        return (d, dv)
+    return (-(-d // 8) * 8, -(-dv // 8) * 8)
+
+
+# the bf16 wide kernels: the forward, the backward's dK/dV and dQ
+WIDE_KINDS = ("fwd", "dkdv", "dq")
+WIDE_BOX = 64                    # columns (and rows) of a TMA box
+WIDE_GROUP_BOXES = 4             # boxes a consumer group accumulates
+WIDE_FIXED = 1024 + 512          # alignment slack and mbarriers
+WIDE_XCHG = 64 * 64 * 4          # a 64 x 64 fp32 exchange buffer
+WIDE_STAGES = (8, 24)            # the ring's least and most stages
+
+
+class WidePlan(NamedTuple):
+    """A bf16 wide kernel's blocks (``WidePlan`` in the source).  Side a
+    is the score product over d's boxes, side b the value side over dv's;
+    ``resident`` says whether each side's own rows (the forward's Q;
+    dK/dV's K, V; dQ's Q, dO) stay in shared memory, else they stream
+    through the ring beside the others.  A 64-row tile of a head takes
+    ``pieces`` blocks, each holding ``piece_boxes`` boxes of dK / dQ
+    columns (a) and of V / dV columns (b)."""
+    kind: str
+    boxes: tuple           # (d's, dv's) 64-column boxes
+    resident: tuple        # side a's, side b's rows resident
+    pieces: int            # blocks a 64-row tile of a head
+    piece_boxes: tuple     # boxes a piece of side a, of side b
+    xchg: int              # 16 KB fp32 exchange buffers
+    entries: int           # ring entries a step (the forward: a key tile)
+    stages: int            # 8 KB stages of the ring
+    table: int             # bytes of the backward's entry table
+    smem_bytes: int        # dynamic shared memory a block (0: too wide)
+    score_work: int        # S (and dP) formed a tile, over the one needed
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wide_dq_split(n: int, na: int, nb: int) -> int:
+    """dQ: the first group's boxes of a piece of ``n``, so that the
+    groups' products are even (na + n0 = nb + n - n0), each at most
+    ``WIDE_GROUP_BOXES``."""
+    g = WIDE_GROUP_BOXES
+    return min(min(g, n), max(max(0, n - g), (n + nb - na) // 2))
+
+
+def wide_plan(d: int, dv: int, kind: str) -> WidePlan:
+    """The bf16 wide kernel of ``kind`` at ``(d, dv)`` (whole 16-byte
+    rows): its pieces (forward: value pieces of at most 8 boxes; dK/dV:
+    as many dK and dV pieces of at most 4 boxes; dQ: pieces of at most 8
+    boxes), whose rows stay resident (both sides, else side a alone, else
+    side b, else none: the first that leaves the ring 8 stages, and in the
+    backward two more than a step's held entries), the ring's stages (as
+    many as fit, at most 24; the forward's even, half a group) and the
+    shared memory a block."""
+    g = WIDE_GROUP_BOXES
+    na, nb = _cdiv(d, WIDE_BOX), _cdiv(dv, WIDE_BOX)
+    if kind == "fwd":
+        pieces = _cdiv(nb, 2 * g)
+        pa, pb, xchg = 0, _cdiv(nb, pieces), 2
+    elif kind == "dkdv":
+        pieces = max(_cdiv(na, g), _cdiv(nb, g))
+        pa, pb, xchg = _cdiv(na, pieces), _cdiv(nb, pieces), 1
+    elif kind == "dq":
+        pieces = _cdiv(na, 2 * g)
+        pa, pb, xchg = _cdiv(na, pieces), 0, 2
+    else:
+        raise ValueError(f"wide_plan: kind in {WIDE_KINDS}, not {kind!r}")
+    box = 2 * WIDE_BOX * WIDE_BOX
+    for ra, rb in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        if kind == "fwd" and rb:
+            continue
+        if kind == "fwd":
+            entries, table, need = na * (2 - ra) + pb, 0, WIDE_STAGES[0]
+        else:
+            entries = na * (2 - ra) + nb * (2 - rb)
+            table = _cdiv(2 * entries, 16) * 16
+            need = max(WIDE_STAGES[0], pa * (2 - ra) + pb * (2 - rb) + 2)
+        fixed = WIDE_FIXED + xchg * WIDE_XCHG + table \
+            + (ra * na + rb * nb) * box
+        avail = (SMEM_LIMIT - fixed) // box
+        if avail >= need:
+            stages = min(avail, WIDE_STAGES[1])
+            if kind == "fwd":          # a ring of half the stages a group
+                stages -= stages % 2
+            return WidePlan(kind, (na, nb), (ra, rb), pieces, (pa, pb),
+                            xchg, entries, stages, table,
+                            fixed + stages * box, pieces)
+    return WidePlan(kind, (na, nb), (0, 0), pieces, (pa, pb), xchg, 0, 0, 0,
+                    0, pieces)
+
+
+def wide_score_work(d: int, dv: int) -> dict:
+    """How often the bf16 wide route forms its score products, over the
+    function's need: the forward's S (once a value piece), the
+    backward's S and dP (once a dK/dV block and once a dQ block of a
+    tile), and the backward's products in all against the five (S, dP,
+    dV, dK, dQ) that suffice."""
+    kv, q = wide_plan(d, dv, "dkdv").pieces, wide_plan(d, dv, "dq").pieces
+    return dict(forward=wide_plan(d, dv, "fwd").pieces, backward=kv + q,
+                backward_products=2 * (kv + q) + 3)
+
+
 def _cuda_limits(q, k, v) -> None:
     """Raise on what the CUDA kernels do not take."""
     d, dv = q.shape[3], v.shape[3]
@@ -264,6 +377,14 @@ def _cuda_limits(q, k, v) -> None:
         raise ValueError(f"flash_attention: the kernel is built for (d, dv) "
                          f"in {PAIRS}, not ({d}, {dv}); the wrapper pads "
                          f"to them (cover_pair)")
+    if is_wide(d, dv) and wide_pair(d, dv, q.dtype) != (d, dv):
+        raise ValueError(f"flash_attention: the bf16 wide kernel maps whole "
+                         f"16-byte rows, not ({d}, {dv}); the wrapper pads "
+                         f"to {wide_pair(d, dv, q.dtype)} (wide_pair)")
+    if is_wide(d, dv) and q.dtype == torch.bfloat16 and any(
+            wide_plan(d, dv, kind).smem_bytes == 0 for kind in WIDE_KINDS):
+        raise ValueError(f"flash_attention: ({d}, {dv}) leaves no ring "
+                         f"beside a block's fixed shared memory")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: tensors must be contiguous")
     if k.shape[1] == 0:
@@ -375,14 +496,29 @@ def _wide_backward(q, k, v, lse, delta, dout, causal: bool, scale):
     return tuple(g.to(q.dtype) for g in grads)
 
 
-def wide_smem_bytes(dv: int) -> int:
-    """The wide forward's dynamic shared memory a block at value width
-    ``dv``, as the source computes it."""
+def wide_smem_bytes(d: int, dv: int, kind: str, dtype) -> int:
+    """The wide kernel's dynamic shared memory a block of its ``kind``
+    (``WIDE_KINDS``) at ``(d, dv)`` in ``dtype``, as the source computes
+    it (the fp32 backward's is static: 0)."""
     fn = cuda_build.load("flash_attention_wide") \
         .flash_attention_wide_smem_bytes
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return fn(dv)
+    return fn(d, dv, WIDE_KINDS.index(kind), _DTYPES[dtype])
+
+
+def wide_source_plan(d: int, dv: int, kind: str) -> WidePlan:
+    """The bf16 wide kernel's plan as the source computes it (its
+    ``WidePlan``), in ``wide_plan``'s fields."""
+    fn = cuda_build.load("flash_attention_wide").flash_attention_wide_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 13)()
+    fn(d, dv, WIDE_KINDS.index(kind), ctypes.addressof(out))
+    (_, na, nb, ra, rb, pieces, pa, pb, xchg, entries, stages, table,
+     smem) = list(out)
+    return WidePlan(kind, (na, nb), (ra, rb), pieces, (pa, pb), xchg,
+                    entries, stages, table, smem, pieces)
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True,

@@ -2,15 +2,17 @@
 shape the JAX kernels take runs on the card: K5's choice of instance, K6's
 covering pair and padding with the caller's scale, K7's chunk, K8's padded
 state size; and past the instances, every width: K5's walk of any key and
-value width, K6's wide kernel (d walked in slabs, value columns in
-groups), K7's state in groups of rows and columns, K8's state in blocks
-of its N 64 instance.  A run on the card shows only that the kernel
-agrees with the plain version; these show, on the CPU, that the padding,
-the chunking, the splits and the slabs themselves change nothing: the
-plain version on the padded inputs (or at the kernel's chunk, or over
-the groups and blocks, or a replay of the slabs in float64), sliced back,
-equals the plain version as the caller called it, and the JAX kernel.
-Meta tensors take the wrappers' card path without a card."""
+value width, K6's wide kernels (bf16: 64-column boxes, two groups' partial
+scores, pieces of value and gradient columns, ``wide_plan``; fp32: d walked
+in slabs, value columns in groups), K7's state in groups of rows and
+columns, K8's state in blocks of its N 64 instance.  A run on the card
+shows only that the kernel agrees with the plain version; these show, on
+the CPU, that the padding, the chunking, the splits and the slabs
+themselves change nothing: the plain version on the padded inputs (or at
+the kernel's chunk, or over the groups and blocks, or a replay of the
+slabs in float64), sliced back, equals the plain version as the caller
+called it, and the JAX kernel.  Meta tensors take the wrappers' card path
+without a card."""
 import math
 import os
 import sys
@@ -216,12 +218,13 @@ def test_flash_cover_pair_refuses_past_256(d, dv):
     assert not fa.is_wide(min(d, 256), min(dv, 256))
 
 
-def wide_fwd_replay(q, k, v, causal):
-    """``csrc/flash_attention_wide.cu``'s forward in float64: a block of
-    32 query rows a (batch row, head, group of ``WIDE_GROUP`` value
-    columns), key tiles of 64 up to the diagonal, each tile's scores
-    summed over slabs of 32 key-width columns, the online softmax, then
-    P V over the group's columns.  Returns (out, lse [B, H, S])."""
+def wide_fwd_replay_fp32(q, k, v, causal):
+    """``csrc/flash_attention_wide.cu``'s float32 forward (the CUDA cores)
+    in float64: a block of 32 query rows a (batch row, head, group of
+    ``WIDE_GROUP`` value columns), key tiles of 64 up to the diagonal,
+    each tile's scores summed over slabs of 32 key-width columns, the
+    online softmax, then P V over the group's columns.  Returns (out, lse
+    [B, H, S])."""
     B, S, H, d = q.shape
     T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
     G, scale = H // KV, 1 / math.sqrt(d)
@@ -255,45 +258,125 @@ def wide_fwd_replay(q, k, v, causal):
     return out, lse
 
 
-@pytest.mark.parametrize("d,dv", [(288, 512), (520, 600), (257, 64)])
+def _bf16(a):
+    """``a`` rounded to bfloat16 (to nearest even), as float64."""
+    return torch.from_numpy(np.asarray(a, np.float64)).to(BF16) \
+        .double().numpy()
+
+
+def _boxes(a, n):
+    """``a`` [..., w] zero-padded to ``n`` 64-column boxes (what TMA
+    brings past the width), as float64."""
+    a = np.asarray(a, np.float64)
+    return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, 64 * n - a.shape[-1])])
+
+
+def wide_fwd_replay_bf16(q, k, v, causal):
+    """``csrc/flash_attention_wide.cu``'s bf16 forward (wgmma) in float64,
+    on ``wide_plan(.., "fwd")``: a block of 64 query rows a (batch row,
+    head, value piece), key tiles of 64 up to the diagonal; each tile's S
+    summed over d's 64-column boxes (zero columns past d) by the two
+    groups, boxes j = 0 and 1 mod 2, and the two partial S added; the
+    online softmax; P rounded to bf16 before P V (the row sum of P
+    unrounded), each group P V over alternate boxes of the piece.
+    Returns (out, lse [B, H, S])."""
+    B, S, H, d = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    G, scale = H // KV, 1 / math.sqrt(d)
+    plan = fa.wide_plan(*fa.wide_pair(d, dv, BF16), "fwd")
+    (na, nb), pb = plan.boxes, plan.piece_boxes[1]
+    q, k, v = _boxes(q, na), _boxes(k, na), _boxes(v, nb)
+    out, lse = np.zeros((B, S, H, 64 * nb)), np.zeros((B, H, S))
+    for b in range(B):
+        for h in range(H):
+            for q0 in range(0, S, 64):
+                Q = q[b, q0:q0 + 64, h]
+                pos = q0 + np.arange(len(Q))
+                for piece in range(plan.pieces):
+                    p0 = min(piece * pb, nb)
+                    cols = slice(64 * p0, 64 * min(p0 + pb, nb))
+                    m = np.full(len(Q), -np.inf)
+                    l = np.zeros(len(Q))
+                    O = np.zeros((len(Q), cols.stop - cols.start))
+                    for k0 in range(0, min(T, q0 + 64) if causal else T, 64):
+                        K = k[b, k0:k0 + 64, h // G]
+                        part = [sum(Q[:, 64 * j:64 * j + 64]
+                                    @ K[:, 64 * j:64 * j + 64].T
+                                    for j in range(g, na, 2))
+                                for g in (0, 1)]
+                        s = part[0] + part[1]
+                        keys = k0 + np.arange(len(K))
+                        ok = (keys[None, :] <= pos[:, None]) | (not causal)
+                        s = np.where(ok, s * scale, -np.inf)
+                        mn = np.maximum(m, s.max(axis=1))
+                        p = np.where(ok, np.exp(s - mn[:, None]), 0.0)
+                        alpha = np.exp(m - mn)
+                        l = l * alpha + p.sum(axis=1)
+                        O = O * alpha[:, None] \
+                            + _bf16(p) @ v[b, k0:k0 + len(K), h // G, cols]
+                        m = mn
+                    out[b, q0:q0 + 64, h, cols] = O / l[:, None]
+                    if piece == 0:
+                        lse[b, h, q0:q0 + 64] = m + np.log(l)
+    return out[..., :dv], lse
+
+
+WIDE_REPLAY = {"bf16": (wide_fwd_replay_bf16, "bfloat16"),
+               "fp32": (wide_fwd_replay_fp32, "float32")}
+
+
+@pytest.mark.parametrize("schedule", ["bf16", "fp32"])
+@pytest.mark.parametrize("d,dv,S,H,KV", [
+    (288, 512, 64, 4, 2), (520, 600, 64, 4, 2), (257, 64, 64, 4, 2),
+    (576, 512, 70, 16, 1)])                 # MLA's absorbed width, G 16
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_wide_replay_equals_the_jax_kernel(d, dv, causal):
-    """The wide forward's tiles, slabs and value groups (two at dv 600),
-    replayed in float64, against the Pallas kernel in interpret mode and
-    the port's plain version, within the fp32 tolerance; lse against the
-    scores' logsumexp."""
+def test_flash_wide_replay_equals_the_jax_kernel(d, dv, S, H, KV, causal,
+                                                 schedule):
+    """The wide forward's schedule, replayed in float64: bf16's (wgmma:
+    64-row blocks, d's boxes in two halves with partial S summed, P
+    rounded to bf16, value pieces; two pieces at dv 600; (257, 64) on its
+    padded (264, 64)) on bf16 inputs within the bf16 tolerance, fp32's
+    (CUDA cores: 32-row blocks, slabs, value groups) within fp32's;
+    against the Pallas kernel in interpret mode and the port's plain
+    version; lse against the scores' logsumexp."""
     from repro.kernels.flash_attention.ops import \
         flash_attention as j_flash
-    q, k, v = (t.numpy() for t in _flash_inputs(1, 64, 64, 4, 2, d, dv,
+    replay, tol = WIDE_REPLAY[schedule]
+    q, k, v = (t.numpy() for t in _flash_inputs(1, S, S, H, KV, d, dv,
                                                  seed=d + dv))
+    if schedule == "bf16":
+        q, k, v = (_bf16(a).astype(np.float32) for a in (q, k, v))
+    blk = 32 if S % 32 == 0 else S // 2
     ref = np.asarray(j_flash(*(jnp.asarray(a) for a in (q, k, v)),
-                             causal=causal, bq=32, bk=32))
-    got, lse = wide_fwd_replay(q, k, v, causal)
-    assert_close(got.astype(np.float32), ref)
+                             causal=causal, bq=blk, bk=blk))
+    got, lse = replay(q, k, v, causal)
+    assert_close(got.astype(np.float32), ref, tol)
     plain = fa.flash_attention_plain(*(torch.from_numpy(a)
                                        for a in (q, k, v)), causal)
     assert_close(plain.numpy(), ref)
     s = np.einsum("bshd,bthd->bhst", q.astype(np.float64),
-                  np.repeat(k, 2, axis=2).astype(np.float64)) / math.sqrt(d)
+                  np.repeat(k, H // KV, axis=2).astype(np.float64)) \
+        / math.sqrt(d)
     if causal:
-        s = np.where(np.tril(np.ones((64, 64), bool)), s, -np.inf)
+        s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
     np.testing.assert_allclose(lse, np.logaddexp.reduce(s, axis=-1),
                                rtol=1e-10, atol=1e-10)
 
 
-def wide_bwd_replay(q, k, v, do, causal):
-    """``csrc/flash_attention_wide.cu``'s backward in float64: dK/dV
-    blocks of 32 keys walking the G query heads and their query tiles of
-    32 from the first that sees the keys, dQ blocks of 32 query rows
-    walking the key tiles to the diagonal; each 32 x 32 tile forms S
-    (key width in slabs of 32), P from lse, dP (value width in slabs of
-    32), dS = P (dP - D), and adds into the block's own rows 64 columns
-    at a time.  lse and D as the forward and the D kernel give them."""
+def wide_bwd_replay_fp32(q, k, v, do, causal):
+    """``csrc/flash_attention_wide.cu``'s float32 backward (the CUDA
+    cores) in float64: dK/dV blocks of 32 keys walking the G query heads
+    and their query tiles of 32 from the first that sees the keys, dQ
+    blocks of 32 query rows walking the key tiles to the diagonal; each
+    32 x 32 tile forms S (key width in slabs of 32), P from lse, dP (value
+    width in slabs of 32), dS = P (dP - D), and adds into the block's own
+    rows 64 columns at a time.  lse and D as the forward and the D kernel
+    give them."""
     B, S, H, d = q.shape
     T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
     G, scale = H // KV, 1 / math.sqrt(d)
     q, k, v, do = (a.astype(np.float64) for a in (q, k, v, do))
-    o, lse = wide_fwd_replay(q, k, v, causal)
+    o, lse = wide_fwd_replay_fp32(q, k, v, causal)
     D = np.einsum("bshd,bshd->bhs", do, o)
     dq, dk, dvv = np.zeros(q.shape), np.zeros(k.shape), np.zeros(v.shape)
 
@@ -330,34 +413,202 @@ def wide_bwd_replay(q, k, v, do, causal):
     return dq, dk, dvv
 
 
-@pytest.mark.parametrize("d,dv,S", [(288, 512, 70), (320, 96, 40)])
+def wide_bwd_replay_bf16(q, k, v, do, causal):
+    """``csrc/flash_attention_wide.cu``'s bf16 backward (wgmma) in
+    float64, on ``wide_plan``'s dK/dV and dQ plans.  lse and the output
+    (rounded to bf16, as the forward writes it) from the bf16 forward
+    replay, D = rowsum(dO o).  dK/dV: a block of 64 keys a (batch row, KV
+    head, piece) walks the G query heads and their query tiles of 64 from
+    the first that sees its keys; each tile's S^T over d's boxes and dP^T
+    over dv's (zero columns past the widths), P^T from lse, dS^T = P^T
+    (dP^T - D); dV += bf16(P^T) dO over its dV piece's boxes, dK +=
+    bf16(dS^T) Q scale over its dK piece's.  dQ: a block of 64 queries a
+    (batch row, head, piece) walks the key tiles to the diagonal, forms S
+    and dP again, and adds bf16(dS) K scale into the piece's boxes, split
+    between the two groups (``wide_dq_split``)."""
+    B, S, H, d = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    G, scale = H // KV, 1 / math.sqrt(d)
+    pd, pdv = fa.wide_pair(d, dv, BF16)
+    kv, qp = fa.wide_plan(pd, pdv, "dkdv"), fa.wide_plan(pd, pdv, "dq")
+    na, nb = kv.boxes
+    o, lse = wide_fwd_replay_bf16(q, k, v, causal)
+    D = np.einsum("bshd,bshd->bhs", np.asarray(do, np.float64), _bf16(o))
+    q, k, v, do = _boxes(q, na), _boxes(k, na), _boxes(v, nb), \
+        _boxes(do, nb)
+    dq, dk, dvv = (np.zeros(a.shape) for a in (q, k, v))
+
+    def tile(b, h, q0, k0):
+        """S, dS [queries, keys] of one tile."""
+        Q, dO = q[b, q0:q0 + 64, h], do[b, q0:q0 + 64, h]
+        K, V = k[b, k0:k0 + 64, h // G], v[b, k0:k0 + 64, h // G]
+        s = sum(Q[:, 64 * j:64 * j + 64] @ K[:, 64 * j:64 * j + 64].T
+                for j in range(na))
+        dp = sum(dO[:, 64 * j:64 * j + 64] @ V[:, 64 * j:64 * j + 64].T
+                 for j in range(nb))
+        pos, keys = q0 + np.arange(len(Q)), k0 + np.arange(len(K))
+        ok = (keys[None, :] <= pos[:, None]) | (not causal)
+        p = np.where(ok, np.exp(s * scale - lse[b, h, pos][:, None]), 0.0)
+        return p, p * (dp - D[b, h, pos][:, None])
+
+    def cols(j0, j1):
+        return slice(64 * j0, 64 * j1)
+
+    for b in range(B):
+        for kvh in range(KV):
+            for k0 in range(0, T, 64):
+                for piece in range(kv.pieces):
+                    a0 = min(piece * kv.piece_boxes[0], na)
+                    a1 = min(a0 + kv.piece_boxes[0], na)
+                    b0 = min(piece * kv.piece_boxes[1], nb)
+                    b1 = min(b0 + kv.piece_boxes[1], nb)
+                    for h in range(kvh * G, kvh * G + G):
+                        for q0 in range(k0 if causal else 0, S, 64):
+                            p, ds = tile(b, h, q0, k0)
+                            rows = slice(k0, k0 + p.shape[1])
+                            dvv[b, rows, kvh, cols(b0, b1)] += \
+                                _bf16(p).T @ do[b, q0:q0 + 64, h, cols(b0, b1)]
+                            dk[b, rows, kvh, cols(a0, a1)] += scale * (
+                                _bf16(ds).T @ q[b, q0:q0 + 64, h, cols(a0, a1)])
+        for h in range(H):
+            for q0 in range(0, S, 64):
+                for piece in range(qp.pieces):
+                    a0 = min(piece * qp.piece_boxes[0], na)
+                    a1 = min(a0 + qp.piece_boxes[0], na)
+                    n0 = fa.wide_dq_split(a1 - a0, na, nb)
+                    for k0 in range(0, min(T, q0 + 64) if causal else T, 64):
+                        _, ds = tile(b, h, q0, k0)
+                        K = k[b, k0:k0 + 64, h // G]
+                        for j0, j1 in ((a0, a0 + n0), (a0 + n0, a1)):
+                            dq[b, q0:q0 + 64, h, cols(j0, j1)] += scale * (
+                                _bf16(ds) @ K[:, cols(j0, j1)])
+    return dq[..., :d], dk[..., :d], dvv[..., :dv]
+
+
+@pytest.mark.parametrize("schedule", ["bf16", "fp32"])
+@pytest.mark.parametrize("d,dv,S,H,KV", [
+    (288, 512, 70, 4, 2), (320, 96, 40, 4, 2),
+    (576, 512, 70, 16, 1)])                 # MLA's absorbed width, G 16
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_wide_backward_replay_equals_the_reference_gradient(d, dv, S,
-                                                                  causal):
-    """The wide backward's blocks, tiles and slabs (ragged S, 2 query
-    heads a KV head), replayed in float64, against ``jax.vjp`` of the
-    Pallas kernel's oracle and the port's plain backward."""
+def test_flash_wide_backward_replay_equals_the_reference_gradient(
+        d, dv, S, H, KV, causal, schedule):
+    """The wide backward's schedule (ragged S, G query heads a KV head),
+    replayed in float64: bf16's (wgmma: 64-row tiles, d's and dv's boxes,
+    the dK/dV and dQ pieces, P and dS rounded to bf16 before the sums) on
+    bf16 inputs within the bf16 tolerance, fp32's (CUDA cores: 32 x 32
+    tiles, slabs) within 1e-4; against ``jax.vjp`` of the Pallas kernel's
+    oracle, and the port's plain backward within 1e-4."""
     from repro.kernels.flash_attention.ref import attention_ref
     rng = np.random.RandomState(d + S)
     q, k, v, do = (rng.randn(*sh).astype(np.float32) for sh in (
-        (1, S, 4, d), (1, S, 2, d), (1, S, 2, dv), (1, S, 4, dv)))
+        (1, S, H, d), (1, S, KV, d), (1, S, KV, dv), (1, S, H, dv)))
+    if schedule == "bf16":
+        q, k, v, do = (_bf16(a).astype(np.float32) for a in (q, k, v, do))
+    G = H // KV
 
     def ref_attention(q, k, v):
         qf, kf, vf = (jnp.repeat(a.transpose(0, 2, 1, 3), r, axis=1)
-                      .reshape(4, S, -1) for a, r in ((q, 1), (k, 2), (v, 2)))
+                      .reshape(H, S, -1) for a, r in ((q, 1), (k, G), (v, G)))
         o = attention_ref(qf, kf, vf, causal=causal)
-        return o.reshape(1, 4, S, -1).transpose(0, 2, 1, 3)
+        return o.reshape(1, H, S, -1).transpose(0, 2, 1, 3)
     _, vjp = jax.vjp(ref_attention, *(jnp.asarray(a) for a in (q, k, v)))
     ref = vjp(jnp.asarray(do))
-    got = wide_bwd_replay(q, k, v, do, causal)
+    replay = wide_bwd_replay_bf16 if schedule == "bf16" \
+        else wide_bwd_replay_fp32
+    rel = 2e-2 if schedule == "bf16" else 1e-4
+    got = replay(q, k, v, do, causal)
     plain = fa.flash_attention_backward_plain(
         *(torch.from_numpy(a) for a in (q, k, v, do)), causal)
     for a, b, c, name in zip(got, ref, plain, ("dq", "dk", "dv")):
         b = np.asarray(b)
-        np.testing.assert_allclose(a, b, rtol=1e-4,
-                                   atol=1e-4 * np.abs(b).max(), err_msg=name)
+        np.testing.assert_allclose(a, b, rtol=rel,
+                                   atol=rel * np.abs(b).max(), err_msg=name)
         np.testing.assert_allclose(c.numpy(), b, rtol=1e-4,
                                    atol=1e-4 * np.abs(b).max(), err_msg=name)
+
+
+# the bf16 wide kernels' plans by hand: (pieces, piece_boxes, resident,
+# stages, smem_bytes) of each kind.  Shared memory: 1536 (alignment,
+# mbarriers) + 16 KB an exchange buffer (fwd 2, dkdv 1, dq 2) + the
+# backward's entry table (2 bytes an entry, rounded up to 16) + 8 KB a
+# resident box + 8 KB a stage; rows resident while the ring keeps 8
+# stages (the backward: and two past a step's held entries), stages as
+# many as fit up to 24, the forward's even (a ring of half a group).
+WIDE_PLANS = {
+    # d, dv 8 boxes each; Q (64 KB) resident leaves 16 stages; dK/dV one
+    # piece of 4 + 4 boxes a block, 2 blocks, K and V (128 KB) resident
+    # with 10 = 8 held + 2 stages; dQ both resident would leave 8 < 10,
+    # so dO streams beside V (24 entries, a 48-byte table)
+    (512, 512): {"fwd": (1, (0, 8), (1, 0), 16, 230912),
+                 "dkdv": (2, (4, 4), (1, 1), 10, 230944),
+                 "dq": (1, (8, 0), (1, 0), 16, 230960)},
+    # MLA's absorbed width: d 9 boxes (Q 72 KB leaves 15 stages, 14 used),
+    # so dK needs 3 pieces of 3 (dV's 8 boxes then 3, 3, 2) and dQ 2
+    # pieces of 5 and 4
+    (576, 512): {"fwd": (1, (0, 8), (1, 0), 14, 222720),
+                 "dkdv": (3, (3, 3), (1, 1), 9, 230960),
+                 "dq": (2, (5, 0), (1, 0), 15, 230976)},
+    # dv 10 boxes: the forward's two pieces of 5; dK/dV 3 pieces (3 and 4
+    # boxes), K resident, V streaming (29 entries)
+    (520, 600): {"fwd": (2, (0, 5), (1, 0), 14, 222720),
+                 "dkdv": (3, (3, 4), (1, 0), 17, 230976),
+                 "dq": (2, (5, 0), (1, 0), 15, 230976)},
+    # (257, 64) runs padded to (264, 64): d 5 boxes, dv 1
+    (257, 64): {"fwd": (1, (0, 1), (1, 0), 18, 222720),
+                "dkdv": (2, (3, 1), (1, 1), 20, 230928),
+                "dq": (1, (5, 0), (1, 1), 18, 230928)},
+    (512, 128): {"fwd": (1, (0, 2), (1, 0), 16, 230912),
+                 "dkdv": (2, (4, 1), (1, 1), 16, 230944),
+                 "dq": (1, (8, 0), (1, 1), 14, 230944)},
+}
+WIDE_SCORE_WORK = {(512, 512): (1, 3, 9), (576, 512): (1, 5, 13),
+                   (520, 600): (2, 5, 13), (257, 64): (1, 3, 9),
+                   (512, 128): (1, 3, 9)}
+
+
+@pytest.mark.parametrize("d,dv", list(WIDE_PLANS))
+def test_flash_wide_plan_matches_the_hand_counts(d, dv):
+    """``wide_plan`` at the widths of the issue's table: each kernel's
+    pieces (its blocks a 64-row tile), boxes a piece, resident rows,
+    stages and shared memory as counted by hand, every block within an
+    H100's 232,448 bytes and the bytes adding up; ``score_work`` the
+    forward's pieces and the backward's dK/dV plus dQ pieces (S and dP
+    formed, over the two the function needs), and the backward's
+    products against the five that suffice."""
+    pd, pdv = fa.wide_pair(d, dv, BF16)
+    assert (pd, pdv) == ((264, 64) if (d, dv) == (257, 64) else (d, dv))
+    for kind, (pieces, pbox, res, stages, smem) in WIDE_PLANS[d, dv].items():
+        plan = fa.wide_plan(pd, pdv, kind)
+        assert (plan.pieces, plan.piece_boxes, plan.resident, plan.stages,
+                plan.smem_bytes) == (pieces, pbox, res, stages, smem), kind
+        na, nb = plan.boxes
+        assert plan.smem_bytes <= fa.SMEM_LIMIT
+        assert plan.smem_bytes == 1536 + plan.xchg * 16384 + plan.table \
+            + (res[0] * na + res[1] * nb + stages) * 8192
+        assert plan.score_work == pieces
+    work = fa.wide_score_work(pd, pdv)
+    assert (work["forward"], work["backward"],
+            work["backward_products"]) == WIDE_SCORE_WORK[d, dv]
+
+
+@pytest.mark.parametrize("d,dv", [(257, 64), (300, 100), (64, 260),
+                                  (1, 1024)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_padded_width_equals_the_callers_attention(d, dv, causal):
+    """What the wrapper runs on the card at a bf16 wide width that TMA
+    cannot map (rows not whole 16-byte chunks), in plain PyTorch: q, k, v
+    zero-padded to ``wide_pair`` (multiples of 8), the caller's scale, the
+    output sliced back; equal to the plain version on the caller's
+    tensors.  fp32 runs the caller's widths as they are."""
+    pair = fa.wide_pair(d, dv, BF16)
+    assert pair == (-(-d // 8) * 8, -(-dv // 8) * 8) and fa.is_wide(*pair)
+    assert fa.wide_pair(d, dv, F32) == (d, dv)
+    q, k, v = _flash_inputs(1, 24, 24, 4, 2, d, dv, seed=d)
+    want = fa.flash_attention_plain(q, k, v, causal)
+    padded = fa.pad_to_pair(q, k, v, pair)
+    got = fa.flash_attention_plain(*padded, causal, 1 / math.sqrt(d))
+    assert got.shape[-1] == pair[1]
+    assert_close(got[..., :dv].numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("d,dv", [(512, 512), (288, 512), (1024, 64)])
@@ -781,3 +1032,191 @@ def test_rwkv_card_path_pads_and_slices_on_meta_tensors():
         y, state = rs.rwkv6_scan_kernel(r, r, r, r, u)
     assert y.shape == (B, S, H, N) and state.shape == (B, H, N, N)
     assert booked == [("rwkv6_scan", *costs.rwkv_fwd(B, S, H, 64, 4))]
+
+
+# ------------------------------------------- K6 wide: the ring's protocol
+def _wide_bwd_walk(d, dv, kind, piece, n_steps):
+    """The stage waits and releases of ``csrc/flash_attention_wide.cu``'s
+    backward consumers, group by group, as the kernel makes them: the
+    block's entry table, every entry waited for in order, the group's own
+    product's stages released when the next is issued (or before a wait
+    on an entry that reuses their stage), the others' at once, the held
+    sum boxes after the sums; the exchange's two named barriers a step."""
+    p = fa.wide_plan(d, dv, kind)
+    (na, nb), (res_a, res_b) = p.boxes, p.resident
+    pa, pb = p.piece_boxes
+    dq = kind == "dq"
+    ha0 = min(piece * pa, na)
+    ha1 = min(ha0 + pa, na)
+    hb0 = 0 if dq else min(piece * pb, nb)
+    hb1 = 0 if dq else min(hb0 + pb, nb)
+    table = []
+
+    def add(side, j, res):
+        table.extend(([(side, 1, j)] if not res else []) + [(side, 0, j)])
+    for j in range(max(na, nb)):
+        if j < na and not ha0 <= j < ha1:
+            add(0, j, res_a)
+        if j < nb and not hb0 <= j < hb1:
+            add(1, j, res_b)
+    for j in range(ha0, ha1):
+        add(0, j, res_a)
+    for j in range(hb0, hb1):
+        add(1, j, res_b)
+    E = len(table)
+    assert E == p.entries
+    ra, rb = 2 - res_a, 2 - res_b
+    e2 = E - (ha1 - ha0) * ra - (hb1 - hb0) * rb
+    walks = []
+    for g in (0, 1):
+        sum_side = 0 if dq else 1 - g
+        if dq:
+            n0 = fa.wide_dq_split(ha1 - ha0, na, nb)
+            s0, s1 = (ha0, ha0 + n0) if g == 0 else (ha0 + n0, ha1)
+        else:
+            s0, s1 = (hb0, hb1) if g == 0 else (ha0, ha1)
+        sum_e = [e2 + (c - ha0) * ra + ra - 1 if sum_side == 0
+                 else e2 + (ha1 - ha0) * ra + (c - hb0) * rb + rb - 1
+                 for c in range(s0, s1)]
+        acts = []
+        for s in range(n_steps):
+            base, pend, pend_r, pend_held, re = s * E, -1, -1, False, -1
+
+            def release_pend():
+                acts.extend([("rel", pend)] if not pend_held else [])
+                acts.extend([("rel", pend_r)] if pend_r >= 0 else [])
+            for e, (side, isr, j) in enumerate(table):
+                i = base + e
+                held = not isr and side == sum_side and s0 <= j < s1
+                if pend >= 0 and min(pend, pend if pend_r < 0 else pend_r) \
+                        <= i - p.stages:
+                    release_pend()
+                    pend = pend_r = -1
+                acts.append(("wait", i))
+                if side != g:
+                    acts.extend([] if held else [("rel", i)])
+                    continue
+                if isr:
+                    re = i
+                    continue
+                if pend >= 0:
+                    release_pend()
+                pend, pend_held = i, held
+                pend_r = -1 if (res_b if side else res_a) else re
+            if pend >= 0:
+                release_pend()
+            acts += [("bar", 2)] * (s > 0) + [("bar", 1)]
+            acts += [("rel", base + e) for e in sum_e]
+        walks.append(acts)
+    order = [(0, i) for i in range(n_steps * E)]
+    return order, walks, [p.stages], 2
+
+
+def _wide_fwd_walk(d, dv, piece, n_tiles):
+    """The forward's: a ring of half the stages a group, group g's entries
+    in a key tile Q_j (when Q streams) and K_j for d's boxes j = g mod 2,
+    then its value boxes; the producer loads the two rings' entries in the
+    order of the boxes."""
+    p = fa.wide_plan(d, dv, "fwd")
+    (na, nb), pb, res = p.boxes, p.piece_boxes[1], p.resident[0]
+    step = 2 - res
+    p0 = min(piece * pb, nb)
+    nv = min(p0 + pb, nb) - p0
+    count, order = [0, 0], []
+    for _ in range(n_tiles):
+        for r in [j % 2 for j in range(na) for _ in range(step)] \
+                + [c % 2 for c in range(nv)]:
+            order.append((r, count[r]))
+            count[r] += 1
+    walks = []
+    for g in (0, 1):
+        mine, my_a = (nv - g + 1) // 2, (na - g + 1) // 2
+        E, acts = my_a * step + mine, []
+        for kt in range(n_tiles):
+            base, pend = kt * E, -1
+            for jj in range(my_a):
+                ik = base + (jj + 1) * step - 1
+                acts += [("wait", e) for e in range(ik - step + 1, ik + 1)]
+                if pend >= 0:
+                    acts += [("rel", e) for e in range(pend - step + 1,
+                                                       pend + 1)]
+                pend = ik
+            if pend >= 0:
+                acts += [("rel", e) for e in range(pend - step + 1, pend + 1)]
+            acts += [("bar", 2)] * (kt > 0) + [("bar", 1)]
+            v = [base + my_a * step + c for c in range(mine)]
+            acts += [("wait", e) for e in v] + [("rel", e) for e in v]
+        walks.append([(a, (g, i)) if a != "bar" else (a, i)
+                      for a, i in acts])
+    return order, walks, [p.stages // 2] * 2, 1
+
+
+def _ring_run(order, walks, stages, readers):
+    """Replays a producer loading ``order`` (ring, entry) and the two
+    groups' ``walks``: an entry loads once every reader has released the
+    entry ``stages`` before it in its ring; a wait needs its entry loaded,
+    and the entry before it in its stage loaded too, or the kernel's
+    parity wait would pass on the phase before; each named barrier waits
+    for both groups.  Returns None when every walk ends with every entry
+    released once by each reader, else where it stuck."""
+    def key(x):
+        return x if isinstance(x, tuple) else (0, x)
+    loaded, released = set(), {}
+    at, done_bars, pc, produced = [0, 0], {1: [0, 0], 2: [0, 0]}, [0, 0], 0
+    pending = [None, None]
+    while True:
+        moved = False
+        while produced < len(order):
+            r, i = order[produced]
+            if i >= stages[r] and released.get((r, i - stages[r]), 0) \
+                    < readers:
+                break
+            loaded.add((r, i))
+            produced += 1
+            moved = True
+        for g in (0, 1):
+            while pc[g] < len(walks[g]):
+                kind, x = walks[g][pc[g]]
+                if kind == "wait":
+                    r, i = key(x)
+                    if (r, i) not in loaded:
+                        break
+                    assert i < stages[r] or (r, i - stages[r]) in loaded
+                elif kind == "rel":
+                    released[key(x)] = released.get(key(x), 0) + 1
+                else:
+                    if pending[g] is None:
+                        done_bars[x][g] += 1
+                        pending[g] = done_bars[x][g]
+                    if done_bars[x][1 - g] < pending[g]:
+                        break
+                    pending[g] = None
+                pc[g] += 1
+                moved = True
+        if pc == [len(w) for w in walks]:
+            assert produced == len(order)
+            assert all(released.get(key(x), 0) == readers for x in order)
+            return None
+        if not moved:
+            return dict(produced=produced, at=pc)
+
+
+@pytest.mark.parametrize("d,dv", [
+    (512, 512), (576, 512), (520, 600), (264, 64), (512, 128), (8, 1024),
+    (64, 1024), (1600, 64), (1024, 1024), (320, 320), (2048, 72)])
+def test_flash_wide_ring_never_deadlocks_or_reads_a_stale_stage(d, dv):
+    """The wide kernels' stage protocol replayed for every piece of each
+    kind at 1-3 steps: no wait that can never end (the hang that keeping
+    a product's stage while walking on to the entry that reuses it gave at
+    (8, 1024) and (1600, 64)), no wait two phases ahead of its stage (a
+    group skipping the other's stages let dQ read stale K), and every
+    stage released once by each reader."""
+    for kind in ("dkdv", "dq"):
+        for piece in range(fa.wide_plan(d, dv, kind).pieces):
+            for n in (1, 2, 3):
+                assert _ring_run(*_wide_bwd_walk(d, dv, kind, piece, n)) \
+                    is None, (kind, piece, n)
+    for piece in range(fa.wide_plan(d, dv, "fwd").pieces):
+        for n in (1, 2, 3):
+            assert _ring_run(*_wide_fwd_walk(d, dv, piece, n)) is None, \
+                ("fwd", piece, n)
