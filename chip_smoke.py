@@ -958,6 +958,33 @@ def decode_split_dropped(q, k_pages, v_pages, page_table, seq_lens):
                                  seq_lens - seq_lens // 4)
 
 
+def decode_rescale_dropped(q, k_pages, v_pages, page_table, seq_lens,
+                           tile: int = da.WALK_TC_TILE):
+    """A planted fault: the plain attention with the running-max rescale
+    (alpha) dropped between tiles of ``tile`` tokens: each tile's
+    probabilities are taken against the running max up to that tile, and
+    the sums of earlier tiles are never rescaled when it rises."""
+    B, H, d = q.shape
+    page, P = k_pages.shape[1], page_table.shape[1]
+    T = P * page
+    tbl = torch.where(da._needed(page_table, seq_lens, page), page_table,
+                      0).long()
+    k = k_pages[tbl].reshape(B, T, -1).float()
+    v = v_pages[tbl].reshape(B, T, -1).float()
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < seq_lens[:, None].long())[:, None, :]
+    s = torch.einsum("bhd,btd->bht", q.float(), k) / math.sqrt(d)
+    s = torch.where(valid, s, da.NEG_INF)
+    n = -(-T // tile)
+    tiles = torch.nn.functional.pad(s, (0, n * tile - T), value=da.NEG_INF)
+    run = tiles.reshape(B, H, n, tile).amax(-1).cummax(-1).values
+    p = torch.where(valid, torch.exp(
+        s - run.repeat_interleave(tile, -1)[..., :T]), 0.0)
+    out = torch.einsum("bht,btd->bhd", p, v) \
+        / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return out.to(q.dtype)
+
+
 def flash_rescale_dropped(q, k, v, causal: bool = True, tile: int = 64):
     """A planted fault: the plain attention with the running-max rescale
     (alpha) dropped between key tiles of ``tile``: each tile's
@@ -1034,16 +1061,27 @@ def decode_pass1(q, dv: int) -> str:
         return (f"decode_bf16_kernelILi{DK}E" if DK <= 128
                 else f"decode_wide_kernelILi{DK}ELi{DV}E")
     t = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
+    if route == "walk_tc":
+        return "decode_walk_tc_kernel"
     if route == "walk":
         return f"decode_walk_kernelI{t}E"
     return f"decode_lanes_kernelI{t}Li{DK // 32}ELi{DV // 32}E"
 
 
-def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
+# the tensor-core walk's rows beside the CUDA-core walk, for the kernels
+# line (label -> the timed row's figures)
+WALK_TC_ROWS = {}
+
+
+def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
+                 fault=decode_split_dropped):
     """K5 against its plain version, the kernel's launch counted; timed
-    rows also require the gate to reject a planted fault
-    (``decode_split_dropped``) and add the times, the bound, the split
-    count and the build facts."""
+    rows also require the gate to reject a planted fault (``fault``: by
+    default ``decode_split_dropped``) and two runs to be bit-equal, and
+    add the times, the bound, the split count and the build facts.  Rows
+    on the tensor-core walk hold its plan to the source's and print the
+    bytes it reads; timed, they also time the CUDA-core walk on the same
+    inputs (``walk_ms``, through ``launch_instance``)."""
     q, kp, vp, pt, lens = args
     before = da.LAUNCHES
     k = da.paged_decode_attention_kernel(*args)
@@ -1065,26 +1103,44 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
     B, H, d = q.shape
     dv = vp.shape[2]
     P = pt.shape[1]
+    inst = da.instance(d, dv, q.dtype)
     row = dict(kernel="decode_attention", shape=label, B=B, H=H, d=d, dv=dv,
                page=kp.shape[1], P=P, n_slots=kp.shape[0],
                dtype=str(q.dtype).split(".")[-1],
-               instance=da.instance(d, dv, q.dtype),
+               instance=inst, pass1=decode_pass1(q, dv),
                splits=da.splits_for(q, P, dv), launches=launched,
                checked_rows=n, max_abs_err=max_err(k[:n], p),
                plain_max_abs=float(p.float().abs().max()))
+    if inst[0] == "walk_tc":
+        plan = da.walk_tc_plan(d, dv)
+        if da.walk_tc_source_plan(d, dv) != plan:
+            raise AssertionError(f"decode_attention at {label}: walk_tc_plan "
+                                 f"{plan} is not the source's "
+                                 f"{da.walk_tc_source_plan(d, dv)}")
+        tokens = int(lens.clamp(max=P * kp.shape[1]).sum())
+        k_bytes, v_bytes = plan.reads(d, dv, H, tokens)
+        row.update(plan=plan._asdict(), k_bytes_read=k_bytes,
+                   v_bytes_read=v_bytes,
+                   kv_bytes_once=2 * tokens * (d + dv))
     if timed:
-        fault = decode_split_dropped(*pargs)
-        row["planted_fault_max_abs_err"] = max_err(fault, p)
-        if decode_agrees(fault, p, tol):
+        bad = fault(*pargs)
+        row["planted_fault"] = fault.__name__
+        row["planted_fault_max_abs_err"] = max_err(bad, p)
+        if decode_agrees(bad, p, tol):
             raise AssertionError(f"decode_attention at {label}: the check "
-                                 f"would pass an output that lost a split")
-        del fault
+                                 f"would pass the planted {fault.__name__}")
+        del bad
+        again = da.attention_in_range(*args)
+        row["bit_equal_rerun"] = bool(torch.equal(again, k))
+        if not row["bit_equal_rerun"]:
+            raise AssertionError(f"decode_attention at {label}: two runs "
+                                 f"differ by {max_err(again, k)}")
+        del again
         b_ms, b_by = decode_bound(q, lens, P, kp.shape[1], dv)
         big = kp.numel() * kp.element_size() > (1 << 30)
         reps, rounds = (3, 5) if big else (20, 7)
         ms = device_ms(lambda: da.attention_in_range(*args), reps, rounds)
         heads, per_sm = da.launch_plan(d, dv, H, q.dtype)
-        pass1 = decode_pass1(q, dv)
         tc = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
         row.update(ms=ms,
                    plain_ms=device_ms(lambda: da.paged_decode_plain(*pargs),
@@ -1093,8 +1149,31 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None):
                    library_ms=None,
                    **timed_extras("decode_attention", label, ms, b_ms),
                    heads_per_block=heads, blocks_per_sm=per_sm,
-                   build=build_facts("decode_attention", pass1,
+                   build=build_facts("decode_attention", row["pass1"],
                                      f"merge_kernelI{tc}E"))
+        if inst[0] == "walk_tc":       # the CUDA-core walk, same inputs
+            walk = ("walk", d, dv)
+            w = da.launch_instance(*args, walk)
+            row.update(walk_max_abs_err=max_err(w[:n], p),
+                       walk_ms=device_ms(
+                           lambda: da.launch_instance(*args, walk), reps,
+                           rounds),
+                       walk_splits=da.splits_for(q, P, dv, walk),
+                       walk_build=build_facts(
+                           "decode_attention",
+                           "decode_walk_kernelI13__nv_bfloat16E"))
+            del w
+            for name in ("walk_ms", "plain_ms"):
+                if row["ms"] >= row[name]:
+                    raise AssertionError(
+                        f"decode_attention at {label}: the tensor-core walk "
+                        f"({row['ms']} ms) is not faster than {name} "
+                        f"({row[name]} ms)")
+            WALK_TC_ROWS[label] = {key: row[key] for key in (
+                "pass1", "plan", "ms", "walk_ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "bit_equal_rerun", "max_abs_err",
+                "planted_fault_max_abs_err", "k_bytes_read", "v_bytes_read",
+                "kv_bytes_once")}
         if kv_heads:
             try:
                 row["sdpa_contiguous_ms"], row["sdpa_max_abs_diff"] = \
@@ -2362,7 +2441,14 @@ WIDE_K7 = {"P 128": (1, 200, 3, 1, 64, 128, 64),
 WIDE_K8 = (128, 96)
 WIDE_K6 = ((320, 320), (512, 512), (288, 512), (512, 128), (576, 512),
            (300, 100))
-WIDE_K5 = ((640, 512), (576, 640), (1024, 1024))
+# (d, dv, page, P) at 3 rows x 5 heads
+WIDE_K5 = ((640, 512, 16, 5), (576, 640, 16, 5), (1024, 1024, 16, 5),
+           # bf16: a ragged width (rows not whole 16-byte chunks) that
+           # stays on the CUDA-core walk; on the tensor-core walk, two
+           # groups of its 1024 value columns, and Q streamed through K's
+           # ring entries past d 4800, each a page of 256 tokens a split,
+           # so that a split walks 4 tiles of 64
+           (1001, 520, 16, 5), (768, 1280, 256, 8), (4928, 520, 256, 8))
 # one timed row a lifted axis, at a zoo family's own total width with
 # that axis alone changed: mamba2-2.7b's d_inner 5120 as 40 heads of P
 # 128 (N 128) and its 80 heads of P 64 at N 256; rwkv6-3b's 2560 as 20
@@ -2394,7 +2480,8 @@ def wide_phase():
             "mamba2_scan_bwd")},
         new_instances={
             "decode_attention": build_facts("decode_attention",
-                                            "decode_walk_kernel"),
+                                            "decode_walk_kernel",
+                                            "decode_walk_tc_kernel"),
             "flash_attention_wide": build_facts("flash_attention_wide",
                                                 "wide_")},
         # ptxas's warnings, and its notes of a wgmma pipeline serialised
@@ -2433,9 +2520,9 @@ def wide_phase():
                 else:
                     note(check_flash_bwd(1, 100, 4, 2, d, dtype, causal,
                                          f"wide {d, dv}", dv=dv))
-        for d, dv in WIDE_K5:
+        for d, dv, page, P in WIDE_K5:
             t0 = time.perf_counter()
-            note(check_decode(decode_case(3, 5, d, 16, 5, dtype, dv=dv),
+            note(check_decode(decode_case(3, 5, d, page, P, dtype, dv=dv),
                               f"wide {d, dv}"))
     for N in WIDE_K8:                  # the gradient is fp32 only
         t0 = time.perf_counter()
@@ -2468,7 +2555,8 @@ def wide_phase():
     t0 = time.perf_counter()
     note(check_decode(decode_case(B, H, d, page, P, torch.bfloat16,
                                   length=P * page, dv=d),
-                      "(1024, 1024) decode", timed=True))
+                      "(1024, 1024) decode", timed=True,
+                      fault=decode_rescale_dropped))
     return errs
 
 
@@ -5018,7 +5106,12 @@ def main() -> int:
                     plain_ms=main_rows[k]["plain_ms"],
                     bound_ms=main_rows[k]["bound_ms"],
                     bound_by=main_rows[k]["bound_by"],
-                    library_ms=main_rows[k]["library_ms"])
+                    library_ms=main_rows[k]["library_ms"],
+                    # the tensor-core walk past (576, 512), on no main
+                    # path: its wide_phase rows
+                    **({"walk_tc": dict(kernel="decode_walk_tc_kernel",
+                                        rows=WALK_TC_ROWS)}
+                       if k == "decode_attention" else {}))
                for k in names]
     print(json.dumps({"kernels": kernels}))
     print(smi)

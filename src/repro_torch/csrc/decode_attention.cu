@@ -43,7 +43,14 @@
 //      decode_wide_kernel<DK, DV> at (256, 256) and (576, 512), whose Q
 //      and accumulator do not fit registers at those widths;
 //   2  any other width up to (576, 512), either type: decode_lanes_kernel,
-//      a warp a token and a column of 32 a lane, scalar loads.
+//      a warp a token and a column of 32 a lane, scalar loads;
+//   3  past (576, 512), float32 and bfloat16 rows that are not whole
+//      16-byte chunks: decode_walk_kernel, the lanes' scheme with the key
+//      width walked and value columns in groups of kWalkCols;
+//   4  past (576, 512), bfloat16 at d, dv multiples of 8:
+//      decode_walk_tc_kernel, 16 heads a block on the tensor cores, K and
+//      V walked through a ring of cp.async entries, each byte read once
+//      up to dv = kWtCols.
 // Columns of an instance past d (or dv) are zero in shared memory and
 // registers, never read from the pool; q is zero-padded to DK by the
 // wrapper for route 1 (a copy of q only).
@@ -1054,8 +1061,323 @@ decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// Pass 2: one block per (row, head), a thread per column; the splits are
-// combined in order, so the sum is the same from run to run
+// Pass 1 past the lanes kernel's widths for bfloat16 rows of whole 16-byte
+// chunks (route 4: d past 576 or dv past 512, d and dv multiples of 8), on
+// the tensor cores.  One block of 8 warps per (row, chunk of up to 16
+// query heads, group of up to kWtCols value columns, split), so each K and
+// V byte of a (row, head chunk) is read by one block, K once a group.  The
+// split's tokens go in tiles of kWtTile through a ring of kWtStages
+// entries in shared memory, each entry kWtTile tokens x kWtChunk columns
+// of K or V, filled by 16-byte cp.async kWtStages - 1 entries ahead: a
+// tile walks d's chunks of K, then the group's chunks of V.  Every thread
+// copies the same token of every entry (its pool row, from the page
+// table, fetched a tile ahead), zero-filled past the split's end, past
+// the widths or for a slot outside the pool.  Q sits in shared memory for
+// the whole split where it fits beside the ring (plan.q_resident; up to
+// d 4800); wider, each K entry brings Q's 16 rows of its columns too.
+// Warp w scores tokens 8 w .. 8 w + 7 of a tile for the 16 heads (S = Q
+// K^T on mma.sync.m16n8k16, summed over d's chunks in the fragments); the
+// tile's maximum of each head is taken across the warps through shared
+// memory, so all warps keep one running max; P goes to shared memory as
+// bf16, and each warp adds P V for columns 8 w .. 8 w + 7 of every V
+// chunk (V through ldmatrix.trans), 16 n-tiles a thread at most: a [16,
+// kWtCols] fp32 accumulator over the block.  A group past the first
+// recomputes the scores (reads K again), so K is read ceil(dv / kWtCols)
+// times, V once.
+constexpr int kWtThreads = 256;
+constexpr int kWtWarps = kWtThreads / 32;
+constexpr int kWtTile = 64;                  // tokens a tile, 8 a warp
+constexpr int kWtChunk = 64;                 // columns an entry
+constexpr int kWtPitch = kWtChunk + 8;       // a shared row: 144 bytes
+constexpr int kWtStages = 8;                 // entries of the ring
+constexpr int kWtCols = 1024;                // value columns a block
+constexpr int kWtVChunks = kWtCols / kWtChunk;   // a warp's n-tiles
+constexpr int kSmemLimit = 232448;           // an H100 block's most
+static_assert((kWtStages & (kWtStages - 1)) == 0, "stages a power of 2");
+
+// cp_async16 that also asks the L2 to fetch the 256 bytes around the
+// source: the next chunk of a token's row then comes from the L2
+__device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src,
+                                              bool ok) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+// the shared-memory plan of (d, dv): ring, then resident Q, then P [16]
+// [kWtPitch] bf16 and the warps' maxima (then sums) [8][16] fp32
+struct WalkTcPlan {
+  int k_chunks, groups, group_cols, v_chunks, q_resident, entry_rows,
+      smem_bytes;
+};
+
+__host__ __device__ inline WalkTcPlan walk_tc_plan(int d, int dv) {
+  WalkTcPlan p;
+  p.k_chunks = (d + kWtChunk - 1) / kWtChunk;
+  p.groups = (dv + kWtCols - 1) / kWtCols;
+  p.group_cols = dv < kWtCols ? dv : kWtCols;
+  p.v_chunks = (p.group_cols + kWtChunk - 1) / kWtChunk;
+  const int fixed = kHeads * kWtPitch * 2 + kWtWarps * kHeads * 4;
+  const int q_bytes = kHeads * (p.k_chunks * kWtChunk + 8) * 2;
+  const int ring = kWtStages * kWtTile * kWtPitch * 2;
+  p.q_resident = fixed + q_bytes + ring <= kSmemLimit;
+  p.entry_rows = kWtTile + (p.q_resident ? 0 : kHeads);
+  p.smem_bytes = fixed + (p.q_resident ? q_bytes : 0)
+                 + kWtStages * p.entry_rows * kWtPitch * 2;
+  return p;
+}
+
+__global__ void __launch_bounds__(kWtThreads, 2)
+decode_walk_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k_pages,
+                      const __nv_bfloat16* __restrict__ v_pages,
+                      const int32_t* __restrict__ table,
+                      const int32_t* __restrict__ seq_lens,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ part_m, float* __restrict__ part_l,
+                      float* __restrict__ part_acc, int H, int P, int page,
+                      int n_slots, int split_pages, int d, int dv,
+                      float inv_scale) {
+  const WalkTcPlan plan = walk_tc_plan(d, dv);
+  const int nk = plan.k_chunks;
+  const int QP = nk * kWtChunk + 8;           // a resident Q row
+  const int entry = plan.entry_rows * kWtPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* q_s = ring + kWtStages * entry;
+  __nv_bfloat16* p_s = q_s + (plan.q_resident ? kHeads * QP : 0);
+  float* red_s = reinterpret_cast<float*>(p_s + kHeads * kWtPitch);
+
+  const int row = blockIdx.x;
+  const int h0 = blockIdx.y / plan.groups * kHeads;
+  const int v0 = blockIdx.y % plan.groups * kWtCols;
+  const int cols = min(kWtCols, dv - v0);
+  const int nv = (cols + kWtChunk - 1) / kWtChunk;
+  const int per_tile = nk + nv;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int gn = min(kHeads, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const float sl2 = 1.4426950408889634f * inv_scale;
+
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int t_begin = split * split_pages * page;
+  const int t_end = min(min(n_pages, (split + 1) * split_pages) * page, len);
+  const int n_tiles = t_end > t_begin
+      ? (t_end - t_begin + kWtTile - 1) / kWtTile : 0;
+  const __nv_bfloat16* qrow = q + ((int64_t)row * H + h0) * d;
+
+  // the copier: token my_tok of every entry, columns my_c and my_c + 32
+  const int my_tok = threadIdx.x / 4, my_c = (threadIdx.x % 4) * 8;
+  auto pool_row = [&](int tile) -> int64_t {
+    const int t = t_begin + tile * kWtTile + my_tok;
+    if (tile >= n_tiles || t >= t_end) return -1;
+    const int pi = t / page;
+    const int slot = trow[pi];
+    return slot >= 0 && slot < n_slots
+        ? (int64_t)slot * page + (t - pi * page) : -1;
+  };
+  int is_tile = 0, is_part = 0, is_stage = 0;
+  int64_t off = pool_row(0), off_next = pool_row(1);
+  auto issue = [&]() {                 // the next entry, into its stage
+    if (is_tile < n_tiles) {
+      __nv_bfloat16* dst = ring + is_stage * entry;
+      const bool key = is_part < nk;
+      const __nv_bfloat16* src = key ? k_pages : v_pages;
+      const int width = key ? d : dv;
+      const int col0 = key ? is_part * kWtChunk
+                           : v0 + (is_part - nk) * kWtChunk;
+      const int lim = key ? d : v0 + cols;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = my_c + 32 * h;
+        const bool ok = off >= 0 && col0 + c < lim;
+        cp_async16_l2(smem_addr(dst + my_tok * kWtPitch + c),
+                   src + (ok ? off * width + col0 + c : 0), ok);
+      }
+      if (key && !plan.q_resident && threadIdx.x < kHeads * 8) {
+        const int hh = threadIdx.x / 8, c = (threadIdx.x % 8) * 8;
+        const bool ok = hh < gn && col0 + c < d;
+        cp_async16_l2(smem_addr(dst + (kWtTile + hh) * kWtPitch + c),
+                   qrow + (ok ? hh * d + col0 + c : 0), ok);
+      }
+    }
+    cp_async_commit();
+    is_stage = (is_stage + 1) & (kWtStages - 1);
+    if (++is_part == per_tile) {
+      is_part = 0;
+      ++is_tile;
+      off = off_next;
+      off_next = pool_row(is_tile + 1);
+    }
+  };
+  // the next entry has landed, every thread is done with the one before,
+  // whose stage the entry kWtStages - 1 ahead then takes
+  int cs_stage = 0;
+  auto step = [&]() -> const __nv_bfloat16* {
+    cp_async_wait<kWtStages - 2>();
+    __syncthreads();
+    issue();
+    const __nv_bfloat16* e = ring + cs_stage * entry;
+    cs_stage = (cs_stage + 1) & (kWtStages - 1);
+    return e;
+  };
+
+  if (n_tiles > 0) {
+    if (plan.q_resident) {             // Q joins the first entry's group
+      const int cpr = nk * kWtChunk / 8;
+      for (int c = threadIdx.x; c < kHeads * cpr; c += kWtThreads) {
+        const int hh = c / cpr, col = (c % cpr) * 8;
+        const bool ok = hh < gn && col < d;
+        cp_async16(smem_addr(q_s + hh * QP + col),
+                   qrow + (ok ? hh * d + col : 0), ok);
+      }
+    }
+    for (int i = 0; i < kWtStages - 1; ++i) issue();
+  }
+
+  float o[kWtVChunks][4];
+#pragma unroll
+  for (int j = 0; j < kWtVChunks; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // heads g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the sums
+  // ldmatrix lane offsets: Q rows lane % 16, column half lane / 16 (in
+  // shared Q or an entry's rows past the tokens); K rows (tokens) lane %
+  // 8, column eighth lane / 8 (two k-steps an x4); P rows lane % 16,
+  // column half lane / 16; V^T tokens lane (four k-halves an x4), the
+  // warp's 8 columns of the chunk
+  const int q_off = plan.q_resident
+      ? (lane % 16) * QP + (lane / 16) * 8
+      : (kWtTile + lane % 16) * kWtPitch + (lane / 16) * 8;
+  const int k_off = (warp * 8 + lane % 8) * kWtPitch + (lane / 8) * 8;
+  const int p_off = (lane % 16) * kWtPitch + (lane / 16) * 8;
+  const int v_off = lane * kWtPitch + warp * 8;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    // S: the 16 heads x this warp's 8 tokens, over d's chunks
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kc = 0; kc < nk; ++kc) {
+      const __nv_bfloat16* e = step();
+      const __nv_bfloat16* qa = plan.q_resident ? q_s + q_off + kc * kWtChunk
+                                                : e + q_off;
+#pragma unroll
+      for (int kk = 0; kk < kWtChunk / 16; kk += 2) {
+        uint32_t a0[4], a1[4], bk[4];
+        ldsm_x4(bk, smem_addr(e + k_off + kk * 16));
+        ldsm_x4(a0, smem_addr(qa + kk * 16));
+        ldsm_x4(a1, smem_addr(qa + kk * 16 + 16));
+        mma_bf16(s, a0, bk[0], bk[1]);
+        mma_bf16(s, a1, bk[2], bk[3]);
+      }
+    }
+    const int t0 = t_begin + tile * kWtTile + warp * 8;
+    if (t0 + 8 > t_end) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (t0 + tig * 2 + (e & 1) >= t_end) s[e] = -INFINITY;
+    }
+    // the tile's maximum of each head over the warps
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(s[2 * r], s[2 * r + 1]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (tig == 0) red_s[warp * kHeads + g + 8 * r] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int hh = g + 8 * r;
+      float mx = red_s[hh];
+#pragma unroll
+      for (int w = 1; w < kWtWarps; ++w)
+        mx = fmaxf(mx, red_s[w * kHeads + hh]);
+      const float m_new = fmaxf(m[r], mx * sl2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      const float p0 = exp2f(fmaf(s[2 * r], sl2, -m_use));
+      const float p1 = exp2f(fmaf(s[2 * r + 1], sl2, -m_use));
+      l[r] = l[r] * alpha + p0 + p1;
+      *reinterpret_cast<uint32_t*>(p_s + hh * kWtPitch + warp * 8
+                                   + tig * 2) = pack_bf16(p0, p1);
+#pragma unroll
+      for (int j = 0; j < kWtVChunks; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+    __syncthreads();                   // P of all the tile's tokens
+    uint32_t pa[kWtTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWtTile / 16; ++kk)
+      ldsm_x4(pa[kk], smem_addr(p_s + p_off + kk * 16));
+    // O[:, this warp's columns of each chunk] += P V
+#pragma unroll
+    for (int j = 0; j < kWtVChunks; ++j) {
+      if (j >= nv) break;              // uniform in the block
+      const __nv_bfloat16* e = step();
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, smem_addr(e + v_off + half * 32 * kWtPitch));
+        mma_bf16(o[j], pa[2 * half], bv[0], bv[1]);
+        mma_bf16(o[j], pa[2 * half + 1], bv[2], bv[3]);
+      }
+    }
+  }
+
+  // the sums: over the quad, then over the warps (all share the max)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();                     // the last maxima have been read
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (tig == 0) red_s[warp * kHeads + g + 8 * r] = l[r];
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hh = g + 8 * r;
+    if (hh >= gn) continue;
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWtWarps; ++w) L += red_s[w * kHeads + hh];
+    const int64_t rh = (int64_t)row * H + h0 + hh;
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    float* acc = out != nullptr ? nullptr
+                                : part_acc + (rh * n_splits + split) * dv;
+#pragma unroll
+    for (int j = 0; j < kWtVChunks; ++j) {
+      const int c = j * kWtChunk + warp * 8 + tig * 2;
+      if (j >= nv || c >= cols) continue;
+      if (out != nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(out + rh * dv + v0 + c) =
+            __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      } else {
+        acc[v0 + c] = o[j][2 * r];
+        acc[v0 + c + 1] = o[j][2 * r + 1];
+      }
+    }
+    if (out == nullptr && v0 == 0 && warp == 0 && tig == 0) {
+      part_m[rh * n_splits + split] =  // the max in natural-log units
+          m[r] == -INFINITY ? kNegInf : m[r] * 0.6931471805599453f;
+      part_l[rh * n_splits + split] = L;
+    }
+  }
+}
+
+// Pass 2: one block per (row, head, kThreads columns), a thread per
+// column; the splits are combined in order, so the sum is the same from
+// run to run.  The loads of kMergeBatch splits are issued before their
+// sums, so that their latencies overlap (left to the compiler, each load
+// waits on the sums before it)
+constexpr int kMergeBatch = 8;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const float* __restrict__ part_m,
@@ -1063,19 +1385,36 @@ merge_kernel(const float* __restrict__ part_m,
              const float* __restrict__ part_acc, T* __restrict__ out, int D,
              int n_splits) {
   const int64_t rh = blockIdx.x;
+  const int c = blockIdx.y * kThreads + threadIdx.x;
+  if (c >= D) return;
   const float* pm = part_m + rh * n_splits;
   const float* pl = part_l + rh * n_splits;
   float M = kNegInf;
   for (int i = 0; i < n_splits; ++i) M = fmaxf(M, pm[i]);
-  for (int c = threadIdx.x; c < D; c += kThreads) {
-    float L = 0.f, A = 0.f;
-    for (int i = 0; i < n_splits; ++i) {
-      const float sc = expf(pm[i] - M);
-      L = fmaf(pl[i], sc, L);
-      A = fmaf(part_acc[(rh * n_splits + i) * D + c], sc, A);
+  const float* acc = part_acc + rh * n_splits * D + c;
+  float L = 0.f, A = 0.f;
+  int i = 0;
+  for (; i + kMergeBatch <= n_splits; i += kMergeBatch) {
+    float mb[kMergeBatch], lb[kMergeBatch], ab[kMergeBatch];
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      mb[j] = pm[i + j];
+      lb[j] = pl[i + j];
+      ab[j] = acc[(int64_t)(i + j) * D];
     }
-    store(out + rh * D + c, A / fmaxf(L, 1e-30f));
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      const float sc = expf(mb[j] - M);
+      L = fmaf(lb[j], sc, L);
+      A = fmaf(ab[j], sc, A);
+    }
   }
+  for (; i < n_splits; ++i) {
+    const float sc = expf(pm[i] - M);
+    L = fmaf(pl[i], sc, L);
+    A = fmaf(acc[(int64_t)i * D], sc, A);
+  }
+  store(out + rh * D + c, A / fmaxf(L, 1e-30f));
 }
 
 // scratch [B, H, n_splits] max, then sum, then [B, H, n_splits, dv] sums
@@ -1110,17 +1449,19 @@ template <typename T>
 int merge(const Args& a, const Parts& parts) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits() == 1) return (int)err;
-  merge_kernel<T><<<a.B * a.H, kThreads, 0, a.stream>>>(
+  const dim3 grid(a.B * a.H, (a.dv + kThreads - 1) / kThreads);
+  merge_kernel<T><<<grid, kThreads, 0, a.stream>>>(
       parts.m, parts.l, parts.acc, (T*)a.out, a.dv, a.splits());
   return (int)cudaGetLastError();
 }
 
 // the entry points' bodies for one instance: heads a block, resident
-// blocks per SM, and the launch
+// blocks per SM at the instance's widths (d, dv; only route 4's shared
+// memory depends on them), and the launch
 template <typename T, int D, int G>
 struct Workers {                       // route 0: float32 on the CUDA cores
   static int heads() { return G; }
-  static int blocks_per_sm(int* n) {
+  static int blocks_per_sm(int* n, int, int) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n, decode_kernel<T, D, G>, kThreads, 0);
   }
@@ -1151,7 +1492,7 @@ struct TensorCores {
     static const int err = configure(decode_bf16_kernel<D>, kBytes);
     return err;
   }
-  static int blocks_per_sm(int* n) {
+  static int blocks_per_sm(int* n, int, int) {
     const int err = configured();
     if (err != 0) return err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1182,7 +1523,7 @@ struct Wide {
     static const int err = configure(decode_wide_kernel<DK, DV>, kBytes);
     return err;
   }
-  static int blocks_per_sm(int* n) {
+  static int blocks_per_sm(int* n, int, int) {
     const int err = configured();
     if (err != 0) return err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1207,7 +1548,7 @@ struct Wide {
 template <typename T, int KC, int VC>
 struct Lanes {                         // route 2: any width, CUDA cores
   static int heads() { return kLaneHeads; }
-  static int blocks_per_sm(int* n) {
+  static int blocks_per_sm(int* n, int, int) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n, decode_lanes_kernel<T, KC, VC>, kThreads, 0);
   }
@@ -1228,7 +1569,7 @@ struct Lanes {                         // route 2: any width, CUDA cores
 template <typename T>
 struct Walk {                          // route 3: past the lanes' widths
   static int heads() { return kLaneHeads; }
-  static int blocks_per_sm(int* n) {
+  static int blocks_per_sm(int* n, int, int) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n, decode_walk_kernel<T>, kThreads, 0);
   }
@@ -1244,6 +1585,39 @@ struct Walk {                          // route 3: past the lanes' widths
             n > 1 ? nullptr : (T*)a.out, parts.m, parts.l, parts.acc, a.H,
             a.P, a.page, a.n_slots, a.split_pages(), a.d, a.dv, a.inv_scale);
     return merge<T>(a, parts);
+  }
+};
+
+// route 4: bfloat16 past the lanes' widths on the tensor cores; the
+// shared memory depends on (d, dv) (walk_tc_plan), so the kernel may take
+// up to an H100 block's most
+struct WalkTc {
+  static int heads() { return kHeads; }
+  static int configured() {
+    static const int err = configure(decode_walk_tc_kernel, kSmemLimit);
+    return err;
+  }
+  static int blocks_per_sm(int* n, int d, int dv) {
+    const int err = configured();
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_walk_tc_kernel, kWtThreads, walk_tc_plan(d, dv).smem_bytes);
+  }
+  static int launch(const Args& a) {
+    const int err = configured();
+    if (err != 0) return err;
+    const WalkTcPlan plan = walk_tc_plan(a.d, a.dv);
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    decode_walk_tc_kernel<<<dim3(a.B, (a.H + kHeads - 1) / kHeads
+                                          * plan.groups, n),
+                            kWtThreads, plan.smem_bytes, a.stream>>>(
+        (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+        (const __nv_bfloat16*)a.v, (const int32_t*)a.table,
+        (const int32_t*)a.lens, n > 1 ? nullptr : (__nv_bfloat16*)a.out,
+        parts.m, parts.l, parts.acc, a.H, a.P, a.page, a.n_slots,
+        a.split_pages(), a.d, a.dv, a.inv_scale);
+    return merge<__nv_bfloat16>(a, parts);
   }
 };
 
@@ -1285,6 +1659,7 @@ int dispatch(int route, int bf16, int DK, int DV, int H, const F& f) {
   if (route == 3)
     return bf16 ? f.template run<Walk<__nv_bfloat16>>()
                 : f.template run<Walk<float>>();
+  if (route == 4 && bf16) return f.template run<WalkTc>();
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1297,10 +1672,11 @@ struct Launch {
 struct Plan {
   int* heads;
   int* blocks_per_sm;
+  int d, dv;
   template <typename K>
   int run() const {
     *heads = K::heads();
-    return K::blocks_per_sm(blocks_per_sm);
+    return K::blocks_per_sm(blocks_per_sm, d, dv);
   }
 };
 
@@ -1317,7 +1693,8 @@ extern "C" {
 // route 1 bfloat16 at d <= DK, dv <= DV, both multiples of 8, (DK, DV) in
 // {(16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (576, 512)};
 // route 2 either type at d <= DK = 576, dv <= DV = 512; route 3 either
-// type at any d <= DK, dv <= DV (the wrapper passes its d and dv).
+// type at any d <= DK, dv <= DV (the wrapper passes its d and dv); route
+// 4 bfloat16 at d = DK, dv = DV, both multiples of 8.
 // Scores are q.k * inv_scale.  Returns a CUDA error code;
 // cudaErrorInvalidValue for an instance that is not built or widths it
 // does not take.
@@ -1328,7 +1705,8 @@ int decode_attention(const void* q, const void* k_pages, const void* v_pages,
                      int DV, float inv_scale, int bf16, void* stream) {
   if (n_splits < 1 || (n_splits > 1 && n_splits > P) || d < 1 || dv < 1
       || d > DK || dv > DV || (route == 0 && (d != DK || dv != DV))
-      || (route == 1 && (d % 8 != 0 || dv % 8 != 0)))
+      || ((route == 1 || route == 4) && (d % 8 != 0 || dv % 8 != 0))
+      || (route == 4 && (d != DK || dv != DV)))
     return (int)cudaErrorInvalidValue;
   const Launch f{{q, k_pages, v_pages, page_table, seq_lens, out,
                   (float*)scratch, B, H, P, page, n_slots, n_splits, d, dv,
@@ -1341,7 +1719,19 @@ int decode_attention(const void* q, const void* k_pages, const void* v_pages,
 // holds at once.  Returns a CUDA error code.
 int decode_attention_plan(int route, int DK, int DV, int H, int bf16,
                           int* heads, int* blocks_per_sm) {
-  return dispatch(route, bf16, DK, DV, H, Plan{heads, blocks_per_sm});
+  return dispatch(route, bf16, DK, DV, H,
+                  Plan{heads, blocks_per_sm, DK, DV});
+}
+
+// Route 4's plan at (d, dv) as the kernel computes it, into fields[10]:
+// tile, chunk, k_chunks, groups, group_cols, v_chunks, q_resident,
+// entry_rows, stages, smem_bytes (the wrapper's walk_tc_plan).
+void decode_walk_tc_plan(int d, int dv, int* fields) {
+  const WalkTcPlan p = walk_tc_plan(d, dv);
+  const int f[10] = {kWtTile, kWtChunk, p.k_chunks, p.groups, p.group_cols,
+                     p.v_chunks, p.q_resident, p.entry_rows, kWtStages,
+                     p.smem_bytes};
+  for (int i = 0; i < 10; ++i) fields[i] = f[i];
 }
 
 }  // extern "C"

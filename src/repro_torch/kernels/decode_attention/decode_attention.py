@@ -23,17 +23,22 @@ instance (route, DK, DV) that runs (d, dv) in a type: float32 at d = dv in
 on the tensor cores (up to 128 in registers, (256, 256) and (576, 512)
 with Q in shared memory); every other width up to ``LANES_D``,
 ``LANES_DV`` on the CUDA cores, a warp a token, the widths in registers
-("lanes"); any wider key or value width on the CUDA cores too ("walk"):
-the key width walked 32 columns a step with q read in place, the value
-columns in groups of ``WALK_COLS``, a block each (each group recomputes
-the scores: ceil(dv / ``WALK_COLS``) times the q.k work).  Every route
-reads the pool in place at its own widths; only q is zero-padded to DK on
-the tensor cores.
+("lanes"); any wider key or value width in bfloat16 with rows of whole
+16-byte chunks on the tensor cores ("walk_tc": 16 heads a block, K and V
+walked in tiles of tokens and chunks of columns through a shared-memory
+ring, value columns in groups of ``WALK_TC_COLS``, ``walk_tc_plan``);
+in float32 or at bfloat16 rows of other widths on the CUDA cores
+("walk"): the key width walked 32 columns a step with q read in place,
+the value columns in groups of ``WALK_COLS``, a block each (each group
+recomputes the scores: ceil(dv / ``WALK_COLS``) times the q.k work).
+Every route reads the pool in place at its own widths; only q is
+zero-padded to DK on the tensor cores' instances.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -47,7 +52,13 @@ HEAD_DIMS = (16, 32, 64, 128)     # square instances (one build a type each)
 WIDE = ((256, 256), (576, 512))   # bf16 tensor-core instances past 128
 LANES_D, LANES_DV = 576, 512      # the lanes instance; wider: the walk
 WALK_COLS = 512                   # value columns a block of the walk
-ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2, "walk": 3}
+ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2, "walk": 3,
+          "walk_tc": 4}
+# the tensor-core walk (csrc/decode_attention.cu, route 4): tokens a tile,
+# columns a ring entry, entries of the ring, value columns a block, query
+# heads a block, and an H100 block's most shared memory
+WALK_TC_TILE, WALK_TC_CHUNK, WALK_TC_STAGES = 64, 64, 8
+WALK_TC_COLS, WALK_TC_HEADS, SMEM_LIMIT = 1024, 16, 232448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_WAVE_SHARE = 0.9            # least share of the last wave kept busy
 _PLANS = {}                       # (instance, H > 4, dtype) -> launch_plan
@@ -60,21 +71,86 @@ def instance(d: int, dv: int, dtype) -> tuple:
     bfloat16 whose rows are whole 16-byte chunks (d, dv multiples of 8),
     at the smallest of ``HEAD_DIMS`` that holds both or else the first of
     ``WIDE`` that does; "lanes" for every other width up to (``LANES_D``,
-    ``LANES_DV``), one instance at those; "walk" past them, at the
-    caller's (d, dv).  Raises for a width below 1."""
+    ``LANES_DV``), one instance at those; past them, at the caller's (d,
+    dv), "walk_tc" for bfloat16 rows of whole 16-byte chunks and "walk"
+    for the rest.  Raises for a width below 1."""
     if d < 1 or dv < 1:
         raise ValueError(f"decode_attention: key and value widths >= 1, "
                          f"not d={d}, dv={dv}")
+    whole = dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
     if d > LANES_D or dv > LANES_DV:
-        return ("walk", d, dv)
+        return ("walk_tc" if whole else "walk", d, dv)
     if dtype == torch.float32 and d == dv and d in HEAD_DIMS:
         return ("workers", d, d)
     covers = lambda p: d <= p[0] and dv <= p[1]  # noqa: E731
-    if dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0:
+    if whole:
         square = [(n, n) for n in HEAD_DIMS]
         return ("tensor_cores",
                 *next(p for p in square + list(WIDE) if covers(p)))
     return ("lanes", LANES_D, LANES_DV)
+
+
+class WalkTcPlan(NamedTuple):
+    """The tensor-core walk's blocks at (d, dv) (``WalkTcPlan`` in the
+    source): a tile of ``tile`` tokens walks d in ``k_chunks`` ring
+    entries of ``chunk`` columns, then its group's value columns in
+    ``v_chunks``; ``groups`` blocks of at most ``group_cols`` value
+    columns each (each recomputes the scores); Q resident in shared memory
+    or, past what fits beside the ring, 16 more rows of each K entry
+    (``entry_rows``); ``stages`` entries in the ring; the block's shared
+    memory."""
+    tile: int
+    chunk: int
+    k_chunks: int
+    groups: int
+    group_cols: int
+    v_chunks: int
+    q_resident: bool
+    entry_rows: int
+    stages: int
+    smem_bytes: int
+
+    def reads(self, d: int, dv: int, H: int, tokens: int):
+        """(K bytes, V bytes) the launch reads from the pool for
+        ``tokens`` positions of H query heads: each (row, head chunk)
+        reads V once and K once a group."""
+        chunks = -(-H // WALK_TC_HEADS)
+        return (2 * tokens * d * chunks * self.groups,
+                2 * tokens * dv * chunks)
+
+
+def walk_tc_plan(d: int, dv: int) -> WalkTcPlan:
+    """The tensor-core walk's plan at (d, dv), as ``walk_tc_plan`` in the
+    source computes it: the ring (``WALK_TC_STAGES`` entries of tokens x
+    (chunk + 8) bf16), then Q [16, k_chunks x chunk + 8] bf16 where all
+    of it fits within ``SMEM_LIMIT``, then P [16, chunk + 8] bf16 and the
+    warps' maxima [8, 16] fp32."""
+    k_chunks = -(-d // WALK_TC_CHUNK)
+    groups = -(-dv // WALK_TC_COLS)
+    group_cols = min(dv, WALK_TC_COLS)
+    pitch = WALK_TC_CHUNK + 8
+    fixed = WALK_TC_HEADS * pitch * 2 + 8 * WALK_TC_HEADS * 4
+    q_bytes = WALK_TC_HEADS * (k_chunks * WALK_TC_CHUNK + 8) * 2
+    ring = WALK_TC_STAGES * WALK_TC_TILE * pitch * 2
+    resident = fixed + q_bytes + ring <= SMEM_LIMIT
+    rows = WALK_TC_TILE + (0 if resident else WALK_TC_HEADS)
+    return WalkTcPlan(WALK_TC_TILE, WALK_TC_CHUNK, k_chunks, groups,
+                      group_cols, -(-group_cols // WALK_TC_CHUNK), resident,
+                      rows, WALK_TC_STAGES,
+                      fixed + (q_bytes if resident else 0)
+                      + WALK_TC_STAGES * rows * pitch * 2)
+
+
+def walk_tc_source_plan(d: int, dv: int) -> WalkTcPlan:
+    """The tensor-core walk's plan as the built source computes it, in
+    ``walk_tc_plan``'s fields."""
+    fn = cuda_build.load("decode_attention").decode_walk_tc_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 10)()
+    fn(d, dv, ctypes.addressof(out))
+    f = list(out)
+    return WalkTcPlan(*f[:6], bool(f[6]), *f[7:])
 
 
 def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
@@ -163,11 +239,11 @@ def _check_range(page_table, seq_lens, n_slots: int, page: int) -> None:
                          f"slot outside [0, {n_slots})")
 
 
-def launch_plan(d: int, dv: int, H: int, dtype):
+def launch_plan(d: int, dv: int, H: int, dtype, inst=None):
     """(query heads a pass-1 block takes, such blocks an SM holds at once)
-    for the instance that runs (d, dv) in this type, at this head count,
-    as the library reports them (asked once each)."""
-    inst = instance(d, dv, dtype)
+    for the instance that runs (d, dv) in this type (or ``inst``), at this
+    head count, as the library reports them (asked once each)."""
+    inst = inst or instance(d, dv, dtype)
     key = (inst, H > 4, dtype)
     if key not in _PLANS:
         fn = cuda_build.load("decode_attention").decode_attention_plan
@@ -181,17 +257,25 @@ def launch_plan(d: int, dv: int, H: int, dtype):
     return _PLANS[key]
 
 
-def splits_for(q, P: int, dv=None) -> int:
+def value_groups(inst) -> int:
+    """The blocks a (row, head chunk, split) of instance ``inst`` takes:
+    the walks' groups of value columns, else 1."""
+    route, _, dv = inst
+    cols = {"walk": WALK_COLS, "walk_tc": WALK_TC_COLS}.get(route)
+    return -(-dv // cols) if cols else 1
+
+
+def splits_for(q, P: int, dv=None, inst=None) -> int:
     """The split count a launch on ``q`` [B, H, d] (values ``dv`` wide, d
-    unless given) over a table of ``P`` pages uses (``plan_splits`` on
-    this card)."""
+    unless given) over a table of ``P`` pages uses on the instance that
+    runs it (or ``inst``): ``plan_splits`` on this card."""
     B, H, d = q.shape
     dv = dv or d
-    heads, per_sm = launch_plan(d, dv, H, q.dtype)
+    inst = inst or instance(d, dv, q.dtype)
+    heads, per_sm = launch_plan(d, dv, H, q.dtype, inst)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    groups = -(-dv // WALK_COLS) \
-        if instance(d, dv, q.dtype)[0] == "walk" else 1
-    return plan_splits(B * -(-H // heads) * groups, P, sms, per_sm)
+    return plan_splits(B * -(-H // heads) * value_groups(inst), P, sms,
+                       per_sm)
 
 
 def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
@@ -199,17 +283,27 @@ def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
     (which synchronises), for callers whose table holds only slots the
     arena returned for resident pages; the kernel still reads no slot
     outside the pool."""
-    global LAUNCHES
     _check(q, k_pages, v_pages, page_table, seq_lens)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens)
+    return launch_instance(q, k_pages, v_pages, page_table, seq_lens,
+                           instance(q.shape[2], v_pages.shape[2], q.dtype))
+
+
+def launch_instance(q, k_pages, v_pages, page_table, seq_lens, inst):
+    """The CUDA kernel's instance ``inst`` (route, DK, DV) on these checked
+    CUDA tensors, its launch counted: ``attention_in_range`` names the
+    one ``instance`` picks; a comparison of routes at one width names
+    another (the CUDA-core walk beside the tensor-core one).  Raises for
+    an instance that does not take these widths."""
+    global LAUNCHES
     B, H, d = q.shape
     n_slots, page, dv = v_pages.shape
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"decode_attention: no kernel for q {q.dtype}, "
                         f"pages {k_pages.dtype}/{v_pages.dtype}")
-    route, DK, DV = instance(d, dv, q.dtype)
+    route, DK, DV = inst
     tensors = (q, k_pages, v_pages, page_table, seq_lens)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: tensors must be contiguous")
@@ -226,7 +320,7 @@ def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     P = page_table.shape[1]
-    n_splits = splits_for(q, P, dv)
+    n_splits = splits_for(q, P, dv, inst)
     scratch = torch.empty(((dv + 2) * B * H * n_splits,) if n_splits > 1
                           else (0,), dtype=torch.float32, device=q.device)
     if route == "tensor_cores" and d != DK:     # a copy of q, not the pool

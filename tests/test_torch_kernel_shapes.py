@@ -60,16 +60,26 @@ F32, BF16 = torch.float32, torch.bfloat16
     (100, 60, BF16, ("lanes", 576, 512)),         # rows of 200 bytes
     (1, 1, BF16, ("lanes", 576, 512)),
     (300, 100, F32, ("lanes", 576, 512)),
+    # past (576, 512): bf16 rows of whole 16-byte chunks on the tensor-core
+    # walk, float32 and other bf16 rows on the CUDA-core walk
+    (1024, 1024, BF16, ("walk_tc", 1024, 1024)),
+    (1000, 600, BF16, ("walk_tc", 1000, 600)),
+    (584, 8, BF16, ("walk_tc", 584, 8)),
+    (1024, 1024, F32, ("walk", 1024, 1024)),
+    (1001, 600, BF16, ("walk", 1001, 600)),
+    (1000, 602, BF16, ("walk", 1000, 602)),
 ])
 def test_decode_instance_covers_the_widths(d, dv, dtype, want):
     """``instance``: float32 at the square head dims keeps its instance;
-    bf16 rows of whole 16-byte chunks go to the tensor cores, every other
-    width to the CUDA-core lanes; the instance always holds (d, dv)."""
+    bf16 rows of whole 16-byte chunks go to the tensor cores (past (576,
+    512) on the tensor-core walk), every other width to the CUDA-core
+    lanes or, past them, the CUDA-core walk; the instance always holds
+    (d, dv)."""
     route, DK, DV = da.instance(d, dv, dtype)
     assert (route, DK, DV) == want
     assert d <= DK and dv <= DV
-    if route == "tensor_cores":
-        assert d % 8 == 0 and dv % 8 == 0
+    if route in ("tensor_cores", "walk_tc"):
+        assert d % 8 == 0 and dv % 8 == 0 and dtype == BF16
 
 
 @pytest.mark.parametrize("d,dv", [(577, 512), (576, 513), (0, 16),
@@ -78,14 +88,17 @@ def test_decode_instance_covers_the_widths(d, dv, dtype, want):
 def test_decode_instance_refuses_past_its_limit(d, dv):
     """K5's limit is now a width of at least 1, the one it refuses; past
     the lanes instance's (576, 512), where it refused until PR 29, every
-    width runs on the walk at the caller's own widths (no padding), in
-    either type."""
+    width runs on a walk at the caller's own widths (no padding): bf16
+    rows of whole 16-byte chunks on the tensor-core walk, float32 and
+    other bf16 rows on the CUDA-core walk."""
     for dtype in (F32, BF16):
         if d < 1 or dv < 1:
             with pytest.raises(ValueError, match=">= 1"):
                 da.instance(d, dv, dtype)
         else:
-            assert da.instance(d, dv, dtype) == ("walk", d, dv)
+            whole = dtype == BF16 and d % 8 == 0 and dv % 8 == 0
+            assert da.instance(d, dv, dtype) == (
+                "walk_tc" if whole else "walk", d, dv)
 
 
 def decode_walk_replay(q, kp, vp, pt, lens, n_splits: int):
@@ -130,13 +143,74 @@ def decode_walk_replay(q, kp, vp, pt, lens, n_splits: int):
     return out
 
 
+def decode_walk_tc_replay(q, kp, vp, pt, lens, n_splits: int):
+    """The tensor-core walk's arithmetic in float64 (``csrc/
+    decode_attention.cu`` route 4 and the merge), on ``walk_tc_plan``:
+    each split's tokens in tiles of ``tile``; a tile's scores summed over
+    d's chunks of ``chunk`` columns (zero past d), the tile's maximum of
+    each head over all its tokens, the running max and sum, P rounded to
+    bf16 before P V (the sum of P unrounded); value columns in the plan's
+    groups, each recomputing the same scores; the splits merged in
+    order."""
+    B, H, d = q.shape
+    page, dv = kp.shape[1], vp.shape[2]
+    P = pt.shape[1]
+    plan = da.walk_tc_plan(d, dv)
+    per = -(-P // n_splits)
+    out = np.zeros((B, H, dv))
+    q, kp, vp = (a.astype(np.float64) for a in (q, kp, vp))
+    width = plan.k_chunks * plan.chunk
+    for b in range(B):
+        n_pages = min(P, -(-int(lens[b]) // page)) if lens[b] > 0 else 0
+        Q = np.pad(q[b], ((0, 0), (0, width - d)))
+        parts = []
+        for sp in range(0, P, per):
+            toks = [(pt[b, pi], t) for pi in range(sp, min(sp + per,
+                                                           n_pages))
+                    for t in range(min(page, int(lens[b]) - pi * page))]
+            acc = np.zeros((H, dv))
+            for grp in range(plan.groups):
+                cols = slice(grp * plan.group_cols,
+                             min(dv, (grp + 1) * plan.group_cols))
+                m, l = np.full(H, -1e30), np.zeros(H)
+                for t0 in range(0, len(toks), plan.tile):
+                    tile = toks[t0:t0 + plan.tile]
+                    K = np.pad(np.stack([kp[sl, t] for sl, t in tile]),
+                               ((0, 0), (0, width - d)))
+                    V = np.stack([vp[sl, t, cols] for sl, t in tile])
+                    s = sum(Q[:, c:c + plan.chunk] @ K[:, c:c + plan.chunk].T
+                            for c in range(0, width, plan.chunk))
+                    s = s / math.sqrt(d)
+                    mn = np.maximum(m, s.max(axis=1))
+                    alpha, p = np.exp(m - mn), np.exp(s - mn[:, None])
+                    l = l * alpha + p.sum(axis=1)
+                    acc[:, cols] = acc[:, cols] * alpha[:, None] + _bf16(p) @ V
+                    m = mn
+            parts.append((m, l, acc))   # every group's m and l are the same
+        M = np.max([pm for pm, _, _ in parts], axis=0)
+        L = sum(pl * np.exp(pm - M) for pm, pl, _ in parts)
+        A = sum(pa * np.exp(pm - M)[:, None] for pm, _, pa in parts)
+        out[b] = A / np.maximum(L, 1e-30)[:, None]
+    return out
+
+
+WALK_REPLAY = {"walk_tc": decode_walk_tc_replay, "walk": decode_walk_replay}
+
+
 @pytest.mark.parametrize("d,dv,n_splits", [(640, 512, 2), (576, 640, 1),
-                                           (1024, 1024, 3)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_walk_replay_equals_the_jax_kernel(d, dv, n_splits, dtype):
-    """The walk's splits and value groups, replayed in float64, against
+                                           (1024, 1024, 3), (1000, 600, 2),
+                                           (640, 1100, 2)])
+@pytest.mark.parametrize("schedule,dtype", [("walk_tc", "bfloat16"),
+                                            ("walk", "float32"),
+                                            ("walk", "bfloat16")])
+def test_decode_walk_replay_equals_the_jax_kernel(d, dv, n_splits, schedule,
+                                                  dtype):
+    """The walks' splits and value groups, replayed in float64, against
     the Pallas kernel in interpret mode and the port's plain version at
-    widths past the lanes instance, within the reference's tolerances."""
+    widths past the lanes instance, within the reference's tolerances:
+    the tensor-core walk's (bf16: tiles of 64 tokens, d in chunks of 64,
+    P rounded to bf16, groups of 1024 value columns; two at dv 1100) and
+    the CUDA-core walk's (groups of 512 value columns) in both types."""
     from repro.kernels.decode_attention.ops import \
         paged_decode_attention as j_decode
     q, kp, vp, pt, lens = (t.numpy() for t in _decode_case(2, 3, d, dv, 4,
@@ -150,13 +224,69 @@ def test_decode_walk_replay_equals_the_jax_kernel(d, dv, n_splits, dtype):
                                 for a in (q, kp, vp)),
                               jnp.asarray(pt), jnp.asarray(lens)),
                      np.float32)
-    got = decode_walk_replay(q, kp, vp, pt, lens, n_splits)
+    got = WALK_REPLAY[schedule](q, kp, vp, pt, lens, n_splits)
     assert_close(got.astype(np.float32), ref, dtype)
     plain = da.paged_decode_plain(*(torch.from_numpy(a).to(tdt)
                                     for a in (q, kp, vp)),
                                   torch.from_numpy(pt),
                                   torch.from_numpy(lens))
     assert_close(to_np(plain), ref, dtype)
+
+
+# the tensor-core walk's plans by hand: (k_chunks, groups, group_cols,
+# v_chunks, q_resident, entry_rows, smem_bytes).  Shared memory: a ring
+# of 8 entries of 64 token rows (80 with Q's 16 rows) x 144 bytes (64
+# columns + 8 of padding), P 16 x 144 bytes, the warps' maxima 8 x 16 x 4
+# bytes, and Q 16 x (64 k_chunks + 8) x 2 bytes where all of it fits in
+# an H100 block's 232,448 bytes
+WALK_TC_PLANS = {
+    # 73,728 + 2,304 + 512 + 33,024 (Q 1032 wide); one group, so every K
+    # and V byte of a (row, head chunk) is read once
+    (1024, 1024): (16, 1, 1024, 16, True, 64, 109568),
+    (640, 512): (10, 1, 512, 8, True, 64, 97280),        # Q 648 wide
+    (576, 640): (9, 1, 640, 10, True, 64, 95232),        # Q 584 wide
+    # Q 4104 wide (131,328 bytes); four groups of 1024 value columns,
+    # each reading K again
+    (4096, 4096): (64, 4, 1024, 16, True, 64, 207872),
+    # ragged chunks: d's last chunk 40 columns, dv's 24
+    (1000, 600): (16, 1, 600, 10, True, 64, 109568),
+    # Q 4936 wide would take 157,952 bytes: it rides in the K entries
+    (4928, 520): (77, 1, 520, 9, False, 80, 94976),
+}
+
+
+@pytest.mark.parametrize("d,dv", list(WALK_TC_PLANS))
+def test_decode_walk_tc_plan_matches_the_hand_counts(d, dv):
+    """``walk_tc_plan`` at the issue's widths: chunks, groups, Q's place,
+    stages and shared memory as counted by hand, within an H100 block's
+    232,448 bytes and adding up; the blocks a (row, head chunk, split)
+    and the split count at (1024, 1024) x 8 rows x 16 heads over 256
+    pages on 132 SMs of two blocks each; the K and V bytes read: each
+    exactly once at (1024, 1024) with 16 heads, K once a group past
+    1024 value columns, both again for each chunk of 16 heads."""
+    plan = da.walk_tc_plan(d, dv)
+    assert (plan.k_chunks, plan.groups, plan.group_cols, plan.v_chunks,
+            plan.q_resident, plan.entry_rows, plan.smem_bytes) \
+        == WALK_TC_PLANS[d, dv]
+    assert (plan.tile, plan.chunk, plan.stages) == (64, 64, 8)
+    assert plan.smem_bytes <= da.SMEM_LIMIT == 232448
+    q_bytes = 16 * (64 * plan.k_chunks + 8) * 2 if plan.q_resident else 0
+    assert plan.smem_bytes == 8 * plan.entry_rows * 144 + 16 * 144 \
+        + 8 * 16 * 4 + q_bytes
+    if not plan.q_resident:             # Q streams only where it must
+        assert 8 * 64 * 144 + 16 * 144 + 8 * 16 * 4 \
+            + 16 * (64 * plan.k_chunks + 8) * 2 > da.SMEM_LIMIT
+    inst = ("walk_tc", d, dv)
+    assert da.value_groups(inst) == plan.groups == -(-dv // 1024)
+    tokens = 4096
+    k_bytes, v_bytes = plan.reads(d, dv, 16, tokens)
+    assert v_bytes == 2 * tokens * dv
+    assert k_bytes == 2 * tokens * d * plan.groups
+    assert plan.reads(d, dv, 20, tokens) == (2 * k_bytes, 2 * v_bytes)
+    if (d, dv) == (1024, 1024):
+        assert (k_bytes, v_bytes) == (2 * tokens * d, 2 * tokens * dv)
+        n = da.plan_splits(8 * 1 * plan.groups, 256, 132, 2)
+        assert n == 32 and 8 * 1 * plan.groups * n == 256   # blocks
 
 
 def _decode_case(B, H, d, dv, page, P, seed=0):

@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Time the paged decode attention kernel (K5) of several source trees in
 one process on one CUDA card, at ``chip_smoke.py``'s two main-path
-shapes: ``decode_32k`` (qwen2.5-32b's width, 1024 rows of 5 query heads
+shapes, ``decode_32k`` (qwen2.5-32b's width, 1024 rows of 5 query heads
 over 32,768 tokens, d 128, bf16) and ``serve`` (8 rows of 5 query heads
-over 4097 tokens, d 128, fp32).
+over 4097 tokens, d 128, fp32); at its timed zoo widths, ``gemma-7b
+decode`` (128 rows of 1 head, d 256, 4096 tokens, bf16) and ``MLA
+latent`` (8 rows of 128 heads, (576, 512), bf16); and past (576, 512):
+the timed ``(1024, 1024)`` row (8 rows of 16 heads over 4096 tokens,
+bf16) and the CUDA-core walk's rows at that shape in fp32 and at a
+ragged bf16 (1001, 1000).
 
     python3 tools/decode_kernel_ab.py --src DIR:LABEL [--src DIR:LABEL ...]
         [--rounds N]
@@ -16,9 +21,13 @@ tree's wrapper runs on the same tensors, the trees in turn for
 ``--rounds`` rounds (4 by default), every other round in the opposite
 order (a, b, b, a, ...), so that a drift of the card falls on both.  Each
 time is ``chip_smoke.device_ms`` of ``attention_in_range`` (CUDA events).
+Before the rounds, ``torch.profiler`` gives each (tree, shape) its
+device ms a call of pass 1 and of the merge (pass 2), over 20 calls.
 Prints one JSON line a (round, tree, shape) and, last, one JSON object of
 each tree's median a shape, the outputs' largest difference from the
-first tree's and the card's name and power limit.  Exits 1 without a
+first tree's, the plain version's time (``paged_decode_plain`` of the
+first tree, the same rounds) at the three shapes past (576, 512) and the
+card's name and power limit.  Exits 1 without a
 card.
 """
 from __future__ import annotations
@@ -57,6 +66,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=4)
     args = ap.parse_args()
     import torch
+    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 1
@@ -68,10 +78,23 @@ def main() -> int:
         d, label = spec.rsplit(":", 1)
         trees.append((label, load_tree(Path(d).resolve())))
     c = cs.DECODE_32K
+    bf16, fp32 = torch.bfloat16, torch.float32
     cases = {"decode_32k": cs.decode_32k_case(c),
-             "serve": cs.serve_shape_case()}
-    big = {"decode_32k": (3, 5), "serve": (20, 7)}   # as check_decode
+             "serve": cs.serve_shape_case(),
+             "gemma-7b decode": cs.decode_case(128, 1, 256, 64, 64, bf16,
+                                               length=4096, dv=256),
+             "MLA latent": cs.decode_case(8, 128, 576, 64, 64, bf16,
+                                          length=4096, dv=512),
+             "(1024, 1024)": cs.decode_case(8, 16, 1024, 16, 256, bf16,
+                                            length=4096, dv=1024),
+             "(1024, 1024) fp32": cs.decode_case(8, 16, 1024, 16, 256, fp32,
+                                                 length=4096, dv=1024),
+             "(1001, 1000) bf16": cs.decode_case(8, 16, 1001, 16, 256, bf16,
+                                                 length=4096, dv=1000)}
+    big = {"decode_32k": (3, 5)}        # as check_decode; (20, 7) else
+    walks = ("(1024, 1024)", "(1024, 1024) fp32", "(1001, 1000) bf16")
     times = {(lab, s): [] for lab, _ in trees for s in cases}
+    plain = {s: [] for s in walks}
     diffs = {}
     for shape, case in cases.items():
         first = None
@@ -82,17 +105,38 @@ def main() -> int:
                 first = out
             diffs[f"{lab} {shape}"] = float((out.float() - first.float())
                                             .abs().max())
+            q, vp = case[0], case[2]
+            print(json.dumps(dict(tree=lab, shape=shape, instance=mod.instance(
+                q.shape[2], vp.shape[2], q.dtype))), flush=True)
         del first, out
+    for shape, case in cases.items():
+        for lab, mod in trees:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    mod.attention_in_range(*case)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.key_averages():
+                kind = ("merge" if "merge_kernel" in e.key else "pass1"
+                        if "decode" in e.key else None)
+                if kind and e.device_time_total > 0:
+                    by[kind] = by.get(kind, 0.0) \
+                        + e.device_time_total / 20 / 1000
+            print(json.dumps(dict(profile=lab, shape=shape, device_ms=by)),
+                  flush=True)
     for rnd in range(args.rounds):
         order = trees if rnd % 2 == 0 else trees[::-1]
         for lab, mod in order:
             for shape, case in cases.items():
-                reps, rounds = big[shape]
+                reps, rounds = big.get(shape, (20, 7))
                 ms = cs.device_ms(lambda: mod.attention_in_range(*case),
                                   reps, rounds)
                 times[(lab, shape)].append(ms)
                 print(json.dumps(dict(round=rnd, tree=lab, shape=shape,
                                       ms=ms)), flush=True)
+        for shape in walks:
+            plain[shape].append(cs.device_ms(
+                lambda: trees[0][1].paged_decode_plain(*cases[shape]), 20, 7))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -101,7 +145,8 @@ def main() -> int:
         card=card,
         median_ms={f"{lab} {s}": statistics.median(v)
                    for (lab, s), v in times.items()},
-        max_abs_diff_from_first=diffs)))
+        max_abs_diff_from_first=diffs,
+        plain_median_ms={s: statistics.median(v) for s, v in plain.items()})))
     return 0
 
 

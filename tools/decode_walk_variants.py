@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Build edits of K5's tensor-core walk (``decode_walk_tc_kernel`` in
+``src/repro_torch/csrc/decode_attention.cu``) side by side and time them
+in turns in one process on one CUDA card, each against the plain version.
+
+    python3 tools/decode_walk_variants.py [VARIANT ...] [--rounds N]
+
+The variants (all by default): ``as built``; ``no L2 prefetch``
+(plain 16-byte cp.async); ``one block an SM`` (no second block's
+launch bound); ``4 stages`` (a ring of 4 entries); ``loads only`` (the
+ring filled, no product); ``compute only`` (the products on whatever the
+ring holds, no copy).  The last two give wrong outputs and are timed
+only.  Each source is built with ``nvcc`` into
+``build/decode_walk_variants`` and loaded in place of the wrapper's
+library.  Shapes: (1024, 1024) with 8 rows of 16 heads over 4096
+tokens (``chip_smoke.WIDE_TIMED``), (4096, 4096) with 2 rows of 16 heads
+over 1024 tokens, (640, 512) with 32 rows of 16 heads over 1024 tokens;
+bf16, pages of 16.  Prints one JSON line a variant (registers, spills),
+a (variant, shape) check (agreement, bit-equal to ``as built``), a
+(variant, shape) profile (device ms of pass 1 and of the merge from
+``torch.profiler``), then one object of each median ms (CUDA events,
+``chip_smoke.device_ms``, ``--rounds`` rounds in turns, every other round
+reversed), the bounds and the card's name and power limit.  Exits 1
+without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+sys.path.insert(0, str(HERE / "src"))
+OUT = HERE / "build" / "decode_walk_variants"
+KERNEL = "decode_walk_tc_kernel(const"
+
+
+def _in_kernel(src: str, old: str, new: str) -> str:
+    """``old`` -> ``new`` within the walk kernel's body only."""
+    a = src.index(KERNEL)
+    b = src.index("// Pass 2:", a)
+    assert old in src[a:b], old
+    return src[:a] + src[a:b].replace(old, new) + src[b:]
+
+
+def _swap(old: str, new: str):
+    def edit(src: str) -> str:
+        assert old in src, old
+        return src.replace(old, new)
+    return edit
+
+
+VARIANTS = {
+    "as built": [],
+    "no L2 prefetch": [lambda s: _in_kernel(s, "cp_async16_l2(",
+                                            "cp_async16(")],
+    "one block an SM": [_swap("__launch_bounds__(kWtThreads, 2)",
+                              "__launch_bounds__(kWtThreads)")],
+    "4 stages": [_swap("constexpr int kWtStages = 8;",
+                       "constexpr int kWtStages = 4;")],
+    "loads only": [lambda s: _in_kernel(
+        _in_kernel(s, "for (int kk = 0; kk < kWtChunk / 16; kk += 2) {",
+                   "for (int kk = 0; kk < kWtChunk / 16; kk += 2) "
+                   "if (inv_scale > 1e30f) {"),
+        "for (int half = 0; half < 2; ++half) {",
+        "for (int half = 0; half < 2; ++half) if (inv_scale > 1e30f) {")],
+    "compute only": [lambda s: _in_kernel(
+        s, "if (is_tile < n_tiles) {",
+        "if (is_tile < n_tiles && inv_scale > 1e30f) {")],
+}
+TIMED_ONLY = ("loads only", "compute only")
+
+
+def build(names, csrc: Path):
+    """Each variant's library (``None`` where nvcc failed) and facts."""
+    from repro_torch.kernels import cuda_build
+    OUT.mkdir(parents=True, exist_ok=True)
+    base = (csrc / "decode_attention.cu").read_text()
+    procs = {}
+    for name in names:
+        src = base
+        for edit in VARIANTS[name]:
+            src = edit(src)
+        stem = name.replace(" ", "_")
+        path = OUT / f"{stem}.cu"
+        path.write_text(src)
+        procs[name] = (OUT / f"lib{stem}.so", subprocess.Popen(
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(csrc),
+             "-o", str(OUT / f"lib{stem}.so"), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        facts, fn = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([\w$.]+)'", line)
+            if m:
+                fn = m.group(1)
+            if fn and "walk_tc" in fn:
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("spill_stores", r"(\d+) bytes spill st")):
+                    m = re.search(pat, line)
+                    if m:
+                        facts[key] = int(m.group(1))
+        print(json.dumps(dict(variant=name, rc=proc.returncode, **facts,
+                              log=log[-1500:] if proc.returncode else "")),
+              flush=True)
+        if proc.returncode == 0:
+            libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--rounds", type=int, default=4)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from torch.profiler import ProfilerActivity, profile
+    libs = build(args.variants, cuda_build.CSRC)
+
+    def use(name):
+        cuda_build._LIBS["decode_attention"] = libs[name]
+        da._PLANS.clear()
+
+    bf16 = torch.bfloat16
+    shapes = {"(1024, 1024)": cs.decode_case(8, 16, 1024, 16, 256, bf16,
+                                             length=4096, dv=1024),
+              "(4096, 4096)": cs.decode_case(2, 16, 4096, 16, 64, bf16,
+                                             length=1024, dv=4096),
+              "(640, 512)": cs.decode_case(32, 16, 640, 16, 64, bf16,
+                                           length=1024, dv=512)}
+    plain = {k: da.paged_decode_plain(*a) for k, a in shapes.items()}
+    names = list(libs)
+    first = {}
+    for name in names:
+        use(name)
+        for shape, a in shapes.items():
+            out = da.attention_in_range(*a)
+            again = da.attention_in_range(*a)
+            torch.cuda.synchronize()
+            row = dict(variant=name, shape=shape,
+                       splits=da.splits_for(a[0], a[3].shape[1],
+                                            a[2].shape[2]),
+                       plan=da.launch_plan(a[0].shape[2], a[2].shape[2],
+                                           a[0].shape[1], bf16))
+            if name not in TIMED_ONLY:
+                first.setdefault(shape, out)
+                row.update(agrees=cs.decode_agrees(out, plain[shape], 2e-2),
+                           max_abs_err=cs.max_err(out, plain[shape]),
+                           bit_equal_rerun=bool(torch.equal(out, again)),
+                           bit_equal_as_built=bool(torch.equal(
+                               out, first[shape])))
+            print(json.dumps(row), flush=True)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    da.attention_in_range(*a)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.key_averages():
+                kind = ("merge" if "merge_kernel" in e.key else "pass1"
+                        if "walk_tc" in e.key else None)
+                if kind:
+                    by[kind] = by.get(kind, 0.0) \
+                        + e.device_time_total / 10 / 1000
+            print(json.dumps(dict(profile=name, shape=shape,
+                                  device_ms=by)), flush=True)
+    times = {}
+    for rnd in range(args.rounds):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            use(name)
+            for shape, a in shapes.items():
+                times.setdefault(f"{name} {shape}", []).append(
+                    cs.device_ms(lambda: da.attention_in_range(*a)))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(json.dumps(dict(
+        median_ms={k: statistics.median(v) for k, v in times.items()},
+        bound_ms={k: cs.decode_bound(a[0], a[4], a[3].shape[1],
+                                     a[1].shape[1], a[2].shape[2])[0]
+                  for k, a in shapes.items()},
+        card=card)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
