@@ -216,6 +216,10 @@ EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
               ("flash_attention", "gemma-7b prefill"): 17.322079467773438,
               ("decode_attention", "serve"): 0.8877887725830078,
               ("decode_attention", "decode_32k"): 11.61456044514974,
+              # K5 past (576, 512) on route 3's first design (the CUDA
+              # cores), as tools/decode_kernel_ab.py timed it
+              ("decode_attention", "(1024, 1024) decode fp32"): 0.94257,
+              ("decode_attention", "(1001, 1000) decode bf16"): 0.98173,
               ("mamba2_scan", "zamba2-2.7b prefill"): 4.04290542602539,
               ("rwkv6_scan", "rwkv6-3b prefill"): 1.0247103691101074,
               # K6's backward on mma.sync, 16 keys a dK/dV block at d 256
@@ -1068,9 +1072,49 @@ def decode_pass1(q, dv: int) -> str:
     return f"decode_lanes_kernelI{t}Li{DK // 32}ELi{DV // 32}E"
 
 
-# the tensor-core walk's rows beside the CUDA-core walk, for the kernels
-# line (label -> the timed row's figures)
+# the walks' timed rows (the tensor-core walk beside the TF32 walk on the
+# same inputs; the TF32 walk's own rows), for the kernels line (label ->
+# the timed row's figures)
 WALK_TC_ROWS = {}
+WALK_ROWS = {}
+
+
+def walk_reads(args, plan, label) -> dict:
+    """The K and V bytes the TF32 walk asks for on these inputs (each once
+    per (row, head chunk), K once a group: ``plan.reads``) and the bytes
+    its 16-byte windows read, from this launch's table (``da.walk_windows``
+    over every (token, chunk) it copies, held equal to the source's
+    ``decode_walk_windows``)."""
+    q, kp, vp, pt, lens = args
+    B, H, d = q.shape
+    n_slots, page, dv = vp.shape
+    P = pt.shape[1]
+    item = q.element_size()
+    t = torch.arange(P * page, device=q.device)
+    valid = t[None, :] < lens[:, None].long()
+    slots = pt.long().clamp(min=0)[:, t // page]
+    rows = (slots * page + t % page)[valid]
+    tokens = int(valid.sum())
+    k_bytes, v_bytes = plan.reads(d, dv, H, tokens)
+    chunks = -(-H // da.WALK_TC_HEADS)
+    def win(width, c0, n):
+        w = (rows * width, c0, n, item, n_slots * page * width)
+        mine = [t.cpu() for t in da.walk_windows(*w)]
+        src = da.walk_source_windows(*w)
+        if not all(torch.equal(a, b) for a, b in zip(mine, src)):
+            raise AssertionError(f"decode_attention at {label}: "
+                                 f"walk_windows differs from the source's "
+                                 f"at columns {c0} of {width}")
+        return int(mine[2].sum())
+
+    k_win = sum(win(d, c0, min(64, d - c0)) for c0 in range(0, d, 64))
+    v_win = sum(win(dv, c0, min(64, dv - c0)) for c0 in range(0, dv, 64))
+    return dict(plan=plan._asdict(), k_bytes_read=k_bytes,
+                v_bytes_read=v_bytes, kv_bytes_once=item * tokens * (d + dv),
+                k_window_bytes=k_win * chunks * plan.groups,
+                v_window_bytes=v_win * chunks,
+                window_share=(k_win * plan.groups + v_win)
+                / (item * tokens * (d * plan.groups + dv)))
 
 
 def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
@@ -1079,9 +1123,11 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
     rows also require the gate to reject a planted fault (``fault``: by
     default ``decode_split_dropped``) and two runs to be bit-equal, and
     add the times, the bound, the split count and the build facts.  Rows
-    on the tensor-core walk hold its plan to the source's and print the
-    bytes it reads; timed, they also time the CUDA-core walk on the same
-    inputs (``walk_ms``, through ``launch_instance``)."""
+    on the walks hold their plans to the source's and print the bytes
+    they read (the TF32 walk also its windows' bytes); timed, the
+    tensor-core walk's also time the TF32 walk on the same inputs
+    (``walk_ms``, through ``launch_instance``), and the TF32 walk's must
+    beat the plain version."""
     q, kp, vp, pt, lens = args
     before = da.LAUNCHES
     k = da.paged_decode_attention_kernel(*args)
@@ -1122,6 +1168,13 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
         row.update(plan=plan._asdict(), k_bytes_read=k_bytes,
                    v_bytes_read=v_bytes,
                    kv_bytes_once=2 * tokens * (d + dv))
+    if inst[0] == "walk":
+        plan = da.walk_plan(d, dv, q.dtype)
+        if da.walk_source_plan(d, dv, q.dtype) != plan:
+            raise AssertionError(f"decode_attention at {label}: walk_plan "
+                                 f"{plan} is not the source's "
+                                 f"{da.walk_source_plan(d, dv, q.dtype)}")
+        row.update(walk_reads(args, plan, label))
     if timed:
         bad = fault(*pargs)
         row["planted_fault"] = fault.__name__
@@ -1151,7 +1204,7 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
                    heads_per_block=heads, blocks_per_sm=per_sm,
                    build=build_facts("decode_attention", row["pass1"],
                                      f"merge_kernelI{tc}E"))
-        if inst[0] == "walk_tc":       # the CUDA-core walk, same inputs
+        if inst[0] == "walk_tc":       # the TF32 walk, same inputs
             walk = ("walk", d, dv)
             w = da.launch_instance(*args, walk)
             row.update(walk_max_abs_err=max_err(w[:n], p),
@@ -1174,6 +1227,17 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
                 "bound_by", "bound_share", "bit_equal_rerun", "max_abs_err",
                 "planted_fault_max_abs_err", "k_bytes_read", "v_bytes_read",
                 "kv_bytes_once")}
+        if inst[0] == "walk":
+            if row["ms"] >= row["plain_ms"]:
+                raise AssertionError(
+                    f"decode_attention at {label}: the TF32 walk "
+                    f"({row['ms']} ms) is not faster than its plain version "
+                    f"({row['plain_ms']} ms)")
+            WALK_ROWS[label] = {key: row[key] for key in (
+                "pass1", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share", "bit_equal_rerun", "max_abs_err",
+                "planted_fault_max_abs_err", "k_bytes_read", "v_bytes_read",
+                "kv_bytes_once", "launches")}
         if kv_heads:
             try:
                 row["sdpa_contiguous_ms"], row["sdpa_max_abs_diff"] = \
@@ -2441,27 +2505,58 @@ WIDE_K7 = {"P 128": (1, 200, 3, 1, 64, 128, 64),
 WIDE_K8 = (128, 96)
 WIDE_K6 = ((320, 320), (512, 512), (288, 512), (512, 128), (576, 512),
            (300, 100))
-# (d, dv, page, P) at 3 rows x 5 heads
+# (d, dv, page, P[, decode_case's options, and "rows"]) at 3 rows (or
+# "rows") x 5 heads (``wide_k5_case``); fp32 runs every row on the TF32
+# walk
 WIDE_K5 = ((640, 512, 16, 5), (576, 640, 16, 5), (1024, 1024, 16, 5),
-           # bf16: a ragged width (rows not whole 16-byte chunks) that
-           # stays on the CUDA-core walk; on the tensor-core walk, two
-           # groups of its 1024 value columns, and Q streamed through K's
-           # ring entries past d 4800, each a page of 256 tokens a split,
-           # so that a split walks 4 tiles of 64
-           (1001, 520, 16, 5), (768, 1280, 256, 8), (4928, 520, 256, 8))
+           # bf16: a ragged width (rows not whole 16-byte chunks) on the
+           # TF32 walk; on the tensor-core walk, two groups of its 1024
+           # value columns, and Q streamed through K's ring entries past
+           # d 4800 (as the TF32 walk streams it at every row here), each
+           # a page of 256 tokens a split, so that a split walks 4 tiles
+           (1001, 520, 16, 5), (768, 1280, 256, 8), (4928, 520, 256, 8),
+           # the ragged width at pages of 256: a split walks several tiles
+           (1001, 520, 256, 4),
+           # ragged rows at pages of 7 over a pool of exactly the table's
+           # 9 slots, every page full: the table names the pool's last
+           # slot, whose last row ends mid-window (cp.async reads only the
+           # bytes that remain)
+           (1001, 602, 7, 3, dict(n_slots=9, length=21)),
+           # Q resident, one K chunk, and a second group of 6 value columns
+           # (a tile of two ring entries, so the copies run tiles ahead of
+           # the reads), ragged in both types, every row full: each split a
+           # page of 4 tiles; then at pages of 7, so that a token's shifts
+           # differ from tile to tile (at pages that are whole windows they
+           # repeat every tile), over 64 rows, so that each split is 30
+           # pages, 4 tiles
+           (60, 1030, 256, 4, dict(length=1024)),
+           (60, 1030, 7, 60, dict(rows=64, length=420)))
 # one timed row a lifted axis, at a zoo family's own total width with
 # that axis alone changed: mamba2-2.7b's d_inner 5120 as 40 heads of P
 # 128 (N 128) and its 80 heads of P 64 at N 256; rwkv6-3b's 2560 as 20
 # heads of N 128; K6 (512, 512) at 8 heads, and (576, 512) at 16 query
 # heads over one KV head (deepseek-v2's absorbed MLA: kv_lora_rank 512 +
 # rope 64 against the latent); K5 (1024, 1024) at 8 rows x 16 heads over
-# 4096 tokens
+# 4096 tokens, in bf16 (the tensor-core walk), in fp32 and at a ragged bf16
+# (1001, 1000) (the TF32 walk)
 WIDE_TIMED = {"mamba2-2.7b P 128": (4, 2048, 40, 1, 128, 128, 128),
               "mamba2-2.7b N 256": (4, 2048, 80, 1, 256, 64, 128),
               "rwkv6-3b N 128": (4, 2048, 20, 128),
               "(512, 512) x 8 heads": (4, 2048, 8, 8, 512, 512),
               "(576, 512) MLA x 16 heads": (4, 2048, 16, 1, 576, 512),
-              "(1024, 1024) decode": (8, 16, 1024, 16, 256)}
+              "(1024, 1024) decode": (8, 16, 1024, 16, 256),
+              "(1024, 1024) decode fp32": (8, 16, 1024, 1024, 16, 256,
+                                           torch.float32),
+              "(1001, 1000) decode bf16": (8, 16, 1001, 1000, 16, 256,
+                                           torch.bfloat16)}
+
+
+def wide_k5_case(d, dv, page, P, dtype, opts=None):
+    """A ``WIDE_K5`` row's inputs: 3 rows (or ``opts["rows"]``) x 5 heads,
+    ``decode_case`` given the row's other options."""
+    opts = dict(opts or {})
+    return decode_case(opts.pop("rows", 3), 5, d, page, P, dtype, dv=dv,
+                       **opts)
 
 
 def wide_phase():
@@ -2520,10 +2615,10 @@ def wide_phase():
                 else:
                     note(check_flash_bwd(1, 100, 4, 2, d, dtype, causal,
                                          f"wide {d, dv}", dv=dv))
-        for d, dv, page, P in WIDE_K5:
+        for d, dv, page, P, *opts in WIDE_K5:
             t0 = time.perf_counter()
-            note(check_decode(decode_case(3, 5, d, page, P, dtype, dv=dv),
-                              f"wide {d, dv}"))
+            note(check_decode(wide_k5_case(d, dv, page, P, dtype, *opts),
+                              f"wide {d, dv} page {page}"))
     for N in WIDE_K8:                  # the gradient is fp32 only
         t0 = time.perf_counter()
         note(check_rwkv_wide_bwd(2, 100, 3, N, f"wide N {N}"))
@@ -2557,6 +2652,13 @@ def wide_phase():
                                   length=P * page, dv=d),
                       "(1024, 1024) decode", timed=True,
                       fault=decode_rescale_dropped))
+    for label in ("(1024, 1024) decode fp32", "(1001, 1000) decode bf16"):
+        B, H, d, dv, page, P, dtype = WIDE_TIMED[label]
+        t0 = time.perf_counter()
+        note(check_decode(decode_case(B, H, d, page, P, dtype,
+                                      length=P * page, dv=dv),
+                          label, timed=True, fault=decode_rescale_dropped))
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -2655,11 +2757,16 @@ def kernel_phase():
                              f"width {d, dv} {B, H, page, P}")
             errs["decode_attention"] = max(errs["decode_attention"],
                                            r["max_abs_err"])
-    for label, shape, kv in (("gemma-7b decode", (128, 1, 256, 256), 16),
-                             ("deepseek-v2 MLA latent decode",
-                              (8, 128, 576, 512), 1)):
+    # (and in fp32, on the lanes route: its own times beside its bound)
+    for label, shape, kv, dtype in (
+            ("gemma-7b decode", (128, 1, 256, 256), 16, torch.bfloat16),
+            ("deepseek-v2 MLA latent decode", (8, 128, 576, 512), 1,
+             torch.bfloat16),
+            ("gemma-7b decode fp32", (128, 1, 256, 256), 16, torch.float32),
+            ("deepseek-v2 MLA latent decode fp32", (8, 128, 576, 512), 1,
+             torch.float32)):
         B, H, d, dv = shape
-        r = check_decode(decode_case(B, H, d, 64, 64, torch.bfloat16,
+        r = check_decode(decode_case(B, H, d, 64, 64, dtype,
                                      length=4096, dv=dv),
                          label, timed=True, kv_heads=kv)
         errs["decode_attention"] = max(errs["decode_attention"],
@@ -5107,10 +5214,12 @@ def main() -> int:
                     bound_ms=main_rows[k]["bound_ms"],
                     bound_by=main_rows[k]["bound_by"],
                     library_ms=main_rows[k]["library_ms"],
-                    # the tensor-core walk past (576, 512), on no main
-                    # path: its wide_phase rows
+                    # the walks past (576, 512), on no main path: their
+                    # timed wide_phase rows
                     **({"walk_tc": dict(kernel="decode_walk_tc_kernel",
-                                        rows=WALK_TC_ROWS)}
+                                        rows=WALK_TC_ROWS),
+                        "walk": dict(kernel="decode_walk_kernel",
+                                     rows=WALK_ROWS)}
                        if k == "decode_attention" else {}))
                for k in names]
     print(json.dumps({"kernels": kernels}))

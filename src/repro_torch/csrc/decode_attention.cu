@@ -45,8 +45,9 @@
 //   2  any other width up to (576, 512), either type: decode_lanes_kernel,
 //      a warp a token and a column of 32 a lane, scalar loads;
 //   3  past (576, 512), float32 and bfloat16 rows that are not whole
-//      16-byte chunks: decode_walk_kernel, the lanes' scheme with the key
-//      width walked and value columns in groups of kWalkCols;
+//      16-byte chunks: decode_walk_kernel, route 4's plan on the tensor
+//      cores in TF32 (float32 as three products of split operands), rows
+//      of any alignment copied as the 16-byte windows that cover them;
 //   4  past (576, 512), bfloat16 at d, dv multiples of 8:
 //      decode_walk_tc_kernel, 16 heads a block on the tensor cores, K and
 //      V walked through a ring of cp.async entries, each byte read once
@@ -56,15 +57,14 @@
 // wrapper for route 1 (a copy of q only).
 //
 // bfloat16 runs pass 1 on the tensor cores (decode_bf16_kernel: 16 heads a
-// block as the rows of mma.sync, K/V tiles staged by cp.async).  float32
-// stays on the CUDA cores, since its 2e-5 tolerance rules out TF32
-// (decode_kernel: up to 8 heads a block; a "worker" of D / 4 lanes owns one
-// token at a time, each lane loading one 16-byte vector of the token's K
-// row and one of its V row, the group summing its partial dots with
-// shuffles; every worker keeps its own softmax state in registers over
-// the tokens it owns, four tokens a step so that eight 16-byte loads are
-// in flight per lane, and the workers' states are merged through shared
-// memory).
+// block as the rows of mma.sync, K/V tiles staged by cp.async). float32 up to
+// (576, 512) stays on the CUDA cores, since its 2e-5 tolerance rules out one
+// TF32 product (decode_kernel: up to 8 heads a block; a "worker" of D / 4
+// lanes owns one token at a time, each lane loading one 16-byte vector of the
+// token's K row and one of its V row, the group summing its partial dots with
+// shuffles; every worker keeps its own softmax state in registers over the
+// tokens it owns, four tokens a step so that eight 16-byte loads are in flight
+// per lane, and the workers' states are merged through shared memory).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -893,174 +893,6 @@ decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// Pass 1 past the lanes kernel's widths (route 3: d past 576 or dv past
-// 512, either type), on the CUDA cores: decode_lanes_kernel's scheme, a
-// warp a token and lane l holding columns l, l + 32, ..., with two
-// changes.  The key width is walked at run time, 32 columns a step, q
-// read in place (each lane its columns of the block's kLaneHeads heads,
-// from the L1) instead of from registers; so any d runs.  The value
-// columns are cut into groups of kWalkCols, a block each (grid y: head
-// chunk x value group), whose accumulators stay in registers as the
-// lanes kernel's; each group's block recomputes the scores, so values
-// dv wide cost ceil(dv / kWalkCols) times the q.k work.  Group 0 writes
-// the split's max and sum (every group computes the same ones).
-constexpr int kWalkCols = 512;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                   const T* __restrict__ v_pages,
-                   const int32_t* __restrict__ table,
-                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int H, int P, int page,
-                   int n_slots, int split_pages, int d, int dv,
-                   float inv_scale) {
-  constexpr int G = kLaneHeads, U = kLaneUnroll, NW = kThreads / 32;
-  constexpr int STEP = NW * U;          // tokens a block step
-  constexpr int VC = kWalkCols / 32;
-  __shared__ float m_s[NW * G];
-  __shared__ float l_s[NW * G];
-  __shared__ float acc_s[NW * G * 32 * VC];
-
-  const int groups = (dv + kWalkCols - 1) / kWalkCols;
-  const int row = blockIdx.x;
-  const int h0 = blockIdx.y / groups * G;
-  const int v0 = blockIdx.y % groups * kWalkCols;
-  const int cols = min(kWalkCols, dv - v0);
-  const int split = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const int gn = min(G, H - h0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qh[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g)           // heads past H read head h0
-    qh[g] = q + ((int64_t)row * H + h0 + (g < gn ? g : 0)) * d;
-
-  float m[G], l[G], acc[G][VC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int c = 0; c < VC; ++c) acc[g][c] = 0.f;
-  }
-  const int len = seq_lens[row];
-  const int32_t* trow = table + (int64_t)row * P;
-  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
-  const int p_end = min(n_pages, (split + 1) * split_pages);
-  for (int pi = split * split_pages; pi < p_end; ++pi) {
-    const int slot = trow[pi];
-    if (slot < 0 || slot >= n_slots) continue;   // the wrapper raises first
-    const int n_valid = min(page, len - pi * page);
-    const int64_t tok0 = (int64_t)slot * page;
-    // block-uniform trip count: every lane reaches every shuffle
-    for (int base = 0; base < n_valid; base += STEP) {
-      bool ok[U];
-      const T* kr[U];
-      float s[U][G];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int t = base + warp * U + u;
-        ok[u] = t < n_valid;
-        kr[u] = k_pages + (tok0 + (ok[u] ? t : 0)) * d;
-#pragma unroll
-        for (int g = 0; g < G; ++g) s[u][g] = 0.f;
-      }
-      for (int c0 = 0; c0 < d; c0 += 32) {
-        const int col = c0 + lane;
-        if (col >= d) continue;
-        float qv[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) qv[g] = to_f32(qh[g][col]);
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float kv = ok[u] ? to_f32(kr[u][col]) : 0.f;
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[u][g] = fmaf(qv[g], kv, s[u][g]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float part = s[u][g];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            part += __shfl_xor_sync(0xffffffffu, part, off);
-          s[u][g] = part * inv_scale;
-        }
-      float vx[U][VC];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const T* vr = v_pages + (tok0 + base + warp * U + u) * dv + v0;
-#pragma unroll
-        for (int c = 0; c < VC; ++c) {
-          const int col = lane + 32 * c;
-          vx[u][c] = ok[u] && col < cols ? to_f32(vr[col]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float mn = m[g];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (ok[u]) mn = fmaxf(mn, s[u][g]);
-        const float alpha = expf(m[g] - mn);
-        float ps = 0.f;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          s[u][g] = ok[u] ? expf(s[u][g] - mn) : 0.f;
-          ps += s[u][g];
-        }
-        l[g] = l[g] * alpha + ps;
-        m[g] = mn;
-#pragma unroll
-        for (int c = 0; c < VC; ++c) {
-          float a = acc[g][c] * alpha;
-#pragma unroll
-          for (int u = 0; u < U; ++u) a = fmaf(s[u][g], vx[u][c], a);
-          acc[g][c] = a;
-        }
-      }
-    }
-  }
-
-  // merge the warps' (max, sum, accumulator) states
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      m_s[warp * G + g] = m[g];
-      l_s[warp * G + g] = l[g];
-    }
-#pragma unroll
-    for (int c = 0; c < VC; ++c)
-      acc_s[(warp * G + g) * 32 * VC + lane + 32 * c] = acc[g][c];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < gn * cols; i += kThreads) {
-    const int g = i / cols, c = i % cols;
-    float M = kNegInf;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, m_s[w * G + g]);
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float sc = expf(m_s[w * G + g] - M);
-      L = fmaf(l_s[w * G + g], sc, L);
-      A = fmaf(acc_s[(w * G + g) * 32 * VC + c], sc, A);
-    }
-    const int64_t rh = (int64_t)row * H + h0 + g;
-    if (out != nullptr) {
-      store(out + rh * dv + v0 + c, A / fmaxf(L, 1e-30f));
-    } else {
-      part_acc[(rh * n_splits + split) * dv + v0 + c] = A;
-      if (c == 0 && v0 == 0) {
-        part_m[rh * n_splits + split] = M;
-        part_l[rh * n_splits + split] = L;
-      }
-    }
-  }
-}
-
 // Pass 1 past the lanes kernel's widths for bfloat16 rows of whole 16-byte
 // chunks (route 4: d past 576 or dv past 512, d and dv multiples of 8), on
 // the tensor cores.  One block of 8 warps per (row, chunk of up to 16
@@ -1095,12 +927,13 @@ constexpr int kWtVChunks = kWtCols / kWtChunk;   // a warp's n-tiles
 constexpr int kSmemLimit = 232448;           // an H100 block's most
 static_assert((kWtStages & (kWtStages - 1)) == 0, "stages a power of 2");
 
-// cp_async16 that also asks the L2 to fetch the 256 bytes around the
-// source: the next chunk of a token's row then comes from the L2
+// 16 bytes global -> shared that also asks the L2 to fetch the 256 bytes
+// around the source (the next chunk of a token's row then comes from the
+// L2); `bytes` of them read (0-16), the rest zero-filled
 __device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src,
-                                              bool ok) {
+                                              int bytes) {
   asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
 // the shared-memory plan of (d, dv): ring, then resident Q, then P [16]
@@ -1195,13 +1028,13 @@ decode_walk_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int c = my_c + 32 * h;
         const bool ok = off >= 0 && col0 + c < lim;
         cp_async16_l2(smem_addr(dst + my_tok * kWtPitch + c),
-                   src + (ok ? off * width + col0 + c : 0), ok);
+                   src + (ok ? off * width + col0 + c : 0), ok ? 16 : 0);
       }
       if (key && !plan.q_resident && threadIdx.x < kHeads * 8) {
         const int hh = threadIdx.x / 8, c = (threadIdx.x % 8) * 8;
         const bool ok = hh < gn && col0 + c < d;
         cp_async16_l2(smem_addr(dst + (kWtTile + hh) * kWtPitch + c),
-                   qrow + (ok ? hh * d + col0 + c : 0), ok);
+                   qrow + (ok ? hh * d + col0 + c : 0), ok ? 16 : 0);
       }
     }
     cp_async_commit();
@@ -1362,6 +1195,542 @@ decode_walk_tc_kernel(const __nv_bfloat16* __restrict__ q,
       } else {
         acc[v0 + c] = o[j][2 * r];
         acc[v0 + c + 1] = o[j][2 * r + 1];
+      }
+    }
+    if (out == nullptr && v0 == 0 && warp == 0 && tig == 0) {
+      part_m[rh * n_splits + split] =  // the max in natural-log units
+          m[r] == -INFINITY ? kNegInf : m[r] * 0.6931471805599453f;
+      part_l[rh * n_splits + split] = L;
+    }
+  }
+}
+
+// Pass 1 past the lanes kernel's widths for float32, and for bfloat16 rows
+// that are not whole 16-byte chunks (route 3: d past 576 or dv past 512),
+// on the tensor cores in TF32 with fp32 sums: route 4's plan on rows of
+// any alignment.  Bound: bytes, as every route (2 flops a K or V element
+// and head: 8 a byte of fp32 at 16 heads).  One block of 8 warps per
+// (row, chunk of up to 16 query heads, group of up to kWkCols value
+// columns, split), so each K and V byte of a (row, head chunk) is read by
+// one block, K once a group; two blocks an SM (128 registers, and the
+// plan keeps a block's shared memory within half the SM's), since one
+// block a SM leaves the copies and the products in turn.  The split's
+// tokens go in tiles of kWkTile through a ring of WalkOf<T>::kStages
+// entries, each kWkTile tokens x kWkChunk columns of K or V, filled by
+// cp.async kStages - 1 entries ahead: a tile walks d's chunks of K, then
+// the group's chunks of V.  A row chunk whose first byte is not on a
+// 16-byte boundary is copied as the 16-byte windows that cover it, from
+// the boundary at or below it (the pool's base is 16-byte aligned), into a
+// shared row of kWkChunk + one window of elements; the element sits at the
+// row's offset in its window (its shift, < one window), the same for every
+// chunk of the token's row, kept in shared memory in plan.shift_tiles
+// slots, one a tile, so that the copier running ahead does not overwrite
+// a tile's shifts before they are read.  The window at
+// the pool's last bytes copies only the bytes that remain (cp.async's
+// source size) and zero-fills the rest, so nothing past n_slots * page * d
+// elements is read; a token past the split's end or a slot outside the
+// pool is zero-filled.  Fragments are built from shared memory one element
+// a register at the row's shift (a TF32 fragment register holds one
+// element), columns past d masked to 0.  Four threads a token copy its
+// windows, every fourth each, in 32-bit arithmetic from the row's start;
+// its pool row comes from the page table, read a tile ahead.  Q sits in
+// shared memory for the whole split, copied the same way, where it fits
+// beside the ring (plan.q_resident), else its 16 rows ride in each K entry
+// (from the L2).  Warp w scores tokens 8 w .. 8 w + 7 of a tile for the 16
+// heads (S = Q K^T on mma.sync.m16n8k8 TF32, the heads as the 16 rows, a
+// fresh sum each entry added to S in fp32); the tile's maximum of each
+// head is taken across the warps through shared memory, so all warps keep
+// one running max; P goes to shared memory as the A fragments of P V, one
+// 16-byte load a thread a k-step, and each warp adds P V for columns 8 w
+// .. 8 w + 7 of every V chunk, a fresh sum each entry added to its [16, 8]
+// accumulator in fp32 (16 n-tiles a thread at most: [16, kWkCols] over
+// the block).  float32 splits every operand, hi = tf32(x), lo = tf32(x -
+// hi), and sums hi.hi + hi.lo + lo.hi (an error near 2^-21 relative,
+// inside the 2e-5 tolerance; one TF32 product would leave 2^-11);
+// bfloat16 values are exact in TF32, so S takes one product and P is
+// rounded once to TF32 for P V.  A group past the first recomputes the
+// scores (reads K again), so K is read ceil(dv / kWkCols) times, V once.
+constexpr int kWkThreads = 256;
+constexpr int kWkWarps = kWkThreads / 32;
+constexpr int kWkTile = 64;                  // tokens a tile, 8 a warp
+constexpr int kWkChunk = 64;                 // columns an entry
+constexpr int kWkCols = 1024;                // value columns a block
+constexpr int kWkVChunks = kWkCols / kWkChunk;   // a warp's n-tiles
+constexpr int kWkPFrag = kWkTile / 8 * 32 * 4;   // P's fragments, uint32
+// two blocks an SM: half its 233,472 bytes of shared memory less the 1,024
+// each block reserves
+constexpr int kWkBlockSmem = 115712;
+
+// The ring of each type: stages, and the shared row pitches (elements) of
+// K and V entries, kWkChunk + one window and more, so that the fragments'
+// reads of 8 rows x 4 columns (K) and 4 rows x 8 columns (V) fall in
+// distinct banks at shift 0; a float32 entry takes twice the bytes of a
+// bfloat16 one, so it has half the stages (the ring 74 and 82 KB, 92 and
+// 102 KB with Q's rows)
+template <typename T>
+struct WalkOf;
+template <>
+struct WalkOf<float> {
+  static constexpr int kStages = 4, kKPitch = 68, kVPitch = 72;
+};
+template <>
+struct WalkOf<__nv_bfloat16> {
+  static constexpr int kStages = 8, kKPitch = 72, kVPitch = 80;
+};
+
+// the shared-memory plan of (d, dv) in a type, within two blocks an SM:
+// the ring, then resident Q [16][q_pitch] of the type, then P's A
+// fragments, TF32 hi and lo [kWkTile / 8][32 lanes][4], the warps' maxima
+// (then sums) [8][16] fp32 and the tiles' shifts [shift_tiles][2][kWkTile]
+// bytes (K's, then V's).  The copier runs stages - 1 entries ahead and
+// writes a tile's shifts as it enters it; a tile's are read up to its K
+// entries' end; so with tiles of k_chunks + v_chunks entries (fewest in the
+// last group) it can enter (stages - 1 + k_chunks) / tile more tiles
+// first, each into a slot of its own: one slot where that is none, else
+// stages / 2 + 1, the most it can be (tiles of two entries), so that the
+// kernel indexes the slots by a constant
+struct WalkPlan {
+  int window, stages, k_chunks, groups, group_cols, v_chunks, q_resident,
+      entry_rows, k_pitch, v_pitch, q_pitch, shift_tiles, smem_bytes;
+};
+
+__host__ __device__ inline WalkPlan walk_plan(int d, int dv, int bf16) {
+  WalkPlan p;
+  const int elem = bf16 ? 2 : 4;
+  p.window = 16 / elem;
+  p.stages = bf16 ? WalkOf<__nv_bfloat16>::kStages : WalkOf<float>::kStages;
+  p.k_pitch = bf16 ? WalkOf<__nv_bfloat16>::kKPitch : WalkOf<float>::kKPitch;
+  p.v_pitch = bf16 ? WalkOf<__nv_bfloat16>::kVPitch : WalkOf<float>::kVPitch;
+  p.k_chunks = (d + kWkChunk - 1) / kWkChunk;
+  p.groups = (dv + kWkCols - 1) / kWkCols;
+  p.group_cols = dv < kWkCols ? dv : kWkCols;
+  p.v_chunks = (p.group_cols + kWkChunk - 1) / kWkChunk;
+  p.q_pitch = p.k_chunks * kWkChunk + p.window;
+  const int row = p.k_pitch > p.v_pitch ? p.k_pitch : p.v_pitch;
+  const int last_cols = dv - (p.groups - 1) * kWkCols;
+  const int fewest = p.k_chunks + (last_cols + kWkChunk - 1) / kWkChunk;
+  p.shift_tiles =
+      (p.stages - 1 + p.k_chunks) / fewest > 0 ? p.stages / 2 + 1 : 1;
+  const int fixed = 2 * kWkPFrag * 4 + kWkWarps * kHeads * 4
+                    + 2 * kWkTile * p.shift_tiles;
+  const int q_bytes = kHeads * p.q_pitch * elem;
+  p.q_resident =
+      fixed + q_bytes + p.stages * kWkTile * row * elem <= kWkBlockSmem;
+  p.entry_rows = kWkTile + (p.q_resident ? 0 : kHeads);
+  p.smem_bytes = fixed + (p.q_resident ? q_bytes : 0)
+                 + p.stages * p.entry_rows * row * elem;
+  return p;
+}
+
+// A pool row as the copier walks it: the first element of the 16-byte
+// window at or below the row's first element (-1: zero-fill the row), the
+// row's offset in that window (its shift, the same for every chunk, whose
+// first columns are multiples of the window), and the pool's elements from
+// there on (at most 2^28), so that each entry's windows take 32-bit
+// arithmetic
+struct WindowRow {
+  int64_t base;
+  int sh, left;
+};
+
+template <typename T>
+__host__ __device__ __forceinline__ WindowRow window_row(int64_t e0,
+                                                         int64_t total) {
+  constexpr int W = 16 / sizeof(T);
+  WindowRow r{-1, 0, 0};
+  if (e0 >= 0) {
+    r.sh = (int)(e0 & (W - 1));
+    r.base = e0 - r.sh;
+    const int64_t left = total - r.base;
+    r.left = left < (1 << 28) ? (int)left : 1 << 28;
+  }
+  return r;
+}
+
+// The windows of columns col0 .. col0 + n - 1 (col0 a multiple of the
+// window, n <= kWkChunk) of row r: their number (a row with base -1: every
+// window of a shared row), and the bytes window w reads, 16 but past the
+// pool's last element only what remains (0: nothing read)
+template <typename T>
+__host__ __device__ __forceinline__ int window_count(const WindowRow& r,
+                                                     int n) {
+  constexpr int W = 16 / sizeof(T);
+  return r.base < 0 ? kWkChunk / W + 1 : (r.sh + n + W - 1) / W;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ int window_bytes(const WindowRow& r,
+                                                     int col0, int w) {
+  constexpr int W = 16 / sizeof(T);
+  const int rem = (r.left - col0 - w * W) * (int)sizeof(T);
+  return rem >= 16 ? 16 : (rem > 0 ? rem : 0);
+}
+
+// Columns col0 .. col0 + n - 1 of row r of `src` into the shared row `dst`,
+// as the 16-byte windows from the boundary at or below the first, column
+// col0 at dst[r.sh]; this thread copies windows `first`, first + 4, ...
+// Past the pool's last element a window reads only the bytes that remain
+// (cp.async's source size) and zero-fills the rest; a row with base -1 is
+// zero-filled, nothing read.  (decode_walk_windows exports the windows.)
+template <typename T>
+__device__ __forceinline__ void copy_windows(T* dst, const T* src,
+                                             const WindowRow& r, int col0,
+                                             int n, int first) {
+  constexpr int W = 16 / sizeof(T), NW = kWkChunk / W + 1;
+  const int nwin = window_count<T>(r, n);
+  const T* s0 = src + (r.base < 0 ? 0 : r.base + col0);
+#pragma unroll
+  for (int i = 0; i < (NW + 3) / 4; ++i) {
+    const int w = first + 4 * i;
+    if (w < nwin) {
+      const int bytes = window_bytes<T>(r, col0, w);
+      cp_async16_l2(smem_addr(dst + w * W), bytes > 0 ? s0 + w * W : src,
+                      bytes);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c[4] += a[4] (16 x 8, row) * b[2] (8 x 8, col), TF32 in, fp32 sums; an A
+// fragment holds rows g, g + 8, g, g + 8 at columns t, t, t + 4, t + 4, a B
+// fragment column g at rows t and t + 4 (g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as TF32 operands: float32 as hi = tf32(x) and lo = tf32(x - hi);
+// bfloat16 values as they are (exact in TF32), lo unused
+template <typename T>
+__device__ __forceinline__ void operand(float x, uint32_t& hi, uint32_t& lo) {
+  if (sizeof(T) == 4) {
+    hi = tf32(x);
+    lo = tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// one k-step: big += a_hi.b_hi; float32 also small += a_hi.b_lo + a_lo.b_hi
+template <typename T>
+__device__ __forceinline__ void mma_split(float* big, float* small,
+                                          const uint32_t* ah,
+                                          const uint32_t* al,
+                                          const uint32_t* bh,
+                                          const uint32_t* bl) {
+  if (sizeof(T) == 4) {
+    mma_tf32(small, al, bh[0], bh[1]);
+    mma_tf32(small, ah, bl[0], bl[1]);
+  }
+  mma_tf32(big, ah, bh[0], bh[1]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWkThreads, 2)
+decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                   const T* __restrict__ v_pages,
+                   const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int H, int P, int page,
+                   int n_slots, int split_pages, int d, int dv,
+                   float inv_scale) {
+  constexpr int S = WalkOf<T>::kStages;
+  constexpr int KP = WalkOf<T>::kKPitch, VP = WalkOf<T>::kVPitch;
+  constexpr int W = 16 / sizeof(T);          // elements a window
+  constexpr bool kSplit = sizeof(T) == 4;    // float32: hi and lo
+  const WalkPlan plan = walk_plan(d, dv, sizeof(T) == 2);
+  const int nk = plan.k_chunks;
+  const int QP = plan.q_pitch;
+  const int entry = plan.entry_rows * (KP > VP ? KP : VP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* q_s = ring + S * entry;
+  uint32_t* ph_s = reinterpret_cast<uint32_t*>(
+      q_s + (plan.q_resident ? kHeads * QP : 0));
+  uint32_t* pl_s = ph_s + kWkPFrag;
+  float* red_s = reinterpret_cast<float*>(pl_s + kWkPFrag);
+  unsigned char* sh_s = reinterpret_cast<unsigned char*>(
+      red_s + kWkWarps * kHeads);   // [slot][K, V][token]
+
+  const int row = blockIdx.x;
+  const int h0 = blockIdx.y / plan.groups * kHeads;
+  const int v0 = blockIdx.y % plan.groups * kWkCols;
+  const int cols = min(kWkCols, dv - v0);
+  const int nv = (cols + kWkChunk - 1) / kWkChunk;
+  const int per_tile = nk + nv;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
+  const int gn = min(kHeads, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const float sl2 = 1.4426950408889634f * inv_scale;
+  // rows of K (V) start off their windows only where d (dv) is not a whole
+  // number of windows; elsewhere every shift is 0
+  const bool k_shifted = d % W != 0, v_shifted = dv % W != 0;
+
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int t_begin = split * split_pages * page;
+  const int t_end = min(min(n_pages, (split + 1) * split_pages) * page, len);
+  const int n_tiles = t_end > t_begin
+      ? (t_end - t_begin + kWkTile - 1) / kWkTile : 0;
+  const int64_t q0 = ((int64_t)row * H + h0) * d;   // the chunk's Q rows
+  const int64_t k_total = (int64_t)n_slots * page * d;
+  const int64_t v_total = (int64_t)n_slots * page * dv;
+  const int64_t q_total = (int64_t)gridDim.x * H * d;
+
+  // the copier: token my_tok of every entry, windows my_w, my_w + 4, ...
+  const int my_tok = threadIdx.x / 4, my_w = threadIdx.x % 4;
+  auto pool_row = [&](int tile) -> int64_t {
+    const int t = t_begin + tile * kWkTile + my_tok;
+    if (tile >= n_tiles || t >= t_end) return -1;
+    const int pi = t / page;
+    const int slot = trow[pi];
+    return slot >= 0 && slot < n_slots
+        ? (int64_t)slot * page + (t - pi * page) : -1;
+  };
+  int is_tile = 0, is_part = 0, is_stage = 0;
+  int64_t off = pool_row(0), off_next = pool_row(1);
+  auto shifts = [&]() {                // the readers' shifts of my token
+    if (is_tile < n_tiles && my_w == 0 && (k_shifted || v_shifted)) {
+      unsigned char* sh = sh_s + my_tok + 2 * kWkTile
+          * (plan.shift_tiles > 1 ? is_tile % (S / 2 + 1) : 0);
+      sh[0] = off >= 0 ? (unsigned char)((off * d) & (W - 1)) : 0;
+      sh[kWkTile] = off >= 0 ? (unsigned char)((off * dv) & (W - 1)) : 0;
+    }
+  };
+  shifts();
+  auto issue = [&]() {                 // the next entry, into its stage
+    if (is_tile < n_tiles) {
+      T* dst = ring + is_stage * entry;
+      const bool key = is_part < nk;
+      const int width = key ? d : dv;
+      const int col0 = key ? is_part * kWkChunk
+                           : v0 + (is_part - nk) * kWkChunk;
+      const int n = min(kWkChunk, (key ? d : v0 + cols) - col0);
+      copy_windows(dst + my_tok * (key ? KP : VP), key ? k_pages : v_pages,
+                   window_row<T>(off >= 0 ? off * width : -1,
+                                 key ? k_total : v_total),
+                   col0, n, my_w);
+      if (key && !plan.q_resident && threadIdx.x < kHeads * 4) {
+        const int hh = threadIdx.x / 4;
+        copy_windows(dst + (kWkTile + hh) * KP, q,
+                     window_row<T>(hh < gn ? q0 + (int64_t)hh * d : -1,
+                                   q_total),
+                     col0, n, my_w);
+      }
+    }
+    cp_async_commit();
+    is_stage = is_stage + 1 == S ? 0 : is_stage + 1;
+    if (++is_part == per_tile) {
+      is_part = 0;
+      ++is_tile;
+      off = off_next;
+      off_next = pool_row(is_tile + 1);
+      shifts();
+    }
+  };
+  // the next entry has landed, every thread is done with the one before,
+  // whose stage the entry S - 1 ahead then takes
+  int cs_stage = 0;
+  auto step = [&]() -> const T* {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    issue();
+    const T* e = ring + cs_stage * entry;
+    cs_stage = cs_stage + 1 == S ? 0 : cs_stage + 1;
+    return e;
+  };
+
+  if (n_tiles > 0) {
+    if (plan.q_resident) {             // Q joins the first entry's group:
+      const int hh = threadIdx.x / 16;   // 16 threads a head, its row as
+      const WindowRow r = window_row<T>(   // windows (zero past the chunk)
+          hh < gn ? q0 + (int64_t)hh * d : -1, q_total);
+      const int nwin = r.base < 0 ? QP / W : (r.sh + d + W - 1) / W;
+      for (int w = threadIdx.x % 16; w < nwin; w += 16) {
+        const int bytes = window_bytes<T>(r, 0, w);
+        cp_async16_l2(smem_addr(q_s + hh * QP + w * W),
+                        bytes > 0 ? q + r.base + w * W : q, bytes);
+      }
+    }
+    for (int i = 0; i < S - 1; ++i) issue();
+  }
+
+  float o[kWkVChunks][4];
+#pragma unroll
+  for (int j = 0; j < kWkVChunks; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // heads g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the sums
+  // Q's rows g and g + 8 (resident, or in each K entry past its tokens)
+  // at their shifts (rows past the chunk's heads are zero)
+  const int qs0 = g < gn ? (int)((q0 + (int64_t)g * d) % W) : 0;
+  const int qs1 = g + 8 < gn ? (int)((q0 + (int64_t)(g + 8) * d) % W) : 0;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const unsigned char* sh =
+        sh_s + 2 * kWkTile * (plan.shift_tiles > 1 ? tile % (S / 2 + 1) : 0);
+    // S: the 16 heads x this warp's 8 tokens, over d's chunks
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kc = 0; kc < nk; ++kc) {
+      const T* e = step();
+      const int lim = d - kc * kWkChunk;     // columns of the chunk below d
+      const T* kb = e + (warp * 8 + g) * KP
+                    + (k_shifted ? sh[warp * 8 + g] : 0) + tig;
+      const T* qa0 = (plan.q_resident ? q_s + g * QP + kc * kWkChunk
+                                      : e + (kWkTile + g) * KP) + qs0 + tig;
+      const T* qa1 = (plan.q_resident ? q_s + (g + 8) * QP + kc * kWkChunk
+                                      : e + (kWkTile + g + 8) * KP) + qs1
+                     + tig;
+      float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k0 = 0; k0 < kWkChunk; k0 += 8) {
+        const bool in0 = k0 + tig < lim, in1 = k0 + tig + 4 < lim;
+        const float a[4] = {in0 ? to_f32(qa0[k0]) : 0.f,
+                            in0 ? to_f32(qa1[k0]) : 0.f,
+                            in1 ? to_f32(qa0[k0 + 4]) : 0.f,
+                            in1 ? to_f32(qa1[k0 + 4]) : 0.f};
+        const float b[2] = {in0 ? to_f32(kb[k0]) : 0.f,
+                            in1 ? to_f32(kb[k0 + 4]) : 0.f};
+        uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) operand<T>(a[i], ah[i], al[i]);
+        operand<T>(b[0], bh[0], bl[0]);
+        operand<T>(b[1], bh[1], bl[1]);
+        mma_split<T>(big, small, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] += big[i] + small[i];
+    }
+    const int t0 = t_begin + tile * kWkTile + warp * 8;
+    if (t0 + 8 > t_end) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (t0 + tig * 2 + (e & 1) >= t_end) s[e] = -INFINITY;
+    }
+    // the tile's maximum of each head over the warps
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(s[2 * r], s[2 * r + 1]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (tig == 0) red_s[warp * kHeads + g + 8 * r] = mx;
+    }
+    __syncthreads();
+    // P as the A fragments of P V, k-step w (this warp's tokens): token
+    // 8 w + t' of head g + 8 r goes to lane 4 g + t' % 4, slot r + 2 (t' /
+    // 4); float32 split into TF32 hi and lo, bfloat16 rounded to TF32 once
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int hh = g + 8 * r;
+      float mx = red_s[hh];
+#pragma unroll
+      for (int w = 1; w < kWkWarps; ++w)
+        mx = fmaxf(mx, red_s[w * kHeads + hh]);
+      const float m_new = fmaxf(m[r], mx * sl2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      const float p[2] = {exp2f(fmaf(s[2 * r], sl2, -m_use)),
+                          exp2f(fmaf(s[2 * r + 1], sl2, -m_use))};
+      l[r] = l[r] * alpha + p[0] + p[1];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tp = 2 * tig + e;
+        const int at = (warp * 32 + g * 4 + (tp & 3)) * 4 + r + 2 * (tp >> 2);
+        const uint32_t hi = tf32(p[e]);
+        ph_s[at] = hi;
+        if (kSplit) pl_s[at] = tf32(p[e] - __uint_as_float(hi));
+      }
+#pragma unroll
+      for (int j = 0; j < kWkVChunks; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+    // V's shifts of rows t and t + 4 of each k-step, 4 bits each
+    uint32_t vsh0 = 0u, vsh1 = 0u;
+    if (v_shifted) {
+#pragma unroll
+      for (int kk = 0; kk < kWkTile / 8; ++kk) {
+        vsh0 |= (uint32_t)sh[kWkTile + kk * 8 + tig] << (4 * kk);
+        vsh1 |= (uint32_t)sh[kWkTile + kk * 8 + tig + 4] << (4 * kk);
+      }
+    }
+    __syncthreads();                   // P of all the tile's tokens
+    // O[:, this warp's columns of each chunk] += P V
+#pragma unroll
+    for (int j = 0; j < kWkVChunks; ++j) {
+      if (j >= nv) break;              // uniform in the block
+      const T* e = step() + warp * 8 + g;
+      float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kWkTile / 8; ++kk) {
+        const uint4 h4 = *reinterpret_cast<const uint4*>(
+            ph_s + (kk * 32 + lane) * 4);
+        const uint4 l4 = kSplit ? *reinterpret_cast<const uint4*>(
+                                      pl_s + (kk * 32 + lane) * 4)
+                                : make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t ah[4] = {h4.x, h4.y, h4.z, h4.w};
+        const uint32_t al[4] = {l4.x, l4.y, l4.z, l4.w};
+        const int r0 = kk * 8 + tig;
+        uint32_t bh[2], bl[2];
+        operand<T>(to_f32(e[r0 * VP + ((vsh0 >> (4 * kk)) & 15u)]), bh[0],
+                   bl[0]);
+        operand<T>(to_f32(e[(r0 + 4) * VP + ((vsh1 >> (4 * kk)) & 15u)]),
+                   bh[1], bl[1]);
+        mma_split<T>(big, small, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[j][i] += big[i] + small[i];
+    }
+  }
+
+  // the sums: over the quad, then over the warps (all share the max)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();                     // the last maxima have been read
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (tig == 0) red_s[warp * kHeads + g + 8 * r] = l[r];
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hh = g + 8 * r;
+    if (hh >= gn) continue;
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWkWarps; ++w) L += red_s[w * kHeads + hh];
+    const int64_t rh = (int64_t)row * H + h0 + hh;
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    float* acc = out != nullptr ? nullptr
+                                : part_acc + (rh * n_splits + split) * dv;
+#pragma unroll
+    for (int j = 0; j < kWkVChunks; ++j) {
+      const int c = j * kWkChunk + warp * 8 + tig * 2;
+      if (j >= nv) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (c + e >= cols) continue;
+        if (out != nullptr)
+          store(out + rh * dv + v0 + c + e, o[j][2 * r + e] * inv);
+        else
+          acc[v0 + c + e] = o[j][2 * r + e];
       }
     }
     if (out == nullptr && v0 == 0 && warp == 0 && tig == 0) {
@@ -1566,20 +1935,33 @@ struct Lanes {                         // route 2: any width, CUDA cores
   }
 };
 
+// route 3: float32 and ragged bfloat16 past the lanes' widths on the
+// tensor cores in TF32; the shared memory depends on (d, dv) and the type
+// (walk_plan), so the kernel may take up to an H100 block's most
 template <typename T>
-struct Walk {                          // route 3: past the lanes' widths
-  static int heads() { return kLaneHeads; }
-  static int blocks_per_sm(int* n, int, int) {
+struct Walk {
+  static constexpr int kBf16 = sizeof(T) == 2;
+  static int heads() { return kHeads; }
+  static int configured() {
+    static const int err = configure(decode_walk_kernel<T>, kSmemLimit);
+    return err;
+  }
+  static int blocks_per_sm(int* n, int d, int dv) {
+    const int err = configured();
+    if (err != 0) return err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, decode_walk_kernel<T>, kThreads, 0);
+        n, decode_walk_kernel<T>, kWkThreads,
+        walk_plan(d, dv, kBf16).smem_bytes);
   }
   static int launch(const Args& a) {
+    const int err = configured();
+    if (err != 0) return err;
+    const WalkPlan plan = walk_plan(a.d, a.dv, kBf16);
     const int n = a.splits();
     const Parts parts(a.scratch, a.B, a.H, n);
-    const int groups = (a.dv + kWalkCols - 1) / kWalkCols;
     decode_walk_kernel<T>
-        <<<dim3(a.B, (a.H + kLaneHeads - 1) / kLaneHeads * groups, n),
-           kThreads, 0, a.stream>>>(
+        <<<dim3(a.B, (a.H + kHeads - 1) / kHeads * plan.groups, n),
+           kWkThreads, plan.smem_bytes, a.stream>>>(
             (const T*)a.q, (const T*)a.k, (const T*)a.v,
             (const int32_t*)a.table, (const int32_t*)a.lens,
             n > 1 ? nullptr : (T*)a.out, parts.m, parts.l, parts.acc, a.H,
@@ -1693,8 +2075,8 @@ extern "C" {
 // route 1 bfloat16 at d <= DK, dv <= DV, both multiples of 8, (DK, DV) in
 // {(16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (576, 512)};
 // route 2 either type at d <= DK = 576, dv <= DV = 512; route 3 either
-// type at any d <= DK, dv <= DV (the wrapper passes its d and dv); route
-// 4 bfloat16 at d = DK, dv = DV, both multiples of 8.
+// type at d = DK, dv = DV; route 4 bfloat16 at d = DK, dv = DV, both
+// multiples of 8.
 // Scores are q.k * inv_scale.  Returns a CUDA error code;
 // cudaErrorInvalidValue for an instance that is not built or widths it
 // does not take.
@@ -1706,7 +2088,7 @@ int decode_attention(const void* q, const void* k_pages, const void* v_pages,
   if (n_splits < 1 || (n_splits > 1 && n_splits > P) || d < 1 || dv < 1
       || d > DK || dv > DV || (route == 0 && (d != DK || dv != DV))
       || ((route == 1 || route == 4) && (d % 8 != 0 || dv % 8 != 0))
-      || (route == 4 && (d != DK || dv != DV)))
+      || ((route == 3 || route == 4) && (d != DK || dv != DV)))
     return (int)cudaErrorInvalidValue;
   const Launch f{{q, k_pages, v_pages, page_table, seq_lens, out,
                   (float*)scratch, B, H, P, page, n_slots, n_splits, d, dv,
@@ -1732,6 +2114,41 @@ void decode_walk_tc_plan(int d, int dv, int* fields) {
                      p.v_chunks, p.q_resident, p.entry_rows, kWtStages,
                      p.smem_bytes};
   for (int i = 0; i < 10; ++i) fields[i] = f[i];
+}
+
+// Route 3's plan at (d, dv) in a type (bf16 != 0: bfloat16, else
+// float32) as the kernel computes it, into fields[15]: tile, chunk,
+// window, stages, k_chunks, groups, group_cols, v_chunks, q_resident,
+// entry_rows, k_pitch, v_pitch, q_pitch, shift_tiles, smem_bytes (the
+// wrapper's walk_plan).
+void decode_walk_plan(int d, int dv, int bf16, int* fields) {
+  const WalkPlan p = walk_plan(d, dv, bf16);
+  const int f[15] = {kWkTile, kWkChunk, p.window, p.stages, p.k_chunks,
+                     p.groups, p.group_cols, p.v_chunks, p.q_resident,
+                     p.entry_rows, p.k_pitch, p.v_pitch, p.q_pitch,
+                     p.shift_tiles, p.smem_bytes};
+  for (int i = 0; i < 15; ++i) fields[i] = f[i];
+}
+
+// The TF32 walk's windows (copy_windows) for columns col0 .. col0 + n - 1
+// of the pool rows that start at elements row_e0[i] (-1: zero-filled) of a
+// pool of `total` elements: the first element of the first window (-1
+// where nothing is read), their number and the bytes they read (the
+// wrapper's walk_windows).
+void decode_walk_windows(const int64_t* row_e0, int count, int col0, int n,
+                         int64_t total, int bf16, int64_t* base, int* nwin,
+                         int* bytes) {
+  for (int i = 0; i < count; ++i) {
+    const WindowRow r = bf16 ? window_row<__nv_bfloat16>(row_e0[i], total)
+                             : window_row<float>(row_e0[i], total);
+    nwin[i] = bf16 ? window_count<__nv_bfloat16>(r, n)
+                   : window_count<float>(r, n);
+    base[i] = r.base < 0 ? -1 : r.base + col0;
+    bytes[i] = 0;
+    for (int w = 0; w < nwin[i]; ++w)
+      bytes[i] += bf16 ? window_bytes<__nv_bfloat16>(r, col0, w)
+                       : window_bytes<float>(r, col0, w);
+  }
 }
 
 }  // extern "C"

@@ -27,12 +27,12 @@ with Q in shared memory); every other width up to ``LANES_D``,
 16-byte chunks on the tensor cores ("walk_tc": 16 heads a block, K and V
 walked in tiles of tokens and chunks of columns through a shared-memory
 ring, value columns in groups of ``WALK_TC_COLS``, ``walk_tc_plan``);
-in float32 or at bfloat16 rows of other widths on the CUDA cores
-("walk"): the key width walked 32 columns a step with q read in place,
-the value columns in groups of ``WALK_COLS``, a block each (each group
-recomputes the scores: ceil(dv / ``WALK_COLS``) times the q.k work).
-Every route reads the pool in place at its own widths; only q is
-zero-padded to DK on the tensor cores' instances.
+in float32 or at bfloat16 rows of other widths on the same plan in TF32
+("walk": float32 as three products of operands split hi + lo, bfloat16
+as one; rows of any alignment copied as the 16-byte windows that cover
+them, ``walk_windows``; ``walk_plan``).  Every route reads the pool in
+place at its own widths; only q is zero-padded to DK on the tensor
+cores' instances.
 """
 from __future__ import annotations
 
@@ -50,8 +50,7 @@ LAUNCHES = 0
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)     # square instances (one build a type each)
 WIDE = ((256, 256), (576, 512))   # bf16 tensor-core instances past 128
-LANES_D, LANES_DV = 576, 512      # the lanes instance; wider: the walk
-WALK_COLS = 512                   # value columns a block of the walk
+LANES_D, LANES_DV = 576, 512      # the lanes instance; wider: the walks
 ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2, "walk": 3,
           "walk_tc": 4}
 # the tensor-core walk (csrc/decode_attention.cu, route 4): tokens a tile,
@@ -59,6 +58,14 @@ ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2, "walk": 3,
 # heads a block, and an H100 block's most shared memory
 WALK_TC_TILE, WALK_TC_CHUNK, WALK_TC_STAGES = 64, 64, 8
 WALK_TC_COLS, WALK_TC_HEADS, SMEM_LIMIT = 1024, 16, 232448
+# the TF32 walk (route 3) on the tensor-core walk's tiles, chunks, value
+# columns a block and heads a block: by type, the ring's entries and the
+# shared row pitches (elements) of its K and V entries; the shared memory
+# of a block when two share an SM (half of its 233,472 bytes less the
+# 1,024 each block reserves)
+WALK_STAGES = {torch.float32: 4, torch.bfloat16: 8}
+WALK_PITCHES = {torch.float32: (68, 72), torch.bfloat16: (72, 80)}
+WALK_BLOCK_SMEM = 115712
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_WAVE_SHARE = 0.9            # least share of the last wave kept busy
 _PLANS = {}                       # (instance, H > 4, dtype) -> launch_plan
@@ -151,6 +158,139 @@ def walk_tc_source_plan(d: int, dv: int) -> WalkTcPlan:
     fn(d, dv, ctypes.addressof(out))
     f = list(out)
     return WalkTcPlan(*f[:6], bool(f[6]), *f[7:])
+
+
+class WalkPlan(NamedTuple):
+    """The TF32 walk's blocks at (d, dv) in a type (``WalkPlan`` in the
+    source): tiles of ``tile`` tokens walk d in ``k_chunks`` ring entries
+    of ``chunk`` columns, then the group's value columns in ``v_chunks``;
+    ``groups`` blocks of at most ``group_cols`` value columns (each
+    recomputes the scores); a row chunk is copied as 16-byte windows of
+    ``window`` elements into a shared row of ``k_pitch`` (K) or
+    ``v_pitch`` (V) elements; Q resident in shared memory, rows of
+    ``q_pitch``, or, past what fits beside the ring, 16 more rows of each
+    K entry (``entry_rows``); ``stages`` entries in the ring; the tiles'
+    row shifts in ``shift_tiles`` slots, enough for every tile the copier
+    can enter while a tile's shifts are still to be read; the block's
+    shared memory."""
+    tile: int
+    chunk: int
+    window: int
+    stages: int
+    k_chunks: int
+    groups: int
+    group_cols: int
+    v_chunks: int
+    q_resident: bool
+    entry_rows: int
+    k_pitch: int
+    v_pitch: int
+    q_pitch: int
+    shift_tiles: int
+    smem_bytes: int
+
+    def reads(self, d: int, dv: int, H: int, tokens: int):
+        """(K bytes, V bytes) of the rows the launch asks for at
+        ``tokens`` positions of H query heads: each (row, head chunk)
+        asks for V once and K once a group (the windows of rows that are
+        not whole 16-byte chunks read more: ``walk_windows``)."""
+        chunks = -(-H // WALK_TC_HEADS)
+        item = 16 // self.window
+        return (item * tokens * d * chunks * self.groups,
+                item * tokens * dv * chunks)
+
+
+def walk_plan(d: int, dv: int, dtype) -> WalkPlan:
+    """The TF32 walk's plan at (d, dv) in ``dtype``, as ``walk_plan`` in the
+    source computes it: the ring (``WALK_STAGES`` entries of tokens x the
+    wider of the two pitches), then Q [16, q_pitch] of the type where all
+    of it fits within ``WALK_BLOCK_SMEM`` (two blocks an SM), then P's A
+    fragments, TF32 hi and lo [tile / 8, 32, 4] uint32, the warps' maxima
+    [8, 16] fp32 and the tiles' shifts [shift_tiles, 2, tile] bytes.  The
+    copier runs stages - 1 entries ahead and writes a tile's shifts as it
+    enters it, and a tile's are read up to its K entries' end, so with
+    tiles of k_chunks + v_chunks entries (fewest in the last group) it can
+    enter (stages - 1 + k_chunks) // that more tiles first, each into a
+    slot of its own: one slot where that is none, else stages // 2 + 1,
+    the most it can be (tiles of two entries)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    window = 16 // item
+    stages = WALK_STAGES[dtype]
+    k_pitch, v_pitch = WALK_PITCHES[dtype]
+    k_chunks = -(-d // WALK_TC_CHUNK)
+    groups = -(-dv // WALK_TC_COLS)
+    group_cols = min(dv, WALK_TC_COLS)
+    q_pitch = k_chunks * WALK_TC_CHUNK + window
+    row = max(k_pitch, v_pitch)
+    fewest = k_chunks + -(-(dv - (groups - 1) * WALK_TC_COLS)
+                          // WALK_TC_CHUNK)
+    shift_tiles = stages // 2 + 1 if (stages - 1 + k_chunks) // fewest \
+        else 1
+    fixed = 2 * WALK_TC_TILE // 8 * 32 * 4 * 4 + 8 * WALK_TC_HEADS * 4 \
+        + 2 * WALK_TC_TILE * shift_tiles
+    q_bytes = WALK_TC_HEADS * q_pitch * item
+    resident = fixed + q_bytes + stages * WALK_TC_TILE * row * item \
+        <= WALK_BLOCK_SMEM
+    rows = WALK_TC_TILE + (0 if resident else WALK_TC_HEADS)
+    return WalkPlan(WALK_TC_TILE, WALK_TC_CHUNK, window, stages, k_chunks,
+                    groups, group_cols, -(-group_cols // WALK_TC_CHUNK),
+                    resident, rows, k_pitch, v_pitch, q_pitch, shift_tiles,
+                    fixed + (q_bytes if resident else 0)
+                    + stages * rows * row * item)
+
+
+def walk_source_plan(d: int, dv: int, dtype) -> WalkPlan:
+    """The TF32 walk's plan as the built source computes it, in
+    ``walk_plan``'s fields."""
+    fn = cuda_build.load("decode_attention").decode_walk_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 15)()
+    fn(d, dv, _DTYPES[dtype], ctypes.addressof(out))
+    f = list(out)
+    return WalkPlan(*f[:8], bool(f[8]), *f[9:])
+
+
+def walk_windows(e0, col0: int, n: int, item: int, total: int):
+    """The 16-byte windows the TF32 walk copies for columns col0 .. col0 +
+    n - 1 (col0 a multiple of the window) of pool rows that start at
+    elements ``e0`` (a tensor; -1 for a row it zero-fills) of a pool of
+    ``total`` elements of ``item`` bytes, as ``copy_windows`` in the
+    source: for each row the first element of its first window (the
+    boundary at or below the chunk's first element; -1 where nothing is
+    read), its number of windows, and the bytes they read, every window 16
+    but at the pool's last bytes, where one reads what remains and
+    cp.async zero-fills the rest.  ``walk_source_windows`` gives the
+    source's."""
+    window = 16 // item
+    e0 = e0.long()
+    row = e0 >= 0
+    sh = torch.where(row, e0 % window, 0)
+    base = torch.where(row, e0 - sh + col0, -1)
+    nwin = torch.where(row, (sh + n + window - 1) // window,
+                       WALK_TC_CHUNK // window + 1)
+    left = torch.where(row, torch.clamp(total - (e0 - sh), max=1 << 28), 0) \
+        - col0
+    nbytes = torch.minimum(nwin * window, left).clamp(min=0) * item
+    return base, nwin, nbytes
+
+
+def walk_source_windows(e0, col0: int, n: int, item: int, total: int):
+    """``walk_windows`` as the built source computes it
+    (``decode_walk_windows``), in its fields."""
+    fn = cuda_build.load("decode_attention").decode_walk_windows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_int] \
+        + [ctypes.c_void_p] * 3
+    fn.restype = None
+    rows = e0.long().cpu().contiguous()
+    count = rows.numel()
+    base = torch.empty(count, dtype=torch.int64)
+    nwin = torch.empty(count, dtype=torch.int32)
+    nbytes = torch.empty(count, dtype=torch.int32)
+    fn(rows.data_ptr(), count, col0, n, total, int(item == 2),
+       base.data_ptr(), nwin.data_ptr(), nbytes.data_ptr())
+    return base, nwin.long(), nbytes.long()
 
 
 def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
@@ -259,10 +399,14 @@ def launch_plan(d: int, dv: int, H: int, dtype, inst=None):
 
 def value_groups(inst) -> int:
     """The blocks a (row, head chunk, split) of instance ``inst`` takes:
-    the walks' groups of value columns, else 1."""
-    route, _, dv = inst
-    cols = {"walk": WALK_COLS, "walk_tc": WALK_TC_COLS}.get(route)
-    return -(-dv // cols) if cols else 1
+    the walks' groups of value columns (from their plans; the TF32 walk's
+    are the same in both types), else 1."""
+    route, d, dv = inst
+    if route == "walk":
+        return walk_plan(d, dv, torch.float32).groups
+    if route == "walk_tc":
+        return walk_tc_plan(d, dv).groups
+    return 1
 
 
 def splits_for(q, P: int, dv=None, inst=None) -> int:
@@ -294,7 +438,7 @@ def launch_instance(q, k_pages, v_pages, page_table, seq_lens, inst):
     """The CUDA kernel's instance ``inst`` (route, DK, DV) on these checked
     CUDA tensors, its launch counted: ``attention_in_range`` names the
     one ``instance`` picks; a comparison of routes at one width names
-    another (the CUDA-core walk beside the tensor-core one).  Raises for
+    another (the TF32 walk beside the tensor-core one).  Raises for
     an instance that does not take these widths."""
     global LAUNCHES
     B, H, d = q.shape

@@ -61,7 +61,7 @@ F32, BF16 = torch.float32, torch.bfloat16
     (1, 1, BF16, ("lanes", 576, 512)),
     (300, 100, F32, ("lanes", 576, 512)),
     # past (576, 512): bf16 rows of whole 16-byte chunks on the tensor-core
-    # walk, float32 and other bf16 rows on the CUDA-core walk
+    # walk, float32 and other bf16 rows on the TF32 walk
     (1024, 1024, BF16, ("walk_tc", 1024, 1024)),
     (1000, 600, BF16, ("walk_tc", 1000, 600)),
     (584, 8, BF16, ("walk_tc", 584, 8)),
@@ -73,7 +73,7 @@ def test_decode_instance_covers_the_widths(d, dv, dtype, want):
     """``instance``: float32 at the square head dims keeps its instance;
     bf16 rows of whole 16-byte chunks go to the tensor cores (past (576,
     512) on the tensor-core walk), every other width to the CUDA-core
-    lanes or, past them, the CUDA-core walk; the instance always holds
+    lanes or, past them, the TF32 walk; the instance always holds
     (d, dv)."""
     route, DK, DV = da.instance(d, dv, dtype)
     assert (route, DK, DV) == want
@@ -90,7 +90,7 @@ def test_decode_instance_refuses_past_its_limit(d, dv):
     the lanes instance's (576, 512), where it refused until PR 29, every
     width runs on a walk at the caller's own widths (no padding): bf16
     rows of whole 16-byte chunks on the tensor-core walk, float32 and
-    other bf16 rows on the CUDA-core walk."""
+    other bf16 rows on the TF32 walk."""
     for dtype in (F32, BF16):
         if d < 1 or dv < 1:
             with pytest.raises(ValueError, match=">= 1"):
@@ -101,41 +101,85 @@ def test_decode_instance_refuses_past_its_limit(d, dv):
                 "walk_tc" if whole else "walk", d, dv)
 
 
-def decode_walk_replay(q, kp, vp, pt, lens, n_splits: int):
-    """The walk route's arithmetic in float64 (``csrc/decode_attention.cu``
-    route 3 and the merge): each split's contiguous range of pages, for
-    each group of ``WALK_COLS`` value columns its own (max, sum, sum of p
-    v) over the split's tokens (scores over the whole key width, the
-    same in every group), then the splits merged in order."""
+def _tf32(a):
+    """float32 values rounded to TF32 (10 mantissa bits, to nearest, ties
+    away from zero: cvt.rna.tf32.f32), as float64."""
+    b = np.asarray(a, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return b.view(np.float32).astype(np.float64)
+
+
+def _split(a, lo=True):
+    """float32 values as the TF32 walk splits them: hi = tf32(x) and lo =
+    tf32(x - hi) (``lo=False``: hi alone)."""
+    a = np.asarray(a, np.float32)
+    hi = _tf32(a)
+    return hi, (_tf32(a - hi.astype(np.float32)) if lo else 0.0 * hi)
+
+
+def _tf32_product(a, b, split: bool, lo: bool = True):
+    """a @ b as the TF32 walk's tensor cores form it, in float64: float32
+    (``split``) as hi.hi + hi.lo + lo.hi of the split operands (hi.hi
+    alone with ``lo=False``); bfloat16 values, exact in TF32, as they
+    are."""
+    if not split:
+        return a @ b
+    ah, al = _split(a, lo)
+    bh, bl = _split(b, lo)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def decode_walk_replay(q, kp, vp, pt, lens, n_splits: int,
+                       dtype: str = "float32", lo: bool = True):
+    """The TF32 walk's arithmetic in float64 (``csrc/decode_attention.cu``
+    route 3 and the merge), on ``walk_plan``: each split's tokens in tiles
+    of ``tile``; a tile's scores summed over d's chunks of ``chunk``
+    columns (zero past d), each chunk's Q K^T float32 as three products of
+    split operands, bfloat16 as one; the tile's maximum of each head over
+    all its tokens, the running max and sum (of P unrounded); P V float32
+    as three products of P (as float32) and V split, bfloat16 with P
+    rounded once to TF32; value columns in the plan's groups, each
+    recomputing the same scores; the splits merged in order.  ``lo=False``
+    drops the lo products (one TF32 product)."""
     B, H, d = q.shape
     page, dv = kp.shape[1], vp.shape[2]
     P = pt.shape[1]
+    split = dtype == "float32"
+    plan = da.walk_plan(d, dv, {"float32": F32, "bfloat16": BF16}[dtype])
     per = -(-P // n_splits)
     out = np.zeros((B, H, dv))
-    q, kp, vp = (a.astype(np.float64) for a in (q, kp, vp))
+    width = plan.k_chunks * plan.chunk
     for b in range(B):
         n_pages = min(P, -(-int(lens[b]) // page)) if lens[b] > 0 else 0
+        Q = np.pad(q[b], ((0, 0), (0, width - d)))
         parts = []
         for sp in range(0, P, per):
             toks = [(pt[b, pi], t) for pi in range(sp, min(sp + per,
                                                            n_pages))
                     for t in range(min(page, int(lens[b]) - pi * page))]
-            m = np.full(H, -1e30)
-            l, acc = np.zeros(H), np.zeros((H, dv))
-            for v0 in range(0, dv, da.WALK_COLS):
-                cols = slice(v0, min(dv, v0 + da.WALK_COLS))
-                mg, lg, ag = np.full(H, -1e30), np.zeros(H), \
-                    np.zeros((H, cols.stop - v0))
-                for slot, t in toks:
-                    s = q[b] @ kp[slot, t] / math.sqrt(d)
-                    mn = np.maximum(mg, s)
-                    alpha, p = np.exp(mg - mn), np.exp(s - mn)
-                    lg = lg * alpha + p
-                    ag = ag * alpha[:, None] + p[:, None] * vp[slot, t, cols]
-                    mg = mn
-                acc[:, cols] = ag
-                m, l = mg, lg          # every group's are the same
-            parts.append((m, l, acc))
+            acc = np.zeros((H, dv))
+            for grp in range(plan.groups):
+                cols = slice(grp * plan.group_cols,
+                             min(dv, (grp + 1) * plan.group_cols))
+                m, l = np.full(H, -1e30), np.zeros(H)
+                for t0 in range(0, len(toks), plan.tile):
+                    tile = toks[t0:t0 + plan.tile]
+                    K = np.pad(np.stack([kp[sl, t] for sl, t in tile]),
+                               ((0, 0), (0, width - d)))
+                    V = np.stack([vp[sl, t, cols] for sl, t in tile])
+                    s = sum(_tf32_product(Q[:, c:c + plan.chunk],
+                                          K[:, c:c + plan.chunk].T, split,
+                                          lo)
+                            for c in range(0, width, plan.chunk))
+                    s = s / math.sqrt(d)
+                    mn = np.maximum(m, s.max(axis=1))
+                    alpha, p = np.exp(m - mn), np.exp(s - mn[:, None])
+                    l = l * alpha + p.sum(axis=1)
+                    pv = _tf32_product(p, V, True, lo) if split \
+                        else _tf32(p) @ V
+                    acc[:, cols] = acc[:, cols] * alpha[:, None] + pv
+                    m = mn
+            parts.append((m, l, acc))   # every group's m and l are the same
         M = np.max([pm for pm, _, _ in parts], axis=0)
         L = sum(pl * np.exp(pm - M) for pm, pl, _ in parts)
         A = sum(pa * np.exp(pm - M)[:, None] for pm, _, pa in parts)
@@ -143,7 +187,8 @@ def decode_walk_replay(q, kp, vp, pt, lens, n_splits: int):
     return out
 
 
-def decode_walk_tc_replay(q, kp, vp, pt, lens, n_splits: int):
+def decode_walk_tc_replay(q, kp, vp, pt, lens, n_splits: int,
+                          dtype: str = "bfloat16"):
     """The tensor-core walk's arithmetic in float64 (``csrc/
     decode_attention.cu`` route 4 and the merge), on ``walk_tc_plan``:
     each split's tokens in tiles of ``tile``; a tile's scores summed over
@@ -210,7 +255,9 @@ def test_decode_walk_replay_equals_the_jax_kernel(d, dv, n_splits, schedule,
     widths past the lanes instance, within the reference's tolerances:
     the tensor-core walk's (bf16: tiles of 64 tokens, d in chunks of 64,
     P rounded to bf16, groups of 1024 value columns; two at dv 1100) and
-    the CUDA-core walk's (groups of 512 value columns) in both types."""
+    the TF32 walk's on the same tiles and groups in both types (float32:
+    three products of split operands; bfloat16: one, P rounded to
+    TF32)."""
     from repro.kernels.decode_attention.ops import \
         paged_decode_attention as j_decode
     q, kp, vp, pt, lens = (t.numpy() for t in _decode_case(2, 3, d, dv, 4,
@@ -224,13 +271,178 @@ def test_decode_walk_replay_equals_the_jax_kernel(d, dv, n_splits, schedule,
                                 for a in (q, kp, vp)),
                               jnp.asarray(pt), jnp.asarray(lens)),
                      np.float32)
-    got = WALK_REPLAY[schedule](q, kp, vp, pt, lens, n_splits)
+    got = WALK_REPLAY[schedule](q, kp, vp, pt, lens, n_splits, dtype)
     assert_close(got.astype(np.float32), ref, dtype)
     plain = da.paged_decode_plain(*(torch.from_numpy(a).to(tdt)
                                     for a in (q, kp, vp)),
                                   torch.from_numpy(pt),
                                   torch.from_numpy(lens))
     assert_close(to_np(plain), ref, dtype)
+
+
+def _walk_case(d, dv, dtype, seed):
+    """``test_decode_walk_replay_equals_the_jax_kernel``'s inputs: the
+    type's values as float32 numpy arrays, and the JAX kernel's output."""
+    from repro.kernels.decode_attention.ops import \
+        paged_decode_attention as j_decode
+    q, kp, vp, pt, lens = (t.numpy() for t in _decode_case(2, 3, d, dv, 4,
+                                                            3, seed=seed))
+    lens = np.maximum(lens, 1).astype(np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    q, kp, vp = (np.array(jnp.asarray(a).astype(jdt), np.float32)
+                 for a in (q, kp, vp))
+    ref = np.asarray(j_decode(*(jnp.asarray(a).astype(jdt)
+                                for a in (q, kp, vp)),
+                              jnp.asarray(pt), jnp.asarray(lens)),
+                     np.float32)
+    return q, kp, vp, pt, lens, ref
+
+
+@pytest.mark.parametrize("d,dv,n_splits", [(1024, 1024, 3), (640, 1100, 2)])
+def test_decode_walk_replay_needs_the_lo_products_in_fp32(d, dv, n_splits):
+    """The TF32 walk's float32 split is needed: the same replay with the
+    lo products dropped (one TF32 product, an error near 2^-11) leaves
+    the reference's 2e-5 against the JAX kernel, where the three products
+    stay inside it."""
+    q, kp, vp, pt, lens, ref = _walk_case(d, dv, "float32", seed=d)
+    full = decode_walk_replay(q, kp, vp, pt, lens, n_splits, "float32")
+    assert_close(full.astype(np.float32), ref, "float32")
+    one = decode_walk_replay(q, kp, vp, pt, lens, n_splits, "float32",
+                             lo=False).astype(np.float32)
+    over = np.abs(one - ref) - (2e-5 + 2e-5 * np.abs(ref))
+    assert over.max() > 0, "one TF32 product stayed within 2e-5"
+    assert np.abs(one - ref).max() > 10 * np.abs(full - ref).max()
+
+
+# the TF32 walk's plans by hand: (stages, k_chunks, groups, group_cols,
+# v_chunks, q_resident, entry_rows, shift_tiles, smem_bytes).  Shared
+# memory, within two blocks an SM (115,712 bytes each): a ring of entries
+# of 64 token rows (80 with Q's 16 rows) x the wider pitch (fp32 72 x 4
+# bytes, 4 entries; bf16 80 x 2 bytes, 8 entries), P's fragments hi and lo
+# 2 x 8 x 32 x 4 x 4 bytes, the warps' maxima 8 x 16 x 4 bytes (8,704
+# bytes with P), the tiles' shifts shift_tiles x 2 x 64 bytes, and Q 16 x
+# (64 k_chunks + one window) of the type where all of it fits.  The copier
+# runs stages - 1 entries ahead and enters a tile as it issues its first;
+# a tile's shifts are read until its K entries are done: one slot where a
+# tile (k_chunks + v_chunks entries) is longer than stages - 1 + k_chunks,
+# else stages // 2 + 1, enough for tiles of two entries
+WALK_PLANS = {
+    # Q 1028 wide would take 65,792 bytes beside a ring of 73,728: it
+    # rides in the K entries, 4 x 80 x 288 + 8,832; one group, so every K
+    # and V byte of a (row, head chunk) is asked for once
+    ("float32", 1024, 1024): (4, 16, 1, 1024, 16, False, 80, 1, 100992),
+    ("float32", 640, 512): (4, 10, 1, 512, 8, False, 80, 1, 100992),
+    ("float32", 4928, 520): (4, 77, 1, 520, 9, False, 80, 1, 100992),
+    # bf16: 8 x 80 x 160 + 8,832 past d 768; d's last chunk 41 columns
+    ("bfloat16", 1001, 1000): (8, 16, 1, 1000, 16, False, 80, 1, 111232),
+    ("bfloat16", 1000, 602): (8, 16, 1, 602, 10, False, 80, 1, 111232),
+    # Q 648 wide, 20,736 bytes, fits beside 81,920 + 8,832
+    ("bfloat16", 640, 512): (8, 10, 1, 512, 8, True, 64, 1, 111488),
+    # one K chunk and two groups, the second of 6 columns (one V chunk):
+    # its tiles are two entries, so the copier enters (3 + 1) // 2 = 2
+    # (fp32) or (7 + 1) // 2 = 4 (bf16) tiles ahead of a tile's last read
+    # of its shifts, the most it can; Q resident, fp32 16 x 68 x 4 beside
+    # 73,728 + 8,704 + 3 x 128, bf16 16 x 72 x 2 beside 81,920 + 8,704 +
+    # 5 x 128
+    ("float32", 60, 1030): (4, 1, 2, 1024, 16, True, 64, 3, 87168),
+    ("bfloat16", 60, 1030): (8, 1, 2, 1024, 16, True, 64, 5, 93568),
+}
+
+
+@pytest.mark.parametrize("dtype,d,dv", list(WALK_PLANS))
+def test_decode_walk_plan_matches_the_hand_counts(dtype, d, dv):
+    """``walk_plan`` at the timed and checked widths: stages, chunks,
+    groups, Q's place, the shift slots and shared memory as counted by
+    hand, within two blocks an H100 SM and adding up; the fewest shift
+    slots that outlast the copier's lead; the row pitches; the blocks a
+    (row, head chunk, split); the K and V bytes asked for: each once per
+    (row, head chunk) where one group covers dv, K again for each further
+    group, both again for each chunk of 16 heads."""
+    tdt = {"float32": F32, "bfloat16": BF16}[dtype]
+    item = 4 if dtype == "float32" else 2
+    plan = da.walk_plan(d, dv, tdt)
+    assert (plan.stages, plan.k_chunks, plan.groups, plan.group_cols,
+            plan.v_chunks, plan.q_resident, plan.entry_rows,
+            plan.shift_tiles, plan.smem_bytes) == WALK_PLANS[dtype, d, dv]
+    assert (plan.tile, plan.chunk, plan.window) == (64, 64, 16 // item)
+    assert (plan.k_pitch, plan.v_pitch) == ((68, 72) if item == 4
+                                            else (72, 80))
+    assert plan.q_pitch == 64 * plan.k_chunks + 16 // item
+    # two blocks an SM: each within half of its 233,472 bytes less 1,024
+    assert plan.smem_bytes <= da.WALK_BLOCK_SMEM == 233472 // 2 - 1024
+    ring = plan.stages * plan.entry_rows * max(plan.k_pitch,
+                                               plan.v_pitch) * item
+    q_bytes = 16 * plan.q_pitch * item
+    fixed = 8704 + 128 * plan.shift_tiles
+    assert plan.smem_bytes == ring + fixed \
+        + (q_bytes if plan.q_resident else 0)
+    if not plan.q_resident:             # Q streams only where it must
+        assert plan.stages * 64 * max(plan.k_pitch, plan.v_pitch) * item \
+            + fixed + q_bytes > da.WALK_BLOCK_SMEM
+    # slots that keep a tile's shifts until its last read: the copier
+    # enters a tile every k_chunks + v_chunks entries (fewest in the last
+    # group) and runs stages - 1 ahead; one slot only where it enters none
+    fewest = plan.k_chunks + -(-(dv - (plan.groups - 1) * 1024) // 64)
+    ahead = plan.stages - 1 + plan.k_chunks
+    assert plan.shift_tiles * fewest > ahead
+    assert plan.shift_tiles == (1 if fewest > ahead
+                                else plan.stages // 2 + 1)
+    # a row chunk and its extra window fit a shared row, 16-byte aligned
+    assert plan.k_pitch >= 64 + 16 // item and plan.v_pitch >= 64 + 16 // item
+    assert plan.k_pitch * item % 16 == 0 and plan.v_pitch * item % 16 == 0
+    assert da.value_groups(("walk", d, dv)) == plan.groups \
+        == -(-dv // 1024)
+    tokens = 4096
+    k_bytes, v_bytes = plan.reads(d, dv, 16, tokens)
+    assert (k_bytes, v_bytes) == (item * tokens * d * plan.groups,
+                                  item * tokens * dv)
+    assert plan.reads(d, dv, 20, tokens) == (2 * k_bytes, 2 * v_bytes)
+
+
+@pytest.mark.parametrize("dtype,width", [("bfloat16", 1001),
+                                         ("bfloat16", 1000),
+                                         ("float32", 1001),
+                                         ("bfloat16", 602),
+                                         ("float32", 602)])
+@pytest.mark.parametrize("page", [16, 7])
+def test_decode_walk_windows_are_aligned_cover_and_stay_in_the_pool(
+        dtype, width, page):
+    """Every (slot, token, chunk) of a pool of 5 slots: the TF32 walk's
+    windows start on 16-byte boundaries (the pool's base is 16-byte
+    aligned), at most one window below the chunk's first element, cover
+    every wanted byte with bytes they read, land the chunk in a shared row
+    of the plan's pitch, read nothing past the pool's last byte, and are
+    at most one more than the chunk's whole 16-byte chunks; the pool's
+    last row, where the row's bytes are not a multiple of 16, ends
+    mid-window and its last window reads only what remains."""
+    item = 4 if dtype == "float32" else 2
+    plan = da.walk_plan(width, 1, {"float32": F32, "bfloat16": BF16}[dtype])
+    window = 16 // item
+    n_slots = 5
+    total = n_slots * page * width
+    rows = torch.arange(n_slots * page)
+    for col0 in range(0, width, 64):
+        n = min(64, width - col0)
+        e0 = rows * width + col0
+        base, nwin, nbytes = da.walk_windows(rows * width, col0, n, item,
+                                             total)
+        assert bool((base * item % 16 == 0).all())
+        assert bool(((base <= e0) & (e0 < base + window)).all())
+        assert bool((e0 - base + 64 <= min(plan.k_pitch,
+                                             plan.v_pitch)).all())
+        assert bool((nwin <= -(-n // window) + 1).all())
+        assert bool((base + nwin * window >= e0 + n).all())   # covers
+        assert bool(((e0 + n - base) * item <= nbytes).all())  # all read
+        assert bool((base * item + nbytes <= total * item).all())
+        assert bool((nbytes <= 16 * nwin).all())
+        # every window but the pool's last reads its 16 bytes
+        inside = base + nwin * window <= total
+        assert bool((nbytes[inside] == 16 * nwin[inside]).all())
+    last = da.walk_windows(torch.tensor([total - 1]), 0, 1, item, total)[2]
+    assert int(last[0]) == 16 - (-total * item) % 16
+    # a row the copier zero-fills reads nothing
+    assert int(da.walk_windows(torch.tensor([-1]), 0, 64, item,
+                               total)[2][0]) == 0
 
 
 # the tensor-core walk's plans by hand: (k_chunks, groups, group_cols,

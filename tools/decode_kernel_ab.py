@@ -7,8 +7,8 @@ over 4097 tokens, d 128, fp32); at its timed zoo widths, ``gemma-7b
 decode`` (128 rows of 1 head, d 256, 4096 tokens, bf16) and ``MLA
 latent`` (8 rows of 128 heads, (576, 512), bf16); and past (576, 512):
 the timed ``(1024, 1024)`` row (8 rows of 16 heads over 4096 tokens,
-bf16) and the CUDA-core walk's rows at that shape in fp32 and at a
-ragged bf16 (1001, 1000).
+bf16) and the TF32 walk's (route 3's) rows at that shape in fp32 and
+at a ragged bf16 (1001, 1000).
 
     python3 tools/decode_kernel_ab.py --src DIR:LABEL [--src DIR:LABEL ...]
         [--rounds N]

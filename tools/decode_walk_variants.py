@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""Build edits of K5's tensor-core walk (``decode_walk_tc_kernel`` in
+"""Build edits of K5's walks (``decode_walk_tc_kernel``, route 4, and
+``decode_walk_kernel``, route 3, in
 ``src/repro_torch/csrc/decode_attention.cu``) side by side and time them
 in turns in one process on one CUDA card, each against the plain version.
 
     python3 tools/decode_walk_variants.py [VARIANT ...] [--rounds N]
 
-The variants (all by default): ``as built``; ``no L2 prefetch``
-(plain 16-byte cp.async); ``one block an SM`` (no second block's
-launch bound); ``4 stages`` (a ring of 4 entries); ``loads only`` (the
-ring filled, no product); ``compute only`` (the products on whatever the
-ring holds, no copy).  The last two give wrong outputs and are timed
-only.  Each source is built with ``nvcc`` into
-``build/decode_walk_variants`` and loaded in place of the wrapper's
-library.  Shapes: (1024, 1024) with 8 rows of 16 heads over 4096
-tokens (``chip_smoke.WIDE_TIMED``), (4096, 4096) with 2 rows of 16 heads
-over 1024 tokens, (640, 512) with 32 rows of 16 heads over 1024 tokens;
-bf16, pages of 16.  Prints one JSON line a variant (registers, spills),
-a (variant, shape) check (agreement, bit-equal to ``as built``), a
-(variant, shape) profile (device ms of pass 1 and of the merge from
-``torch.profiler``), then one object of each median ms (CUDA events,
-``chip_smoke.device_ms``, ``--rounds`` rounds in turns, every other round
-reversed), the bounds and the card's name and power limit.  Exits 1
-without a card.
+The variants (all by default): ``as built``; of the tensor-core walk,
+``no L2 prefetch`` (plain 16-byte cp.async), ``one block an SM`` (no
+second block's launch bound), ``4 stages`` (a ring of 4 entries),
+``loads only`` (the ring filled, no product), ``compute only`` (the
+products on whatever the ring holds, no copy); of the TF32 walk, ``walk:
+one block an SM`` (a block's whole shared memory, Q resident where it
+fits), ``walk: bf16 6 stages`` (Q resident at (1001, 1000)), ``walk:
+loads only``, ``walk: compute only``.  Loads only and compute only give
+wrong outputs and are timed only.  Each source is built with ``nvcc``
+into ``build/decode_walk_variants`` and loaded in place of the wrapper's
+library.  Shapes: the tensor-core walk's variants at (1024, 1024) with 8
+rows of 16 heads over 4096 tokens (``chip_smoke.WIDE_TIMED``), (4096,
+4096) with 2 rows of 16 heads over 1024 tokens, (640, 512) with 32 rows
+of 16 heads over 1024 tokens, bf16; the TF32 walk's at (1024, 1024) fp32
+and (1001, 1000) bf16 with 8 rows of 16 heads over 4096 tokens; pages of
+16; ``as built`` at all five.  Prints one JSON line a variant (registers,
+spills), a (variant, shape) check (agreement, bit-equal to ``as
+built``), a (variant, shape) profile (device ms of pass 1 and of the
+merge from ``torch.profiler``), then one object of each median ms (CUDA
+events, ``chip_smoke.device_ms``, ``--rounds`` rounds in turns, every
+other round reversed), the bounds and the card's name and power limit.
+Exits 1 without a card.
 """
 from __future__ import annotations
 
@@ -38,15 +44,21 @@ HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE / "src"))
 OUT = HERE / "build" / "decode_walk_variants"
-KERNEL = "decode_walk_tc_kernel(const"
+KERNELS = {"walk_tc": "decode_walk_tc_kernel(const",
+           "walk": "decode_walk_kernel(const T*"}
 
 
-def _in_kernel(src: str, old: str, new: str) -> str:
-    """``old`` -> ``new`` within the walk kernel's body only."""
-    a = src.index(KERNEL)
-    b = src.index("// Pass 2:", a)
+def _in_kernel(src: str, old: str, new: str, kernel="walk_tc") -> str:
+    """``old`` -> ``new`` within one walk kernel's body only (up to the
+    next pass's comment)."""
+    a = src.index(KERNELS[kernel])
+    b = src.index("// Pass ", a)
     assert old in src[a:b], old
     return src[:a] + src[a:b].replace(old, new) + src[b:]
+
+
+def _in_walk(old: str, new: str):
+    return lambda s: _in_kernel(s, old, new, "walk")
 
 
 def _swap(old: str, new: str):
@@ -74,7 +86,29 @@ VARIANTS = {
         s, "if (is_tile < n_tiles) {",
         "if (is_tile < n_tiles && inv_scale > 1e30f) {")],
 }
-TIMED_ONLY = ("loads only", "compute only")
+VARIANTS.update({
+    "walk: one block an SM": [
+        _swap("__launch_bounds__(kWkThreads, 2)",
+              "__launch_bounds__(kWkThreads, 1)"),
+        _swap("constexpr int kWkBlockSmem = 115712;",
+              "constexpr int kWkBlockSmem = 232448;")],
+    "walk: bf16 6 stages": [_swap(
+        "static constexpr int kStages = 8, kKPitch = 72",
+        "static constexpr int kStages = 6, kKPitch = 72")],
+    "walk: loads only": [
+        _in_walk("for (int k0 = 0; k0 < kWkChunk; k0 += 8) {",
+                 "for (int k0 = 0; k0 < kWkChunk; k0 += 8) "
+                 "if (inv_scale > 1e30f) {"),
+        _in_walk("for (int kk = 0; kk < kWkTile / 8; ++kk) {\n"
+                 "        const uint4 h4",
+                 "for (int kk = 0; kk < kWkTile / 8; ++kk) "
+                 "if (inv_scale > 1e30f) {\n        const uint4 h4")],
+    "walk: compute only": [_in_walk(
+        "if (is_tile < n_tiles) {",
+        "if (is_tile < n_tiles && inv_scale > 1e30f) {")],
+})
+TIMED_ONLY = ("loads only", "compute only", "walk: loads only",
+              "walk: compute only")
 
 
 def build(names, csrc: Path):
@@ -87,7 +121,7 @@ def build(names, csrc: Path):
         src = base
         for edit in VARIANTS[name]:
             src = edit(src)
-        stem = name.replace(" ", "_")
+        stem = re.sub(r"\W+", "_", name)
         path = OUT / f"{stem}.cu"
         path.write_text(src)
         procs[name] = (OUT / f"lib{stem}.so", subprocess.Popen(
@@ -99,15 +133,18 @@ def build(names, csrc: Path):
         log = proc.communicate()[0]
         facts, fn = {}, None
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '([\w$.]+)'", line)
+            m = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([\w$.]+)", line)
             if m:
                 fn = m.group(1)
-            if fn and "walk_tc" in fn:
+            if fn and "decode_walk" in fn:
+                kind = ("walk_tc" if "walk_tc" in fn else "walk fp32"
+                        if "kernelIf" in fn else "walk bf16")
                 for key, pat in (("registers", r"Used (\d+) registers"),
                                  ("spill_stores", r"(\d+) bytes spill st")):
                     m = re.search(pat, line)
                     if m:
-                        facts[key] = int(m.group(1))
+                        facts[f"{kind} {key}"] = int(m.group(1))
         print(json.dumps(dict(variant=name, rc=proc.returncode, **facts,
                               log=log[-1500:] if proc.returncode else "")),
               flush=True)
@@ -135,19 +172,31 @@ def main() -> int:
         cuda_build._LIBS["decode_attention"] = libs[name]
         da._PLANS.clear()
 
-    bf16 = torch.bfloat16
+    bf16, fp32 = torch.bfloat16, torch.float32
     shapes = {"(1024, 1024)": cs.decode_case(8, 16, 1024, 16, 256, bf16,
                                              length=4096, dv=1024),
               "(4096, 4096)": cs.decode_case(2, 16, 4096, 16, 64, bf16,
                                              length=1024, dv=4096),
               "(640, 512)": cs.decode_case(32, 16, 640, 16, 64, bf16,
-                                           length=1024, dv=512)}
+                                           length=1024, dv=512),
+              "(1024, 1024) fp32": cs.decode_case(8, 16, 1024, 16, 256,
+                                                  fp32, length=4096,
+                                                  dv=1024),
+              "(1001, 1000) bf16": cs.decode_case(8, 16, 1001, 16, 256,
+                                                  bf16, length=4096,
+                                                  dv=1000)}
+    walk_shapes = ("(1024, 1024) fp32", "(1001, 1000) bf16")
     plain = {k: da.paged_decode_plain(*a) for k, a in shapes.items()}
     names = list(libs)
     first = {}
+
+    def shapes_of(name):
+        return [k for k in shapes if name == "as built"
+                or (k in walk_shapes) == name.startswith("walk:")]
     for name in names:
         use(name)
-        for shape, a in shapes.items():
+        for shape in shapes_of(name):
+            a = shapes[shape]
             out = da.attention_in_range(*a)
             again = da.attention_in_range(*a)
             torch.cuda.synchronize()
@@ -155,10 +204,11 @@ def main() -> int:
                        splits=da.splits_for(a[0], a[3].shape[1],
                                             a[2].shape[2]),
                        plan=da.launch_plan(a[0].shape[2], a[2].shape[2],
-                                           a[0].shape[1], bf16))
+                                           a[0].shape[1], a[0].dtype))
             if name not in TIMED_ONLY:
                 first.setdefault(shape, out)
-                row.update(agrees=cs.decode_agrees(out, plain[shape], 2e-2),
+                row.update(agrees=cs.decode_agrees(
+                               out, plain[shape], cs.TOL[a[0].dtype]),
                            max_abs_err=cs.max_err(out, plain[shape]),
                            bit_equal_rerun=bool(torch.equal(out, again)),
                            bit_equal_as_built=bool(torch.equal(
@@ -171,7 +221,7 @@ def main() -> int:
             by = {}
             for e in prof.key_averages():
                 kind = ("merge" if "merge_kernel" in e.key else "pass1"
-                        if "walk_tc" in e.key else None)
+                        if "decode_walk" in e.key else None)
                 if kind:
                     by[kind] = by.get(kind, 0.0) \
                         + e.device_time_total / 10 / 1000
@@ -181,7 +231,8 @@ def main() -> int:
     for rnd in range(args.rounds):
         for name in (names if rnd % 2 == 0 else names[::-1]):
             use(name)
-            for shape, a in shapes.items():
+            for shape in shapes_of(name):
+                a = shapes[shape]
                 times.setdefault(f"{name} {shape}", []).append(
                     cs.device_ms(lambda: da.attention_in_range(*a)))
     card = subprocess.run(
@@ -193,6 +244,8 @@ def main() -> int:
         bound_ms={k: cs.decode_bound(a[0], a[4], a[3].shape[1],
                                      a[1].shape[1], a[2].shape[2])[0]
                   for k, a in shapes.items()},
+        plain_ms={k: cs.device_ms(lambda: da.paged_decode_plain(
+            *shapes[k])) for k in walk_shapes},
         card=card)))
     return 0
 
