@@ -24,7 +24,9 @@ bf16, with duplicate and out-of-range slots, and timed back to back over
 disjoint slot sets of its pool beside ``index_select``; K4 (count-min
 sketch) at the hint
 filter's sketch, at B 16,384 and saturating; each timed row's gate must
-reject a planted fault.  Then it serves paged session state (arena,
+reject a planted fault; K5 (paged decode attention) at every width up to
+(576, 512), MLA's latent timed on its wgmma route in bf16 and on the
+TF32 walk in fp32.  Then it serves paged session state (arena,
 tiered store, continuous-batching scheduler, paged decode attention at
 qwen2.5-32b's attention width) in ``sync`` and ``prefetch`` mode on the
 card and on the CPU and requires identical serving stats, classifies
@@ -79,6 +81,7 @@ prints no result.
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -220,6 +223,12 @@ EARLIER_MS = {("flash_attention", "zamba2-2.7b prefill"): 5.517548751831055,
               # cores), as tools/decode_kernel_ab.py timed it
               ("decode_attention", "(1024, 1024) decode fp32"): 0.94257,
               ("decode_attention", "(1001, 1000) decode bf16"): 0.98173,
+              # K5 at MLA's latent before route 5 (bf16: route 1's
+              # decode_wide_kernel<576, 512>, 16 heads a block; fp32: the
+              # lanes, 4 heads a block), as this script timed them
+              ("decode_attention", "deepseek-v2 MLA latent decode"): 0.21699,
+              ("decode_attention", "deepseek-v2 MLA latent decode fp32"):
+                  0.83697,
               ("mamba2_scan", "zamba2-2.7b prefill"): 4.04290542602539,
               ("rwkv6_scan", "rwkv6-3b prefill"): 1.0247103691101074,
               # K6's backward on mma.sync, 16 keys a dK/dV block at d 256
@@ -1058,25 +1067,28 @@ def decode_pass1(q, dv: int) -> str:
     """The mangled-name stem of the pass-1 kernel that runs q [B, H, d]
     with values ``dv`` wide (``da.instance``)."""
     B, H, d = q.shape
-    route, DK, DV = da.instance(d, dv, q.dtype)
+    route, DK, DV = da.instance(d, dv, q.dtype, H)
     if route == "workers":
         return f"decode_kernelIfLi{d}ELi{da.launch_plan(d, dv, H, q.dtype)[0]}E"
     if route == "tensor_cores":
         return (f"decode_bf16_kernelILi{DK}E" if DK <= 128
                 else f"decode_wide_kernelILi{DK}ELi{DV}E")
     t = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
-    if route == "walk_tc":
-        return "decode_walk_tc_kernel"
+    if route in ("walk_tc", "wgmma"):
+        return f"decode_{route}_kernel"
     if route == "walk":
         return f"decode_walk_kernelI{t}E"
     return f"decode_lanes_kernelI{t}Li{DK // 32}ELi{DV // 32}E"
 
 
-# the walks' timed rows (the tensor-core walk beside the TF32 walk on the
-# same inputs; the TF32 walk's own rows), for the kernels line (label ->
-# the timed row's figures)
+# the walks' and the wgmma route's timed rows (the tensor-core walk and
+# the wgmma route beside the TF32 walk on the same inputs; the TF32 walk's
+# own rows), for the kernels line (label -> the timed row's figures), and
+# the launches of each route's kernel_check rows
 WALK_TC_ROWS = {}
 WALK_ROWS = {}
+WG_ROWS = {}
+ROUTE_CHECK_LAUNCHES = collections.Counter()
 
 
 def walk_reads(args, plan, label) -> dict:
@@ -1123,11 +1135,12 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
     rows also require the gate to reject a planted fault (``fault``: by
     default ``decode_split_dropped``) and two runs to be bit-equal, and
     add the times, the bound, the split count and the build facts.  Rows
-    on the walks hold their plans to the source's and print the bytes
-    they read (the TF32 walk also its windows' bytes); timed, the
-    tensor-core walk's also time the TF32 walk on the same inputs
-    (``walk_ms``, through ``launch_instance``), and the TF32 walk's must
-    beat the plain version."""
+    on the walks and the wgmma route hold their plans to the source's and
+    print the bytes they read (the TF32 walk also its windows' bytes);
+    timed, the tensor-core walk's and the wgmma route's also time the TF32
+    walk on the same inputs (``walk_ms``, through ``launch_instance``),
+    a row with an earlier design's time (``EARLIER_MS``) must beat it, and
+    the TF32 walk's past (576, 512) must beat the plain version."""
     q, kp, vp, pt, lens = args
     before = da.LAUNCHES
     k = da.paged_decode_attention_kernel(*args)
@@ -1149,7 +1162,8 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
     B, H, d = q.shape
     dv = vp.shape[2]
     P = pt.shape[1]
-    inst = da.instance(d, dv, q.dtype)
+    inst = da.instance(d, dv, q.dtype, H)
+    ROUTE_CHECK_LAUNCHES[inst[0]] += launched
     row = dict(kernel="decode_attention", shape=label, B=B, H=H, d=d, dv=dv,
                page=kp.shape[1], P=P, n_slots=kp.shape[0],
                dtype=str(q.dtype).split(".")[-1],
@@ -1168,6 +1182,19 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
         row.update(plan=plan._asdict(), k_bytes_read=k_bytes,
                    v_bytes_read=v_bytes,
                    kv_bytes_once=2 * tokens * (d + dv))
+    if inst[0] == "wgmma":
+        plan = da.wg_plan(d, dv)
+        if da.wg_source_plan(d, dv) != plan:
+            raise AssertionError(f"decode_attention at {label}: wg_plan "
+                                 f"{plan} is not the source's "
+                                 f"{da.wg_source_plan(d, dv)}")
+        tokens = int(lens.clamp(max=P * kp.shape[1]).sum())
+        k_bytes, v_bytes = plan.reads(d, dv, H, tokens)
+        row.update(plan=plan._asdict(), k_bytes_read=k_bytes,
+                   v_bytes_read=v_bytes,
+                   kv_bytes_once=2 * tokens * (d + dv),
+                   partial_bytes=2 * 4 * B * H * (dv + 2) * row["splits"]
+                   if row["splits"] > 1 else 0)
     if inst[0] == "walk":
         plan = da.walk_plan(d, dv, q.dtype)
         if da.walk_source_plan(d, dv, q.dtype) != plan:
@@ -1204,7 +1231,7 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
                    heads_per_block=heads, blocks_per_sm=per_sm,
                    build=build_facts("decode_attention", row["pass1"],
                                      f"merge_kernelI{tc}E"))
-        if inst[0] == "walk_tc":       # the TF32 walk, same inputs
+        if inst[0] in ("walk_tc", "wgmma"):   # the TF32 walk, same inputs
             walk = ("walk", d, dv)
             w = da.launch_instance(*args, walk)
             row.update(walk_max_abs_err=max_err(w[:n], p),
@@ -1216,6 +1243,7 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
                            "decode_attention",
                            "decode_walk_kernelI13__nv_bfloat16E"))
             del w
+        if inst[0] == "walk_tc":
             for name in ("walk_ms", "plain_ms"):
                 if row["ms"] >= row[name]:
                     raise AssertionError(
@@ -1227,8 +1255,14 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
                 "bound_by", "bound_share", "bit_equal_rerun", "max_abs_err",
                 "planted_fault_max_abs_err", "k_bytes_read", "v_bytes_read",
                 "kv_bytes_once")}
+        if row["earlier_ms"] is not None and row["ms"] >= row["earlier_ms"]:
+            raise AssertionError(
+                f"decode_attention at {label}: {row['ms']} ms is not faster "
+                f"than the earlier design's {row['earlier_ms']} ms")
         if inst[0] == "walk":
-            if row["ms"] >= row["plain_ms"]:
+            # past the lanes' widths, where it replaced the CUDA-core walk
+            if (d > da.LANES_D or dv > da.LANES_DV) \
+                    and row["ms"] >= row["plain_ms"]:
                 raise AssertionError(
                     f"decode_attention at {label}: the TF32 walk "
                     f"({row['ms']} ms) is not faster than its plain version "
@@ -1244,6 +1278,13 @@ def check_decode(args, label, timed=False, plain_rows=None, kv_heads=None,
                     sdpa_yardstick(args, kv_heads, k)
             except RuntimeError as e:
                 row["sdpa_refused"] = str(e)[:200]
+        if inst[0] == "wgmma":
+            WG_ROWS[label] = {key: row.get(key) for key in (
+                "pass1", "plan", "splits", "ms", "walk_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_share",
+                "sdpa_contiguous_ms", "bit_equal_rerun", "max_abs_err",
+                "planted_fault", "planted_fault_max_abs_err", "k_bytes_read",
+                "v_bytes_read", "kv_bytes_once", "launches")}
     emit("kernel_check", **row)
     return row
 
@@ -2672,6 +2713,63 @@ def serve_shape_case():
                        n_slots=SERVE_POOL, length=c["context"] + 1)
 
 
+# K5's width rows, (B, H, d, dv, page, P[, lengths]) in both types: widths
+# past the square instances ((96, 96), (64, 32), rows that are not whole
+# 16-byte chunks (100, 60), the wide ones small); then route 5's widths
+# (bf16 whole chunks past 256 up to (576, 512): MLA's latent at 1, 5, 64,
+# 65, 70 and 128 heads, pages of 7, 16 and 256, (264, 256), (320, 512),
+# (200, 304); rows of length 0 and 1) and, in fp32 and at (100, 60) bf16,
+# the head counts about route 2's (the lanes, up to 4) and route 3's (the
+# TF32 walk, past 4)
+DECODE_WIDTHS = ((3, 8, 96, 96, 16, 4), (2, 4, 64, 32, 32, 2),
+                 (2, 5, 100, 60, 8, 5), (2, 3, 200, 64, 16, 3),
+                 (2, 1, 256, 256, 16, 6), (2, 20, 576, 512, 16, 4),
+                 (2, 1, 576, 512, 7, 10), (2, 5, 576, 512, 256, 3),
+                 (2, 65, 576, 512, 7, 12), (2, 70, 576, 512, 16, 5),
+                 (2, 128, 576, 512, 256, 2), (2, 70, 264, 256, 16, 4),
+                 (2, 8, 320, 512, 7, 9), (2, 3, 200, 304, 16, 3),
+                 (2, 4, 100, 60, 7, 6),
+                 (4, 64, 576, 512, 16, 8, (0, 1, 77, 128)))
+# the timed zoo widths: gemma-7b's KV pages (d 256: 8 sequences x 16 KV
+# heads, 1 query head each) and deepseek-v2's paged MLA latent (keys 576 =
+# kv_lora_rank 512 + rope 64, values 512, 128 query heads on one latent
+# row) at 4096 tokens in pages of 64, in bf16 and fp32: (B, H, d, dv), KV
+# heads, type
+DECODE_TIMED = (
+    ("gemma-7b decode", (128, 1, 256, 256), 16, torch.bfloat16),
+    ("deepseek-v2 MLA latent decode", (8, 128, 576, 512), 1, torch.bfloat16),
+    ("gemma-7b decode fp32", (128, 1, 256, 256), 16, torch.float32),
+    ("deepseek-v2 MLA latent decode fp32", (8, 128, 576, 512), 1,
+     torch.float32))
+
+
+def decode_width_phase():
+    """K5 at ``DECODE_WIDTHS`` in both types, then timed at
+    ``DECODE_TIMED`` (the MLA latent rows against the planted
+    ``decode_rescale_dropped``, the others ``decode_split_dropped``).
+    Returns the largest error.
+
+    Alone on the card: ``python3 -c 'import chip_smoke as c;
+    c.cuda_build.build_all(("decode_attention",));
+    c.decode_width_phase()'``."""
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, d, dv, page, P, *lens in DECODE_WIDTHS:
+            r = check_decode(decode_case(B, H, d, page, P, dtype, dv=dv,
+                                         lens=lens[0] if lens else None),
+                             f"width {d, dv} {B, H, page, P}")
+            err = max(err, r["max_abs_err"])
+    for label, shape, kv, dtype in DECODE_TIMED:
+        B, H, d, dv = shape
+        fault = decode_rescale_dropped if d == 576 else decode_split_dropped
+        r = check_decode(decode_case(B, H, d, 64, 64, dtype,
+                                     length=4096, dv=dv),
+                         label, timed=True, kv_heads=kv, fault=fault)
+        err = max(err, r["max_abs_err"])
+        torch.cuda.empty_cache()
+    return {"decode_attention": err}
+
+
 def kernel_phase():
     main = {}
     errs = {"tac_probe": 0.0, "page_gather": 0.0, "page_scatter": 0.0}
@@ -2740,38 +2838,8 @@ def kernel_phase():
                      kv_heads=c["kv_heads"])
     torch.cuda.empty_cache()
     errs["decode_attention"] = max(errs["decode_attention"], r["max_abs_err"])
-    # widths past the square instances: (96, 96), (64, 32), rows that are
-    # not whole 16-byte chunks (100, 60), and the wide ones small, in both
-    # types; then gemma-7b's KV pages (d 256: 8 sequences x 16 KV heads, 1
-    # query head each) and deepseek-v2's paged MLA latent (keys 576 =
-    # kv_lora_rank 512 + rope 64, values 512, 128 query heads on one
-    # latent row) at 4096 tokens in pages of 64, bf16, timed
-    for dtype in (torch.float32, torch.bfloat16):
-        for B, H, d, dv, page, P in ((3, 8, 96, 96, 16, 4),
-                                     (2, 4, 64, 32, 32, 2),
-                                     (2, 5, 100, 60, 8, 5),
-                                     (2, 3, 200, 64, 16, 3),
-                                     (2, 1, 256, 256, 16, 6),
-                                     (2, 20, 576, 512, 16, 4)):
-            r = check_decode(decode_case(B, H, d, page, P, dtype, dv=dv),
-                             f"width {d, dv} {B, H, page, P}")
-            errs["decode_attention"] = max(errs["decode_attention"],
-                                           r["max_abs_err"])
-    # (and in fp32, on the lanes route: its own times beside its bound)
-    for label, shape, kv, dtype in (
-            ("gemma-7b decode", (128, 1, 256, 256), 16, torch.bfloat16),
-            ("deepseek-v2 MLA latent decode", (8, 128, 576, 512), 1,
-             torch.bfloat16),
-            ("gemma-7b decode fp32", (128, 1, 256, 256), 16, torch.float32),
-            ("deepseek-v2 MLA latent decode fp32", (8, 128, 576, 512), 1,
-             torch.float32)):
-        B, H, d, dv = shape
-        r = check_decode(decode_case(B, H, d, 64, 64, dtype,
-                                     length=4096, dv=dv),
-                         label, timed=True, kv_heads=kv)
-        errs["decode_attention"] = max(errs["decode_attention"],
-                                       r["max_abs_err"])
-        torch.cuda.empty_cache()
+    for k, e in decode_width_phase().items():
+        errs[k] = max(errs[k], e)
     # count-min sketch: tests/test_kernels.py's sweep and saturation case,
     # the hint filter's default sketch (d 4, w 10,000) on a batch of 256
     # with repeated keys and warm counters, and B 16,384 (past the earlier
@@ -5214,11 +5282,18 @@ def main() -> int:
                     bound_ms=main_rows[k]["bound_ms"],
                     bound_by=main_rows[k]["bound_by"],
                     library_ms=main_rows[k]["library_ms"],
-                    # the walks past (576, 512), on no main path: their
-                    # timed wide_phase rows
-                    **({"walk_tc": dict(kernel="decode_walk_tc_kernel",
+                    # the walks past (576, 512) and the wgmma route at
+                    # MLA's latent, on no main path: their kernel_check
+                    # rows' launches and their timed rows
+                    **({"wgmma": dict(kernel="decode_wgmma_kernel",
+                                      launches=ROUTE_CHECK_LAUNCHES["wgmma"],
+                                      rows=WG_ROWS),
+                        "walk_tc": dict(kernel="decode_walk_tc_kernel",
+                                        launches=ROUTE_CHECK_LAUNCHES[
+                                            "walk_tc"],
                                         rows=WALK_TC_ROWS),
                         "walk": dict(kernel="decode_walk_kernel",
+                                     launches=ROUTE_CHECK_LAUNCHES["walk"],
                                      rows=WALK_ROWS)}
                        if k == "decode_attention" else {}))
                for k in names]

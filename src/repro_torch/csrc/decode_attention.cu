@@ -38,39 +38,48 @@
 // Instances and routes (the wrapper's decode_attention.instance picks one;
 // every route reads the pool in place, at its own row widths d and dv):
 //   0  float32 at d = dv in {16, 32, 64, 128}: decode_kernel below;
-//   1  bfloat16 with rows of whole 16-byte chunks (d, dv multiples of 8):
-//      decode_bf16_kernel<D> for d, dv <= D in {16, 32, 64, 128}, and
-//      decode_wide_kernel<DK, DV> at (256, 256) and (576, 512), whose Q
-//      and accumulator do not fit registers at those widths;
-//   2  any other width up to (576, 512), either type: decode_lanes_kernel,
-//      a warp a token and a column of 32 a lane, scalar loads;
-//   3  past (576, 512), float32 and bfloat16 rows that are not whole
-//      16-byte chunks: decode_walk_kernel, route 4's plan on the tensor
-//      cores in TF32 (float32 as three products of split operands), rows
-//      of any alignment copied as the 16-byte windows that cover them;
+//   1  bfloat16 with rows of whole 16-byte chunks (d, dv multiples of 8)
+//      up to 256: decode_bf16_kernel<D> for d, dv <= D in {16, 32, 64,
+//      128}, and decode_wide_kernel<256, 256>, whose Q and accumulator do
+//      not fit registers at that width;
+//   2  any other width up to (576, 512), either type, at up to 4 query
+//      heads a row: decode_lanes_kernel, a warp a token and a column of
+//      32 a lane, scalar loads, each K and V byte read once a 4 heads;
+//   3  past (576, 512), and up to it past 4 heads a row, float32 and
+//      bfloat16 rows that are not whole 16-byte chunks:
+//      decode_walk_kernel, route 4's plan on the tensor cores in TF32
+//      (float32 as three products of split operands), rows of any
+//      alignment copied as the 16-byte windows that cover them;
 //   4  past (576, 512), bfloat16 at d, dv multiples of 8:
 //      decode_walk_tc_kernel, 16 heads a block on the tensor cores, K and
 //      V walked through a ring of cp.async entries, each byte read once
-//      up to dv = kWtCols.
+//      up to dv = kWtCols;
+//   5  bfloat16 at d, dv multiples of 8 past 256 up to (576, 512), MLA's
+//      latent: decode_wgmma_kernel, 64 heads a block on wgmma, each K and
+//      V byte read once a (row, 64 heads).
 // Columns of an instance past d (or dv) are zero in shared memory and
 // registers, never read from the pool; q is zero-padded to DK by the
-// wrapper for route 1 (a copy of q only).
+// wrapper for route 1 (a copy of q only).  Rows of many heads: a block of
+// routes 3 and 5 takes a chunk of a row's heads, and the chunks of a (row,
+// split) are neighbours in the grid, so that the row's tokens come from
+// device memory about once and from the L2 for the other chunks.
 //
 // bfloat16 runs pass 1 on the tensor cores (decode_bf16_kernel: 16 heads a
-// block as the rows of mma.sync, K/V tiles staged by cp.async). float32 up to
-// (576, 512) stays on the CUDA cores, since its 2e-5 tolerance rules out one
-// TF32 product (decode_kernel: up to 8 heads a block; a "worker" of D / 4
-// lanes owns one token at a time, each lane loading one 16-byte vector of the
-// token's K row and one of its V row, the group summing its partial dots with
-// shuffles; every worker keeps its own softmax state in registers over the
-// tokens it owns, four tokens a step so that eight 16-byte loads are in flight
-// per lane, and the workers' states are merged through shared memory).
+// block as the rows of mma.sync, K/V tiles staged by cp.async).  float32 at
+// the square widths stays on the CUDA cores, since its 2e-5 tolerance rules
+// out one TF32 product (decode_kernel: up to 8 heads a block; a "worker"
+// of D / 4 lanes owns one token at a time, each lane loading one 16-byte
+// vector of the token's K row and one of its V row, the group summing its
+// partial dots with shuffles; every worker keeps its own softmax state in
+// registers over the tokens it owns, four tokens a step so that eight
+// 16-byte loads are in flight per lane, and the workers' states are merged
+// through shared memory).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "tensor_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -494,9 +503,9 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Pass 1 for bfloat16 at wide rows, on the tensor cores: (256, 256) and
-// MLA's latent (576, 512).  Q fragments of 16 heads at d 576 would take
-// 144 registers a thread and the [16, dv] accumulator 256, so here Q sits
+// Pass 1 for bfloat16 at wide rows, on the tensor cores: (256, 256).  Q
+// fragments of 16 heads at d 256 would take 64 registers a thread and the
+// [16, dv] accumulator 128, so here Q sits
 // in shared memory (read by ldmatrix each k-step) and the four warps split
 // the accumulator's columns instead of the tokens: warp w scores tokens
 // 8 w .. 8 w + 7 of each tile of kWideTile for all 16 heads (S = Q K^T on
@@ -506,9 +515,9 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // adds P V for its DV / 4 value columns over all the tile's tokens.  The
 // running sum is kept per warp (of its tokens) and summed at the end.  K
 // and V tiles are double-buffered with cp.async as in decode_bf16_kernel.
-// Per block at (576, 512): Q 16 x 584, K 2 x 32 x 584, V 2 x 32 x 520 and
-// P 16 x 40 bf16, 162,048 bytes of shared memory with the offsets and
-// sums, so an SM holds one block; 78,080 bytes at (256, 256), two.
+// Per block at (256, 256): Q 16 x 264, K 2 x 32 x 264, V 2 x 32 x 264 and
+// P 16 x 40 bf16, 78,080 bytes of shared memory with the offsets and
+// sums, so an SM holds two blocks.
 constexpr int kWideTile = 32;        // tokens a tile, 8 a warp
 
 template <int DK, int DV>
@@ -1205,14 +1214,411 @@ decode_walk_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// Pass 1 for bfloat16 at MLA's latent widths (route 5): rows of whole
+// 16-byte chunks with d in (256, 576] or dv in (256, 512], any head count,
+// on Hopper's wgmma (m64n64k16, bf16 in, fp32 sums), the 64 rows of a
+// product the 64 query heads of one sequence row.  At 128 heads a latent
+// row does ~128 flops a byte of K and V, just under the card's ~295, so
+// the design reads each K and V byte once a (row, 64 heads) and multiplies
+// at the wgmma rate.  A block per (row, 64 heads, split), numbered so that
+// a (row, split)'s head blocks are neighbours and the second finds the
+// row's tokens in the L2; three warpgroups: the producer group (setmaxnreg
+// 40) copies and two consumer groups (232) multiply.  Shared memory holds
+// Q of the 64 heads as k_boxes boxes of 64 rows x 64 columns in the
+// 128-byte swizzle (hopper.cuh), resident for the block's life, and one
+// ring of 8 KB stages, each a box of 64 tokens x 64 columns of K or V, a
+// tile's boxes in order (K's, then V's), and at least a whole tile of them
+// (19 stages at (576, 512)), so that the next tile's copies start as its
+// stages free.  Paged rows are not one tensor map's box, so every producer
+// thread copies 16-byte chunks by cp.async straight into the swizzled
+// layout (8 threads a token's 128 bytes, 4 tokens a box a thread, the
+// token's pool row from the page table, read a tile ahead) and arrives on
+// the stage's full mbarrier when its copies land
+// (cp.async.mbarrier.arrive.noinc, 128 arrivals a phase); chunks past d or
+// dv, tokens past the split's end, slots outside the pool and heads past H
+// are zero-filled, never read.  Both groups wait for every stage in order
+// and release each once (8 arrivals), a box they do not read as soon as it
+// has landed, so neither runs two phases ahead of a stage; after a wait a
+// consumer orders the copies before its wgmma reads (fence.proxy.async:
+// cp.async writes through the generic proxy, wgmma reads through the async
+// one).  Each group forms the whole S = Q K^T of a tile over d's boxes
+// (both operands K-major), the same products in the same order, so S, the
+// online softmax (log2 units, 2^x by ex2.approx, tokens past the split's
+// end masked to -inf) and its max and sum are bit-equal in the two groups,
+// which never wait for each other; P is rounded to bf16 in registers (the
+// row sum l takes P unrounded) and each group adds P V into its own value
+// boxes (alternate boxes, at most four a group, 256 columns, V MN-major),
+// each box's products issued as soon as it lands.  The block's (max, sum,
+// accumulator) go to the split partials of pass 2, or with one split its
+// normalised output to out.  At (576, 512): Q 72 KB and 19 stages (152
+// KB), 230,912 bytes: one block an SM.
+constexpr int kWgThreads = 384;
+constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
+constexpr int kWgHeads = 64;                 // query heads a block
+constexpr int kWgTile = 64;                  // tokens a tile
+constexpr int kWgBox = 64 * 64;              // bf16 of a box
+constexpr int kWgBoxBytes = 2 * kWgBox;      // 8 KB
+constexpr int kWgFixed = 1024 + 512;         // alignment slack, mbarriers
+constexpr int kWgMaxStages = 24;             // 2 * 24 + 1 mbarriers in 512 B
+constexpr int kWgGroupBoxes = 4;             // a group's value boxes
+constexpr int kWgMaxD = 576, kWgMaxDv = 512;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// the shared-memory plan of (d, dv): Q's boxes, then the ring's stages, as
+// many as fit up to kWgMaxStages (at least a tile's k_boxes + v_boxes up
+// to (576, 512)), and the mbarriers
+struct WgPlan {
+  int k_boxes, v_boxes, stages, smem_bytes;
+};
+
+__host__ __device__ inline WgPlan wg_plan(int d, int dv) {
+  WgPlan p;
+  p.k_boxes = (d + 63) / 64;
+  p.v_boxes = (dv + 63) / 64;
+  const int fixed = kWgFixed + p.k_boxes * kWgBoxBytes;
+  const int avail = (kSmemLimit - fixed) / kWgBoxBytes;
+  p.stages = avail < kWgMaxStages ? avail : kWgMaxStages;
+  p.smem_bytes = fixed + p.stages * kWgBoxBytes;
+  return p;
+}
+
+// arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The ring: entry i (counted from the block's first) sits in stage i % n,
+// in that stage's phase i / n, both from a float reciprocal and one
+// correction (exact for i < 2^24)
+struct WgRing {
+  __nv_bfloat16* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int n;
+  float inv;
+  __device__ WgRing(__nv_bfloat16* b, uint64_t* f, uint64_t* e, int stages)
+      : base(b), full(f), empty(e), n(stages), inv(1.f / stages) {}
+  __device__ __forceinline__ int2 at(int i) const {
+    int q = __float2int_rz((float)i * inv);
+    int r = i - q * n;
+    if (r < 0) --q, r += n;
+    else if (r >= n) ++q, r -= n;
+    return make_int2(q, r);
+  }
+  __device__ __forceinline__ __nv_bfloat16* box(int i) const {
+    return base + at(i).y * kWgBox;
+  }
+  // entry i has landed, its copies ordered before this thread's wgmma
+  __device__ __forceinline__ void wait(int i) const {
+    const int2 a = at(i);
+    mbar_wait(&full[a.y], a.x & 1);
+    fence_proxy_async();
+  }
+  // this warp's arrival on entry i's stage
+  __device__ __forceinline__ void release(int i) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[at(i).y]);
+  }
+  // the producer: this thread's 4 tokens' 16-byte chunk c8 of columns
+  // col0 .. col0 + 63 of `src` (rows `width` wide) into entry i, then its
+  // arrival on the stage once they land
+  __device__ __forceinline__ void load(int i, const __nv_bfloat16* src,
+                                       int width, int col0, const int* tok,
+                                       int r0, int c8) const {
+    const int2 a = at(i);
+    if (a.x > 0) mbar_wait(&empty[a.y], (a.x - 1) & 1);
+    const uint32_t dst = smem_addr(base + a.y * kWgBox)
+                         + ((c8 ^ (r0 & 7)) << 4);
+    const int col = col0 + 8 * c8;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool ok = tok[k] >= 0 && col < width;
+      cp_async16_l2(dst + (r0 + 16 * k) * 128,
+                    src + (ok ? (int64_t)tok[k] * width + col : 0),
+                    ok ? 16 : 0);
+    }
+    cp_async_arrive(&full[a.y]);
+  }
+};
+
+// a value the same in every lane of the warp, broadcast from lane 0, so
+// that the compiler sees it so (a wgmma on a path it cannot prove uniform
+// is serialised)
+__device__ __forceinline__ int uniform(int x) {
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+
+// x (+)= A B^T over one 64-column box, A and B K-major boxes; one group
+__device__ __forceinline__ void wg_box_scores(float (&x)[32],
+                                              const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b,
+                                              bool acc) {
+  const uint64_t da = kmajor_desc(a), db = kmajor_desc(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)      // 32 bytes a k-step within the box
+    wgmma_ss(x, da + 2 * kk, db + 2 * kk, acc || kk > 0);
+  wgmma_commit();
+}
+
+// o += a B: a the A fragments of P, B the MN-major box at `b`; one group
+__device__ __forceinline__ void wg_box_sum(float (&o)[32],
+                                           const uint32_t (&a)[4][4],
+                                           const __nv_bfloat16* b) {
+  const uint64_t db = mnmajor_desc(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)      // 16 rows of 128 bytes a k-step
+    wgmma_rs(o, a[kk], db + kk * 128, 1);
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+decode_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k_pages,
+                    const __nv_bfloat16* __restrict__ v_pages,
+                    const int32_t* __restrict__ table,
+                    const int32_t* __restrict__ seq_lens,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int H, int P, int page,
+                    int n_slots, int split_pages, int n_splits, int d,
+                    int dv, float inv_scale, const WgPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sbase =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(sbase);
+  __nv_bfloat16* ring_s = q_s + p.k_boxes * kWgBox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_s + p.stages * kWgBox);
+  uint64_t* empty = full + p.stages;
+  uint64_t* q_full = empty + p.stages;
+  const WgRing ring(ring_s, full, empty, p.stages);
+  const int na = p.k_boxes, nb = p.v_boxes, E = na + nb;  // entries a tile
+
+  const int n_hb = (H + kWgHeads - 1) / kWgHeads;
+  const int hb = blockIdx.x % n_hb;
+  const int split = blockIdx.x / n_hb % n_splits;
+  const int row = blockIdx.x / n_hb / n_splits;
+  const int h0 = hb * kWgHeads;
+  const int len = seq_lens[row];
+  const int32_t* trow = table + (int64_t)row * P;
+  const int n_pages = len <= 0 ? 0 : min(P, (len + page - 1) / page);
+  const int t_begin = split * split_pages * page;
+  const int t_end = min(min(n_pages, (split + 1) * split_pages) * page, len);
+  const int n_tiles = t_end > t_begin
+      ? (t_end - t_begin + kWgTile - 1) / kWgTile : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 128);        // each producer thread's copies
+      mbar_init(&empty[s], 8);         // a lane of each consumer warp
+    }
+    mbar_init(q_full, 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                     // ------------------------ producer
+    reg_dealloc<kWgProducerRegs>();
+    if (n_tiles == 0) return;
+    const int pt = threadIdx.x - 256;
+    const int c8 = pt % 8, r0 = pt / 8;  // chunk c8 of rows r0 + 16 k
+    {                                  // Q's 64 heads, resident
+      int hrow[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int hh = h0 + r0 + 16 * k;
+        hrow[k] = hh < H ? row * H + hh : -1;
+      }
+      const uint32_t dst = smem_addr(q_s) + ((c8 ^ (r0 & 7)) << 4);
+      for (int j = 0; j < na; ++j) {
+        const int col = 64 * j + 8 * c8;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool ok = hrow[k] >= 0 && col < d;
+          cp_async16(dst + j * kWgBoxBytes + (r0 + 16 * k) * 128,
+                     q + (ok ? (int64_t)hrow[k] * d + col : 0), ok);
+        }
+      }
+      cp_async_arrive(q_full);
+    }
+    // the page-table entries of my tokens of the next tile, read a tile
+    // ahead; pool rows fit 32 bits (n_slots * page < 2^31)
+    int slot[4];
+    auto fetch = [&](int kt) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = t_begin + kt * kWgTile + r0 + 16 * k;
+        slot[k] = kt < n_tiles && t < t_end ? trow[t / page] : -1;
+      }
+    };
+    fetch(0);
+    int e = 0;                         // the next entry of the ring
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      int tok[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = t_begin + kt * kWgTile + r0 + 16 * k;
+        tok[k] = slot[k] >= 0 && slot[k] < n_slots
+            ? slot[k] * page + t % page : -1;
+      }
+      fetch(kt + 1);
+      for (int j = 0; j < na; ++j)
+        ring.load(e++, k_pages, d, 64 * j, tok, r0, c8);
+      for (int c = 0; c < nb; ++c)
+        ring.load(e++, v_pages, dv, 64 * c, tok, r0, c8);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  reg_alloc<kWgConsumerRegs>();
+  const int g = uniform(warp / 4);     // the consumer group
+  const int tid = threadIdx.x % 128, w = tid / 32, gq = lane / 4,
+            t = lane % 4;
+  const float sl2 = inv_scale * kLog2e;
+  const int mine = (nb - g + 1) / 2;   // my value boxes g + 2 c
+  float o[kWgGroupBoxes][32];
+#pragma unroll
+  for (int c = 0; c < kWgGroupBoxes; ++c)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) o[c][v] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (n_tiles > 0) {
+    mbar_wait(q_full, 0);
+    fence_proxy_async();
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int t0 = t_begin + kt * kWgTile, base = kt * E;
+    // S over d's boxes, each stage released when the next product is
+    // issued (a tile's entries fit the ring: no wait needs a held stage)
+    float x[32];
+    for (int j = 0; j < na; ++j) {
+      ring.wait(base + j);
+      wg_box_scores(x, q_s + j * kWgBox, ring.box(base + j), j > 0);
+      if (j > 0) {
+        wgmma_wait<1>();
+        ring.release(base + j - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(x);
+    ring.release(base + na - 1);
+    if (t0 + kWgTile > t_end) {        // tokens past the split's end
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        if (t0 + 8 * (v >> 2) + 2 * t + (v & 1) >= t_end) x[v] = -INFINITY;
+    }
+    // the online softmax, heads 16 w + gq (hh 0) and + 8 (hh 1), each on
+    // the quad of threads t
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        if (((v >> 1) & 1) == hh) mx = fmaxf(mx, x[v]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[hh], mx * sl2);
+      const float mu = mn == -INFINITY ? 0.f : mn;
+      const float alpha = ex2_approx(m[hh] - mu);
+      m[hh] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        if (((v >> 1) & 1) == hh) {
+          x[v] = ex2_approx(fmaf(x[v], sl2, -mu));
+          sum += x[v];
+        }
+      l[hh] = l[hh] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < kWgGroupBoxes; ++c)
+#pragma unroll
+        for (int v = 0; v < 32; ++v)
+          if (((v >> 1) & 1) == hh) o[c][v] *= alpha;
+    }
+    uint32_t a[4][4];
+    acc_to_a(x, a);                    // P rounded to bf16
+    // O += P V over my value boxes g + 2 c, each issued as it lands; the
+    // other group's boxes released as they land
+#pragma unroll
+    for (int c = 0; c < kWgGroupBoxes; ++c) fence_acc(o[c]);
+#pragma unroll
+    for (int c = 0; c < kWgGroupBoxes; ++c) {
+      const int other = base + na + 2 * c + 1 - g, my = base + na + 2 * c + g;
+      if (g == 1 && 2 * c < nb) {
+        ring.wait(other);
+        ring.release(other);
+      }
+      if (c < mine) {
+        ring.wait(my);
+        wg_box_sum(o[c], a, ring.box(my));
+      }
+      if (g == 0 && 2 * c + 1 < nb) {
+        ring.wait(other);
+        ring.release(other);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kWgGroupBoxes; ++c) fence_acc(o[c]);
+    for (int c = 0; c < mine; ++c) ring.release(base + na + 2 * c + g);
+  }
+
+  // the sums over the quad; out = O / l, or the split's partials (the max
+  // in natural-log units) for pass 2
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int head = h0 + 16 * w + gq + 8 * hh;
+    if (head >= H) continue;
+    const int64_t rh = (int64_t)row * H + head;
+    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+    if (out == nullptr && g == 0 && t == 0) {
+      part_m[rh * n_splits + split] =
+          m[hh] == -INFINITY ? kNegInf : m[hh] * kLn2;
+      part_l[rh * n_splits + split] = l[hh];
+    }
+#pragma unroll
+    for (int c = 0; c < kWgGroupBoxes; ++c) {
+      if (c >= mine) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {    // values 4 j + 2 hh, 4 j + 2 hh + 1
+        const int v = 4 * j + 2 * hh;
+        const int col = 64 * (g + 2 * c) + 8 * j + 2 * t;
+        if (col >= dv) continue;
+        if (out != nullptr)
+          *reinterpret_cast<__nv_bfloat162*>(out + rh * dv + col) =
+              __floats2bfloat162_rn(o[c][v] * inv, o[c][v + 1] * inv);
+        else
+          *reinterpret_cast<float2*>(
+              part_acc + (rh * n_splits + split) * dv + col) =
+              make_float2(o[c][v], o[c][v + 1]);
+      }
+    }
+  }
+}
+
 // Pass 1 past the lanes kernel's widths for float32, and for bfloat16 rows
 // that are not whole 16-byte chunks (route 3: d past 576 or dv past 512),
 // on the tensor cores in TF32 with fp32 sums: route 4's plan on rows of
 // any alignment.  Bound: bytes, as every route (2 flops a K or V element
 // and head: 8 a byte of fp32 at 16 heads).  One block of 8 warps per
 // (row, chunk of up to 16 query heads, group of up to kWkCols value
-// columns, split), so each K and V byte of a (row, head chunk) is read by
-// one block, K once a group; two blocks an SM (128 registers, and the
+// columns, split), a (row, split)'s blocks neighbours in the grid, so each
+// K and V byte of a (row, head chunk) is read by one block, K once a
+// group; two blocks an SM (128 registers, and the
 // plan keeps a block's shared memory within half the SM's), since one
 // block a SM leaves the copies and the products in turn.  The split's
 // tokens go in tiles of kWkTile through a ring of WalkOf<T>::kStages
@@ -1442,7 +1848,7 @@ decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const int32_t* __restrict__ seq_lens, T* __restrict__ out,
                    float* __restrict__ part_m, float* __restrict__ part_l,
                    float* __restrict__ part_acc, int H, int P, int page,
-                   int n_slots, int split_pages, int d, int dv,
+                   int n_slots, int split_pages, int n_splits, int d, int dv,
                    float inv_scale) {
   constexpr int S = WalkOf<T>::kStages;
   constexpr int KP = WalkOf<T>::kKPitch, VP = WalkOf<T>::kVPitch;
@@ -1462,14 +1868,17 @@ decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   unsigned char* sh_s = reinterpret_cast<unsigned char*>(
       red_s + kWkWarps * kHeads);   // [slot][K, V][token]
 
-  const int row = blockIdx.x;
-  const int h0 = blockIdx.y / plan.groups * kHeads;
-  const int v0 = blockIdx.y % plan.groups * kWkCols;
+  // a (row, split)'s blocks (head chunks x value groups) are neighbours,
+  // so that the row's tokens a block reads are in the L2 for the next
+  const int per_split = (H + kHeads - 1) / kHeads * plan.groups;
+  const int cg = blockIdx.x % per_split;
+  const int split = blockIdx.x / per_split % n_splits;
+  const int row = blockIdx.x / per_split / n_splits;
+  const int h0 = cg / plan.groups * kHeads;
+  const int v0 = cg % plan.groups * kWkCols;
   const int cols = min(kWkCols, dv - v0);
   const int nv = (cols + kWkChunk - 1) / kWkChunk;
   const int per_tile = nk + nv;
-  const int split = blockIdx.z;
-  const int n_splits = gridDim.z;
   const int gn = min(kHeads, H - h0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tig = lane % 4;
@@ -1488,7 +1897,8 @@ decode_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int64_t q0 = ((int64_t)row * H + h0) * d;   // the chunk's Q rows
   const int64_t k_total = (int64_t)n_slots * page * d;
   const int64_t v_total = (int64_t)n_slots * page * dv;
-  const int64_t q_total = (int64_t)gridDim.x * H * d;
+  const int64_t q_total =
+      (int64_t)(gridDim.x / per_split / n_splits) * H * d;
 
   // the copier: token my_tok of every entry, windows my_w, my_w + 4, ...
   const int my_tok = threadIdx.x / 4, my_w = threadIdx.x % 4;
@@ -1914,6 +2324,39 @@ struct Wide {
   }
 };
 
+// route 5: bfloat16 at MLA's latent widths on wgmma, 64 heads a block; the
+// shared memory depends on (d, dv) (wg_plan), so the kernel may take up to
+// an H100 block's most.  The blocks of a (row, split) are neighbours.
+struct Wg {
+  static int heads() { return kWgHeads; }
+  static int configured() {
+    static const int err = configure(decode_wgmma_kernel, kSmemLimit);
+    return err;
+  }
+  static int blocks_per_sm(int* n, int d, int dv) {
+    const int err = configured();
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, decode_wgmma_kernel, kWgThreads, wg_plan(d, dv).smem_bytes);
+  }
+  static int launch(const Args& a) {
+    const int err = configured();
+    if (err != 0) return err;
+    const WgPlan plan = wg_plan(a.d, a.dv);
+    const int n = a.splits();
+    const Parts parts(a.scratch, a.B, a.H, n);
+    const int64_t blocks = (int64_t)a.B * n * ((a.H + kWgHeads - 1) / kWgHeads);
+    decode_wgmma_kernel<<<(unsigned)blocks, kWgThreads, plan.smem_bytes,
+                          a.stream>>>(
+        (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+        (const __nv_bfloat16*)a.v, (const int32_t*)a.table,
+        (const int32_t*)a.lens, n > 1 ? nullptr : (__nv_bfloat16*)a.out,
+        parts.m, parts.l, parts.acc, a.H, a.P, a.page, a.n_slots,
+        a.split_pages(), n, a.d, a.dv, a.inv_scale, plan);
+    return merge<__nv_bfloat16>(a, parts);
+  }
+};
+
 template <typename T, int KC, int VC>
 struct Lanes {                         // route 2: any width, CUDA cores
   static int heads() { return kLaneHeads; }
@@ -1959,13 +2402,14 @@ struct Walk {
     const WalkPlan plan = walk_plan(a.d, a.dv, kBf16);
     const int n = a.splits();
     const Parts parts(a.scratch, a.B, a.H, n);
-    decode_walk_kernel<T>
-        <<<dim3(a.B, (a.H + kHeads - 1) / kHeads * plan.groups, n),
-           kWkThreads, plan.smem_bytes, a.stream>>>(
-            (const T*)a.q, (const T*)a.k, (const T*)a.v,
-            (const int32_t*)a.table, (const int32_t*)a.lens,
-            n > 1 ? nullptr : (T*)a.out, parts.m, parts.l, parts.acc, a.H,
-            a.P, a.page, a.n_slots, a.split_pages(), a.d, a.dv, a.inv_scale);
+    const int64_t blocks =
+        (int64_t)a.B * n * ((a.H + kHeads - 1) / kHeads) * plan.groups;
+    decode_walk_kernel<T><<<(unsigned)blocks, kWkThreads, plan.smem_bytes,
+                            a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int32_t*)a.table,
+        (const int32_t*)a.lens, n > 1 ? nullptr : (T*)a.out, parts.m,
+        parts.l, parts.acc, a.H, a.P, a.page, a.n_slots, a.split_pages(), n,
+        a.d, a.dv, a.inv_scale);
     return merge<T>(a, parts);
   }
 };
@@ -2032,8 +2476,6 @@ int dispatch(int route, int bf16, int DK, int DV, int H, const F& f) {
         case 256: return f.template run<Wide<256, 256>>();
       }
     }
-    if (DK == 576 && DV == 512)
-      return f.template run<Wide<576, 512>>();
   }
   if (route == 2 && DK == 576 && DV == 512)
     return bf16 ? f.template run<Lanes<__nv_bfloat16, 576 / 32, 512 / 32>>()
@@ -2042,6 +2484,8 @@ int dispatch(int route, int bf16, int DK, int DV, int H, const F& f) {
     return bf16 ? f.template run<Walk<__nv_bfloat16>>()
                 : f.template run<Walk<float>>();
   if (route == 4 && bf16) return f.template run<WalkTc>();
+  if (route == 5 && bf16 && DK <= kWgMaxD && DV <= kWgMaxDv)
+    return f.template run<Wg>();
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2073,10 +2517,10 @@ extern "C" {
 // floats when n_splits > 1 (unused otherwise).  The instance is (route,
 // DK, DV): route 0 float32 at d = dv = DK = DV in {16, 32, 64, 128};
 // route 1 bfloat16 at d <= DK, dv <= DV, both multiples of 8, (DK, DV) in
-// {(16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (576, 512)};
-// route 2 either type at d <= DK = 576, dv <= DV = 512; route 3 either
-// type at d = DK, dv = DV; route 4 bfloat16 at d = DK, dv = DV, both
-// multiples of 8.
+// {(16, 16), (32, 32), (64, 64), (128, 128), (256, 256)}; route 2 either
+// type at d <= DK = 576, dv <= DV = 512; route 3 either type at d = DK,
+// dv = DV; route 4 bfloat16 at d = DK, dv = DV, both multiples of 8; route
+// 5 bfloat16 at d = DK <= 576, dv = DV <= 512, both multiples of 8.
 // Scores are q.k * inv_scale.  Returns a CUDA error code;
 // cudaErrorInvalidValue for an instance that is not built or widths it
 // does not take.
@@ -2087,8 +2531,8 @@ int decode_attention(const void* q, const void* k_pages, const void* v_pages,
                      int DV, float inv_scale, int bf16, void* stream) {
   if (n_splits < 1 || (n_splits > 1 && n_splits > P) || d < 1 || dv < 1
       || d > DK || dv > DV || (route == 0 && (d != DK || dv != DV))
-      || ((route == 1 || route == 4) && (d % 8 != 0 || dv % 8 != 0))
-      || ((route == 3 || route == 4) && (d != DK || dv != DV)))
+      || ((route == 1 || route >= 4) && (d % 8 != 0 || dv % 8 != 0))
+      || (route >= 3 && (d != DK || dv != DV)))
     return (int)cudaErrorInvalidValue;
   const Launch f{{q, k_pages, v_pages, page_table, seq_lens, out,
                   (float*)scratch, B, H, P, page, n_slots, n_splits, d, dv,
@@ -2103,6 +2547,17 @@ int decode_attention_plan(int route, int DK, int DV, int H, int bf16,
                           int* heads, int* blocks_per_sm) {
   return dispatch(route, bf16, DK, DV, H,
                   Plan{heads, blocks_per_sm, DK, DV});
+}
+
+// Route 5's plan at (d, dv) as the kernel computes it, into fields[7]:
+// heads, tile, k_boxes, v_boxes, q_resident (Q's boxes stay in shared
+// memory for the block's life: always), stages, smem_bytes (the
+// wrapper's wg_plan).
+void decode_wg_plan(int d, int dv, int* fields) {
+  const WgPlan p = wg_plan(d, dv);
+  const int f[7] = {kWgHeads, kWgTile, p.k_boxes, p.v_boxes, 1, p.stages,
+                    p.smem_bytes};
+  for (int i = 0; i < 7; ++i) fields[i] = f[i];
 }
 
 // Route 4's plan at (d, dv) as the kernel computes it, into fields[10]:

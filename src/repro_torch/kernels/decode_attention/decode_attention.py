@@ -18,21 +18,27 @@ runs ``paged_decode_plain`` for CPU tensors; it never falls back from one to
 the other.  On the card a launch cuts each row's page table into
 ``plan_splits`` contiguous ranges, one block each, and a second kernel
 merges the ranges' partial softmax states.  ``instance`` picks the built
-instance (route, DK, DV) that runs (d, dv) in a type: float32 at d = dv in
-``HEAD_DIMS`` on its own instance; bfloat16 rows of whole 16-byte chunks
-on the tensor cores (up to 128 in registers, (256, 256) and (576, 512)
-with Q in shared memory); every other width up to ``LANES_D``,
-``LANES_DV`` on the CUDA cores, a warp a token, the widths in registers
-("lanes"); any wider key or value width in bfloat16 with rows of whole
-16-byte chunks on the tensor cores ("walk_tc": 16 heads a block, K and V
-walked in tiles of tokens and chunks of columns through a shared-memory
-ring, value columns in groups of ``WALK_TC_COLS``, ``walk_tc_plan``);
-in float32 or at bfloat16 rows of other widths on the same plan in TF32
-("walk": float32 as three products of operands split hi + lo, bfloat16
-as one; rows of any alignment copied as the 16-byte windows that cover
-them, ``walk_windows``; ``walk_plan``).  Every route reads the pool in
-place at its own widths; only q is zero-padded to DK on the tensor
-cores' instances.
+instance (route, DK, DV) that runs (d, dv) in a type at H query heads a
+row: float32 at d = dv in ``HEAD_DIMS`` on its own instance; bfloat16
+rows of whole 16-byte chunks on the tensor cores up to (256, 256) (up to
+128 in registers, (256, 256) with Q in shared memory), and past 256 up
+to (``LANES_D``, ``LANES_DV``), MLA's latent, on wgmma ("wgmma": 64
+heads a block, Q resident in 128-byte-swizzle boxes, K and V copied by
+cp.async through a ring of 8 KB boxes that holds a tile, ``wg_plan``);
+every other width up to (``LANES_D``, ``LANES_DV``) at more than
+``LANES_HEADS`` heads on the TF32 walk below, at fewer on the CUDA
+cores, a warp a token, the widths in registers ("lanes", which reads
+each K and V byte once a ``LANES_HEADS`` heads); any wider key or value
+width in bfloat16 with rows of whole 16-byte chunks on the tensor cores
+("walk_tc": 16 heads a block, K and V walked in tiles of tokens and
+chunks of columns through a shared-memory ring, value columns in groups
+of ``WALK_TC_COLS``, ``walk_tc_plan``); in float32 or at bfloat16 rows
+of other widths on the same plan in TF32 ("walk": float32 as three
+products of operands split hi + lo, bfloat16 as one; rows of any
+alignment copied as the 16-byte windows that cover them,
+``walk_windows``; ``walk_plan``).  Every route reads the pool in place
+at its own widths; only q is zero-padded to DK on the tensor cores'
+instances.
 """
 from __future__ import annotations
 
@@ -49,10 +55,14 @@ LAUNCHES = 0
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)     # square instances (one build a type each)
-WIDE = ((256, 256), (576, 512))   # bf16 tensor-core instances past 128
+WIDE = 256                        # the bf16 tensor-core instance past 128
 LANES_D, LANES_DV = 576, 512      # the lanes instance; wider: the walks
+LANES_HEADS = 4                   # heads a lanes block; more: the TF32 walk
 ROUTES = {"workers": 0, "tensor_cores": 1, "lanes": 2, "walk": 3,
-          "walk_tc": 4}
+          "walk_tc": 4, "wgmma": 5}
+# the wgmma route (route 5): query heads and tokens a block's tile, 8 KB
+# boxes of 64 x 64 bf16, and the stages of its ring at most
+WG_HEADS, WG_TILE, WG_BOX_BYTES, WG_MAX_STAGES = 64, 64, 8192, 24
 # the tensor-core walk (csrc/decode_attention.cu, route 4): tokens a tile,
 # columns a ring entry, entries of the ring, value columns a block, query
 # heads a block, and an H100 block's most shared memory
@@ -71,16 +81,19 @@ SPLIT_WAVE_SHARE = 0.9            # least share of the last wave kept busy
 _PLANS = {}                       # (instance, H > 4, dtype) -> launch_plan
 
 
-def instance(d: int, dv: int, dtype) -> tuple:
+def instance(d: int, dv: int, dtype, H: int = 1) -> tuple:
     """The built instance (route, DK, DV) that runs key width ``d`` and
-    value width ``dv`` in ``dtype``: "workers" for float32 at d = dv in
-    ``HEAD_DIMS`` (the instance as it was first built); "tensor_cores" for
-    bfloat16 whose rows are whole 16-byte chunks (d, dv multiples of 8),
-    at the smallest of ``HEAD_DIMS`` that holds both or else the first of
-    ``WIDE`` that does; "lanes" for every other width up to (``LANES_D``,
-    ``LANES_DV``), one instance at those; past them, at the caller's (d,
-    dv), "walk_tc" for bfloat16 rows of whole 16-byte chunks and "walk"
-    for the rest.  Raises for a width below 1."""
+    value width ``dv`` in ``dtype`` at ``H`` query heads a row: "workers"
+    for float32 at d = dv in ``HEAD_DIMS`` (the instance as it was first
+    built); for bfloat16 whose rows are whole 16-byte chunks (d, dv
+    multiples of 8) "tensor_cores" up to (``WIDE``, ``WIDE``), at the
+    smallest square of ``HEAD_DIMS`` and ``WIDE`` that holds both, and
+    "wgmma" at the caller's (d, dv) past it up to (``LANES_D``,
+    ``LANES_DV``); every other width up to those "lanes", one instance at
+    them, at ``LANES_HEADS`` heads or fewer, and "walk" at the caller's
+    (d, dv) past that head count; past (``LANES_D``, ``LANES_DV``), at the
+    caller's (d, dv), "walk_tc" for bfloat16 rows of whole 16-byte chunks
+    and "walk" for the rest.  Raises for a width below 1."""
     if d < 1 or dv < 1:
         raise ValueError(f"decode_attention: key and value widths >= 1, "
                          f"not d={d}, dv={dv}")
@@ -89,12 +102,60 @@ def instance(d: int, dv: int, dtype) -> tuple:
         return ("walk_tc" if whole else "walk", d, dv)
     if dtype == torch.float32 and d == dv and d in HEAD_DIMS:
         return ("workers", d, d)
-    covers = lambda p: d <= p[0] and dv <= p[1]  # noqa: E731
     if whole:
-        square = [(n, n) for n in HEAD_DIMS]
-        return ("tensor_cores",
-                *next(p for p in square + list(WIDE) if covers(p)))
+        if d > WIDE or dv > WIDE:
+            return ("wgmma", d, dv)
+        n = next(n for n in HEAD_DIMS + (WIDE,) if d <= n and dv <= n)
+        return ("tensor_cores", n, n)
+    if H > LANES_HEADS:
+        return ("walk", d, dv)
     return ("lanes", LANES_D, LANES_DV)
+
+
+class WgPlan(NamedTuple):
+    """The wgmma route's blocks at (d, dv) (``WgPlan`` in the source): a
+    block takes ``heads`` query heads and tiles of ``tile`` tokens; Q's
+    ``k_boxes`` boxes of 64 columns stay resident (``q_resident``) beside
+    one ring of ``stages`` 8 KB boxes, a tile ``k_boxes`` of K, then
+    ``v_boxes`` of V; the block's shared memory."""
+    heads: int
+    tile: int
+    k_boxes: int
+    v_boxes: int
+    q_resident: bool
+    stages: int
+    smem_bytes: int
+
+    def reads(self, d: int, dv: int, H: int, tokens: int):
+        """(K bytes, V bytes) the launch asks the pool for at ``tokens``
+        positions of H query heads: each (row, block of ``heads`` heads)
+        asks for K and V once."""
+        blocks = -(-H // self.heads)
+        return 2 * tokens * d * blocks, 2 * tokens * dv * blocks
+
+
+def wg_plan(d: int, dv: int) -> WgPlan:
+    """The wgmma route's plan at (d, dv), as ``wg_plan`` in the source
+    computes it: 1,536 bytes of alignment slack and mbarriers and Q's
+    boxes, then as many 8 KB stages as fit in ``SMEM_LIMIT``, at most
+    ``WG_MAX_STAGES`` (up to (576, 512) at least a tile's boxes)."""
+    k_boxes, v_boxes = -(-d // 64), -(-dv // 64)
+    fixed = 1536 + k_boxes * WG_BOX_BYTES
+    stages = min((SMEM_LIMIT - fixed) // WG_BOX_BYTES, WG_MAX_STAGES)
+    return WgPlan(WG_HEADS, WG_TILE, k_boxes, v_boxes, True, stages,
+                  fixed + stages * WG_BOX_BYTES)
+
+
+def wg_source_plan(d: int, dv: int) -> WgPlan:
+    """The wgmma route's plan as the built source computes it, in
+    ``wg_plan``'s fields."""
+    fn = cuda_build.load("decode_attention").decode_wg_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 7)()
+    fn(d, dv, ctypes.addressof(out))
+    f = list(out)
+    return WgPlan(*f[:4], bool(f[4]), *f[5:])
 
 
 class WalkTcPlan(NamedTuple):
@@ -293,14 +354,16 @@ def walk_source_windows(e0, col0: int, n: int, item: int, total: int):
     return base, nwin.long(), nbytes.long()
 
 
-def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
+def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1,
+                busy: float = 1.0) -> int:
     """How many contiguous page ranges (splits) each of ``units`` (row,
     head chunk) blocks is cut into, for ``pages`` table columns on a card
     of ``sms`` SMs that holds ``per_sm`` blocks of pass 1 each.  When every
     page as its own block is still less than one wave, every page gets one
     (the card fills as far as the work allows); otherwise the fewest splits
-    that give every SM a block and leave the last wave at least
-    ``SPLIT_WAVE_SHARE`` full, or failing that the best-filled count.
+    that give a block to every SM (at least ``busy`` of them, where a
+    split's partials cost more than an idle SM) and leave the last wave at
+    least ``SPLIT_WAVE_SHARE`` full, or failing that the best-filled count.
     Always in [1, pages]; 1 for a single page."""
     if units <= 0 or pages <= 1:
         return 1
@@ -313,7 +376,7 @@ def plan_splits(units: int, pages: int, sms: int, per_sm: int = 1) -> int:
             continue            # ranges of ceil(pages / n) leave one empty
         blocks = units * n
         share = blocks / (-(-blocks // slots) * slots)
-        if share >= SPLIT_WAVE_SHARE and blocks >= sms:
+        if share >= SPLIT_WAVE_SHARE and blocks >= busy * sms:
             return n
         if share > best_share:
             best, best_share = n, share
@@ -383,7 +446,7 @@ def launch_plan(d: int, dv: int, H: int, dtype, inst=None):
     """(query heads a pass-1 block takes, such blocks an SM holds at once)
     for the instance that runs (d, dv) in this type (or ``inst``), at this
     head count, as the library reports them (asked once each)."""
-    inst = inst or instance(d, dv, dtype)
+    inst = inst or instance(d, dv, dtype, H)
     key = (inst, H > 4, dtype)
     if key not in _PLANS:
         fn = cuda_build.load("decode_attention").decode_attention_plan
@@ -415,11 +478,14 @@ def splits_for(q, P: int, dv=None, inst=None) -> int:
     runs it (or ``inst``): ``plan_splits`` on this card."""
     B, H, d = q.shape
     dv = dv or d
-    inst = inst or instance(d, dv, q.dtype)
+    inst = inst or instance(d, dv, q.dtype, H)
     heads, per_sm = launch_plan(d, dv, H, q.dtype, inst)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    # the wgmma route's blocks write 64 heads' partials, four times a
+    # 16-head block's: a few idle SMs cost less than a wave more of them
     return plan_splits(B * -(-H // heads) * value_groups(inst), P, sms,
-                       per_sm)
+                       per_sm, SPLIT_WAVE_SHARE if inst[0] == "wgmma"
+                       else 1.0)
 
 
 def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
@@ -431,7 +497,8 @@ def attention_in_range(q, k_pages, v_pages, page_table, seq_lens):
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens)
     return launch_instance(q, k_pages, v_pages, page_table, seq_lens,
-                           instance(q.shape[2], v_pages.shape[2], q.dtype))
+                           instance(q.shape[2], v_pages.shape[2], q.dtype,
+                                    q.shape[1]))
 
 
 def launch_instance(q, k_pages, v_pages, page_table, seq_lens, inst):

@@ -55,8 +55,13 @@ F32, BF16 = torch.float32, torch.bfloat16
     (8, 8, BF16, ("tensor_cores", 16, 16)),
     (256, 256, BF16, ("tensor_cores", 256, 256)),  # gemma-7b
     (200, 64, BF16, ("tensor_cores", 256, 256)),
-    (576, 512, BF16, ("tensor_cores", 576, 512)),  # deepseek-v2's latent
-    (264, 256, BF16, ("tensor_cores", 576, 512)),
+    # past 256 up to (576, 512), bf16 rows of whole 16-byte chunks run on
+    # wgmma at the caller's own widths: deepseek-v2's latent and the widths
+    # that route 1's (576, 512) instance once covered
+    (576, 512, BF16, ("wgmma", 576, 512)),
+    (264, 256, BF16, ("wgmma", 264, 256)),
+    (200, 304, BF16, ("wgmma", 200, 304)),
+    (576, 8, BF16, ("wgmma", 576, 8)),
     (100, 60, BF16, ("lanes", 576, 512)),         # rows of 200 bytes
     (1, 1, BF16, ("lanes", 576, 512)),
     (300, 100, F32, ("lanes", 576, 512)),
@@ -70,16 +75,36 @@ F32, BF16 = torch.float32, torch.bfloat16
     (1000, 602, BF16, ("walk", 1000, 602)),
 ])
 def test_decode_instance_covers_the_widths(d, dv, dtype, want):
-    """``instance``: float32 at the square head dims keeps its instance;
-    bf16 rows of whole 16-byte chunks go to the tensor cores (past (576,
-    512) on the tensor-core walk), every other width to the CUDA-core
-    lanes or, past them, the TF32 walk; the instance always holds
-    (d, dv)."""
+    """``instance`` at one query head a row: float32 at the square head
+    dims keeps its instance; bf16 rows of whole 16-byte chunks go to the
+    tensor cores up to 256 and to wgmma past it up to (576, 512) (past
+    that the tensor-core walk), every other width to the CUDA-core lanes
+    or, past them, the TF32 walk; the instance always holds (d, dv)."""
     route, DK, DV = da.instance(d, dv, dtype)
     assert (route, DK, DV) == want
     assert d <= DK and dv <= DV
-    if route in ("tensor_cores", "walk_tc"):
+    if route in ("tensor_cores", "walk_tc", "wgmma"):
         assert d % 8 == 0 and dv % 8 == 0 and dtype == BF16
+
+
+@pytest.mark.parametrize("d,dv,dtype", [
+    (96, 96, F32), (256, 256, F32), (576, 512, F32), (300, 100, F32),
+    (100, 60, BF16), (1, 1, BF16), (576, 511, BF16)])
+@pytest.mark.parametrize("H", [1, 4, 5, 20, 128])
+def test_decode_instance_moves_many_heads_off_the_lanes(d, dv, dtype, H):
+    """Up to (576, 512), float32 outside the square instances and bf16
+    rows that are not whole 16-byte chunks stay on the lanes (route 2,
+    ``LANES_HEADS`` heads a block, each K and V byte read once) at up to 4
+    heads a row, and run on the TF32 walk (route 3, 16 heads a block) at
+    the caller's widths past that; the other routes do not depend on the
+    head count."""
+    got = da.instance(d, dv, dtype, H)
+    assert got == (("walk", d, dv) if H > da.LANES_HEADS
+                   else ("lanes", 576, 512))
+    assert da.LANES_HEADS == 4
+    for other in ((128, 128, F32), (576, 512, BF16), (256, 256, BF16),
+                  (1024, 1024, F32), (1000, 600, BF16)):
+        assert da.instance(*other, H) == da.instance(*other)
 
 
 @pytest.mark.parametrize("d,dv", [(577, 512), (576, 513), (0, 16),
@@ -499,6 +524,234 @@ def test_decode_walk_tc_plan_matches_the_hand_counts(d, dv):
         assert (k_bytes, v_bytes) == (2 * tokens * d, 2 * tokens * dv)
         n = da.plan_splits(8 * 1 * plan.groups, 256, 132, 2)
         assert n == 32 and 8 * 1 * plan.groups * n == 256   # blocks
+
+
+def decode_wg_replay(q, kp, vp, pt, lens, n_splits: int):
+    """The wgmma route's arithmetic in float64 (``csrc/decode_attention.cu``
+    route 5 and the merge), on ``wg_plan``: blocks of ``heads`` query
+    heads; each split's tokens in tiles of ``tile``; a tile's scores Q K^T
+    summed over d's boxes in order (64 columns each, zero past d), as each
+    consumer group forms the whole S; the running max and sum (of P
+    unrounded), P rounded to bf16 before P V; the splits merged in
+    order."""
+    B, H, d = q.shape
+    page, dv = kp.shape[1], vp.shape[2]
+    P = pt.shape[1]
+    plan = da.wg_plan(d, dv)
+    per = -(-P // n_splits)
+    width = 64 * plan.k_boxes
+    box = lambda a, j: a[:, 64 * j:64 * j + 64]   # noqa: E731
+    q, kp, vp = (a.astype(np.float64) for a in (q, kp, vp))
+    out = np.zeros((B, H, dv))
+    for b in range(B):
+        n_pages = min(P, -(-int(lens[b]) // page)) if lens[b] > 0 else 0
+        Qb = np.pad(q[b], ((0, 0), (0, width - d)))
+        for h0 in range(0, H, plan.heads):
+            Q = Qb[h0:h0 + plan.heads]
+            n = len(Q)
+            parts = []
+            for sp in range(0, P, per):
+                toks = [(pt[b, pi], t)
+                        for pi in range(sp, min(sp + per, n_pages))
+                        for t in range(min(page, int(lens[b]) - pi * page))]
+                m, l, acc = np.full(n, -1e30), np.zeros(n), np.zeros((n, dv))
+                for t0 in range(0, len(toks), plan.tile):
+                    tile = toks[t0:t0 + plan.tile]
+                    K = np.pad(np.stack([kp[sl, t] for sl, t in tile]),
+                               ((0, 0), (0, width - d)))
+                    V = np.stack([vp[sl, t] for sl, t in tile])
+                    s = sum(box(Q, j) @ box(K, j).T
+                            for j in range(plan.k_boxes)) / math.sqrt(d)
+                    mn = np.maximum(m, s.max(axis=1))
+                    alpha, p = np.exp(m - mn), np.exp(s - mn[:, None])
+                    l = l * alpha + p.sum(axis=1)
+                    acc = acc * alpha[:, None] + _bf16(p) @ V
+                    m = mn
+                parts.append((m, l, acc))
+            M = np.max([pm for pm, _, _ in parts], axis=0)
+            L = sum(pl * np.exp(pm - M) for pm, pl, _ in parts)
+            A = sum(pa * np.exp(pm - M)[:, None] for pm, _, pa in parts)
+            out[b, h0:h0 + n] = A / np.maximum(L, 1e-30)[:, None]
+    return out
+
+
+def _bf16_decode_case(B, H, d, dv, page, P, lens, seed):
+    """bf16 values (as float32 numpy arrays) of a pool of B * P + 2 pages,
+    each row's pages distinct random slots (valid past its length too, as
+    the JAX kernel's index maps read them), the given lengths, and the JAX
+    kernel's output in interpret mode."""
+    from repro.kernels.decode_attention.ops import \
+        paged_decode_attention as j_decode
+    q, kp, vp, pt, _ = (t.numpy() for t in _decode_case(B, H, d, dv, page,
+                                                         P, seed=seed))
+    lens = np.asarray(lens, np.int32)
+    q, kp, vp = (np.array(jnp.asarray(a).astype(jnp.bfloat16), np.float32)
+                 for a in (q, kp, vp))
+    ref = np.asarray(j_decode(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                for a in (q, kp, vp)),
+                              jnp.asarray(pt), jnp.asarray(lens)),
+                     np.float32)
+    return q, kp, vp, pt, lens, ref
+
+
+# (d, dv, H, page, P, n_splits): MLA's latent at 128 heads and at 70 (a
+# second block of 6), widths route 1's (576, 512) instance once covered;
+# rows of length 0, 1 and ragged (several tiles, a last one short)
+WG_REPLAY = [(576, 512, 128, 7, 20, 3), (576, 512, 70, 16, 9, 2),
+             (264, 256, 70, 8, 12, 1), (320, 512, 128, 16, 9, 4)]
+
+
+@pytest.mark.parametrize("d,dv,H,page,P,n_splits", WG_REPLAY)
+def test_decode_wg_replay_equals_the_jax_kernel(d, dv, H, page, P,
+                                                n_splits):
+    """Route 5's schedule replayed in float64 on bf16 inputs (64-head
+    blocks, 64-token tiles, S summed over d's boxes in order, P rounded
+    to bf16 with l unrounded, then the split partials and the merge)
+    against the Pallas kernel in interpret mode and the port's plain
+    version, within the bf16 tolerance; the route that runs these widths
+    is route 5 at every head count."""
+    lens = (0, 1, P * page - page // 2 - 3)
+    q, kp, vp, pt, lens, ref = _bf16_decode_case(3, H, d, dv, page, P,
+                                                 lens, seed=d + H)
+    assert da.instance(d, dv, BF16, H) == ("wgmma", d, dv)
+    got = decode_wg_replay(q, kp, vp, pt, lens, n_splits)
+    assert_close(got.astype(np.float32), ref, "bfloat16")
+    assert np.abs(got[1:]).max() > 0           # the check has something
+    assert np.abs(got[0]).max() == 0           # a row of length 0: zeros
+    plain = da.paged_decode_plain(*(torch.from_numpy(a).to(BF16)
+                                    for a in (q, kp, vp)),
+                                  torch.from_numpy(pt),
+                                  torch.from_numpy(lens))
+    assert_close(to_np(plain), ref, "bfloat16")
+
+
+# route 5's plans by hand: (k_boxes, v_boxes, stages, smem_bytes).  Shared
+# memory: 1,536 bytes of slack and mbarriers and Q's boxes of 8 KB, then
+# 8 KB stages, as many as fit in 232,448 bytes, at most 24
+WG_PLANS = {
+    # 75,264 fixed; 19 stages (a tile is 17 boxes): 230,912
+    (576, 512): (9, 8, 19, 230912),
+    (576, 8): (9, 1, 19, 230912),
+    # 42,496 fixed; 23 fit
+    (264, 256): (5, 4, 23, 230912),
+    (320, 512): (5, 8, 23, 230912),
+    # 34,304 fixed; 24 fit, the most
+    (200, 304): (4, 5, 24, 230912),
+    # 9,728 fixed; 27 would fit, 24 kept
+    (64, 264): (1, 5, 24, 206336),
+}
+
+
+@pytest.mark.parametrize("d,dv", list(WG_PLANS))
+def test_decode_wg_plan_matches_the_hand_counts(d, dv):
+    """``wg_plan`` at route 5's widths: Q's boxes and V's, the stages and
+    shared memory as counted by hand, within an H100 block's 232,448 bytes
+    and adding up, as many stages as fit and a whole tile's boxes at
+    least; the K and V bytes asked for, once a (row, 64 heads): once at 64
+    heads, twice at 65 and at 128 (blocks of 16 heads: 8 times at 128),
+    and the split counts at MLA's latent, 8 rows x 128 heads over 64
+    pages, one block an SM."""
+    plan = da.wg_plan(d, dv)
+    assert (plan.k_boxes, plan.v_boxes, plan.stages, plan.smem_bytes) \
+        == WG_PLANS[d, dv]
+    assert (plan.heads, plan.tile, plan.q_resident) == (64, 64, True)
+    fixed = 1536 + 8192 * plan.k_boxes
+    assert plan.smem_bytes == fixed + 8192 * plan.stages <= da.SMEM_LIMIT
+    assert plan.stages == 24 or fixed + 8192 * (plan.stages + 1) \
+        > da.SMEM_LIMIT
+    assert plan.stages >= plan.k_boxes + plan.v_boxes   # a tile fits
+    tokens = 4096
+    once = (2 * tokens * d, 2 * tokens * dv)
+    assert plan.reads(d, dv, 64, tokens) == once
+    for H in (65, 128):
+        assert plan.reads(d, dv, H, tokens) == (2 * once[0], 2 * once[1])
+    assert da.value_groups(("wgmma", d, dv)) == 1
+    if (d, dv) == (576, 512):
+        # the default planner gives every SM a block: 16 splits, 256
+        # blocks in two waves; route 5's (``busy`` 0.9): 8, one wave of
+        # 128 blocks on 132 SMs, half the partials
+        assert da.plan_splits(8 * 2, 64, 132, 1) == 16
+        assert da.plan_splits(8 * 2, 64, 132, 1, da.SPLIT_WAVE_SHARE) == 8
+
+
+@pytest.mark.parametrize("d,dv", [(576, 512), (8, 512), (576, 8),
+                                  (512, 512), (264, 256)])
+def test_decode_wg_plan_holds_a_tile_at_every_width(d, dv):
+    """Every width route 5 takes (d up to 576, dv up to 512) leaves room
+    for a whole tile's boxes in the ring, which its protocol needs (no
+    wait on a stage the waiting group itself holds)."""
+    plan = da.wg_plan(d, dv)
+    assert plan.stages >= plan.k_boxes + plan.v_boxes
+    assert plan.smem_bytes <= da.SMEM_LIMIT
+
+
+def _wg_walk(d, dv, n_tiles):
+    """Route 5's ring protocol: one ring, a tile's entries K_j for d's
+    boxes, then V_c for dv's; both groups wait for every entry in order
+    and release each once: a K entry when the next product is issued (the
+    last after the scores), the other group's V entries as they land, the
+    group's own (V_c with c = g mod 2) after its sums."""
+    p = da.wg_plan(d, dv)
+    na, nb = p.k_boxes, p.v_boxes
+    E = na + nb
+    order = [(0, i) for i in range(n_tiles * E)]
+    walks = []
+    for g in (0, 1):
+        acts = []
+        for kt in range(n_tiles):
+            base = kt * E
+            for j in range(na):
+                acts.append(("wait", base + j))
+                if j > 0:
+                    acts.append(("rel", base + j - 1))
+            acts.append(("rel", base + na - 1))
+            mine = []
+            for c in range(nb):
+                acts.append(("wait", base + na + c))
+                if c % 2 == g:
+                    mine.append(base + na + c)
+                else:
+                    acts.append(("rel", base + na + c))
+            acts += [("rel", e) for e in mine]
+        walks.append(acts)
+    return order, walks, [p.stages], 2
+
+
+@pytest.mark.parametrize("d,dv", list(WG_PLANS) + [(8, 512), (576, 264)])
+def test_decode_wg_ring_never_deadlocks_or_reads_a_stale_stage(d, dv):
+    """Route 5's stage protocol replayed at 1-4 tiles: no wait that can
+    never end, no wait two phases ahead of its stage, every stage
+    released once by each of the two groups."""
+    for n in (1, 2, 3, 4):
+        assert _ring_run(*_wg_walk(d, dv, n)) is None, n
+
+
+@pytest.mark.parametrize("d,dv,dtype,H,n_splits", [
+    (576, 512, "float32", 20, 2), (256, 256, "float32", 5, 1),
+    (100, 60, "bfloat16", 20, 3), (300, 100, "float32", 33, 2)])
+def test_decode_walk_replay_at_many_heads_equals_the_jax_kernel(
+        d, dv, dtype, H, n_splits):
+    """Route 3 up to (576, 512) past 4 heads a row, where it takes the
+    lanes' widths: the TF32 walk's schedule replayed in
+    float64 against the Pallas kernel in interpret mode within the type's
+    tolerance (fp32: three products of split operands; bf16 rows that are
+    not whole 16-byte chunks: one, P rounded to TF32), on that route."""
+    from repro.kernels.decode_attention.ops import \
+        paged_decode_attention as j_decode
+    tdt = {"float32": F32, "bfloat16": BF16}[dtype]
+    assert da.instance(d, dv, tdt, H) == ("walk", d, dv)
+    q, kp, vp, pt, lens = (t.numpy() for t in _decode_case(2, H, d, dv, 8,
+                                                            5, seed=H))
+    lens = np.maximum(lens, 1).astype(np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    q, kp, vp = (np.array(jnp.asarray(a).astype(jdt), np.float32)
+                 for a in (q, kp, vp))
+    ref = np.asarray(j_decode(*(jnp.asarray(a).astype(jdt)
+                                for a in (q, kp, vp)),
+                              jnp.asarray(pt), jnp.asarray(lens)),
+                     np.float32)
+    got = decode_walk_replay(q, kp, vp, pt, lens, n_splits, dtype)
+    assert_close(got.astype(np.float32), ref, dtype)
 
 
 def _decode_case(B, H, d, dv, page, P, seed=0):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build edits of K5's walks (``decode_walk_tc_kernel``, route 4, and
-``decode_walk_kernel``, route 3, in
-``src/repro_torch/csrc/decode_attention.cu``) side by side and time them
+``decode_walk_kernel``, route 3) and of its wgmma route
+(``decode_wgmma_kernel``, route 5) in
+``src/repro_torch/csrc/decode_attention.cu`` side by side and time them
 in turns in one process on one CUDA card, each against the plain version.
 
     python3 tools/decode_walk_variants.py [VARIANT ...] [--rounds N]
@@ -13,7 +14,16 @@ second block's launch bound), ``4 stages`` (a ring of 4 entries),
 products on whatever the ring holds, no copy); of the TF32 walk, ``walk:
 one block an SM`` (a block's whole shared memory, Q resident where it
 fits), ``walk: bf16 6 stages`` (Q resident at (1001, 1000)), ``walk:
-loads only``, ``walk: compute only``.  Loads only and compute only give
+loads only``, ``walk: compute only``; of the wgmma route, ``wg: 16
+splits`` and ``wg: 4 splits`` (the wrapper's split count, 8 at MLA's
+latent, replaced), ``wg: no L2 prefetch``, ``wg: no proxy fence`` (the
+consumers' fence between a stage's copies and its products dropped),
+``wg: one wait for S`` (a tile's score products issued together, their
+stages released after one wait), ``wg: two score chains`` (as that, d's
+even and odd boxes summed into two accumulators, added after),
+``wg: loads only`` (the products skipped), ``wg: compute only``
+(every copy zero-filled, nothing read) and ``wg: no copies`` (the
+producer only arrives on each stage).  Loads only and compute only give
 wrong outputs and are timed only.  Each source is built with ``nvcc``
 into ``build/decode_walk_variants`` and loaded in place of the wrapper's
 library.  Shapes: the tensor-core walk's variants at (1024, 1024) with 8
@@ -21,12 +31,14 @@ rows of 16 heads over 4096 tokens (``chip_smoke.WIDE_TIMED``), (4096,
 4096) with 2 rows of 16 heads over 1024 tokens, (640, 512) with 32 rows
 of 16 heads over 1024 tokens, bf16; the TF32 walk's at (1024, 1024) fp32
 and (1001, 1000) bf16 with 8 rows of 16 heads over 4096 tokens; pages of
-16; ``as built`` at all five.  Prints one JSON line a variant (registers,
-spills), a (variant, shape) check (agreement, bit-equal to ``as
-built``), a (variant, shape) profile (device ms of pass 1 and of the
-merge from ``torch.profiler``), then one object of each median ms (CUDA
-events, ``chip_smoke.device_ms``, ``--rounds`` rounds in turns, every
-other round reversed), the bounds and the card's name and power limit.
+16; the wgmma route's at MLA's latent, 8 rows of 128 heads at (576, 512)
+over 4096 tokens in pages of 64, bf16; ``as built`` at all six.
+Prints one JSON line a variant (registers, spills), a (variant, shape)
+check (agreement, bit-equal to ``as built``), a (variant, shape) profile
+(device ms of pass 1 and of the merge from ``torch.profiler``), then one
+object of each median ms (CUDA events, ``chip_smoke.device_ms``,
+``--rounds`` rounds in turns, every other round reversed), the bounds
+and the card's name and power limit.
 Exits 1 without a card.
 """
 from __future__ import annotations
@@ -45,7 +57,8 @@ sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE / "src"))
 OUT = HERE / "build" / "decode_walk_variants"
 KERNELS = {"walk_tc": "decode_walk_tc_kernel(const",
-           "walk": "decode_walk_kernel(const T*"}
+           "walk": "decode_walk_kernel(const T*",
+           "wg": "decode_wgmma_kernel(const"}
 
 
 def _in_kernel(src: str, old: str, new: str, kernel="walk_tc") -> str:
@@ -107,8 +120,75 @@ VARIANTS.update({
         "if (is_tile < n_tiles) {",
         "if (is_tile < n_tiles && inv_scale > 1e30f) {")],
 })
+VARIANTS.update({
+    "wg: 16 splits": [],
+    "wg: 4 splits": [],
+    "wg: no L2 prefetch": [_swap(
+        "      cp_async16_l2(dst + (r0 + 16 * k) * 128,",
+        "      cp_async16(dst + (r0 + 16 * k) * 128,")],
+    "wg: no proxy fence": [_swap(
+        "    mbar_wait(&full[a.y], a.x & 1);\n    fence_proxy_async();",
+        "    mbar_wait(&full[a.y], a.x & 1);")],
+    "wg: loads only": [
+        lambda s: _in_kernel(s, "wg_box_scores(x, q_s",
+                             "if (inv_scale > 1e30f) wg_box_scores(x, q_s",
+                             "wg"),
+        lambda s: _in_kernel(s, "wg_box_sum(o[c], a, ring.box(my));",
+                             "if (inv_scale > 1e30f) "
+                             "wg_box_sum(o[c], a, ring.box(my));", "wg")],
+    "wg: one wait for S": [lambda s: _in_kernel(s, """      if (j > 0) {
+        wgmma_wait<1>();
+        ring.release(base + j - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(x);
+    ring.release(base + na - 1);""", """    }
+    wgmma_wait<0>();
+    fence_acc(x);
+    for (int j = 0; j < na; ++j) ring.release(base + j);""", "wg")],
+    "wg: two score chains": [lambda s: _in_kernel(s, """    float x[32];
+    for (int j = 0; j < na; ++j) {
+      ring.wait(base + j);
+      wg_box_scores(x, q_s + j * kWgBox, ring.box(base + j), j > 0);
+      if (j > 0) {
+        wgmma_wait<1>();
+        ring.release(base + j - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(x);
+    ring.release(base + na - 1);""", """    float x[32], y[32];
+    for (int j = 0; j < na; j += 2) {
+      ring.wait(base + j);
+      wg_box_scores(x, q_s + j * kWgBox, ring.box(base + j), j > 0);
+      if (j + 1 < na) {
+        ring.wait(base + j + 1);
+        wg_box_scores(y, q_s + (j + 1) * kWgBox, ring.box(base + j + 1),
+                      j > 0);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(x);
+    fence_acc(y);
+    for (int j = 0; j < na; ++j) ring.release(base + j);
+    if (na > 1) {
+#pragma unroll
+      for (int v = 0; v < 32; ++v) x[v] += y[v];
+    }""", "wg")],
+    "wg: no copies": [_swap(
+        "    for (int k = 0; k < 4; ++k) {\n"
+        "      const bool ok = tok[k] >= 0 && col < width;",
+        "    for (int k = 0; k < 4 * (width < 0); ++k) {\n"
+        "      const bool ok = tok[k] >= 0 && col < width;")],
+    "wg: compute only": [_swap(
+        "src + (ok ? (int64_t)tok[k] * width + col : 0),\n"
+        "                    ok ? 16 : 0);", "src, 0);")],
+})
+SPLITS = {"wg: 16 splits": 16, "wg: 4 splits": 4}  # the wrapper's, replaced
 TIMED_ONLY = ("loads only", "compute only", "walk: loads only",
-              "walk: compute only")
+              "walk: compute only", "wg: loads only", "wg: compute only",
+              "wg: no copies")
 
 
 def build(names, csrc: Path):
@@ -137,8 +217,9 @@ def build(names, csrc: Path):
                           r"properties for )([\w$.]+)", line)
             if m:
                 fn = m.group(1)
-            if fn and "decode_walk" in fn:
-                kind = ("walk_tc" if "walk_tc" in fn else "walk fp32"
+            if fn and ("decode_walk" in fn or "decode_wgmma" in fn):
+                kind = ("walk_tc" if "walk_tc" in fn else "wgmma"
+                        if "wgmma" in fn else "walk fp32"
                         if "kernelIf" in fn else "walk bf16")
                 for key, pat in (("registers", r"Used (\d+) registers"),
                                  ("spill_stores", r"(\d+) bytes spill st")):
@@ -168,9 +249,13 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     libs = build(args.variants, cuda_build.CSRC)
 
+    splits_for = da.splits_for
+
     def use(name):
         cuda_build._LIBS["decode_attention"] = libs[name]
         da._PLANS.clear()
+        da.splits_for = (splits_for if name not in SPLITS
+                         else lambda *a, **k: SPLITS[name])
 
     bf16, fp32 = torch.bfloat16, torch.float32
     shapes = {"(1024, 1024)": cs.decode_case(8, 16, 1024, 16, 256, bf16,
@@ -184,15 +269,20 @@ def main() -> int:
                                                   dv=1024),
               "(1001, 1000) bf16": cs.decode_case(8, 16, 1001, 16, 256,
                                                   bf16, length=4096,
-                                                  dv=1000)}
+                                                  dv=1000),
+              "MLA latent": cs.decode_case(8, 128, 576, 64, 64, bf16,
+                                           length=4096, dv=512)}
     walk_shapes = ("(1024, 1024) fp32", "(1001, 1000) bf16")
+    wg_shapes = ("MLA latent",)
     plain = {k: da.paged_decode_plain(*a) for k, a in shapes.items()}
     names = list(libs)
     first = {}
 
     def shapes_of(name):
-        return [k for k in shapes if name == "as built"
-                or (k in walk_shapes) == name.startswith("walk:")]
+        kind = name.split(":")[0] if ":" in name else "walk_tc"
+        return [k for k in shapes if name == "as built" or kind == (
+            "walk" if k in walk_shapes else "wg" if k in wg_shapes
+            else "walk_tc")]
     for name in names:
         use(name)
         for shape in shapes_of(name):
@@ -221,7 +311,7 @@ def main() -> int:
             by = {}
             for e in prof.key_averages():
                 kind = ("merge" if "merge_kernel" in e.key else "pass1"
-                        if "decode_walk" in e.key else None)
+                        if "decode_w" in e.key else None)
                 if kind:
                     by[kind] = by.get(kind, 0.0) \
                         + e.device_time_total / 10 / 1000
@@ -245,7 +335,7 @@ def main() -> int:
                                      a[1].shape[1], a[2].shape[2])[0]
                   for k, a in shapes.items()},
         plain_ms={k: cs.device_ms(lambda: da.paged_decode_plain(
-            *shapes[k])) for k in walk_shapes},
+            *shapes[k])) for k in walk_shapes + wg_shapes},
         card=card)))
     return 0
 
